@@ -6,15 +6,21 @@ and numpy, never JAX and nothing of ``deneva_tpu``.  Entry points run on
 CUDA unless the caller passes ``device="cpu"``; asking for CUDA where
 there is none raises.
 
-The ported slice: YCSB under ``CC_ALG=TPU_BATCH``, full pool, one
-partition, through the single-pass forwarding executor.  Its device work
-runs in four hand-written CUDA kernels for ``sm_90a`` (``csrc/``):
+The ported slices: YCSB on one partition and one device, over a full
+or a partial pool — ``CC_ALG=TPU_BATCH`` through the single-pass
+forwarding executor, and ``CC_ALG=OCC`` / NOCC through the sweep path.
+Their device work runs in hand-written CUDA kernels for ``sm_90a``
+(``csrc/``):
 
 * K1 — the (key, rank) lane sort           (`ops.forward.sort_lanes`)
 * K2 — the forwarding scans                (`ops.forward.plan_scans`)
 * K3 — the forward-execute gather/scatter  (`workloads.ycsb._forward_execute_f0`)
 * K4 — threefry split + query generation   (`ops.prng.split`,
   `workloads.ycsb.YCSBWorkload.generate`)
+* K5+K6 — key hashing + incidence rows     (`ops.conflict.hashed_incidence`)
+* K7 — the overlap product                 (`ops.conflict.overlap`)
+* K8 — the first-fit sweep                 (`ops.conflict.first_fit`)
+* K10 — last-writer resolution             (`ops.scatter.last_writer`)
 
 Library surface, as the reference's:
 ``Config.from_args([...])`` -> ``engine.driver.run_simulation(cfg)`` ->
@@ -24,8 +30,9 @@ Package map (mirrors ``deneva_tpu``):
 
 * `config`    — runtime flags (the slice's fields; others raise)
 * `storage`   — catalog / tables / dense index, device-resident
-* `ops`       — threefry stream, zipfian sampling, forwarding plan
-* `cc`        — the TPU_BATCH backend entry
+* `ops`       — threefry stream, zipfian sampling, forwarding plan,
+  hashing, conflict incidence and sweep, last-writer resolution
+* `cc`        — the backend registry (TPU_BATCH, OCC, NOCC), incidence
 * `workloads` — YCSB
 * `engine`    — pool, epoch step, run driver
 * `stats`     — counters, percentile arrays, [summary] emitter

@@ -5,12 +5,13 @@ fields the ported slice reads or guards.  Every field keeps the
 reference's name, type and default, so one ``--flag=value`` list drives
 both packages.
 
-The port runs one slice of the system so far: YCSB under
-``CC_ALG=TPU_BATCH`` through the single-pass forwarding executor, full
-pool (``epoch_batch >= max_txn_in_flight``), one partition, one device.
-A flag that would leave that slice raises in :meth:`Config.validate` and
-names the ROADMAP.md item that brings it; a flag the port does not know
-at all raises in :meth:`Config.from_args`.  Nothing is silently ignored.
+The port runs two slices of the system so far, YCSB on one partition
+and one device: ``CC_ALG=TPU_BATCH`` through the single-pass forwarding
+executor, and ``CC_ALG=OCC`` / ``NOCC`` (or ``mode=NOCC``) through the
+sweep path, each over a full or a partial pool.  A flag that would leave
+those slices raises in :meth:`Config.validate` and names the ROADMAP.md
+item that brings it; a flag the port does not know at all raises in
+:meth:`Config.from_args`.  Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -97,7 +98,13 @@ class Config:
 
     # ---- epoch engine ----
     epoch_batch: int = 2048
+    conflict_buckets: int = 8192   # hashed key-bucket width of incidence matrices
+    conflict_exact: bool = True    # dual-hash AND to squeeze out false conflicts
     max_accesses: int = 16
+    defer_rounds_max: int = 8      # defer budget before forced abort
+    sweep_rounds: int = 24         # serialization-sweep fixpoint iterations
+    escrow_order_free: bool = True  # honor workload order_free declarations
+    escrow_sweep: bool = True      # ... in the sweep backends too
 
     # ---- storage ----
     index_struct: str = "IDX_HASH"
@@ -124,6 +131,9 @@ class Config:
         _check(self.epoch_batch > 0
                and (self.epoch_batch & (self.epoch_batch - 1)) == 0,
                "epoch_batch must be a power of two (tiling discipline)")
+        _check(self.conflict_buckets > 0 and (self.conflict_buckets
+                                              & (self.conflict_buckets - 1)) == 0,
+               "conflict_buckets must be a power of two (bucket_hash masks)")
         if self.workload == WorkloadKind.YCSB:
             _check(self.max_accesses >= self.req_per_query,
                    "max_accesses must cover req_per_query")
@@ -171,38 +181,39 @@ class Config:
         return cls(**kw).validate()
 
 
-# (predicate, what, ROADMAP item) for every setting outside the slice
+# (predicate, what, ROADMAP item) for every setting outside the slices
 _NOT_PORTED = (
     (lambda c: c.workload != WorkloadKind.YCSB,
-     "workload other than YCSB", "slice 3: TPC-C and PPS"),
-    (lambda c: c.cc_alg != CCAlg.TPU_BATCH,
-     "cc_alg other than TPU_BATCH", "slice 2: sweep backends"),
-    (lambda c: c.mode != Mode.NORMAL,
-     "mode other than NORMAL", "slice 2: sweep backends (NOCC/SIMPLE)"),
+     "workload other than YCSB", "item 15: TPC-C and PPS"),
+    (lambda c: c.cc_alg in (CCAlg.NO_WAIT, CCAlg.WAIT_DIE, CCAlg.CALVIN),
+     "cc_alg NO_WAIT/WAIT_DIE/CALVIN", "item 13: twopl, then calvin"),
+    (lambda c: c.cc_alg in (CCAlg.TIMESTAMP, CCAlg.MVCC, CCAlg.MAAT),
+     "cc_alg TIMESTAMP/MVCC/MAAT", "item 14: timestamp, then maat"),
+    (lambda c: c.cc_alg == CCAlg.DGCC,
+     "cc_alg=DGCC", "item 16: depgraph + dgcc"),
+    (lambda c: c.mode in (Mode.SIMPLE, Mode.QRY_ONLY),
+     "mode SIMPLE/QRY_ONLY", "item 12: Mode.SIMPLE/QRY_ONLY"),
     (lambda c: c.isolation_level != "SERIALIZABLE",
      "isolation_level other than SERIALIZABLE",
-     "slice 2: twopl isolation levels"),
+     "item 13: twopl isolation levels"),
     (lambda c: c.part_cnt > 1,
-     "part_cnt > 1", "slice 5: cluster runtime"),
+     "part_cnt > 1", "item 18: cluster runtime"),
     (lambda c: c.device_parts > 1,
-     "device_parts > 1", "slice 5: mesh + workloads/mc"),
-    (lambda c: c.elastic, "elastic", "slice 5: cluster runtime"),
+     "device_parts > 1", "item 19: mesh + workloads/mc"),
+    (lambda c: c.elastic, "elastic", "item 18: cluster runtime"),
     (lambda c: c.metrics or c.audit or c.ctrl or c.ctrl_dgcc or c.repair,
-     "metrics/audit/ctrl/ctrl_dgcc/repair", "slice 4: planes"),
+     "metrics/audit/ctrl/ctrl_dgcc/repair", "item 16: planes"),
     (lambda c: bool(c.checkpoint_path) or c.resume,
-     "checkpoint_path/resume", "slice 4: checkpoint"),
+     "checkpoint_path/resume", "item 17: checkpoint"),
     (lambda c: c.index_struct != "IDX_HASH",
-     "index_struct=IDX_BTREE", "slice 3: SortedIndex"),
+     "index_struct=IDX_BTREE", "item 15: SortedIndex"),
     (lambda c: c.skew_method != "ZIPF",
-     "skew_method=HOT", "slice 2: YCSB options"),
-    (lambda c: c.key_order, "key_order", "slice 2: YCSB options"),
+     "skew_method=HOT", "item 11: YCSB options"),
+    (lambda c: c.key_order, "key_order", "item 11: YCSB options"),
     (lambda c: c.txn_write_perc < 1.0,
-     "txn_write_perc < 1", "slice 2: YCSB options"),
+     "txn_write_perc < 1", "item 11: YCSB options"),
     (lambda c: c.sim_full_row and c.tup_size % 4 != 0,
-     "sim_full_row with tup_size % 4 != 0", "slice 2: YCSB options"),
-    (lambda c: c.epoch_batch < c.max_txn_in_flight,
-     "partial pool (epoch_batch < max_txn_in_flight)",
-     "slice 2: partial pool"),
+     "sim_full_row with tup_size % 4 != 0", "item 11: YCSB options"),
 )
 
 

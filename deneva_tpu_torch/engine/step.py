@@ -1,13 +1,20 @@
 """The epoch step and its loop (port of ``deneva_tpu/engine/step.py``).
 
-One epoch on the ported path — TPU_BATCH over a blind-write workload, so
-the forwarding executor, in full-pool mode:
+One epoch, over a full pool (``epoch_batch == max_txn_in_flight``) or a
+partial one:
 
     1. split the rng (K4a); generate fresh queries (K4b); refill the pool
-    2. select the batch (identity in full-pool mode)
+    2. select the batch (identity over a full pool, else the B oldest
+       runnable slots, whose pool fields the step gathers)
     3. plan the RW-sets
-    4. forward_verdict: sort the lanes (K1), scan the plan (K2)
-    5. execute the plan against the table (K3)
+    4. validate, by one of three routes:
+       - TPU_BATCH on YCSB: forward_verdict sorts the lanes (K1) and
+         scans the plan (K2); everything commits;
+       - a sweep backend (OCC): hashed incidence (K5+K6), overlap (K7),
+         first-fit sweep (K8), then the defer budget;
+       - NOCC (``cc_alg`` or ``mode``): everything commits
+    5. execute: the forwarding plan (K3), or the masked arm with the
+       last-writer resolution (K10)
     6. update the pool and the device counters (plain PyTorch)
 
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
@@ -25,7 +32,8 @@ from typing import Any
 import torch
 
 from deneva_tpu_torch import kernels
-from deneva_tpu_torch.cc import AccessBatch, get_backend
+from deneva_tpu_torch.cc import (AccessBatch, build_conflict_incidence,
+                                 gate_order_free, get_backend)
 from deneva_tpu_torch.config import Config, Mode
 from deneva_tpu_torch.engine.pool import PoolState, TxnPool
 from deneva_tpu_torch.ops import forward_verdict, forwarding_applies, prng
@@ -101,11 +109,6 @@ class Engine:
         self.device = kernels.resolve_device(
             workload.device if device is None else device)
         self.backend = get_backend(cfg.cc_alg)
-        if not (forwarding_applies(self.backend, workload)
-                and cfg.mode == Mode.NORMAL):
-            raise NotImplementedError(
-                "deneva_tpu_torch runs the forwarding executor only "
-                "(ROADMAP.md queue 1, slice 2: sweep backends)")
         cap = max(cfg.max_txn_in_flight, cfg.epoch_batch)
         self.pool = TxnPool(capacity=cap, batch=cfg.epoch_batch,
                             gen_chunk=cfg.epoch_batch, backoff=cfg.backoff)
@@ -126,7 +129,7 @@ class Engine:
                                     max(cfg.part_cnt, 1), dev))
 
     def step(self, state: EngineState) -> EngineState:
-        cfg, wl = self.cfg, self.workload
+        cfg, wl, be = self.cfg, self.workload, self.backend
         rng, gen_key = prng.split(state.rng)
         stats = dict(state.stats)
 
@@ -138,37 +141,71 @@ class Engine:
 
         # 2. select the batch (full pool: identity, no gathers)
         slots, active, queries = self.pool.select(pool, state.epoch)
+        if self.pool.full_pool:
+            def sel(t):
+                return t
+        else:
+            idx = slots.long()
+
+            def sel(t):
+                return t[idx]
 
         # 3. plan RW-sets
         planned = wl.plan(state.db, queries)
         batch = AccessBatch(
             table_ids=planned["table_ids"], keys=planned["keys"],
             is_read=planned["is_read"], is_write=planned["is_write"],
-            valid=planned["valid"], ts=pool.ts, rank=pool.seq,
-            active=active)
+            valid=planned["valid"], ts=sel(pool.ts), rank=sel(pool.seq),
+            active=active,
+            order_free=gate_order_free(cfg, be, planned.get("order_free")))
 
-        # 4. validate: everything commits in rank order; the sort IS the
-        # validation.  Forced sentinel txns leave the batch first, so
-        # their never-applied writes are invisible to readers.
+        # 4. validate
+        forwarding = forwarding_applies(be, wl) and cfg.mode == Mode.NORMAL
+        fwd = None
         forced = forced_sentinel_mask(batch) if cfg.ycsb_abort_mode else None
-        fbatch = batch if forced is None else dataclasses.replace(
-            batch, active=batch.active & ~forced)
-        verdict, fwd = forward_verdict(fbatch)
+        if cfg.mode == Mode.NOCC:
+            verdict, cc_state = get_backend("NOCC").validate(
+                cfg, state.cc_state, batch, None)
+        elif forwarding:
+            # everything commits in rank order; the sort IS the
+            # validation.  Forced sentinel txns leave the batch first, so
+            # their never-applied writes are invisible to readers.
+            fbatch = batch if forced is None else dataclasses.replace(
+                batch, active=batch.active & ~forced)
+            verdict, fwd = forward_verdict(fbatch)
+            cc_state = state.cc_state
+        else:
+            inc = build_conflict_incidence(cfg, be, batch, batch.order_free)
+            verdict, cc_state = be.validate(cfg, state.cc_state, batch, inc)
+        # defer budget: a txn deferred past defer_rounds_max force-restarts
+        # (deterministic chained backends are exempt)
+        if not be.chained and cfg.defer_rounds_max > 0:
+            stuck = verdict.defer & active \
+                & (sel(pool.defer_cnt) >= cfg.defer_rounds_max)
+            verdict = dataclasses.replace(
+                verdict, abort=verdict.abort | stuck,
+                defer=verdict.defer & ~stuck)
+        # a forced txn completes-as-aborted only when the CC would not
+        # retry it anyway; released slots are commits + forced completions
         if forced is None:
-            exec_commit, release = verdict.commit, verdict.commit
+            exec_commit = release = verdict.commit
         else:
             forced = forced & ~(verdict.abort | verdict.defer)
             exec_commit = verdict.commit & ~forced
             release = verdict.commit | forced
 
-        # 5. execute (commit set baked into the plan)
-        db = wl.execute(state.db, queries, None, verdict.order, stats,
-                        fwd_rank=fwd)
+        # 5. execute
+        if forwarding:
+            db = wl.execute(state.db, queries, None, verdict.order, stats,
+                            fwd_rank=fwd)
+        else:
+            db = wl.execute(state.db, queries, exec_commit, verdict.order,
+                            stats)
 
         # 6. update pool + counters (forced txns release like commits)
-        pre_abort_cnt = pool.abort_cnt
+        pre_abort_cnt = sel(pool.abort_cnt)
         pool = self.pool.update(pool, slots, active, release, verdict.abort,
-                                state.epoch, self.backend.fresh_ts_on_restart)
+                                state.epoch, be.fresh_ts_on_restart)
         committed = exec_commit & active
         aborts = verdict.abort if forced is None else verdict.abort | forced
         aborts = aborts & active
@@ -178,7 +215,8 @@ class Engine:
              (aborts & (pre_abort_cnt == 0)).sum())
         count_by_type(stats, wl, queries, committed, aborts)
         _acc(stats, "defer_cnt", (verdict.defer & active).sum())
-        lat = torch.clamp(state.epoch - pool.entry_epoch, 0, LAT_BUCKETS - 1)
+        lat = torch.clamp(state.epoch - sel(pool.entry_epoch), 0,
+                          LAT_BUCKETS - 1)
         buckets = torch.arange(LAT_BUCKETS, dtype=torch.int32,
                                device=lat.device)
         onehot = (lat[:, None] == buckets) & committed[:, None]
@@ -192,13 +230,13 @@ class Engine:
         _acc(stats, "latency_hist", torch.stack(rows))
         rb = torch.arange(RETRY_BUCKETS, dtype=torch.int32, device=lat.device)
         retries = torch.clamp(pre_abort_cnt, 0, RETRY_BUCKETS - 1)
-        waits = torch.clamp(pool.defer_cnt, 0, RETRY_BUCKETS - 1)
+        waits = torch.clamp(sel(pool.defer_cnt), 0, RETRY_BUCKETS - 1)
         _acc(stats, "retry_hist",
              ((retries[:, None] == rb) & committed[:, None]).sum(dim=0))
         _acc(stats, "wait_hist",
              ((waits[:, None] == rb) & committed[:, None]).sum(dim=0))
 
-        return EngineState(db=db, cc_state=state.cc_state, pool=pool,
+        return EngineState(db=db, cc_state=cc_state, pool=pool,
                            rng=rng, epoch=state.epoch + 1, stats=stats)
 
     def run(self, state: EngineState, n: int) -> EngineState:

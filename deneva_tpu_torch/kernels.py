@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("prng.cu", "forward.cu", "ycsb.cu")
+SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
+           "conflict.cu", "scatter.cu")
 HEADERS = ("common.cuh", "threefry.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -200,10 +201,14 @@ def on_cpu(*ts: torch.Tensor) -> bool:
 def all_kernels() -> dict[str, Kernel]:
     """Every kernel of the main path, by name (imports the modules that
     own them)."""
-    from deneva_tpu_torch.ops import forward, prng
+    from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.workloads import ycsb
     return {"K1_sort_lanes": forward.K1_SORT,
             "K2_plan_scans": forward.K2_SCAN,
             "K3_forward_execute": ycsb.K3_EXEC,
             "K4a_threefry_split": prng.K4_SPLIT,
-            "K4b_ycsb_generate": ycsb.K4_GEN}
+            "K4b_ycsb_generate": ycsb.K4_GEN,
+            "K5K6_build_incidence": conflict.K56_INCIDENCE,
+            "K7_overlap": conflict.K7_OVERLAP,
+            "K8_first_fit": conflict.K8_FIRST_FIT,
+            "K10_last_writer": scatter.K10_LAST_WRITER}

@@ -1,7 +1,9 @@
 """Device primitives beneath the engine: the threefry stream, zipfian
-sampling and the sort-based forwarding plan.  Each hand-written kernel
-(K1, K2, K4a) sits in the module of the function it replaces, beside
-its plain PyTorch version."""
+sampling, the sort-based forwarding plan, key hashing, the conflict
+incidence and sweep, and duplicate-write resolution.  Each hand-written
+kernel sits in the module of the function it replaces, beside its plain
+PyTorch version; callers reach the sweep's kernels through their
+modules (`ops.conflict`, `ops.scatter`)."""
 
 from deneva_tpu_torch.ops.forward import (ForwardPlan,  # noqa: F401
                                           commit_all_verdict, forward_plan,

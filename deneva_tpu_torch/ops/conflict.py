@@ -1,0 +1,230 @@
+"""Conflict incidence, overlap and the serialization sweep (port of ``deneva_tpu/ops/conflict.py``).
+
+An epoch's padded RW-sets are hashed into K buckets and expanded into
+bf16 incidence rows; ``(A @ B.T) > 0`` says which txn pairs touch a
+common bucket; the lex-first maximal-independent-set sweep turns that
+boolean matrix plus a priority order into win / lose / undecided.  A
+bucket collision or an undecided leftover only adds conflicts or
+deferrals, never hides one.
+
+Three kernels carry it on the card (``csrc/conflict.cu``), each beside
+its plain PyTorch version, written op for op from the reference:
+
+* **K5+K6** `hashed_incidence` — replaces ``ops/hashing.py:25,37`` and
+  ``ops/conflict.py:47`` `access_incidence` as ``cc/base.py:587``
+  `build_incidence` calls them: one launch hashes every lane in each
+  family and writes the requested count rows plus family 0's bucket ids.
+* **K7** `overlap` — replaces ``ops/conflict.py:63``: bf16 tensor-core
+  products with f32 accumulation, the ``> 0`` compare and the AND of the
+  second family in one kernel.
+* **K8** `first_fit` — replaces ``ops/conflict.py:78`` `earlier_edges`
+  fused into ``:96`` `greedy_first_fit`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deneva_tpu_torch import kernels
+from deneva_tpu_torch.ops.hashing import bucket_hash, combine_key
+
+# incidence views of one hash family, in the kernel's output order:
+# reads, writes, union, pure reads, then the ordered (non order_free)
+# copies of each (cc/base.py Incidence)
+VIEWS = ("r", "w", "u", "pr", "uo", "ro", "wo", "pro")
+ORDERED = {"uo": "u", "ro": "r", "wo": "w", "pro": "pr"}
+
+K56_INCIDENCE = kernels.Kernel("dt_build_incidence", [
+    kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
+    kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.I32,
+    kernels.P, kernels.P, kernels.P])
+K7_OVERLAP = kernels.Kernel("dt_overlap", [
+    kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
+    kernels.I32, kernels.P, kernels.P])
+K8_FIRST_FIT = kernels.Kernel("dt_first_fit", [
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
+    kernels.P, kernels.P, kernels.P, kernels.P])
+
+
+# -- K6: incidence ------------------------------------------------------
+
+def access_incidence(bucket_ids: torch.Tensor, valid: torch.Tensor,
+                     n_buckets: int) -> torch.Tensor:
+    """bf16[B, K] access counts of the valid lanes (exact for A <= 256)."""
+    b, a = bucket_ids.shape
+    rows = torch.arange(b, dtype=torch.int64,
+                        device=bucket_ids.device)[:, None].expand(b, a)
+    cols = torch.where(valid, bucket_ids, 0).to(torch.int64)
+    inc = torch.zeros((b, n_buckets), dtype=torch.bfloat16,
+                      device=bucket_ids.device)
+    return inc.index_put_((rows, cols), valid.to(torch.bfloat16),
+                          accumulate=True)
+
+
+def lane_masks(is_read, is_write, valid, active, order_free=None) -> dict:
+    """Each view's lane mask (``cc/base.py:594-598``, ``:608-613``); the
+    ordered views only when ``order_free`` is given."""
+    v = valid & active[:, None]
+    r, w = v & is_read, v & is_write
+    pr = r & ~w
+    m = {"r": r, "w": w, "u": r | w, "pr": pr}
+    if order_free is not None:
+        of = ~order_free
+        m.update(uo=(r | w) & of, ro=r & of, wo=w & of, pro=pr & of)
+    return m
+
+
+def hashed_incidence_plain(table_ids, keys, is_read, is_write, valid,
+                           active, order_free, n_buckets: int,
+                           families: int, views: tuple[str, ...]):
+    """Plain K5+K6.  Returns ([{view: bf16[B, K]} per family], bucket1)."""
+    ident = combine_key(table_ids, keys)
+    masks = lane_masks(is_read, is_write, valid, active, order_free)
+    b1 = bucket_hash(ident, n_buckets, family=0)
+    out = []
+    for f in range(families):
+        b = b1 if f == 0 else bucket_hash(ident, n_buckets, family=f)
+        out.append({nm: access_incidence(b, masks[nm], n_buckets)
+                    for nm in views})
+    return out, b1
+
+
+def hashed_incidence(table_ids, keys, is_read, is_write, valid, active,
+                     order_free, n_buckets: int, families: int,
+                     views: tuple[str, ...]):
+    """K5+K6: hash every lane in ``families`` families and build the
+    requested views' count rows in one launch.  ``views`` name entries of
+    `VIEWS`; the ordered ones need ``order_free``."""
+    for nm in views:
+        if nm not in VIEWS or (nm in ORDERED and order_free is None):
+            raise ValueError(f"incidence view {nm!r} not available")
+    if kernels.on_cpu(keys, active):
+        return hashed_incidence_plain(table_ids, keys, is_read, is_write,
+                                      valid, active, order_free, n_buckets,
+                                      families, views)
+    b, a = keys.shape
+    dev = keys.device
+    for name, t, dt in (("table_ids", table_ids, torch.int32),
+                        ("keys", keys, torch.int32),
+                        ("is_read", is_read, torch.bool),
+                        ("is_write", is_write, torch.bool),
+                        ("valid", valid, torch.bool)):
+        kernels.check(name, t, dt, (b, a), dev)
+    kernels.check("active", active, torch.bool, (b,), dev)
+    if order_free is not None:
+        kernels.check("order_free", order_free, torch.bool, (b, a), dev)
+    if a > 256 or n_buckets < 8 or n_buckets & (n_buckets - 1) \
+            or families not in (1, 2):
+        raise ValueError("K5+K6 takes A <= 256 lanes, a power-of-two "
+                         "K >= 8 and one or two families")
+    out = [{nm: torch.empty((b, n_buckets), dtype=torch.bfloat16,
+                            device=dev) for nm in views}
+           for _ in range(families)]
+    ptrs = (ctypes.c_void_p * 16)()
+    for f, fam in enumerate(out):
+        for nm, t in fam.items():
+            ptrs[8 * f + VIEWS.index(nm)] = t.data_ptr()
+    b1 = torch.empty((b, a), dtype=torch.int32, device=dev)
+    K56_INCIDENCE.launch(
+        kernels.ptr(table_ids), kernels.ptr(keys), kernels.ptr(is_read),
+        kernels.ptr(is_write), kernels.ptr(valid), kernels.ptr(active),
+        None if order_free is None else kernels.ptr(order_free), b, a,
+        n_buckets, families, ctypes.cast(ptrs, ctypes.c_void_p),
+        kernels.ptr(b1), kernels.stream(keys))
+    return out, b1
+
+
+# -- K7: overlap --------------------------------------------------------
+
+def overlap_plain(inc_a, inc_b, inc_a2=None, inc_b2=None) -> torch.Tensor:
+    """bool[B, B]: does txn i's A-set share a bucket with txn j's B-set?
+    f32 products of the integer counts are exact."""
+    m = torch.matmul(inc_a.float(), inc_b.float().T) > 0
+    if inc_a2 is not None:
+        m &= torch.matmul(inc_a2.float(), inc_b2.float().T) > 0
+    return m
+
+
+def overlap(inc_a, inc_b, inc_a2=None, inc_b2=None) -> torch.Tensor:
+    """K7: one kernel for both families' products, compares and AND."""
+    two = inc_a2 is not None
+    if kernels.on_cpu(inc_a, inc_b, *((inc_a2, inc_b2) if two else ())):
+        return overlap_plain(inc_a, inc_b, inc_a2, inc_b2)
+    m, k = inc_a.shape
+    n = inc_b.shape[0]
+    dev = inc_a.device
+    kernels.check("inc_a", inc_a, torch.bfloat16, (m, k), dev)
+    kernels.check("inc_b", inc_b, torch.bfloat16, (n, k), dev)
+    if two:
+        kernels.check("inc_a2", inc_a2, torch.bfloat16, (m, k), dev)
+        kernels.check("inc_b2", inc_b2, torch.bfloat16, (n, k), dev)
+    if k % 8:
+        raise ValueError("K7 loads 16-byte rows: K must be a multiple of 8")
+    out = torch.empty((m, n), dtype=torch.bool, device=dev)
+    K7_OVERLAP.launch(kernels.ptr(inc_a), kernels.ptr(inc_b),
+                      kernels.ptr(inc_a2) if two else None,
+                      kernels.ptr(inc_b2) if two else None, m, n, k,
+                      kernels.ptr(out), kernels.stream(inc_a))
+    return out
+
+
+# -- K8: the sweep ------------------------------------------------------
+
+def earlier_edges(conflict: torch.Tensor, rank: torch.Tensor,
+                  active: torch.Tensor) -> torch.Tensor:
+    """E[i, j] = active j precedes active i by (rank, lane) and conflicts."""
+    b = conflict.shape[0]
+    lane = torch.arange(b, dtype=torch.int32, device=conflict.device)
+    lt = rank[None, :] < rank[:, None]
+    eq = rank[None, :] == rank[:, None]
+    before = lt | (eq & (lane[None, :] < lane[:, None]))
+    act = active[:, None] & active[None, :]
+    return conflict & before & act
+
+
+def greedy_first_fit(edges: torch.Tensor, active: torch.Tensor,
+                     rounds: int = 24):
+    """Lex-first maximal-independent-set sweep, ``rounds`` Jacobi rounds.
+    Returns (win, lose, undecided) partitioning ``active``."""
+    e = edges.to(torch.float32)
+    win = torch.zeros_like(active)
+    lose = torch.zeros_like(active)
+    for _ in range(rounds):
+        pending = active & ~win & ~lose
+        blocked = (e @ (~lose).to(torch.float32)) > 0
+        hit = (e @ win.to(torch.float32)) > 0
+        new_win = pending & ~blocked
+        new_lose = pending & hit
+        win, lose = win | new_win, lose | (new_lose & ~new_win)
+    return win, lose, active & ~win & ~lose
+
+
+def first_fit_plain(conflict, rank, active, rounds: int):
+    return greedy_first_fit(earlier_edges(conflict, rank, active), active,
+                            rounds)
+
+
+def first_fit(conflict: torch.Tensor, rank: torch.Tensor,
+              active: torch.Tensor, rounds: int):
+    """K8: `earlier_edges` packed to bits, then the sweep in one block."""
+    if kernels.on_cpu(conflict, rank, active):
+        return first_fit_plain(conflict, rank, active, rounds)
+    b = active.shape[0]
+    dev = active.device
+    kernels.check("conflict", conflict, torch.bool, (b, b), dev)
+    kernels.check("rank", rank, torch.int32, (b,), dev)
+    kernels.check("active", active, torch.bool, (b,), dev)
+    words = -(-b // 32)
+    if 5 * words * 4 > 200 * 1024:
+        raise ValueError("K8 keeps five B-bit sets in shared memory: "
+                         f"B = {b} is too large")
+    bits = torch.empty((b, words), dtype=torch.int32, device=dev)
+    win, lose, und = (torch.empty(b, dtype=torch.bool, device=dev)
+                      for _ in range(3))
+    K8_FIRST_FIT.launch(kernels.ptr(conflict), kernels.ptr(rank),
+                        kernels.ptr(active), b, rounds, kernels.ptr(bits),
+                        kernels.ptr(win), kernels.ptr(lose),
+                        kernels.ptr(und), kernels.stream(active))
+    return win, lose, und

@@ -84,9 +84,11 @@ class DeviceTable:
 
     def scatter(self, slots: torch.Tensor, updates: dict[str, torch.Tensor],
                 mask: torch.Tensor | None = None) -> "DeviceTable":
-        """Masked last-write scatter, in place.  Duplicate slots follow
+        """Masked last-write scatter, in place.  Masked-out and
+        out-of-range slots steer to the trash row.  Duplicate slots follow
         torch's unspecified order, as the reference's follow XLA's:
-        callers pre-resolve winners."""
+        callers pre-resolve winners (`ops.scatter.last_writer`), so only
+        the trash row receives duplicates."""
         slots = _sanitize(slots, self.capacity, mask).long()
         for n, v in updates.items():
             col = self.columns[n]

@@ -18,6 +18,10 @@ Two kernels carry it on the card:
   threefry draws, the zipfian quantile and the bernoulli write flags in
   one elementwise pass.
 
+The sweep backends (OCC, NOCC) take the masked arm of `execute` instead:
+a plain gather and checksum of the committed reads, then the committed
+writes through K10 (`ops.scatter.last_writer`) and a masked scatter.
+
 Fingerprint columns are uint32 words held as int32 bit patterns; the
 value law is computed in int64 masked to 32 bits (`_mul32` keeps every
 product below 2^49, so no signed overflow occurs).
@@ -32,8 +36,10 @@ import torch
 
 from deneva_tpu_torch import kernels
 from deneva_tpu_torch.config import Config
-from deneva_tpu_torch.ops import prng
+from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.ops.forward import seg_first
+from deneva_tpu_torch.ops.hashing import mul32 as _mul32
+from deneva_tpu_torch.ops.hashing import u32 as _u32
 from deneva_tpu_torch.ops.sampling import Zipfian
 from deneva_tpu_torch.storage.catalog import parse_schema
 from deneva_tpu_torch.storage.index import DenseIndex
@@ -59,16 +65,6 @@ class YCSBQuery:
 
     keys: torch.Tensor      # int32[n, R]
     is_write: torch.Tensor  # bool[n, R]
-
-
-def _u32(x) -> torch.Tensor:
-    """int64 in [0, 2^32) holding the uint32 cast of ``x``."""
-    return torch.as_tensor(x).to(torch.int64) & MASK32
-
-
-def _mul32(a: torch.Tensor, c) -> torch.Tensor:
-    """(a * c) mod 2^32 for a, c in [0, 2^32), without int64 overflow."""
-    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & MASK32
 
 
 def _field_fingerprint(key, version) -> torch.Tensor:
@@ -254,21 +250,53 @@ class YCSBWorkload:
     def _local_slots(self, db, keys: torch.Tensor) -> torch.Tensor:
         return self.index.lookup(keys)
 
-    # -- execution, forwarding arm (ycsb_txn.cpp:177-209) ---------------
+    # -- execution (ycsb_txn.cpp:177-209 collapsed to one batch) -------
     def execute(self, db, q: YCSBQuery, mask, order: torch.Tensor,
                 stats: dict, fwd_rank=None):
-        if fwd_rank is None:
-            raise NotImplementedError(
-                "YCSB's masked execute arm is not ported yet (ROADMAP.md "
-                "queue 1, slice 2: sweep backends)")
-        if mask is not None:
-            raise ValueError("ForwardPlan embodies the commit set; "
-                             "pass mask=None")
+        """Apply the epoch: the forwarding arm over a sorted plan
+        (``fwd_rank``, K3), or the masked arm over the committed ``mask``
+        (``deneva_tpu/workloads/ycsb.py:544-606``, without the MVCC
+        version ring)."""
         tab: DeviceTable = db[TABLE]
-        p = fwd_rank
-        slots = self._local_slots(db, p.keys)
-        _, cks, wcnt = _forward_execute_f0(tab.columns["F0"], p, slots,
-                                           tab.capacity, mono=True)
+        if fwd_rank is not None:
+            if mask is not None:
+                raise ValueError("ForwardPlan embodies the commit set; "
+                                 "pass mask=None")
+            p = fwd_rank
+            slots = self._local_slots(db, p.keys)
+            _, cks, wcnt = _forward_execute_f0(tab.columns["F0"], p, slots,
+                                               tab.capacity, mono=True)
+        else:
+            cks, wcnt = self._execute_masked(tab, q, mask, order)
         stats["read_checksum"] = (stats["read_checksum"] + cks) & MASK32
         stats["write_cnt"] = (stats["write_cnt"] + wcnt) & MASK32
         return db
+
+    def _execute_masked(self, tab: DeviceTable, q: YCSBQuery,
+                        mask: torch.Tensor, order: torch.Tensor):
+        """Masked arm: committed reads gather F0 into the checksum (from
+        the epoch-start rows: the gather precedes every write); committed
+        writes store f(key, order), the last writer per slot by (order,
+        lane) through K10; losers steer to the trash row.  Returns
+        (checksum, write_cnt) as int64 in [0, 2^32)."""
+        full = self.cfg.sim_full_row
+        slots = self._local_slots(None, q.keys)                 # [n, R]
+        act = mask[:, None] & torch.ones_like(q.is_write)
+        rmask = act & ~q.is_write
+        rslots = torch.where(rmask, slots, tab.capacity)
+        vals = tab.gather(rslots, ("F0",))["F0"]
+        if full:
+            cks = torch.where(rmask[..., None], vals.to(torch.int64),
+                              0).sum()
+        else:
+            cks = torch.where(rmask, _u32(vals), 0).sum()
+        wm = act & q.is_write
+        wmask = wm.reshape(-1)
+        wslots = torch.where(wm, slots, tab.capacity).reshape(-1)
+        worder = order[:, None].expand(slots.shape).reshape(-1)
+        win = scatter.last_writer(wslots, worder, wmask, tab.capacity)
+        keys = q.keys.reshape(-1)
+        wvals = _field_bytes(keys, worder, self.cfg.tup_size) if full \
+            else _field_fingerprint(keys, worder).to(torch.int32)
+        tab.scatter(wslots, {"F0": wvals}, mask=win)
+        return cks & MASK32, wmask.sum() & MASK32

@@ -10,6 +10,8 @@ from deneva_tpu.config import Config as JConfig
 from deneva_tpu_torch.config import Config, _coerce
 
 SLICE = ["--epoch_batch=256", "--max_txn_in_flight=256"]
+# the OCC comparator's pool: a partial pool
+SWEEP = ["--cc_alg=OCC", "--epoch_batch=64", "--max_txn_in_flight=256"]
 
 
 def test_fields_share_name_type_and_default():
@@ -31,16 +33,40 @@ def test_from_args_parses_like_reference():
         Config.from_args(["epoch_batch=4"])
 
 
-@pytest.mark.parametrize("flag", [
-    "--cc_alg=OCC", "--workload=TPCC", "--mode=NOCC", "--part_cnt=2",
-    "--device_parts=2", "--elastic=true", "--audit=true", "--metrics=true",
-    "--ctrl=true", "--repair=true", "--skew_method=HOT", "--key_order=true",
-    "--txn_write_perc=0.5", "--index_struct=IDX_BTREE",
-    "--isolation_level=READ_COMMITTED", "--checkpoint_path=/dev/null",
-    "--max_txn_in_flight=1024", "--node_cnt=2", "--fault_drop_prob=0.1"])
-def test_unsupported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+RAISING = [
+    ("--cc_alg=NO_WAIT", 13), ("--cc_alg=WAIT_DIE", 13),
+    ("--cc_alg=CALVIN", 13), ("--cc_alg=TIMESTAMP", 14),
+    ("--cc_alg=MVCC", 14), ("--cc_alg=MAAT", 14), ("--cc_alg=DGCC", 16),
+    ("--workload=TPCC", 15), ("--mode=SIMPLE", 12), ("--mode=QRY_ONLY", 12),
+    ("--part_cnt=2", 18), ("--device_parts=2", 19), ("--elastic=true", 18),
+    ("--audit=true", 16), ("--metrics=true", 16), ("--ctrl=true", 16),
+    ("--repair=true", 16), ("--skew_method=HOT", 11),
+    ("--key_order=true", 11), ("--txn_write_perc=0.5", 11),
+    ("--index_struct=IDX_BTREE", 15),
+    ("--isolation_level=READ_COMMITTED", 13),
+    ("--checkpoint_path=/dev/null", 17), ("--node_cnt=2", None),
+    ("--fault_drop_prob=0.1", None)]
+
+
+@pytest.mark.parametrize("flag,item", RAISING, ids=[f for f, _ in RAISING])
+def test_unsupported_flags_raise(flag, item):
+    match = "ROADMAP" if item is None else f"ROADMAP.md queue 1, item {item}:"
+    with pytest.raises(NotImplementedError, match=match):
         Config.from_args(SLICE + [flag])
+    with pytest.raises(NotImplementedError, match=match):
+        Config.from_args(SWEEP + [flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cc_alg=OCC"], ["--cc_alg=NOCC"], ["--mode=NOCC"],
+    ["--cc_alg=OCC", "--mode=NOCC"], ["--max_txn_in_flight=1024"],
+    ["--cc_alg=OCC", "--conflict_exact=false", "--conflict_buckets=64",
+     "--sweep_rounds=3", "--defer_rounds_max=0", "--escrow_sweep=false"]])
+def test_sweep_path_flags_are_admitted(flags):
+    mine = Config.from_args(SWEEP + flags)
+    ref = JConfig.from_args(SWEEP + flags)
+    for f in dataclasses.fields(Config):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
 
 
 def test_reference_checks_still_apply():
@@ -49,3 +75,5 @@ def test_reference_checks_still_apply():
     with pytest.raises(ValueError, match="sum to 1"):
         Config.from_args(SLICE + ["--write_perc=0.7"])
     assert Config().replace(epoch_batch=16384).epoch_batch == 16384
+    with pytest.raises(ValueError, match="power of two"):
+        Config.from_args(SWEEP + ["--conflict_buckets=1000"])

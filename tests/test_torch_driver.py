@@ -55,6 +55,8 @@ def test_port_imports_neither_jax_nor_reference():
             "deneva_tpu_torch.convert", "deneva_tpu_torch.kernels",
             "deneva_tpu_torch.workloads.ycsb", "deneva_tpu_torch.ops.forward",
             "deneva_tpu_torch.ops.sampling", "deneva_tpu_torch.ops.prng",
+            "deneva_tpu_torch.ops.conflict", "deneva_tpu_torch.ops.scatter",
+            "deneva_tpu_torch.ops.hashing", "deneva_tpu_torch.cc",
             "deneva_tpu_torch.stats", "deneva_tpu_torch.storage"]
     code = ("import sys; " + "; ".join(f"import {m}" for m in mods) +
             "; bad = [m for m in sys.modules if m == 'jax' or "
