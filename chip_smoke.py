@@ -17,7 +17,14 @@ paths drive it:
 * sweep — ``bench.py``'s OCC comparator: ``CC_ALG=OCC`` (and the NOCC
   oracle) at ``epoch_batch=1024`` over a partial pool of
   ``max_txn_in_flight=100000``, ``conflict_buckets=8192``, dual hashing
-  (K4, K5+K6, K7, K8, K10).
+  (K4, K5+K6, K7, K8, K10);
+* lock and T/O — the paper's ``ycsb_skew`` point (``paper_base`` of
+  ``deneva_tpu/harness/experiments.py`` at theta 0.9):
+  ``epoch_batch=2048`` over a partial pool of ``max_txn_in_flight=
+  10000``, ``conflict_buckets=8192``, dual hashing, ``watermark_buckets
+  = 2^20``, ``mvcc_his_len=4``, under ``NO_WAIT`` and ``WAIT_DIE`` (K4,
+  K5+K6, K7, K8, K10), ``TIMESTAMP`` (and K12a, K12b) and ``MVCC`` (and
+  K12c, K12d), and ``CALVIN`` (the forwarding path, K1-K4).
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -31,25 +38,43 @@ Phases (any error or mismatch exits non-zero and prints no result):
                committed write lanes and once at N >= capacity.  Times by
                CUDA events, beside the plain version's, the bound and a
                one-call PyTorch yardstick where there is one.
+               K12a-d at the ``ycsb_skew`` shapes (B = 2048 txns x 10
+               accesses, 2^20 watermark buckets, H = 4, 2^24 rows; K12c
+               in both table modes) on the state and batch of a real
+               MVCC epoch after ten warm-up epochs (watermark aborts,
+               stale reads served from the ring and ring wrap-arounds
+               occur there).
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
                in rank order; OCC: Kung-Robinson serial validation over
                the same hashed buckets, exact-key conflict freedom of the
-               committed set, the serial apply of its writes).
+               committed set, the serial apply of its writes).  At the
+               ``ycsb_skew`` point: 3 kernel epochs equal 3 plain epochs
+               under NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC (both modes),
+               and one epoch at each other isolation level for NO_WAIT
+               and WAIT_DIE; numpy oracles for NO_WAIT (serial lock
+               acquisition in rank order), TIMESTAMP and MVCC (the
+               watermark rules per lane, the later-reader wait, the new
+               watermarks and boundary ring) and MVCC's stale reads (each
+               committed read's value against the versions written since
+               the load, one per key and epoch, kept in numpy).
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
-               both modes, OCC and NOCC in fingerprint mode; the
-               ``[summary]`` numbers and committed txn/s, the TPU_BATCH /
-               OCC ratio (``bench.py``'s ``vs_baseline``); with counts
-               zeroed just before each run, every kernel's launches equal
-               its per-epoch count on that path (``PATH_LAUNCHES``) times
-               the epochs run; OCC must commit and abort.
+               both modes, OCC and NOCC in fingerprint mode, and NO_WAIT,
+               WAIT_DIE, TIMESTAMP, MVCC and CALVIN at the ``ycsb_skew``
+               point; the ``[summary]`` numbers and committed txn/s, the
+               TPU_BATCH / OCC ratio (``bench.py``'s ``vs_baseline``);
+               with counts zeroed just before each run, every kernel's
+               launches equal its per-epoch count on that path
+               (``PATH_LAUNCHES``) times the epochs run; the sweep
+               backends must commit and abort.
 6. report    — one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, before the report, a profile of 50 epochs per
-forwarding mode and of OCC in fingerprint mode: host and wall time per
-epoch, device time by kernel and the device's idle share.
+forwarding mode and of OCC, NO_WAIT and MVCC in fingerprint mode: host
+and wall time per epoch, device time by kernel and the device's idle
+share.
 
 Without a CUDA device, or in a directory without the package, it exits
 non-zero before printing any result.
@@ -74,6 +99,8 @@ THETA = 0.9
 OCC_BATCH = 1024                # bench.py's OCC comparator point
 OCC_POOL = 100000
 BUCKETS = 8192
+SKEW_BATCH = 2048               # the ycsb_skew point (paper_base)
+SKEW_POOL = 10000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 ALU_OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 rate
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
@@ -100,6 +127,14 @@ KERNELS = {
                      "deneva_tpu/ops/conflict.py:96"),
     "K10_last_writer": ("deneva_tpu_torch/csrc/scatter.cu",
                         "deneva_tpu/ops/scatter.py:33"),
+    "K12a_watermark_check": ("deneva_tpu_torch/csrc/timestamp.cu",
+                             "deneva_tpu/cc/timestamp.py:202"),
+    "K12b_commit_watermarks": ("deneva_tpu_torch/csrc/timestamp.cu",
+                               "deneva_tpu/cc/timestamp.py:271"),
+    "K12c_version_read": ("deneva_tpu_torch/csrc/version.cu",
+                          "deneva_tpu/storage/table.py:241"),
+    "K12d_version_push": ("deneva_tpu_torch/csrc/version.cu",
+                          "deneva_tpu/storage/table.py:257"),
 }
 
 
@@ -158,19 +193,36 @@ def occ_config(full: bool, alg: str = "OCC", **kw):
                   conflict_exact=True, **kw)
 
 
+def skew_config(full: bool, alg: str, **kw):
+    """The paper's ``ycsb_skew`` point at theta 0.9 (``paper_base`` of
+    ``deneva_tpu/harness/experiments.py``): 2^24 rows, 10 requests,
+    ``epoch_batch=2048`` over ``max_txn_in_flight=10000``, 8192 buckets,
+    dual hashing, 2^20 watermark buckets, ``mvcc_his_len=4``."""
+    return config(full, cc_alg=alg, epoch_batch=SKEW_BATCH,
+                  max_txn_in_flight=SKEW_POOL, conflict_buckets=BUCKETS,
+                  conflict_exact=True, watermark_buckets=1 << 20,
+                  mvcc_his_len=4, **kw)
+
+
 # launches per epoch of each kernel on each path (kernels missing from a
 # path's map launch zero times there)
+_FWD = {"K1_sort_lanes": 1, "K2_plan_scans": 1, "K3_forward_execute": 1,
+        "K4a_threefry_split": 1, "K4b_ycsb_generate": 1}
+# both hash families share one K5+K6 launch; SERIALIZABLE takes one K7
+_SWEEP = {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
+          "K5K6_build_incidence": 1, "K7_overlap": 1, "K8_first_fit": 1,
+          "K10_last_writer": 1}
+_TO = {**_SWEEP, "K12a_watermark_check": 1, "K12b_commit_watermarks": 1}
 PATH_LAUNCHES = {
-    "TPU_BATCH": {"K1_sort_lanes": 1, "K2_plan_scans": 1,
-                  "K3_forward_execute": 1, "K4a_threefry_split": 1,
-                  "K4b_ycsb_generate": 1},
-    # both hash families share one K5+K6 launch
-    "OCC": {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
-            "K5K6_build_incidence": 1, "K7_overlap": 1, "K8_first_fit": 1,
-            "K10_last_writer": 1},
+    "TPU_BATCH": _FWD, "CALVIN": _FWD,
+    "OCC": _SWEEP, "NO_WAIT": _SWEEP, "WAIT_DIE": _SWEEP,
     "NOCC": {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
              "K10_last_writer": 1},
+    "TIMESTAMP": _TO,
+    "MVCC": {**_TO, "K12c_version_read": 1, "K12d_version_push": 1},
 }
+# paths whose runs must abort (the others commit every selected txn)
+ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC")
 
 
 @contextlib.contextmanager
@@ -179,7 +231,9 @@ def plain_path(wl):
     comparison side of phase 4 and of tests/test_torch_cuda.py; the
     package itself has no such switch).  A kernel added to the main path
     is swapped here."""
+    from deneva_tpu_torch.cc import timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
+    from deneva_tpu_torch.storage import table
     from deneva_tpu_torch.workloads import ycsb
     swaps = [(forward, "sort_lanes", lambda k, r, w: forward.sort_lanes_plain(
                   k, r, w).values),
@@ -189,7 +243,12 @@ def plain_path(wl):
              (conflict, "hashed_incidence", conflict.hashed_incidence_plain),
              (conflict, "overlap", conflict.overlap_plain),
              (conflict, "first_fit", conflict.first_fit_plain),
-             (scatter, "last_writer", scatter.last_writer_plain)]
+             (scatter, "last_writer", scatter.last_writer_plain),
+             (timestamp, "_watermark_check", timestamp._watermark_check_plain),
+             (timestamp, "_commit_watermarks",
+              timestamp._commit_watermarks_plain),
+             (ycsb, "_versioned_read_f0", ycsb._versioned_read_f0_plain),
+             (table.VersionRing, "push", table.VersionRing.push_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -285,13 +344,16 @@ def np_bucket(keys, family: int, k: int):
     return (h & np.uint32(k - 1)).astype(np.int64)
 
 
-def occ_oracle_epoch(eng, state, dev):
+def occ_oracle_epoch(eng, state, dev, symmetric: bool = False):
     """One OCC kernel epoch against Kung-Robinson serial validation in
     rank order over the same hashed buckets, in numpy: every txn the
     sweep decided gets the serial verdict; no two committed txns share an
     exact key that either writes; table rows [0, capacity) equal the
     epoch-start rows with the committed writes applied serially; the
-    read checksum, write and commit counts match."""
+    read checksum, write and commit counts match.  With ``symmetric``
+    the serial rule is NO_WAIT's under SERIALIZABLE: txn i acquires its
+    locks in rank order iff no admitted txn holds a lock it conflicts
+    with either way (union-vs-write overlap, symmetrized)."""
     import dataclasses
 
     from deneva_tpu_torch.workloads.ycsb import TABLE
@@ -329,14 +391,16 @@ def occ_oracle_epoch(eng, state, dev):
     lanes = act[:, None] & np.ones_like(isw)
     for f in (0, 1):
         bk = np_bucket(keys, f, k)
-        conflict_m &= dense(bk, lanes) @ dense(bk, lanes & isw).T > 0
+        uw = dense(bk, lanes) @ dense(bk, lanes & isw).T > 0
+        conflict_m &= (uw | uw.T) if symmetric else uw
+    label = "NO_WAIT oracle" if symmetric else "OCC oracle"
     admitted = np.zeros(b, bool)
     for i in np.lexsort((np.arange(b), rank)):
         if act[i] and not (conflict_m[i] & admitted).any():
             admitted[i] = True
     decided = win | lose
     if (win & ~admitted).any() or (lose & admitted).any():
-        fail("OCC oracle: a decided txn differs from serial validation "
+        fail(f"{label}: a decided txn differs from serial validation "
              f"({int((win & ~admitted).sum())} commits, "
              f"{int((lose & admitted).sum())} aborts)")
     committed = win & act
@@ -351,7 +415,7 @@ def occ_oracle_epoch(eng, state, dev):
     for key in np.unique(ck[cw]):
         at = ck == key
         if lane_pos[at & cw].min() != lane_pos[at].max():
-            fail(f"OCC oracle: committed txns conflict on key {key}")
+            fail(f"{label}: committed txns conflict on key {key}")
     # serial apply in rank order: each written key holds its last writer's
     crank = np.broadcast_to(rank[committed][:, None], ck.shape)
     wk, wr = ck[cw], crank[cw]
@@ -366,17 +430,17 @@ def occ_oracle_epoch(eng, state, dev):
     cap = eng.workload.n_rows
     got = state.db[TABLE].columns["F0"]
     if not torch.equal(got[:cap], expect[:cap]):
-        fail("OCC oracle: table differs from the serial apply")
+        fail(f"{label}: table differs from the serial apply")
     reads = ck[~cw]
     vals = start[torch.from_numpy(reads).to(dev)].cpu().numpy()
     cks = int(vals.astype(np.uint64).sum() if full
               else vals.view(np.uint32).astype(np.uint64).sum()) & MASK32
     d = {k_: (int(state.stats[k_]) - pre[k_]) & MASK32 for k_ in pre}
     if d["read_checksum"] != cks:
-        fail(f"OCC oracle: checksum {d['read_checksum']} != serial {cks}")
+        fail(f"{label}: checksum {d['read_checksum']} != serial {cks}")
     if d["write_cnt"] != int(cw.sum()) \
             or d["total_txn_commit_cnt"] != int(committed.sum()):
-        fail(f"OCC oracle: counters {d}")
+        fail(f"{label}: counters {d}")
     return state, {"active": int(act.sum()), "commit": int(win.sum()),
                    "abort": int(lose.sum()),
                    "undecided": int((act & ~decided).sum()),
@@ -696,42 +760,524 @@ def phase_epochs(dev, full: bool) -> None:
 
 
 def phase_sweep_epochs(dev, full: bool) -> None:
-    """OCC at the comparator's settings: 3 kernel epochs equal 3 plain
-    epochs leaf by leaf (table rows but the trash row, which takes the
-    losers' writes in an unspecified order), then one kernel epoch
-    against the numpy Kung-Robinson oracle."""
+    """OCC at the comparator's settings: `epochs_equal`, then one kernel
+    epoch against the numpy Kung-Robinson oracle."""
+    mode = "full_row" if full else "fingerprint"
+    t = time.monotonic()
+    eng, sk = epochs_equal(dev, occ_config(full), 3, f"OCC {mode}")
+    torch.cuda.empty_cache()
+    _, n = occ_oracle_epoch(eng, sk, dev)
+    print(f"[occ-epochs] {mode}: oracle epoch ok ({n}) "
+          f"in {time.monotonic() - t:.1f} s", flush=True)
+
+
+# -- the lock and T/O paths at the ycsb_skew point ---------------------------
+
+def clone_cc(cs):
+    """A copy of a T/O state's leaves."""
+    import dataclasses
+    return type(cs)(**{f.name: getattr(cs, f.name).clone()
+                       for f in dataclasses.fields(cs)})
+
+
+def capture_epoch(eng, state):
+    """One kernel epoch of a sweep engine, keeping what its kernels saw:
+    the batch, the cc_state before validation (cloned), the verdict and,
+    under MVCC, K12c's and K12d's arguments (table and ring cloned before
+    the epoch's stores)."""
+    import dataclasses
+
+    from deneva_tpu_torch.storage import table
+    from deneva_tpu_torch.workloads import ycsb
+    seen = {}
+    be = eng.backend
+    real_read, real_push = ycsb._versioned_read_f0, table.VersionRing.push
+
+    def validate(cfg_, cc_state, batch, inc):
+        seen["pre"] = cc_state if isinstance(cc_state, tuple) \
+            else clone_cc(cc_state)
+        seen["batch"] = batch
+        v, st = be.validate(cfg_, cc_state, batch, inc)
+        seen["verdict"] = v
+        return v, st
+
+    def read(f0, ring, keys, slots, rmask, ver_ts, capacity):
+        seen["read"] = (f0.clone(), table.VersionRing(ring.wts.clone(),
+                                                      ring.depth),
+                        keys, slots, rmask, ver_ts, capacity)
+        return real_read(f0, ring, keys, slots, rmask, ver_ts, capacity)
+
+    def push(ring, slots, wts, mask):
+        seen["push"] = (table.VersionRing(ring.wts.clone(), ring.depth),
+                        slots, wts, mask)
+        return real_push(ring, slots, wts, mask)
+    eng.backend = dataclasses.replace(be, validate=validate)
+    ycsb._versioned_read_f0, table.VersionRing.push = read, push
+    try:
+        state = eng.step(state)
+    finally:
+        eng.backend = be
+        ycsb._versioned_read_f0, table.VersionRing.push = real_read, real_push
+    torch.cuda.synchronize()
+    return state, seen
+
+
+def same_state(x, y) -> bool:
+    return all(torch.equal(getattr(x, f), getattr(y, f))
+               for f in ("rts", "wts", "his", "pos") if hasattr(x, f))
+
+
+def phase_to_kernels(dev, rec: dict, card: str) -> None:
+    """K12a-d against their plain versions on the inputs of a real MVCC
+    epoch at the ycsb_skew point: the first epoch after ten warm-up
+    epochs in which a committed read is served from the ring and a
+    winner's ring row wraps around; K12c also in full-row mode on the
+    same lanes and ring."""
+    from deneva_tpu_torch.cc import timestamp
+    from deneva_tpu_torch.cc.timestamp import TOState
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.ops import conflict
+    from deneva_tpu_torch.storage.table import VersionRing
+    from deneva_tpu_torch.workloads import ycsb
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    cfg = skew_config(False, "MVCC")
+    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    st = eng.run(eng.init_state(), 10)
+    for tries in range(1, 41):
+        st, seen = capture_epoch(eng, st)
+        _, ring, _, slots, rmask, ver_ts, _ = seen["read"]
+        _, has = ring.select_version(slots,
+                                     ver_ts[:, None].expand(slots.shape))
+        served = int((has & rmask).sum())
+        ring0, wslots, _, win = seen["push"]
+        wraps = int((ring0.rows(wslots).gt(0).all(dim=1) & win).sum())
+        if served and wraps:
+            break
+    else:
+        fail("K12c/K12d: 40 epochs served no stale read from the ring or "
+             "wrapped no ring row")
+    print(f"[K12] epoch {10 + tries} of MVCC: {served} committed reads "
+          f"served from the ring, {wraps} ring rows wrapped", flush=True)
+    bt, pre, v = seen["batch"], seen["pre"], seen["verdict"]
+    b, a = bt.keys.shape
+    h = cfg.mvcc_his_len
+    lanes = bt.valid & bt.active[:, None]
+
+    # K12a, MVCC and TIMESTAMP flavours
+    to_pre = TOState(rts=pre.rts, wts=pre.wts)
+    err = 0
+    for mvcc, state in ((True, pre), (False, to_pre)):
+        got = timestamp._watermark_check(cfg, state, bt, mvcc)
+        want = timestamp._watermark_check_plain(cfg, state, bt, mvcc)
+        for x, y, nm in zip(got, want, ("wm_abort", "ro")):
+            if not torch.equal(x, y):
+                fail(f"K12a ({'MVCC' if mvcc else 'TIMESTAMP'}) {nm} "
+                     "differs from plain")
+            err = max(err, max_abs(x, y))
+    wm_abort = timestamp._watermark_check(cfg, pre, bt, True)[0]
+    wm = timestamp._wm_bucket(cfg, bt).long()
+    stale = lanes & bt.is_read & ~bt.is_write \
+        & (pre.wts[wm] > bt.ts[:, None])
+    touched = int(torch.unique(wm[lanes]).numel())
+    touched_w = int(torch.unique(wm[lanes & bt.is_write]).numel())
+    his_rows = int(torch.unique(wm[stale]).numel())
+    n_act, n_lanes = int(bt.active.sum()), int(lanes.sum())
+    rec["K12a_watermark_check"].update(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: timestamp._watermark_check(cfg, pre, bt, True)),
+        plain_ms=cuda_ms(lambda: timestamp._watermark_check_plain(
+            cfg, pre, bt, True), iters=5), library_ms=None)
+    # active per txn, valid per lane of an active txn; table id, key and
+    # the two flags per live lane, ts per active txn; wts per touched
+    # bucket, rts per written one, a ring row per stale pure read's
+    # bucket; two flags out per txn
+    bound(rec["K12a_watermark_check"],
+          b + a * n_act + 10 * n_lanes + 4 * n_act + 4 * touched
+          + 4 * touched_w + 4 * h * his_rows + 2 * b, 30 * n_lanes)
+    print(f"[K12a] active={int(bt.active.sum())} "
+          f"wm_aborts={int((wm_abort & bt.active).sum())} "
+          f"stale_pure_reads={int(stale.sum())} touched_buckets={touched}",
+          flush=True)
+
+    # K12b on clones of the pre-epoch state, against plain and against the
+    # state the real epoch left
+    commit = v.commit
+    err = 0
+    for mvcc in (True, False):
+        base = pre if mvcc else to_pre
+        got = timestamp._commit_watermarks(cfg, clone_cc(base), bt, commit)
+        want = timestamp._commit_watermarks_plain(cfg, base, bt, commit)
+        if not same_state(got, want):
+            fail(f"K12b ({'MVCC' if mvcc else 'TIMESTAMP'}) differs from "
+                 "plain")
+        if mvcc and (got.scratch.any() or not same_state(got, st.cc_state)):
+            fail("K12b: scratch not zero, or differs from the epoch's state")
+        err = max(err, max(max_abs(getattr(got, f), getattr(want, f))
+                           for f in ("rts", "wts")))
+    cl = clone_cc(pre)
+    committed = lanes & commit[:, None]
+    flat = wm.reshape(-1)
+    tsl = bt.ts[:, None].expand(b, a)
+    r_ts = torch.where(committed & bt.is_read, tsl, 0).reshape(-1)
+    w_ts = torch.where(committed & bt.is_write, tsl, 0).reshape(-1)
+    lib_r, lib_w = pre.rts.clone(), pre.wts.clone()
+
+    def lib():
+        lib_r.scatter_reduce_(0, flat, r_ts, "amax")
+        lib_w.scatter_reduce_(0, flat, w_ts, "amax")
+    lib()
+    if not (torch.equal(lib_r, st.cc_state.rts)
+            and torch.equal(lib_w, st.cc_state.wts)):
+        fail("K12b: watermarks differ from scatter_reduce_")
+    rb = int(torch.unique(wm[committed & bt.is_read]).numel())
+    wb = int(torch.unique(wm[committed & bt.is_write]).numel())
+    n_com, n_cl = int(commit.sum()), int(committed.sum())
+    rec["K12b_commit_watermarks"].update(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: timestamp._commit_watermarks(cfg, cl, bt, commit)),
+        plain_ms=cuda_ms(lambda: timestamp._commit_watermarks_plain(
+            cfg, pre, bt, commit), iters=5),
+        library_ms=cuda_ms(lib))
+    # commit per txn, valid per lane of a committed txn; table id, key
+    # and the two flags per committed lane, ts per committed txn; rts
+    # read and written per read bucket, wts per written bucket, and
+    # there one ring entry written and its cursor read and written
+    bound(rec["K12b_commit_watermarks"],
+          b + a * n_com + 10 * n_cl + 4 * n_com + 8 * rb + 8 * wb
+          + 12 * wb, 20 * n_cl)
+    print(f"[K12b] committed={int(commit.sum())} read_buckets={rb} "
+          f"written_buckets={wb} (scatter_reduce_ amax covers rts/wts only)",
+          flush=True)
+
+    # K12c in both table modes, on the captured lanes and ring
+    f0, ring, keys, slots, rmask, ver_ts, cap = seen["read"]
+    _, newer = ring.select_version(slots, ver_ts[:, None].expand(
+        slots.shape))
+    newer &= rmask
+    nr, n_new = int(rmask.sum()), int(newer.sum())
+    read_txns = int(rmask.any(dim=1).sum())
+    ring_rows = int(torch.unique(slots[rmask]).numel())
+    f0_rows = int(torch.unique(slots[rmask & ~newer]).numel())
+    full_cfg = config(True, field_per_tuple=1)
+    f0_full = YCSBWorkload(full_cfg, device=dev).load()[
+        "MAIN_TABLE"].columns["F0"]
+    err = 0
+    for mode, col in (("fingerprint", f0), ("full_row", f0_full)):
+        got = ycsb._versioned_read_f0(col, ring, keys, slots, rmask, ver_ts,
+                                      cap)
+        want = ycsb._versioned_read_f0_plain(col, ring, keys, slots, rmask,
+                                             ver_ts, cap)
+        if int(got) != int(want):
+            fail(f"K12c ({mode}) checksum {int(got)} != plain {int(want)}")
+        row = col.shape[1] if col.ndim == 2 else 4
+        t_k = cuda_ms(lambda: ycsb._versioned_read_f0(
+            col, ring, keys, slots, rmask, ver_ts, cap))
+        t_p = cuda_ms(lambda: ycsb._versioned_read_f0_plain(
+            col, ring, keys, slots, rmask, ver_ts, cap), iters=5)
+        r = {"max_abs_err": abs(int(got) - int(want)), "ms": t_k,
+             "plain_ms": t_p, "library_ms": None}
+        # rmask per lane; slot per committed read, key per read served
+        # from the ring, ts per reading txn; a ring row per distinct
+        # slot read, an F0 row per distinct slot read from the table;
+        # the checksum out
+        bound(r, rmask.numel() + 4 * nr + 4 * n_new + 4 * read_txns
+              + 4 * h * ring_rows + row * f0_rows + 4,
+              10 * nr + 8 * (row // 4) * n_new)
+        if mode == "fingerprint":
+            rec["K12c_version_read"].update(r)
+        print_kernel(f"K12c_version_read[{mode}]", r, card)
+    print(f"[K12c] committed_reads={nr} served_from_ring={n_new} "
+          f"reading_txns={read_txns} ring_rows={ring_rows} "
+          f"table_rows={f0_rows}", flush=True)
+    del f0_full
+    torch.cuda.empty_cache()
+
+    # K12d on clones of the ring before the push
+    ring0, wslots, worder, win = seen["push"]
+    kr = VersionRing(ring0.wts.clone(), ring0.depth).push(wslots, worder,
+                                                          win)
+    pr = VersionRing(ring0.wts.clone(), ring0.depth).push_plain(
+        wslots, worder, win)
+    if not torch.equal(kr.wts, pr.wts) \
+            or not torch.equal(kr.wts, st.db[ycsb.VER_TABLE].wts):
+        fail("K12d ring differs from plain or from the epoch's ring")
+    tk = VersionRing(ring0.wts.clone(), ring0.depth)
+    tp = VersionRing(ring0.wts.clone(), ring0.depth)
+    nw = int(win.sum())
+    rec["K12d_version_push"].update(
+        max_abs_err=max_abs(kr.wts, pr.wts),
+        ms=cuda_ms(lambda: tk.push(wslots, worder, win)),
+        plain_ms=cuda_ms(lambda: tp.push_plain(wslots, worder, win)),
+        library_ms=None)
+    # the flag per lane; slot and order per winner, its ring row read
+    # and one entry written
+    bound(rec["K12d_version_push"], win.numel() + (8 + 4 * h + 4) * nw,
+          nw * 2 * h)
+    print(f"[K12d] winners={nw} ring_wraps={wraps}", flush=True)
+
+    # WAIT_DIE's min_owner_ts: plain [B, B] glue on the edges
+    inc = conflict.hashed_incidence(bt.table_ids, bt.keys, bt.is_read,
+                                    bt.is_write, bt.valid, bt.active, None,
+                                    BUCKETS, 2, ("u", "w"))[0]
+    uw = conflict.overlap(inc[0]["u"], inc[0]["w"], inc[1]["u"],
+                          inc[1]["w"])
+    c = uw | uw.T
+    win2 = conflict.first_fit(c, bt.rank, bt.active, cfg.sweep_rounds)[0]
+
+    def glue():
+        blockers = conflict.earlier_edges(c, bt.rank, bt.active) \
+            & win2[None, :]
+        return torch.where(blockers, bt.ts[None, :], 2**31 - 1).amin(dim=1)
+    print(f"[glue] WAIT_DIE min_owner_ts at B={b}: {cuda_ms(glue):.4f} ms "
+          f"(plain PyTorch; card {card})", flush=True)
+    for nm in ("K12a_watermark_check", "K12b_commit_watermarks",
+               "K12d_version_push"):
+        print_kernel(nm, rec[nm], card)
+
+
+def epochs_equal(dev, cfg, n: int, label: str):
+    """``n`` epochs through the kernels equal ``n`` through the plain
+    versions, every leaf but the table's trash row (the sweep path's
+    losers write it in an unspecified order); K12b's scratch is all
+    zeros after the kernel epochs.  Returns the kernel engine and its
+    state."""
     from deneva_tpu_torch.convert import state_leaves
     from deneva_tpu_torch.engine.step import Engine
-    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
-    mode = "full_row" if full else "fingerprint"
-    cfg = occ_config(full)
-    wl_k = YCSBWorkload(cfg, device=dev)
-    wl_p = YCSBWorkload(cfg, device=dev)
-    eng_k, eng_p = Engine(cfg, wl_k), Engine(cfg, wl_p)
+    from deneva_tpu_torch.workloads.ycsb import TABLE, YCSBWorkload
     t = time.monotonic()
+    wl_k, wl_p = YCSBWorkload(cfg, device=dev), YCSBWorkload(cfg, device=dev)
+    eng_k, eng_p = Engine(cfg, wl_k), Engine(cfg, wl_p)
     sk = eng_k.init_state()
     sp = copy.deepcopy(sk)
-    sk = eng_k.run(sk, 3)
+    sk = eng_k.run(sk, n)
     with plain_path(wl_p):
-        sp = eng_p.run(sp, 3)
+        sp = eng_p.run(sp, n)
     torch.cuda.synchronize()
     lk, lp = state_leaves(sk), state_leaves(sp)
     cap = cfg.synth_table_size
     for path, x in lk.items():
         y = lp[path]
-        same = torch.equal(x, y) if not (path.startswith("db/") and x.ndim
-                                         and x.shape[0] > cap) \
-            else torch.equal(x[:cap], y[:cap]) \
-            and torch.equal(x[cap + 1:], y[cap + 1:])
+        if path.startswith(f"db/{TABLE}/") and x.ndim:
+            same = torch.equal(x[:cap], y[:cap]) \
+                and torch.equal(x[cap + 1:], y[cap + 1:])
+        else:
+            same = torch.equal(x, y)
         if not same:
-            fail(f"OCC epochs ({mode}): leaf {path} differs between kernel "
-                 "and plain epochs")
-    del sp, lp
-    torch.cuda.empty_cache()
-    sk, n = occ_oracle_epoch(eng_k, sk, dev)
-    print(f"[occ-epochs] {mode}: 3 kernel epochs == 3 plain epochs "
-          f"({len(lk)} leaves); oracle epoch ok ({n}) "
-          f"in {time.monotonic() - t:.1f} s", flush=True)
+            fail(f"{label}: leaf {path} differs between kernel and plain "
+                 "epochs")
+    if hasattr(sk.cc_state, "scratch") and sk.cc_state.scratch.any():
+        fail(f"{label}: K12b's scratch is not all zeros between epochs")
+    print(f"[sweep-epochs] {label}: {n} kernel epochs == {n} plain epochs "
+          f"({len(lk)} leaves; commits "
+          f"{int(sk.stats['total_txn_commit_cnt'])}, aborts "
+          f"{int(sk.stats['total_txn_abort_cnt'])}, defers "
+          f"{int(sk.stats['defer_cnt'])}) in {time.monotonic() - t:.1f} s",
+          flush=True)
+    return eng_k, sk
+
+
+def phase_lock_to_epochs(dev) -> None:
+    for alg, full in (("NO_WAIT", False), ("WAIT_DIE", False),
+                      ("TIMESTAMP", False), ("MVCC", False), ("MVCC", True)):
+        mode = "full_row" if full else "fingerprint"
+        epochs_equal(dev, skew_config(full, alg), 3, f"{alg} {mode}")
+        torch.cuda.empty_cache()
+    for alg in ("NO_WAIT", "WAIT_DIE"):
+        for level in ("READ_COMMITTED", "READ_UNCOMMITTED", "NOLOCK"):
+            epochs_equal(dev, skew_config(False, alg, isolation_level=level),
+                         1, f"{alg} {level}")
+
+
+def to_oracle_epoch(eng, state, dev):
+    """One TIMESTAMP or MVCC kernel epoch against numpy: the watermark
+    rules per lane give the aborts; among the rest (less MVCC's read-only
+    txns) serial admission in (ts, lane) order, a reader waiting behind
+    any admitted earlier writer of a shared bucket (both families), gives
+    the commits; the new watermarks are the committed lanes' maxima and,
+    under MVCC, each written bucket's ring takes that epoch's max write
+    ts at its cursor."""
+    cfg = eng.cfg
+    mvcc = cfg.cc_alg.value == "MVCC"
+    state, seen = capture_epoch(eng, state)
+    bt, pre, v = seen["batch"], seen["pre"], seen["verdict"]
+    keys = bt.keys.cpu().numpy().astype(np.int64)
+    isr, isw = bt.is_read.cpu().numpy(), bt.is_write.cpu().numpy()
+    act = bt.active.cpu().numpy()
+    ts = bt.ts.cpu().numpy().astype(np.int64)
+    rts, wts = pre.rts.cpu().numpy(), pre.wts.cpu().numpy()
+    b = len(ts)
+    lanes = act[:, None] & np.ones_like(isw)
+    wm = np_bucket(keys, 0, cfg.watermark_buckets)
+    wts_at, rts_at, t = wts[wm], rts[wm], ts[:, None]
+    if mvcc:
+        his_min = pre.his.cpu().numpy().min(axis=1)[wm]
+        pure, rmw = isr & ~isw, isr & isw
+        read_bad = lanes & ((pure & (wts_at > t) & (t < his_min))
+                            | (rmw & (wts_at > t)))
+    else:
+        read_bad = lanes & isr & (wts_at > t)
+    write_bad = lanes & isw & ((rts_at > t) | (wts_at > t))
+    ro = ~(lanes & isw).any(axis=1) if mvcc else np.zeros(b, bool)
+    wm_abort = (read_bad | write_bad).any(axis=1) & ~ro
+    commit, abort = v.commit.cpu().numpy(), v.abort.cpu().numpy()
+    if not np.array_equal(abort, act & wm_abort):
+        fail(f"T/O oracle ({cfg.cc_alg.value}): watermark aborts differ "
+             f"({int((abort != (act & wm_abort)).sum())} txns)")
+    live = act & ~wm_abort
+    swept = live & ~ro
+    k = cfg.conflict_buckets
+    rows = np.repeat(np.arange(b), keys.shape[1])
+    rw = np.ones((b, b), bool)
+    for f in (0, 1):
+        bk = np_bucket(keys, f, k)
+
+        def dense(m):
+            d = np.zeros((b, k), np.float32)
+            d[rows[m.reshape(-1)], bk.reshape(-1)[m.reshape(-1)]] = 1
+            return d
+        rw &= dense(lanes & isr) @ dense(lanes & isw).T > 0
+    admitted = np.zeros(b, bool)
+    for i in np.lexsort((np.arange(b), ts)):
+        if swept[i] and not (rw[i] & admitted).any():
+            admitted[i] = True
+    if (commit & swept & ~admitted).any() or (live & ro & ~commit).any():
+        fail(f"T/O oracle ({cfg.cc_alg.value}): commits differ from the "
+             "serial later-reader rule")
+    waiting = swept & ~commit
+    # new watermarks: the committed lanes' maxima
+    cl = lanes & commit[:, None]
+    tl = np.broadcast_to(t, keys.shape)
+    for name, base, m in (("rts", rts, cl & isr), ("wts", wts, cl & isw)):
+        want = base.copy()
+        np.maximum.at(want, wm[m], tl[m])
+        if not np.array_equal(want, getattr(state.cc_state,
+                                            name).cpu().numpy()):
+            fail(f"T/O oracle ({cfg.cc_alg.value}): {name} differs")
+    if mvcc:
+        his = pre.his.cpu().numpy().copy()
+        pos = pre.pos.cpu().numpy().copy()
+        ep = np.zeros_like(wts)
+        np.maximum.at(ep, wm[cl & isw], tl[cl & isw])
+        wb = np.nonzero(ep > 0)[0]
+        his[wb, pos[wb]] = ep[wb]
+        pos[wb] = (pos[wb] + 1) % his.shape[1]
+        if not (np.array_equal(his, state.cc_state.his.cpu().numpy())
+                and np.array_equal(pos, state.cc_state.pos.cpu().numpy())):
+            fail("T/O oracle (MVCC): the boundary ring differs")
+    return state, {"active": int(act.sum()), "wm_abort": int(abort.sum()),
+                   "commit": int(commit.sum()),
+                   "read_only": int((live & ro).sum()),
+                   "waiting": int(waiting.sum()),
+                   "admitted_undecided": int((admitted & ~commit).sum())}
+
+
+def mvcc_history_oracle(dev) -> dict:
+    """MVCC's committed reads over eleven epochs against the serial
+    history since the load, kept in numpy: every committed writer's
+    version of every key (its order).  A committed read of a read-write
+    txn at ts is owed v*, the newest version older than ts (0 = the
+    load); a read-only txn's read the newest one.  The ring stores one
+    version per row and epoch, its last writer's (the fault of
+    ROADMAP.md queue 3), so a read whose v* was overwritten inside its
+    own epoch gets the newest stored version below ts instead.  The
+    checksum must equal the serial values with exactly those reads moved
+    to the stored version; the oracle counts them.  At the end every row
+    of F0 holds f(key, newest)."""
+    import bisect
+
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads.ycsb import (TABLE, YCSBWorkload,
+                                                 _field_fingerprint)
+    cfg = skew_config(False, "MVCC")
+    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    st = eng.init_state()
+    # per key: every committed writer's order, and the ones the ring kept
+    serial: dict[int, list[int]] = {}
+    stored: dict[int, list[int]] = {}
+
+    def before(vs, o):
+        i = bisect.bisect_right(vs, o)
+        return vs[i - 1] if i else 0
+    diverging = reads = 0
+    for _ in range(11):
+        pre = int(st.stats["read_checksum"])
+        st, seen = capture_epoch(eng, st)
+        bt, v = seen["batch"], seen["verdict"]
+        keys = bt.keys.cpu().numpy().astype(np.int64)
+        isw = bt.is_write.cpu().numpy()
+        com = (v.commit & bt.active).cpu().numpy()
+        order = v.order.cpu().numpy().astype(np.int64)
+        ordl = np.broadcast_to(order[:, None], keys.shape)
+        # the reads, from the versions before this epoch
+        rm = com[:, None] & ~isw
+        want_serial = want = stale = 0
+        for key, o in zip(keys[rm].tolist(), ordl[rm].tolist()):
+            vs, ks = serial.get(key, []), stored.get(key, [])
+            if o == 0:
+                vser = vs[-1] if vs else 0
+                vring = ks[-1] if ks else 0
+            else:
+                vser, vring = before(vs, o), before(ks, o)
+                stale += bool(vs) and vs[-1] > o
+            diverging += vser != vring
+            reads += 1
+            want_serial += int(np_fingerprint(key, vser))
+            want += int(np_fingerprint(key, vring))
+        got = (int(st.stats["read_checksum"]) - pre) & MASK32
+        if got != want & MASK32:
+            fail(f"MVCC history oracle: checksum {got} != "
+                 f"{want & MASK32} (serial values: {want_serial & MASK32})")
+        # this epoch's versions: every committed writer; the ring keeps
+        # each written key's last one
+        wm = com[:, None] & isw
+        last: dict[int, int] = {}
+        for key, o in zip(keys[wm].tolist(), ordl[wm].tolist()):
+            last[key] = max(last.get(key, 0), o)
+            if o not in serial.setdefault(key, []):
+                bisect.insort(serial[key], o)
+        for key, o in last.items():
+            stored.setdefault(key, []).append(o)
+    wk = torch.tensor(list(stored), dtype=torch.int64, device=dev)
+    wv = torch.tensor([vs[-1] for vs in stored.values()],
+                      dtype=torch.int64, device=dev)
+    if any(serial[k][-1] != vs[-1] for k, vs in stored.items()):
+        fail("MVCC history oracle: a key's newest version is not stored")
+    n = cfg.synth_table_size
+    expect = _field_fingerprint(torch.arange(n, device=dev), 0)
+    expect[wk] = _field_fingerprint(wk, wv)
+    if not torch.equal(st.db[TABLE].columns["F0"][:n].to(torch.int64)
+                       & MASK32, expect):
+        fail("MVCC history oracle: F0 differs from the newest versions")
+    return {"keys_written": len(stored),
+            "versions_hidden": sum(len(serial[k]) - len(vs)
+                                   for k, vs in stored.items()),
+            "reads": reads, "reads_diverging_from_serial": diverging,
+            "stale_reads_last_epoch": stale,
+            "max_versions_per_key": max(len(vs) for vs in stored.values())}
+
+
+def phase_lock_to_oracles(dev) -> None:
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    t = time.monotonic()
+    cfg = skew_config(False, "NO_WAIT")
+    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    st = eng.run(eng.init_state(), 3)
+    _, n = occ_oracle_epoch(eng, st, dev, symmetric=True)
+    print(f"[oracle] NO_WAIT: serial lock acquisition ok ({n})", flush=True)
+    for alg in ("TIMESTAMP", "MVCC"):
+        cfg = skew_config(False, alg)
+        eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+        st = eng.run(eng.init_state(), 6)
+        _, n = to_oracle_epoch(eng, st, dev)
+        print(f"[oracle] {alg}: watermark rules, later-reader wait and "
+              f"new watermarks ok ({n})", flush=True)
+        torch.cuda.empty_cache()
+    n = mvcc_history_oracle(dev)
+    print(f"[oracle] MVCC: every committed read over 11 epochs equals its "
+          f"serial version in the numpy history, or the stored one where "
+          f"the ring hid it ({n}) in "
+          f"{time.monotonic() - t:.1f} s", flush=True)
 
 
 def phase_simulate(dev, cfg, path: str, label: str, card: str
@@ -750,7 +1296,7 @@ def phase_simulate(dev, cfg, path: str, label: str, card: str
     fields = parse_summary(st.summary_line())
     commits = fields["total_txn_commit_cnt"]
     aborts = fields["total_txn_abort_cnt"]
-    if commits <= 0 or (aborts > 0) != (path == "OCC"):
+    if commits <= 0 or (aborts > 0) != (path in ABORTING):
         fail(f"simulate {label}: commits {commits} aborts {aborts}")
     for nm, c in counts.items():
         want = PATH_LAUNCHES[path].get(nm, 0) * st.epochs_run
@@ -760,7 +1306,9 @@ def phase_simulate(dev, cfg, path: str, label: str, card: str
     print(f"[simulate] {label}: {fields['tput']:.1f} committed txn/s on "
           f"{card}; epochs={st.epochs_run} commits={commits} "
           f"aborts={aborts} abort_rate={fields['abort_rate']} "
-          f"unique_aborts={fields['unique_txn_abort_cnt']}", flush=True)
+          f"unique_aborts={fields['unique_txn_abort_cnt']} "
+          f"defers={fields.get('defer_cnt')}", flush=True)
+    print(f"[simulate] {label}: {st.summary_line()}", flush=True)
     return counts, fields
 
 
@@ -808,7 +1356,9 @@ def phase_profile(dev, cfg, mode: str) -> None:
     ours = ("radix_", "pack_kernel", "scan_", "plan_kernel", "read_fp",
             "write_fp", "read_row", "write_row", "generate_kernel",
             "threefry_split", "incidence_kernel", "overlap_kernel",
-            "pack_edges", "first_fit", "insert_kernel", "mark_kernel")
+            "pack_edges", "first_fit", "insert_kernel", "mark_kernel",
+            "watermark_check", "commit_max", "commit_ring", "version_read",
+            "version_push")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -838,15 +1388,23 @@ def main() -> int:
                              "K3_forward_execute[full_row]",
                              "K4a_threefry_split", "K4b_ycsb_generate",
                              "K5K6_build_incidence", "K7_overlap",
-                             "K8_first_fit", "K10_last_writer")}
+                             "K8_first_fit", "K10_last_writer",
+                             "K12a_watermark_check", "K12b_commit_watermarks",
+                             "K12c_version_read", "K12d_version_push")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
+    phase_to_kernels(dev, rec, info["card"])
+    torch.cuda.empty_cache()
     for full in (False, True):
         phase_epochs(dev, full)
         torch.cuda.empty_cache()
     for full in (False, True):
         phase_sweep_epochs(dev, full)
         torch.cuda.empty_cache()
+    phase_lock_to_epochs(dev)
+    torch.cuda.empty_cache()
+    phase_lock_to_oracles(dev)
+    torch.cuda.empty_cache()
     launches: dict[str, int] = {}
     tput = {}
     runs = [("TPU_BATCH", False, config(False, warmup_secs=1.0,
@@ -857,6 +1415,10 @@ def main() -> int:
                                       done_secs=3.0)),
             ("NOCC", False, occ_config(False, "NOCC", warmup_secs=1.0,
                                        done_secs=3.0))]
+    runs += [(alg, False, skew_config(False, alg, warmup_secs=1.0,
+                                      done_secs=3.0))
+             for alg in ("NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
+                         "CALVIN")]
     for path, full, cfg in runs:
         mode = "full_row" if full else "fingerprint"
         counts, fields = phase_simulate(dev, cfg, path, f"{path} {mode}",
@@ -874,7 +1436,10 @@ def main() -> int:
     if "--profile" in sys.argv:
         for label, cfg in (("fingerprint", config(False)),
                            ("full_row", config(True)),
-                           ("OCC fingerprint", occ_config(False))):
+                           ("OCC fingerprint", occ_config(False)),
+                           ("NO_WAIT fingerprint",
+                            skew_config(False, "NO_WAIT")),
+                           ("MVCC fingerprint", skew_config(False, "MVCC"))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []

@@ -7,10 +7,11 @@ CUDA unless the caller passes ``device="cpu"``; asking for CUDA where
 there is none raises.
 
 The ported slices: YCSB on one partition and one device, over a full
-or a partial pool — ``CC_ALG=TPU_BATCH`` through the single-pass
-forwarding executor, and ``CC_ALG=OCC`` / NOCC through the sweep path.
-Their device work runs in hand-written CUDA kernels for ``sm_90a``
-(``csrc/``):
+or a partial pool — ``CC_ALG=TPU_BATCH`` and ``CALVIN`` through the
+single-pass forwarding executor; ``OCC``, ``NO_WAIT`` and ``WAIT_DIE``
+(four isolation levels), ``TIMESTAMP`` and ``MVCC`` and the NOCC oracle
+through the sweep path.  Their device work runs in hand-written CUDA
+kernels for ``sm_90a`` (``csrc/``):
 
 * K1 — the (key, rank) lane sort           (`ops.forward.sort_lanes`)
 * K2 — the forwarding scans                (`ops.forward.plan_scans`)
@@ -21,6 +22,10 @@ Their device work runs in hand-written CUDA kernels for ``sm_90a``
 * K7 — the overlap product                 (`ops.conflict.overlap`)
 * K8 — the first-fit sweep                 (`ops.conflict.first_fit`)
 * K10 — last-writer resolution             (`ops.scatter.last_writer`)
+* K12a, K12b — T/O watermark check and commit
+  (`cc.timestamp._watermark_check`, `cc.timestamp._commit_watermarks`)
+* K12c, K12d — MVCC's version ring: versioned read, push
+  (`workloads.ycsb._versioned_read_f0`, `storage.table.VersionRing.push`)
 
 Library surface, as the reference's:
 ``Config.from_args([...])`` -> ``engine.driver.run_simulation(cfg)`` ->
@@ -32,7 +37,8 @@ Package map (mirrors ``deneva_tpu``):
 * `storage`   — catalog / tables / dense index, device-resident
 * `ops`       — threefry stream, zipfian sampling, forwarding plan,
   hashing, conflict incidence and sweep, last-writer resolution
-* `cc`        — the backend registry (TPU_BATCH, OCC, NOCC), incidence
+* `cc`        — the backend registry (TPU_BATCH, CALVIN, OCC, NO_WAIT,
+  WAIT_DIE, TIMESTAMP, MVCC, NOCC), incidence
 * `workloads` — YCSB
 * `engine`    — pool, epoch step, run driver
 * `stats`     — counters, percentile arrays, [summary] emitter

@@ -3,12 +3,18 @@
 The registry of ``deneva_tpu/cc/__init__.py``, one backend per reference
 algorithm, with the reference's flags.  The port registers:
 
-* TPU_BATCH — on YCSB the forwarding executor (``forward=True``): the
-  sort is the validation, so it needs no validate function here;
+* TPU_BATCH and CALVIN — on YCSB the forwarding executor
+  (``forward=True``): the sort is the validation, so they need no
+  validate function here (CALVIN's chained path, for workloads whose
+  writes read, comes with ROADMAP.md item 15);
 * OCC — Kung-Robinson validation through the incidence sweep;
+* NO_WAIT, WAIT_DIE — 2PL through the same sweep, at four isolation
+  levels;
+* TIMESTAMP, MVCC — T/O watermarks carried across epochs, with the
+  later-reader sweep;
 * NOCC — the oracle that commits every active txn.
 
-The other algorithms come with ROADMAP.md queue 1, items 13, 14 and 16.
+MAAT and DGCC come with ROADMAP.md queue 1, items 14 and 16.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from deneva_tpu_torch.cc import occ as _occ
+from deneva_tpu_torch.cc import timestamp as _ts
+from deneva_tpu_torch.cc import twopl as _twopl
 from deneva_tpu_torch.cc.base import (AccessBatch, Incidence,  # noqa: F401
                                       Verdict, build_conflict_incidence,
                                       build_incidence, gate_order_free)
@@ -25,26 +33,61 @@ from deneva_tpu_torch.cc.occ import validate_occ
 from deneva_tpu_torch.config import CCAlg
 
 
+def _no_state(cfg, device):
+    return ()
+
+
+def _no_views(cfg) -> tuple[str, ...]:
+    return ()
+
+
 @dataclass(frozen=True)
 class CCBackend:
     alg: CCAlg
     validate: Callable[..., tuple[Verdict, Any]] | None
-    needs_incidence: bool = True
+    # (cfg, device) -> the cross-epoch state validate carries
+    init_state: Callable[[Any, Any], Any] = _no_state
     chained: bool = False
     fresh_ts_on_restart: bool = True
     # single-pass forwarding executor on blind-write workloads
     forward: bool = False
     exempt_order_free: bool = False
+    # the reference's distributed VOTE hook: cross-epoch state for a
+    # globally decided commit set (None = stateless)
+    commit_state: Any = None
     repair_rule: Any = None
-    # the incidence views ``validate`` reads (the reference leaves the
-    # others to XLA's dead-code elimination; the port builds only these)
-    views: tuple[str, ...] = ()
+    # cfg -> the incidence views ``validate`` reads (the reference leaves
+    # the others to XLA's dead-code elimination; the port builds only
+    # these, and no incidence at all when there are none, as for NOCC)
+    views: Callable[[Any], tuple[str, ...]] = _no_views
 
 
 _REGISTRY: dict[CCAlg, CCBackend] = {
-    CCAlg.NOCC: CCBackend(CCAlg.NOCC, validate_nocc, needs_incidence=False),
+    CCAlg.NOCC: CCBackend(CCAlg.NOCC, validate_nocc),
+    CCAlg.NO_WAIT: CCBackend(CCAlg.NO_WAIT, _twopl.validate_no_wait,
+                             exempt_order_free=True,
+                             repair_rule=_twopl.repair_frontier,
+                             views=_twopl.views),
+    CCAlg.WAIT_DIE: CCBackend(CCAlg.WAIT_DIE, _twopl.validate_wait_die,
+                              fresh_ts_on_restart=False,
+                              exempt_order_free=True,
+                              repair_rule=_twopl.repair_frontier,
+                              views=_twopl.views),
     CCAlg.OCC: CCBackend(CCAlg.OCC, validate_occ, exempt_order_free=True,
-                         repair_rule=_occ.repair_frontier, views=_occ.VIEWS),
+                         repair_rule=_occ.repair_frontier, views=_occ.views),
+    CCAlg.TIMESTAMP: CCBackend(CCAlg.TIMESTAMP, _ts.validate_timestamp,
+                               _ts.init_to_state,
+                               commit_state=_ts.commit_to_state,
+                               exempt_order_free=True,
+                               repair_rule=_ts.repair_frontier_timestamp,
+                               views=_ts.views),
+    CCAlg.MVCC: CCBackend(CCAlg.MVCC, _ts.validate_mvcc, _ts.init_mvcc_state,
+                          commit_state=_ts.commit_to_state,
+                          exempt_order_free=True,
+                          repair_rule=_ts.repair_frontier_mvcc,
+                          views=_ts.views),
+    CCAlg.CALVIN: CCBackend(CCAlg.CALVIN, None, chained=True, forward=True,
+                            exempt_order_free=True),
     CCAlg.TPU_BATCH: CCBackend(CCAlg.TPU_BATCH, None, chained=True,
                                forward=True, exempt_order_free=True),
 }
@@ -55,5 +98,5 @@ def get_backend(alg: CCAlg | str) -> CCBackend:
     if alg not in _REGISTRY:
         raise NotImplementedError(
             f"cc_alg={alg.value} is not ported to deneva_tpu_torch yet "
-            "(ROADMAP.md queue 1, items 13, 14 and 16)")
+            "(ROADMAP.md queue 1, items 14 and 16)")
     return _REGISTRY[alg]

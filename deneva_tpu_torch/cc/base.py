@@ -93,12 +93,14 @@ def gate_order_free(cfg, be, order_free: torch.Tensor | None
 def build_conflict_incidence(cfg, be, batch: AccessBatch,
                              order_free: torch.Tensor | None):
     """`build_incidence` honoring the backend's order_free exemption,
-    building only the views the backend reads (``be.views``)."""
-    if not be.needs_incidence:
+    building only the views the backend reads (``be.views(cfg)``); None
+    when it reads none."""
+    views = be.views(cfg)
+    if not views:
         return None
     order_free = gate_order_free(cfg, be, order_free)
     return build_incidence(batch, cfg.conflict_buckets, cfg.conflict_exact,
-                           order_free=order_free, views=be.views)
+                           order_free=order_free, views=views)
 
 
 def build_incidence(batch: AccessBatch, n_buckets: int, exact: bool,

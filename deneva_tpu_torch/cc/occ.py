@@ -17,8 +17,10 @@ from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
                                       get_overlap)
 from deneva_tpu_torch.ops import conflict
 
-# the incidence views validate_occ reads
-VIEWS = ("uo", "w")
+
+def views(cfg) -> tuple[str, ...]:
+    """The incidence views `validate_occ` reads."""
+    return ("uo", "w")
 
 
 def repair_frontier(cfg, state, batch, inc, committed, losers):

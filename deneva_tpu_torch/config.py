@@ -5,13 +5,14 @@ fields the ported slice reads or guards.  Every field keeps the
 reference's name, type and default, so one ``--flag=value`` list drives
 both packages.
 
-The port runs two slices of the system so far, YCSB on one partition
-and one device: ``CC_ALG=TPU_BATCH`` through the single-pass forwarding
-executor, and ``CC_ALG=OCC`` / ``NOCC`` (or ``mode=NOCC``) through the
-sweep path, each over a full or a partial pool.  A flag that would leave
-those slices raises in :meth:`Config.validate` and names the ROADMAP.md
-item that brings it; a flag the port does not know at all raises in
-:meth:`Config.from_args`.  Nothing is silently ignored.
+The port runs YCSB on one partition and one device, over a full or a
+partial pool: ``CC_ALG=TPU_BATCH`` and ``CALVIN`` through the
+single-pass forwarding executor; ``OCC``, ``NO_WAIT`` and ``WAIT_DIE``
+(at all four isolation levels), ``TIMESTAMP`` and ``MVCC`` through the
+sweep path; ``NOCC`` (or ``mode=NOCC``) as the oracle.  A flag that
+would leave those slices raises in :meth:`Config.validate` and names
+the ROADMAP.md item that brings it; a flag the port does not know at
+all raises in :meth:`Config.from_args`.  Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -100,9 +101,12 @@ class Config:
     epoch_batch: int = 2048
     conflict_buckets: int = 8192   # hashed key-bucket width of incidence matrices
     conflict_exact: bool = True    # dual-hash AND to squeeze out false conflicts
+    watermark_buckets: int = 1 << 20  # hashed width of the T/O family's
+    #                                   cross-epoch rts/wts tables
     max_accesses: int = 16
     defer_rounds_max: int = 8      # defer budget before forced abort
     sweep_rounds: int = 24         # serialization-sweep fixpoint iterations
+    mvcc_his_len: int = 4          # in-state version history depth (HIS_RECYCLE_LEN analogue)
     escrow_order_free: bool = True  # honor workload order_free declarations
     escrow_sweep: bool = True      # ... in the sweep backends too
 
@@ -143,6 +147,9 @@ class Config:
                    f"bad skew_method {self.skew_method!r}")
             _check(0.0 <= self.txn_write_perc <= 1.0,
                    "txn_write_perc must be in [0, 1]")
+        _check(self.isolation_level in (
+            "SERIALIZABLE", "READ_COMMITTED", "READ_UNCOMMITTED", "NOLOCK"),
+            f"bad isolation_level {self.isolation_level!r}")
         # the slice the port runs so far
         for cond, what, item in _NOT_PORTED:
             if cond(self):
@@ -185,17 +192,12 @@ class Config:
 _NOT_PORTED = (
     (lambda c: c.workload != WorkloadKind.YCSB,
      "workload other than YCSB", "item 15: TPC-C and PPS"),
-    (lambda c: c.cc_alg in (CCAlg.NO_WAIT, CCAlg.WAIT_DIE, CCAlg.CALVIN),
-     "cc_alg NO_WAIT/WAIT_DIE/CALVIN", "item 13: twopl, then calvin"),
-    (lambda c: c.cc_alg in (CCAlg.TIMESTAMP, CCAlg.MVCC, CCAlg.MAAT),
-     "cc_alg TIMESTAMP/MVCC/MAAT", "item 14: timestamp, then maat"),
+    (lambda c: c.cc_alg == CCAlg.MAAT,
+     "cc_alg=MAAT", "item 14: maat"),
     (lambda c: c.cc_alg == CCAlg.DGCC,
      "cc_alg=DGCC", "item 16: depgraph + dgcc"),
     (lambda c: c.mode in (Mode.SIMPLE, Mode.QRY_ONLY),
      "mode SIMPLE/QRY_ONLY", "item 12: Mode.SIMPLE/QRY_ONLY"),
-    (lambda c: c.isolation_level != "SERIALIZABLE",
-     "isolation_level other than SERIALIZABLE",
-     "item 13: twopl isolation levels"),
     (lambda c: c.part_cnt > 1,
      "part_cnt > 1", "item 18: cluster runtime"),
     (lambda c: c.device_parts > 1,

@@ -7,8 +7,13 @@ never imports JAX).  `to_numpy_state` and `flatten_reference` give both
 packages' states as one flat ``{path: ndarray}`` map in the reference's
 dtypes, for leaf-by-leaf comparison:
 
-    db/<table>/<column>, db/<table>/row_cnt, pool/queries/<field>,
-    pool/<field>, rng, epoch, stats/<counter>
+    db/<table>/<column>, db/<table>/row_cnt, db/<ring>/wts,
+    cc_state/<field>, pool/queries/<field>, pool/<field>, rng, epoch,
+    stats/<counter>
+
+``db/<ring>/wts`` is MVCC's per-row `VersionRing`; ``cc_state`` holds the
+T/O watermarks (``rts``, ``wts``) and MVCC's boundary ring (``his``,
+``pos``), absent for stateless backends.
 
 uint32 leaves cross as int32 bit patterns (table columns) or int64
 values (rng, counters), as the port holds them.
@@ -19,22 +24,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deneva_tpu_torch.cc.timestamp import MVCCState, TOState
 from deneva_tpu_torch.engine.pool import PoolState
 from deneva_tpu_torch.engine.step import EngineState
-from deneva_tpu_torch.storage.table import DeviceTable, to_numpy_column
+from deneva_tpu_torch.storage.table import (DeviceTable, VersionRing,
+                                            to_numpy_column)
 
 POOL_FIELDS = ("ts", "seq", "abort_cnt", "defer_cnt", "ready_epoch",
                "entry_epoch", "occupied", "next_seq")
 QUERY_FIELDS = ("keys", "is_write")
+CC_FIELDS = ("rts", "wts", "his", "pos")
+
+
+def _db_and_cc(db, cc_state, leaf) -> dict:
+    """The ``db/`` and ``cc_state/`` paths of either package's state."""
+    out = {}
+    for name, tab in db.items():
+        if not hasattr(tab, "columns"):          # a VersionRing
+            out[f"db/{name}/wts"] = leaf(tab.wts)
+            continue
+        for col, arr in tab.columns.items():
+            out[f"db/{name}/{col}"] = leaf(arr)
+        out[f"db/{name}/row_cnt"] = leaf(tab.row_cnt)
+    for f in CC_FIELDS:
+        if hasattr(cc_state, f):
+            out[f"cc_state/{f}"] = leaf(getattr(cc_state, f))
+    return out
 
 
 def flatten_reference(tree) -> dict[str, np.ndarray]:
     """The reference's host ``EngineState`` as a flat numpy map."""
-    out = {}
-    for name, tab in tree.db.items():
-        for col, arr in tab.columns.items():
-            out[f"db/{name}/{col}"] = np.asarray(arr)
-        out[f"db/{name}/row_cnt"] = np.asarray(tab.row_cnt)
+    out = _db_and_cc(tree.db, tree.cc_state, np.asarray)
     for f in QUERY_FIELDS:
         out[f"pool/queries/{f}"] = np.asarray(getattr(tree.pool.queries, f))
     for f in POOL_FIELDS:
@@ -49,11 +69,7 @@ def flatten_reference(tree) -> dict[str, np.ndarray]:
 def state_leaves(state: EngineState) -> dict[str, torch.Tensor]:
     """The port's state as a flat map of its own tensors (same paths as
     `to_numpy_state`), for comparisons that stay on the device."""
-    out = {}
-    for name, tab in state.db.items():
-        for col, t in tab.columns.items():
-            out[f"db/{name}/{col}"] = t
-        out[f"db/{name}/row_cnt"] = tab.row_cnt
+    out = _db_and_cc(state.db, state.cc_state, lambda t: t)
     for f in QUERY_FIELDS:
         out[f"pool/queries/{f}"] = getattr(state.pool.queries, f)
     for f in POOL_FIELDS:
@@ -68,6 +84,7 @@ def state_leaves(state: EngineState) -> dict[str, torch.Tensor]:
 def to_numpy_state(state: EngineState) -> dict[str, np.ndarray]:
     """The port's state as the same flat map, in the reference's dtypes."""
     ref = {f"db/{name}/{col}": d for name, tab in state.db.items()
+           if isinstance(tab, DeviceTable)
            for col, d in tab.ref_dtypes.items()}
     out = {}
     for path, t in state_leaves(state).items():
@@ -91,12 +108,16 @@ def _t(a, device, wide: bool = False) -> torch.Tensor:
 
 def from_reference_state(tree, cfg, device) -> EngineState:
     """The port's `EngineState` from the reference's host state: table
-    columns, ``row_cnt``, every pool field, the raw rng key, ``epoch``
-    and every stats leaf."""
+    columns, ``row_cnt``, MVCC's version ring, the T/O state, every pool
+    field, the raw rng key, ``epoch`` and every stats leaf."""
     from deneva_tpu_torch.workloads.ycsb import YCSBQuery
     device = torch.device(device)
     db = {}
     for name, tab in tree.db.items():
+        if not hasattr(tab, "columns"):
+            db[name] = VersionRing(wts=_t(tab.wts, device),
+                                   depth=int(tab.depth))
+            continue
         cols, ref = {}, {}
         for col, arr in tab.columns.items():
             arr = np.asarray(arr)
@@ -114,8 +135,17 @@ def from_reference_state(tree, cfg, device) -> EngineState:
     if pool.queries.keys.shape[0] != max(cfg.epoch_batch,
                                          cfg.max_txn_in_flight):
         raise ValueError("reference state's pool does not match cfg")
+    cs = tree.cc_state
+    if hasattr(cs, "his"):
+        cc_state = MVCCState(**{f: _t(getattr(cs, f), device)
+                                for f in CC_FIELDS},
+                             scratch=torch.zeros_like(_t(cs.wts, device)))
+    elif hasattr(cs, "rts"):
+        cc_state = TOState(rts=_t(cs.rts, device), wts=_t(cs.wts, device))
+    else:
+        cc_state = ()
     return EngineState(
-        db=db, cc_state=(), pool=pool,
+        db=db, cc_state=cc_state, pool=pool,
         rng=_t(tree.rng, device, wide=True),
         epoch=_t(tree.epoch, device),
         stats={k: _t(v, device, wide=True) for k, v in tree.stats.items()})

@@ -38,33 +38,11 @@
 // (B = 1024: 128 KB) and are read from global memory (L2) otherwise.
 //   Bound: bytes — reading the B x B bool conflict matrix once.
 #include "common.cuh"
+#include "hashing.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
-
-__device__ __forceinline__ uint32_t family_mult(int f) {
-  switch (f & 3) {
-    case 0: return 2654435761u;
-    case 1: return 2246822519u;
-    case 2: return 3266489917u;
-    default: return 668265263u;
-  }
-}
-
-// combine_key then bucket_hash (murmur3 fmix32), masked to K buckets
-__device__ __forceinline__ uint32_t bucket_of(int32_t table, int32_t key,
-                                              int family, uint32_t kmask) {
-  const uint32_t ident = (static_cast<uint32_t>(key) * 2654435761u) ^
-                         (static_cast<uint32_t>(table) * 0x9E3779B9u);
-  uint32_t h = ident ^ family_mult(family);
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h & kmask;
-}
 
 constexpr int kViews = 8;   // r, w, u, pr, uo, ro, wo, pro
 

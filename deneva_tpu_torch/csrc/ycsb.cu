@@ -30,29 +30,9 @@
 //   element against 5 output bytes.
 #include "common.cuh"
 #include "threefry.cuh"
+#include "value_law.cuh"
 
 namespace {
-
-constexpr uint32_t kMulKey = 2654435761u;
-constexpr uint32_t kMulVer = 0x9E3779B9u;
-
-__device__ __forceinline__ uint32_t fp_law(uint32_t k, uint32_t v) {
-  return ((k * kMulKey) ^ (v * kMulVer)) | 1u;
-}
-
-__device__ __forceinline__ uint32_t byte_law(uint32_t fp, uint32_t b) {
-  return ((fp * (b * kMulKey + kMulVer)) >> 13) & 0xFFu;
-}
-
-// bytes b0..b0+3 of the payload of fingerprint fp, little-endian
-__device__ __forceinline__ uint32_t word_law(uint32_t fp, uint32_t b0) {
-  return byte_law(fp, b0) | (byte_law(fp, b0 + 1) << 8) |
-         (byte_law(fp, b0 + 2) << 16) | (byte_law(fp, b0 + 3) << 24);
-}
-
-__device__ __forceinline__ uint32_t byte_sum(uint32_t x) {
-  return (x & 0xFFu) + ((x >> 8) & 0xFFu) + ((x >> 16) & 0xFFu) + (x >> 24);
-}
 
 struct AddOp {
   __device__ uint32_t operator()(uint32_t a, uint32_t b) const {

@@ -8,13 +8,16 @@ partial one:
        runnable slots, whose pool fields the step gathers)
     3. plan the RW-sets
     4. validate, by one of three routes:
-       - TPU_BATCH on YCSB: forward_verdict sorts the lanes (K1) and
-         scans the plan (K2); everything commits;
-       - a sweep backend (OCC): hashed incidence (K5+K6), overlap (K7),
-         first-fit sweep (K8), then the defer budget;
+       - TPU_BATCH / CALVIN on YCSB: forward_verdict sorts the lanes
+         (K1) and scans the plan (K2); everything commits;
+       - a sweep backend (OCC, NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC):
+         hashed incidence (K5+K6), overlap (K7), first-fit sweep (K8);
+         T/O checks (K12a) and records (K12b) its watermarks, carried
+         across epochs in ``cc_state``; then the defer budget;
        - NOCC (``cc_alg`` or ``mode``): everything commits
     5. execute: the forwarding plan (K3), or the masked arm with the
-       last-writer resolution (K10)
+       last-writer resolution (K10) and, under MVCC, the version ring
+       (K12c reads, K12d pushes)
     6. update the pool and the device counters (plain PyTorch)
 
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
@@ -109,6 +112,12 @@ class Engine:
         self.device = kernels.resolve_device(
             workload.device if device is None else device)
         self.backend = get_backend(cfg.cc_alg)
+        if self.backend.validate is None and cfg.mode == Mode.NORMAL \
+                and not forwarding_applies(self.backend, workload):
+            raise NotImplementedError(
+                f"cc_alg={cfg.cc_alg.value} on a workload whose writes read "
+                "needs the chained executor, not ported to deneva_tpu_torch "
+                "yet (ROADMAP.md queue 1, item 15: TPC-C and PPS)")
         cap = max(cfg.max_txn_in_flight, cfg.epoch_batch)
         self.pool = TxnPool(capacity=cap, batch=cfg.epoch_batch,
                             gen_chunk=cfg.epoch_batch, backoff=cfg.backoff)
@@ -122,7 +131,8 @@ class Engine:
             keys=torch.zeros(shape, dtype=torch.int32, device=dev),
             is_write=torch.zeros(shape, dtype=torch.bool, device=dev))
         return EngineState(
-            db=db, cc_state=(), pool=self.pool.create(empty_q, dev),
+            db=db, cc_state=self.backend.init_state(cfg, dev),
+            pool=self.pool.create(empty_q, dev),
             rng=prng.key_from_seed(cfg.seed if seed is None else seed, dev),
             epoch=torch.zeros((), dtype=torch.int32, device=dev),
             stats=init_device_stats(len(self.workload.txn_type_names),

@@ -30,8 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
-           "conflict.cu", "scatter.cu")
-HEADERS = ("common.cuh", "threefry.cuh")
+           "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu")
+HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -201,7 +201,9 @@ def on_cpu(*ts: torch.Tensor) -> bool:
 def all_kernels() -> dict[str, Kernel]:
     """Every kernel of the main path, by name (imports the modules that
     own them)."""
+    from deneva_tpu_torch.cc import timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
+    from deneva_tpu_torch.storage import table
     from deneva_tpu_torch.workloads import ycsb
     return {"K1_sort_lanes": forward.K1_SORT,
             "K2_plan_scans": forward.K2_SCAN,
@@ -211,4 +213,8 @@ def all_kernels() -> dict[str, Kernel]:
             "K5K6_build_incidence": conflict.K56_INCIDENCE,
             "K7_overlap": conflict.K7_OVERLAP,
             "K8_first_fit": conflict.K8_FIRST_FIT,
-            "K10_last_writer": scatter.K10_LAST_WRITER}
+            "K10_last_writer": scatter.K10_LAST_WRITER,
+            "K12a_watermark_check": timestamp.K12A_CHECK,
+            "K12b_commit_watermarks": timestamp.K12B_COMMIT,
+            "K12c_version_read": ycsb.K12C_READ,
+            "K12d_version_push": table.K12D_PUSH}

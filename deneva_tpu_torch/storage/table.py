@@ -16,6 +16,11 @@ size]`` exactly as in the reference.
 Unlike the reference's immutable arrays, the port writes columns in
 place: a full-row YCSB table at paper scale is 16.8 GB, and a functional
 copy per epoch would double it.
+
+MVCC's per-row `VersionRing` lives here too, with **K12d**
+`VersionRing.push` (``csrc/version.cu``), which replaces
+``deneva_tpu/storage/table.py:257`` `push_rows`.  Its read side, K12c,
+applies YCSB's value law and sits beside K3 in `workloads.ycsb`.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from deneva_tpu_torch import kernels
 from deneva_tpu_torch.storage.catalog import TableSchema
 
 
@@ -109,3 +115,91 @@ def to_numpy_column(t: torch.Tensor, ref_dtype: str) -> np.ndarray:
     """Column bytes in the reference's numpy dtype."""
     a = t.detach().cpu().numpy()
     return a.view(np.uint32) if ref_dtype == "uint32" else a
+
+
+K12D_PUSH = kernels.Kernel("dt_version_push", [
+    kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.I32,
+    kernels.P])
+
+
+@dataclass
+class VersionRing:
+    """Per-row bounded overwrite-timestamp history of one column (port of
+    ``deneva_tpu/storage/table.py:185``; reference `row_mvcc.cpp:172-196`).
+
+    Entry ``(r, i)``, stored flat at ``r*H + i``, holds the serialization
+    timestamp of a committed overwrite of row r; 0 is empty.  Commit
+    timestamps rise, so the oldest entry is the row's minimum and a push
+    overwrites it (first minimum; empties first).  A reader at t needs the
+    version written at ``v* = max(entries <= t, default 0)`` (0 is the
+    load-time base), whose value the workload rebuilds from its law.
+
+    The reference steers masked lanes of `push_rows` onto the ring's
+    last row (its trash row) with unspecified values; the port writes
+    nothing for them, so that row stays 0.  Like the tables, the port's
+    ring is written in place."""
+
+    wts: torch.Tensor    # int32[R*H] (flat [row, ring slot], row-major)
+    depth: int           # H
+
+    @classmethod
+    def create(cls, nrows: int, depth: int, device) -> "VersionRing":
+        return cls(wts=torch.zeros(nrows * depth, dtype=torch.int32,
+                                   device=device), depth=depth)
+
+    def rows(self, slots: torch.Tensor) -> torch.Tensor:
+        """The H ring entries of many rows: int32[..., H]."""
+        h = self.depth
+        base = slots.to(torch.int64)[..., None] * h \
+            + torch.arange(h, dtype=torch.int64, device=slots.device)
+        return self.wts[base]
+
+    @staticmethod
+    def version_from(vw: torch.Tensor, ts: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(v*, has_newer) per access from pre-gathered rows ``vw``
+        (int32[..., H]): the timestamp that wrote the version current at
+        ``ts`` (0 = load base), and whether a retained overwrite
+        postdates ``ts``."""
+        newer = vw > ts[..., None]
+        vstar = torch.where(newer, 0, vw).amax(dim=-1)
+        return vstar, newer.any(dim=-1)
+
+    def select_version(self, slots: torch.Tensor, ts: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """`rows` + `version_from`."""
+        return self.version_from(self.rows(slots), ts)
+
+    def push_rows(self, vw: torch.Tensor, slots: torch.Tensor,
+                  wts: torch.Tensor, mask: torch.Tensor) -> "VersionRing":
+        """Plain K12d: record committed overwrites given pre-gathered rows
+        ``vw`` (int32[N, H]) of ``slots``; each masked lane stores its
+        ``wts`` at its row's first minimum.  Callers pass at most one
+        masked lane per row (the last writer of the epoch)."""
+        h = self.depth
+        p = torch.argmin(vw, dim=-1)          # first minimum, as jnp.argmin
+        at = (slots.to(torch.int64) * h + p)[mask]
+        self.wts[at] = wts[mask].to(torch.int32)
+        return self
+
+    def push_plain(self, slots: torch.Tensor, wts: torch.Tensor,
+                   mask: torch.Tensor) -> "VersionRing":
+        """`rows` + `push_rows`, the reference's ``push``."""
+        return self.push_rows(self.rows(slots), slots, wts, mask)
+
+    def push(self, slots: torch.Tensor, wts: torch.Tensor,
+             mask: torch.Tensor) -> "VersionRing":
+        """K12d: each masked lane (one per row) re-reads its row, takes
+        the first minimum and stores its ``wts`` there, in place."""
+        if kernels.on_cpu(self.wts, slots, wts, mask):
+            return self.push_plain(slots, wts, mask)
+        n = slots.shape[0]
+        dev = self.wts.device
+        kernels.check("ring", self.wts, torch.int32, device=dev)
+        kernels.check("slots", slots, torch.int32, (n,), dev)
+        kernels.check("wts", wts, torch.int32, (n,), dev)
+        kernels.check("mask", mask, torch.bool, (n,), dev)
+        K12D_PUSH.launch(kernels.ptr(slots), n, kernels.ptr(wts),
+                         kernels.ptr(mask), kernels.ptr(self.wts),
+                         self.depth, kernels.stream(slots))
+        return self

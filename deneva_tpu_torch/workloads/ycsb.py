@@ -18,9 +18,18 @@ Two kernels carry it on the card:
   threefry draws, the zipfian quantile and the bernoulli write flags in
   one elementwise pass.
 
-The sweep backends (OCC, NOCC) take the masked arm of `execute` instead:
-a plain gather and checksum of the committed reads, then the committed
-writes through K10 (`ops.scatter.last_writer`) and a masked scatter.
+* **K12c** `_versioned_read_f0` (``csrc/version.cu``) — replaces
+  ``deneva_tpu/storage/table.py:230,241`` `VersionRing.rows` and
+  `version_from` as the MVCC read arm (``deneva_tpu/workloads/ycsb.py:
+  552-579``) uses them: each committed read gathers F0 and its row's
+  version ring, and a read that a retained overwrite postdates takes
+  ``f(key, v*)``, the version current at its ts; then the checksum.
+
+The sweep backends take the masked arm of `execute` instead: a plain
+gather and checksum of the committed reads (K12c under MVCC), then the
+committed writes through K10 (`ops.scatter.last_writer`), under MVCC
+the winners' ring push (K12d, `storage.table.VersionRing.push`), and a
+masked scatter.
 
 Fingerprint columns are uint32 words held as int32 bit patterns; the
 value law is computed in int64 masked to 32 bits (`_mul32` keeps every
@@ -35,7 +44,7 @@ import numpy as np
 import torch
 
 from deneva_tpu_torch import kernels
-from deneva_tpu_torch.config import Config
+from deneva_tpu_torch.config import CCAlg, Config
 from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.ops.forward import seg_first
 from deneva_tpu_torch.ops.hashing import mul32 as _mul32
@@ -43,9 +52,11 @@ from deneva_tpu_torch.ops.hashing import u32 as _u32
 from deneva_tpu_torch.ops.sampling import Zipfian
 from deneva_tpu_torch.storage.catalog import parse_schema
 from deneva_tpu_torch.storage.index import DenseIndex
-from deneva_tpu_torch.storage.table import DeviceTable
+from deneva_tpu_torch.storage.table import DeviceTable, VersionRing
 
 TABLE = "MAIN_TABLE"
+VER_TABLE = "MAIN_TABLE.F0.ver"   # MVCC per-row overwrite-ts ring
+INT32_MAX = 2**31 - 1
 MASK32 = 0xFFFFFFFF
 FP_MUL_KEY = 2654435761
 FP_MUL_VER = 0x9E3779B9
@@ -53,6 +64,9 @@ FP_MUL_VER = 0x9E3779B9
 K3_EXEC = kernels.Kernel("dt_forward_execute", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P])
+K12C_READ = kernels.Kernel("dt_version_read", [
+    kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
+    kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.P, kernels.P])
 K4_GEN = kernels.Kernel("dt_ycsb_generate", [
     kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.F32,
     kernels.F32, kernels.F32, kernels.F32, kernels.F32, kernels.F32,
@@ -159,6 +173,58 @@ def _forward_execute_f0(f0, p, slots, trash, mono: bool = False):
     return f0, acc[0], acc[1]
 
 
+def _versioned_read_f0_plain(f0, ring: VersionRing, keys, slots, rmask,
+                             ver_ts, capacity: int):
+    """Plain K12c, op for op from ``deneva_tpu/workloads/ycsb.py:548-583``:
+    the committed reads' checksum (int64 in [0, 2^32)) under MVCC, stale
+    reads served the version current at ``ver_ts`` (int32[n], one per
+    txn; read-only txns pass INT32_MAX and read the live row)."""
+    rslots = torch.where(rmask, slots, capacity)
+    vals = f0[rslots.long()]
+    vstar, has = ring.version_from(ring.rows(slots),
+                                   ver_ts[:, None].expand(slots.shape))
+    if f0.ndim == 2:
+        vals = torch.where(has[..., None],
+                           _field_bytes(keys, vstar, f0.shape[1]), vals)
+        cks = torch.where(rmask[..., None], vals.to(torch.int64), 0).sum()
+    else:
+        vals = torch.where(has, _field_fingerprint(keys, vstar), _u32(vals))
+        cks = torch.where(rmask, vals, 0).sum()
+    return cks & MASK32
+
+
+def _versioned_read_f0(f0, ring: VersionRing, keys, slots, rmask, ver_ts,
+                       capacity: int):
+    """K12c: one thread per read lane gathers F0 and the lane's ring row
+    and folds ``f(key, v*)`` or the live value into the checksum.  It
+    reads the epoch-start table, so it runs before the epoch's stores."""
+    if kernels.on_cpu(f0, keys, ring.wts):
+        return _versioned_read_f0_plain(f0, ring, keys, slots, rmask,
+                                        ver_ts, capacity)
+    n, a = keys.shape
+    dev = f0.device
+    if f0.ndim == 2:
+        kernels.check("f0", f0, torch.uint8, device=dev)
+        tup = f0.shape[1]
+        if tup % 4:
+            raise ValueError("K12c moves full rows as 4-byte words: "
+                             "tup_size must be a multiple of 4")
+    else:
+        kernels.check("f0", f0, torch.int32, device=dev)
+        tup = 0
+    kernels.check("ring", ring.wts, torch.int32, device=dev)
+    kernels.check("keys", keys, torch.int32, (n, a), dev)
+    kernels.check("slots", slots, torch.int32, (n, a), dev)
+    kernels.check("rmask", rmask, torch.bool, (n, a), dev)
+    kernels.check("ver_ts", ver_ts, torch.int32, (n,), dev)
+    acc = torch.empty(1, dtype=torch.int32, device=dev)
+    K12C_READ.launch(kernels.ptr(f0), tup, kernels.ptr(keys),
+                     kernels.ptr(slots), kernels.ptr(rmask),
+                     kernels.ptr(ver_ts), a, kernels.ptr(ring.wts),
+                     ring.depth, n * a, kernels.ptr(acc), kernels.stream(f0))
+    return acc[0].to(torch.int64) & MASK32
+
+
 class YCSBWorkload:
     # writes overwrite a field with f(key, order) — independent of any
     # read — so the single-pass forwarding executor applies
@@ -211,7 +277,15 @@ class YCSBWorkload:
                 # only F0 is touched by queries (ycsb_txn.cpp)
                 tab.columns["F0"][lo:hi] = \
                     _field_fingerprint(keys, 0).to(torch.int32)
-        return {TABLE: tab}
+        db = {TABLE: tab}
+        if self.cfg.cc_alg == CCAlg.MVCC:
+            # per-row overwrite-ts ring of F0 (row_mvcc.cpp:172-196), at
+            # the full mvcc_his_len: a servable read may have H-1 newer
+            # overwrites and needs one more entry, its own version
+            db[VER_TABLE] = VersionRing.create(
+                tab.columns["F0"].shape[0], self.cfg.mvcc_his_len,
+                self.device)
+        return db
 
     # -- query generation (ycsb_query.cpp:303-376) ---------------------
     def generate_plain(self, rng: torch.Tensor, n: int) -> YCSBQuery:
@@ -255,8 +329,7 @@ class YCSBWorkload:
                 stats: dict, fwd_rank=None):
         """Apply the epoch: the forwarding arm over a sorted plan
         (``fwd_rank``, K3), or the masked arm over the committed ``mask``
-        (``deneva_tpu/workloads/ycsb.py:544-606``, without the MVCC
-        version ring)."""
+        (``deneva_tpu/workloads/ycsb.py:544-606``)."""
         tab: DeviceTable = db[TABLE]
         if fwd_rank is not None:
             if mask is not None:
@@ -267,29 +340,41 @@ class YCSBWorkload:
             _, cks, wcnt = _forward_execute_f0(tab.columns["F0"], p, slots,
                                                tab.capacity, mono=True)
         else:
-            cks, wcnt = self._execute_masked(tab, q, mask, order)
+            cks, wcnt = self._execute_masked(tab, db.get(VER_TABLE), q,
+                                             mask, order)
         stats["read_checksum"] = (stats["read_checksum"] + cks) & MASK32
         stats["write_cnt"] = (stats["write_cnt"] + wcnt) & MASK32
         return db
 
-    def _execute_masked(self, tab: DeviceTable, q: YCSBQuery,
-                        mask: torch.Tensor, order: torch.Tensor):
+    def _execute_masked(self, tab: DeviceTable, ver: VersionRing | None,
+                        q: YCSBQuery, mask: torch.Tensor,
+                        order: torch.Tensor):
         """Masked arm: committed reads gather F0 into the checksum (from
-        the epoch-start rows: the gather precedes every write); committed
+        the epoch-start rows: the gather precedes every write; under MVCC
+        through K12c, stale reads served their version); committed
         writes store f(key, order), the last writer per slot by (order,
-        lane) through K10; losers steer to the trash row.  Returns
-        (checksum, write_cnt) as int64 in [0, 2^32)."""
+        lane) through K10, whose winners MVCC records in the version ring
+        (K12d); losers steer to the trash row.  Returns (checksum,
+        write_cnt) as int64 in [0, 2^32)."""
         full = self.cfg.sim_full_row
         slots = self._local_slots(None, q.keys)                 # [n, R]
         act = mask[:, None] & torch.ones_like(q.is_write)
         rmask = act & ~q.is_write
-        rslots = torch.where(rmask, slots, tab.capacity)
-        vals = tab.gather(rslots, ("F0",))["F0"]
-        if full:
-            cks = torch.where(rmask[..., None], vals.to(torch.int64),
-                              0).sum()
+        if ver is not None:
+            # order is the serialization ts; read-only txns carry 0 and
+            # read the live snapshot (real ts are >= 1: next_seq starts
+            # at 1), so they read "at +inf"
+            ver_ts = torch.where(order > 0, order, INT32_MAX)
+            cks = _versioned_read_f0(tab.columns["F0"], ver, q.keys, slots,
+                                     rmask, ver_ts, tab.capacity)
         else:
-            cks = torch.where(rmask, _u32(vals), 0).sum()
+            rslots = torch.where(rmask, slots, tab.capacity)
+            vals = tab.gather(rslots, ("F0",))["F0"]
+            if full:
+                cks = torch.where(rmask[..., None], vals.to(torch.int64),
+                                  0).sum()
+            else:
+                cks = torch.where(rmask, _u32(vals), 0).sum()
         wm = act & q.is_write
         wmask = wm.reshape(-1)
         wslots = torch.where(wm, slots, tab.capacity).reshape(-1)
@@ -298,5 +383,8 @@ class YCSBWorkload:
         keys = q.keys.reshape(-1)
         wvals = _field_bytes(keys, worder, self.cfg.tup_size) if full \
             else _field_fingerprint(keys, worder).to(torch.int32)
+        if ver is not None:
+            # one winner per row per epoch: each row advances one entry
+            ver.push(wslots, worder, win)
         tab.scatter(wslots, {"F0": wvals}, mask=win)
         return cks & MASK32, wmask.sum() & MASK32

@@ -34,16 +34,13 @@ def test_from_args_parses_like_reference():
 
 
 RAISING = [
-    ("--cc_alg=NO_WAIT", 13), ("--cc_alg=WAIT_DIE", 13),
-    ("--cc_alg=CALVIN", 13), ("--cc_alg=TIMESTAMP", 14),
-    ("--cc_alg=MVCC", 14), ("--cc_alg=MAAT", 14), ("--cc_alg=DGCC", 16),
+    ("--cc_alg=MAAT", 14), ("--cc_alg=DGCC", 16),
     ("--workload=TPCC", 15), ("--mode=SIMPLE", 12), ("--mode=QRY_ONLY", 12),
     ("--part_cnt=2", 18), ("--device_parts=2", 19), ("--elastic=true", 18),
     ("--audit=true", 16), ("--metrics=true", 16), ("--ctrl=true", 16),
     ("--repair=true", 16), ("--skew_method=HOT", 11),
     ("--key_order=true", 11), ("--txn_write_perc=0.5", 11),
     ("--index_struct=IDX_BTREE", 15),
-    ("--isolation_level=READ_COMMITTED", 13),
     ("--checkpoint_path=/dev/null", 17), ("--node_cnt=2", None),
     ("--fault_drop_prob=0.1", None)]
 
@@ -57,11 +54,20 @@ def test_unsupported_flags_raise(flag, item):
         Config.from_args(SWEEP + [flag])
 
 
-@pytest.mark.parametrize("flags", [
+# flags of the slices ported since the raise list was first written
+ADMITTED = [
     ["--cc_alg=OCC"], ["--cc_alg=NOCC"], ["--mode=NOCC"],
     ["--cc_alg=OCC", "--mode=NOCC"], ["--max_txn_in_flight=1024"],
     ["--cc_alg=OCC", "--conflict_exact=false", "--conflict_buckets=64",
-     "--sweep_rounds=3", "--defer_rounds_max=0", "--escrow_sweep=false"]])
+     "--sweep_rounds=3", "--defer_rounds_max=0", "--escrow_sweep=false"],
+    ["--cc_alg=NO_WAIT"], ["--cc_alg=WAIT_DIE"], ["--cc_alg=CALVIN"],
+    ["--cc_alg=TIMESTAMP"], ["--cc_alg=MVCC"],
+    ["--isolation_level=READ_COMMITTED"],
+    ["--cc_alg=WAIT_DIE", "--isolation_level=NOLOCK"],
+    ["--cc_alg=MVCC", "--watermark_buckets=64", "--mvcc_his_len=2"]]
+
+
+@pytest.mark.parametrize("flags", ADMITTED)
 def test_sweep_path_flags_are_admitted(flags):
     mine = Config.from_args(SWEEP + flags)
     ref = JConfig.from_args(SWEEP + flags)
@@ -77,3 +83,27 @@ def test_reference_checks_still_apply():
     assert Config().replace(epoch_batch=16384).epoch_batch == 16384
     with pytest.raises(ValueError, match="power of two"):
         Config.from_args(SWEEP + ["--conflict_buckets=1000"])
+
+
+def test_new_fields_and_the_isolation_check():
+    cfg = Config()
+    assert cfg.watermark_buckets == 1 << 20 and cfg.mvcc_his_len == 4
+    assert JConfig().watermark_buckets == cfg.watermark_buckets
+    for lvl in ("SERIALIZABLE", "READ_COMMITTED", "READ_UNCOMMITTED",
+                "NOLOCK"):
+        assert Config.from_args(SWEEP + [f"--isolation_level={lvl}"]
+                                ).isolation_level == lvl
+    with pytest.raises(ValueError, match="bad isolation_level"):
+        Config.from_args(SWEEP + ["--isolation_level=SNAPSHOT"])
+    with pytest.raises(ValueError, match="bad isolation_level"):
+        JConfig.from_args(SWEEP + ["--isolation_level=SNAPSHOT"])
+
+
+@pytest.mark.parametrize("alg,item", [("MAAT", 14), ("DGCC", 16)])
+def test_maat_and_dgcc_still_raise(alg, item):
+    from deneva_tpu_torch.cc import get_backend
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue 1, item {item}:"):
+        Config.from_args(SWEEP + [f"--cc_alg={alg}"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_backend(alg)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: each kernel alone, and whole epochs of the forwarding, OCC and
-NOCC paths.  Marked ``cuda``; without a CUDA device every test skips.
+the card: each kernel alone, and whole epochs of the forwarding, OCC,
+NOCC, NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC paths.  Marked ``cuda``;
+without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
 without the conftest:
@@ -259,3 +260,155 @@ def test_wrappers_refuse_bad_inputs(dev):
         conflict.overlap(inc, inc)          # K not a multiple of 8
     with pytest.raises(TypeError):
         scatter.last_writer(k.long(), r, w, 10)
+
+
+def _to_batch(b, a, dev, seed, order_free):
+    from deneva_tpu_torch.cc import AccessBatch
+    t = _access_lanes(b, a, dev, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    return AccessBatch(
+        table_ids=t["table_ids"], keys=t["keys"], is_read=t["is_read"],
+        is_write=t["is_write"], valid=t["valid"],
+        ts=torch.randint(1, 1000, (b,), generator=g,
+                         dtype=torch.int32).to(dev),
+        rank=torch.arange(b, dtype=torch.int32, device=dev),
+        active=t["active"],
+        order_free=t["order_free"] if order_free else None)
+
+
+def _to_state(k, h, dev, seed):
+    from deneva_tpu_torch.cc.timestamp import MVCCState, TOState
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randint(0, 1000, shape, generator=g,
+                             dtype=torch.int32).to(dev)
+    if not h:
+        return TOState(rts=r(k), wts=r(k))
+    return MVCCState(rts=r(k), wts=r(k), his=r(k, h),
+                     pos=torch.randint(0, h, (k,), generator=g,
+                                       dtype=torch.int32).to(dev),
+                     scratch=torch.zeros(k, dtype=torch.int32, device=dev))
+
+
+def _cfg(k):
+    from deneva_tpu_torch.config import Config
+    return Config(watermark_buckets=k)
+
+
+@pytest.mark.parametrize("h,order_free", [(0, False), (4, False), (0, True),
+                                          (4, True), (2, False)])
+@pytest.mark.parametrize("b,a,k", [(2048, 10, 1 << 20), (300, 40, 64)])
+def test_watermark_check_matches_plain(dev, b, a, k, h, order_free):
+    from deneva_tpu_torch.cc import timestamp
+    batch = _to_batch(b, a, dev, b + h, order_free)
+    state = _to_state(k, h, dev, a)
+    got = timestamp._watermark_check(_cfg(k), state, batch, h > 0)
+    want = timestamp._watermark_check_plain(_cfg(k), state, batch, h > 0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert 0 < int(got[0].sum()) < b
+
+
+@pytest.mark.parametrize("h,order_free", [(0, False), (4, False), (4, True),
+                                          (3, False)])
+@pytest.mark.parametrize("b,a,k", [(2048, 10, 1 << 20), (300, 40, 64)])
+def test_commit_watermarks_matches_plain(dev, b, a, k, h, order_free):
+    import dataclasses
+
+    from deneva_tpu_torch.cc import timestamp
+    batch = _to_batch(b, a, dev, b + 7 * h, order_free)
+    state = _to_state(k, h, dev, a + 1)
+    commit = batch.active & (torch.rand(b, device=dev) < 0.6)
+    ref = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)})
+    want = timestamp._commit_watermarks_plain(_cfg(k), ref, batch, commit)
+    got = timestamp._commit_watermarks(_cfg(k), state, batch, commit)
+    for f in ("rts", "wts", "his", "pos"):
+        if hasattr(want, f):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if h:
+        assert not got.scratch.any()
+
+
+@pytest.mark.parametrize("width", [0, 100, 24])
+def test_version_read_matches_plain(dev, width):
+    from deneva_tpu_torch.storage.table import VersionRing
+    g = torch.Generator().manual_seed(width)
+    cap, h, n, a = 5000, 4, 700, 10
+    rows = -(-(cap + 1) // 64) * 64
+    ring = VersionRing(torch.randint(0, 400, (rows * h,), generator=g,
+                                     dtype=torch.int32).to(dev), h)
+    if width:
+        f0 = torch.randint(0, 256, (rows, width), generator=g,
+                           dtype=torch.uint8).to(dev)
+    else:
+        f0 = torch.randint(-2**31, 2**31 - 1, (rows,), generator=g,
+                           dtype=torch.int32).to(dev)
+    keys = torch.randint(0, cap, (n, a), generator=g,
+                         dtype=torch.int32).to(dev)
+    rmask = (torch.rand(n, a, generator=g) < 0.6).to(dev)
+    ver_ts = torch.randint(0, 500, (n,), generator=g, dtype=torch.int32)
+    ver_ts[:50] = 2**31 - 1
+    ver_ts = ver_ts.to(dev)
+    got = ycsb._versioned_read_f0(f0, ring, keys, keys, rmask, ver_ts, cap)
+    want = ycsb._versioned_read_f0_plain(f0, ring, keys, keys, rmask,
+                                         ver_ts, cap)
+    assert int(got) == int(want)
+
+
+def test_version_push_matches_plain(dev):
+    from deneva_tpu_torch.storage.table import VersionRing
+    g = torch.Generator().manual_seed(4)
+    rows, h, n = 4096, 4, 3000
+    base = torch.randint(0, 5, (rows * h,), generator=g, dtype=torch.int32)
+    slots = torch.randperm(rows - 1, generator=g)[:n].to(torch.int32)
+    wts = torch.randint(1, 10**6, (n,), generator=g, dtype=torch.int32)
+    mask = torch.rand(n, generator=g) < 0.7
+    got = VersionRing(base.clone().to(dev), h).push(
+        slots.to(dev), wts.to(dev), mask.to(dev))
+    want = VersionRing(base.clone().to(dev), h).push_plain(
+        slots.to(dev), wts.to(dev), mask.to(dev))
+    assert torch.equal(got.wts, want.wts)
+
+
+@pytest.mark.parametrize("alg,flags", [
+    ("NO_WAIT", []), ("WAIT_DIE", ["--isolation_level=READ_COMMITTED"]),
+    ("NO_WAIT", ["--isolation_level=NOLOCK"]), ("TIMESTAMP", []),
+    ("MVCC", []), ("MVCC", ["--sim_full_row=true"]), ("CALVIN", [])])
+def test_lock_and_to_epochs_through_kernels_match_plain_epochs(dev, alg,
+                                                                flags):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.convert import state_leaves
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    cfg = Config.from_args([
+        f"--cc_alg={alg}", "--epoch_batch=2048", "--max_txn_in_flight=8192",
+        "--synth_table_size=65536", "--zipf_theta=0.9",
+        "--conflict_buckets=8192", "--watermark_buckets=4096",
+        "--field_per_tuple=2"] + flags)
+    wk = ycsb.YCSBWorkload(cfg, device=dev)
+    wp = ycsb.YCSBWorkload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    per_path = dict(PATH_LAUNCHES[alg])
+    if flags == ["--isolation_level=READ_COMMITTED"]:
+        per_path["K7_overlap"] = 2          # write-write and read-write
+    if flags == ["--isolation_level=NOLOCK"]:
+        per_path = PATH_LAUNCHES["NOCC"]
+    for nm, kern in all_kernels().items():
+        assert kern.launches == before[nm] + 4 * per_path.get(nm, 0), nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    lk, lp = state_leaves(sk), state_leaves(sp)
+    cap = cfg.synth_table_size
+    for path, t in lk.items():
+        if path.startswith("db/MAIN_TABLE/") and t.ndim >= 1:
+            assert torch.equal(t[:cap], lp[path][:cap]), path
+            assert torch.equal(t[cap + 1:], lp[path][cap + 1:]), path
+        else:
+            assert torch.equal(t, lp[path]), path

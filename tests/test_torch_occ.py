@@ -56,13 +56,13 @@ def _assert_same(jstate, tstate, capacity):
             np.testing.assert_array_equal(have, want, err_msg=path)
 
 
-def _bank(n_rows, epochs=4, n=256, r=10, seed=17):
+def _bank(n_rows, epochs=4, n=256, r=10, seed=17, write_perc=0.5):
     """Skewed numpy queries, milder than test_torch_engine's: key =
     n_rows * u^3, so an OCC epoch commits, aborts and defers."""
     rng = np.random.default_rng(seed)
     keys = np.minimum(n_rows * rng.random((epochs, n, r)) ** 3,
                       n_rows - 1).astype(np.int32)
-    return keys, rng.random((epochs, n, r)) < 0.5
+    return keys, rng.random((epochs, n, r)) < write_perc
 
 
 def _run(args):
@@ -115,3 +115,20 @@ def test_forwarding_over_partial_pool_matches_reference():
     st = _run(BASE + ["--cc_alg=TPU_BATCH"])
     assert st["total_txn_commit_cnt"] == BATCH * EPOCHS
     assert st["total_txn_abort_cnt"] == 0
+
+
+def test_calvin_epochs_match_reference():
+    """CALVIN takes the forwarding executor on YCSB, as TPU_BATCH does."""
+    st = _run(BASE + ["--cc_alg=CALVIN"])
+    assert st["total_txn_commit_cnt"] == BATCH * EPOCHS
+    assert st["total_txn_abort_cnt"] == 0
+
+
+def test_calvin_chained_path_raises_on_reads_feeding_writes():
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+
+    class NotBlind(YCSBWorkload):
+        blind_writes = False
+    cfg = Config.from_args(BASE + ["--cc_alg=CALVIN"])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Engine(cfg, NotBlind(cfg, device="cpu"))
