@@ -9,7 +9,7 @@ The deployment is YCSB at the Deneva paper's per-node scale and width:
 2^24 rows (Deneva's ``2097152*8`` rows per node, ``Config``'s default),
 10 requests per txn, 50% writes, zipf theta 0.9, one partition, in two
 table modes: fingerprint (ten uint32 columns, 0.67 GB) and full row
-(``sim_full_row``: ten 100-byte fields, 16.8 GB on the card).  Two
+(``sim_full_row``: ten 100-byte fields, 16.8 GB on the card).  These
 paths drive it:
 
 * forwarding — ``CC_ALG=TPU_BATCH`` with ``epoch_batch =
@@ -24,7 +24,16 @@ paths drive it:
   10000``, ``conflict_buckets=8192``, dual hashing, ``watermark_buckets
   = 2^20``, ``mvcc_his_len=4``, under ``NO_WAIT`` and ``WAIT_DIE`` (K4,
   K5+K6, K7, K8, K10), ``TIMESTAMP`` (and K12a, K12b) and ``MVCC`` (and
-  K12c, K12d), and ``CALVIN`` (the forwarding path, K1-K4).
+  K12c, K12d), and ``CALVIN`` (the forwarding path, K1-K4);
+* MAAT — at the ``ycsb_skew`` point and at the ``ycsb_hot`` sweep's
+  hottest point (HOT keys: 100 hot keys take 90% of the accesses): K4,
+  K5+K6, K7, K8, the level gate K9b, the closure K11a (twice) and the
+  peel K11b, K10;
+* modes — the ``modes`` experiment: TPU_BATCH at the ``paper_base``
+  settings, theta 0.6, under ``mode=SIMPLE`` and ``QRY_ONLY``
+  (validation through the wavefront levels K9a, no execution);
+* ordered index — the forwarding path with ``index_struct=IDX_BTREE``
+  (K1-K4 and the sorted-index probe K14b).
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -43,7 +52,17 @@ Phases (any error or mismatch exits non-zero and prints no result):
                in both table modes) on the state and batch of a real
                MVCC epoch after ten warm-up epochs (watermark aborts,
                stale reads served from the ring and ring wrap-arounds
-               occur there).
+               occur there).  K9a on a ``modes`` epoch's conflicts.
+               MAAT at ``ycsb_skew`` and at ``ycsb_hot``, one engine
+               each: epoch 4 must take the closure branch and is held to
+               the MAAT oracle (P from the numpy buckets, no committed
+               mutual pair, serial admission, ``order`` a linear
+               extension of P, every survivor on no cycle commits, the
+               serial apply in ``order``); the run goes on to 60 epochs
+               and counts its closure epochs.  K9b, K11a and K11b on
+               ``ycsb_skew``'s epoch-4 P; K14b over 655,360 probes of the
+               2^24-entry index with misses mixed in; K4b with HOT keys,
+               ``key_order`` and ``txn_write_perc=0.25`` at 65,536 x 10.
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -51,30 +70,34 @@ Phases (any error or mismatch exits non-zero and prints no result):
                the same hashed buckets, exact-key conflict freedom of the
                committed set, the serial apply of its writes).  At the
                ``ycsb_skew`` point: 3 kernel epochs equal 3 plain epochs
-               under NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC (both modes),
-               and one epoch at each other isolation level for NO_WAIT
-               and WAIT_DIE; numpy oracles for NO_WAIT (serial lock
-               acquisition in rank order), TIMESTAMP and MVCC (the
+               under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and MAAT (both
+               modes), and one epoch at each other isolation level for
+               NO_WAIT and WAIT_DIE; numpy oracles for NO_WAIT (serial
+               lock acquisition in rank order), TIMESTAMP and MVCC (the
                watermark rules per lane, the later-reader wait, the new
                watermarks and boundary ring) and MVCC's stale reads (each
                committed read's value against the versions written since
-               the load, one per key and epoch, kept in numpy).
+               the load, one per key and epoch, kept in numpy).  3 kernel
+               epochs equal 3 plain epochs for MAAT at ``ycsb_hot``,
+               SIMPLE and QRY_ONLY (whose F0 stays the loaded table) and
+               IDX_BTREE (then its forwarding oracle epoch).
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
-               both modes, OCC and NOCC in fingerprint mode, and NO_WAIT,
-               WAIT_DIE, TIMESTAMP, MVCC and CALVIN at the ``ycsb_skew``
-               point; the ``[summary]`` numbers and committed txn/s, the
-               TPU_BATCH / OCC ratio (``bench.py``'s ``vs_baseline``);
-               with counts zeroed just before each run, every kernel's
-               launches equal its per-epoch count on that path
-               (``PATH_LAUNCHES``) times the epochs run; the sweep
-               backends must commit and abort.
+               both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
+               WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
+               ``ycsb_skew`` point, MAAT at ``ycsb_hot``, TPU_BATCH under
+               SIMPLE and QRY_ONLY and on IDX_BTREE; the ``[summary]``
+               numbers and committed txn/s, the TPU_BATCH / OCC ratio
+               (``bench.py``'s ``vs_baseline``); with counts zeroed just
+               before each run, every kernel's launches equal its
+               per-epoch count on that path (``PATH_LAUNCHES``) times the
+               epochs run; the sweep backends must commit and abort.
 6. report    — one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, before the report, a profile of 50 epochs per
-forwarding mode and of OCC, NO_WAIT and MVCC in fingerprint mode: host
-and wall time per epoch, device time by kernel and the device's idle
-share.
+forwarding mode and of OCC, NO_WAIT, MVCC, MAAT (``ycsb_skew`` and
+``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode: host and wall
+time per epoch, device time by kernel and the device's idle share.
 
 Without a CUDA device, or in a directory without the package, it exits
 non-zero before printing any result.
@@ -125,8 +148,16 @@ KERNELS = {
                    "deneva_tpu/ops/conflict.py:63"),
     "K8_first_fit": ("deneva_tpu_torch/csrc/conflict.cu",
                      "deneva_tpu/ops/conflict.py:96"),
+    "K9a_wavefront_levels": ("deneva_tpu_torch/csrc/levels.cu",
+                             "deneva_tpu/ops/conflict.py:123"),
+    "K9b_precedence_levels": ("deneva_tpu_torch/csrc/levels.cu",
+                              "deneva_tpu/ops/conflict.py:141"),
     "K10_last_writer": ("deneva_tpu_torch/csrc/scatter.cu",
                         "deneva_tpu/ops/scatter.py:33"),
+    "K11a_maat_reach": ("deneva_tpu_torch/csrc/maat.cu",
+                        "deneva_tpu/cc/maat.py:178"),
+    "K11b_maat_peel": ("deneva_tpu_torch/csrc/maat.cu",
+                       "deneva_tpu/cc/maat.py:201"),
     "K12a_watermark_check": ("deneva_tpu_torch/csrc/timestamp.cu",
                              "deneva_tpu/cc/timestamp.py:202"),
     "K12b_commit_watermarks": ("deneva_tpu_torch/csrc/timestamp.cu",
@@ -135,6 +166,8 @@ KERNELS = {
                           "deneva_tpu/storage/table.py:241"),
     "K12d_version_push": ("deneva_tpu_torch/csrc/version.cu",
                           "deneva_tpu/storage/table.py:257"),
+    "K14b_sorted_lookup": ("deneva_tpu_torch/csrc/index.cu",
+                           "deneva_tpu/storage/index.py:159"),
 }
 
 
@@ -204,6 +237,27 @@ def skew_config(full: bool, alg: str, **kw):
                   mvcc_his_len=4, **kw)
 
 
+def hot_config(full: bool, alg: str = "MAAT", **kw):
+    """The ``ycsb_hot`` sweep's hottest point (``experiments.py:68-74``):
+    the ``ycsb_skew`` settings with ``skew_method=HOT``, a hot set of
+    ``data_perc=100`` keys taking ``access_perc=0.9`` of the accesses."""
+    return skew_config(full, alg, skew_method="HOT", data_perc=100,
+                       access_perc=0.9, **kw)
+
+
+def modes_config(mode: str, **kw):
+    """The ``modes`` experiment (``experiments.py:452-456``): TPU_BATCH at
+    the ``paper_base`` settings, theta 0.6, ``exec_subrounds=4``."""
+    return skew_config(False, "TPU_BATCH", zipf_theta=0.6, mode=mode,
+                       exec_subrounds=4, **kw)
+
+
+def btree_config(**kw):
+    """The forwarding path (TPU_BATCH, full pool of 65,536, theta 0.9) with
+    the ordered index on the primary path."""
+    return config(False, index_struct="IDX_BTREE", **kw)
+
+
 # launches per epoch of each kernel on each path (kernels missing from a
 # path's map launch zero times there)
 _FWD = {"K1_sort_lanes": 1, "K2_plan_scans": 1, "K3_forward_execute": 1,
@@ -215,6 +269,15 @@ _SWEEP = {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
 _TO = {**_SWEEP, "K12a_watermark_check": 1, "K12b_commit_watermarks": 1}
 PATH_LAUNCHES = {
     "TPU_BATCH": _FWD, "CALVIN": _FWD,
+    "BTREE": {**_FWD, "K14b_sorted_lookup": 1},
+    # the closure runs twice, around the peel, in every epoch; each
+    # kernel reads the gate on the device
+    "MAAT": {**_SWEEP, "K9b_precedence_levels": 1, "K11a_maat_reach": 2,
+             "K11b_maat_peel": 1},
+    # TPU_BATCH / CALVIN under SIMPLE or QRY_ONLY: validation, no execute
+    "MODES": {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
+              "K5K6_build_incidence": 1, "K7_overlap": 1,
+              "K9a_wavefront_levels": 1},
     "OCC": _SWEEP, "NO_WAIT": _SWEEP, "WAIT_DIE": _SWEEP,
     "NOCC": {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
              "K10_last_writer": 1},
@@ -222,7 +285,7 @@ PATH_LAUNCHES = {
     "MVCC": {**_TO, "K12c_version_read": 1, "K12d_version_push": 1},
 }
 # paths whose runs must abort (the others commit every selected txn)
-ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC")
+ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT")
 
 
 @contextlib.contextmanager
@@ -231,9 +294,9 @@ def plain_path(wl):
     comparison side of phase 4 and of tests/test_torch_cuda.py; the
     package itself has no such switch).  A kernel added to the main path
     is swapped here."""
-    from deneva_tpu_torch.cc import timestamp
+    from deneva_tpu_torch.cc import maat, timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
-    from deneva_tpu_torch.storage import table
+    from deneva_tpu_torch.storage import index, table
     from deneva_tpu_torch.workloads import ycsb
     swaps = [(forward, "sort_lanes", lambda k, r, w: forward.sort_lanes_plain(
                   k, r, w).values),
@@ -248,7 +311,13 @@ def plain_path(wl):
              (timestamp, "_commit_watermarks",
               timestamp._commit_watermarks_plain),
              (ycsb, "_versioned_read_f0", ycsb._versioned_read_f0_plain),
-             (table.VersionRing, "push", table.VersionRing.push_plain)]
+             (table.VersionRing, "push", table.VersionRing.push_plain),
+             (conflict, "wavefront", conflict.wavefront_plain),
+             (conflict, "precedence_levels",
+              conflict.precedence_levels_plain),
+             (maat, "reach_stats", maat.reach_stats_plain),
+             (maat, "peel", maat.peel_plain),
+             (index.SortedIndex, "lookup", index.SortedIndex.lookup_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -782,7 +851,8 @@ def clone_cc(cs):
 
 def capture_epoch(eng, state):
     """One kernel epoch of a sweep engine, keeping what its kernels saw:
-    the batch, the cc_state before validation (cloned), the verdict and,
+    the batch, its incidence, the cc_state before validation (cloned),
+    the verdict and,
     under MVCC, K12c's and K12d's arguments (table and ring cloned before
     the epoch's stores)."""
     import dataclasses
@@ -796,7 +866,7 @@ def capture_epoch(eng, state):
     def validate(cfg_, cc_state, batch, inc):
         seen["pre"] = cc_state if isinstance(cc_state, tuple) \
             else clone_cc(cc_state)
-        seen["batch"] = batch
+        seen["batch"], seen["inc"] = batch, inc
         v, st = be.validate(cfg_, cc_state, batch, inc)
         seen["verdict"] = v
         return v, st
@@ -1280,6 +1350,380 @@ def phase_lock_to_oracles(dev) -> None:
           f"{time.monotonic() - t:.1f} s", flush=True)
 
 
+# -- slice 4: the level sweeps, MAAT, the ordered index, K4b's options -------
+
+def maat_front(cfg, bt, inc):
+    """MAAT's first stages on a captured batch, through the port's own
+    functions: (P, live0) — the survivors of the mutual-pair sweep."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.ops import conflict
+    p = maat.must_precede(cfg, inc, bt.active.shape[0])
+    _, lose, und = conflict.first_fit(p & p.T, bt.rank, bt.active,
+                                      cfg.sweep_rounds)
+    return p, bt.active & ~lose & ~und
+
+
+def maat_points(dev, epochs: int = 60):
+    """MAAT at the ``ycsb_skew`` and the ``ycsb_hot`` point, one engine
+    each from a fresh state: three epochs, then epoch 4 held to the numpy
+    MAAT oracle (it fails unless that epoch's level gate is set, so that
+    the closure branch runs), then the remaining epochs up to ``epochs``.
+    The gate of every epoch is kept on the device and read once at the
+    end: how often the closure branch runs.  Returns ``ycsb_skew``'s
+    config, its epoch-4 capture, P and live0 for the K9b and K11
+    checks."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    real = maat.reach_stats
+    out = None
+    for label, cfg in (("ycsb_skew", skew_config(False, "MAAT")),
+                       ("ycsb_hot", hot_config(False))):
+        t = time.monotonic()
+        gates = []
+
+        def counted(p, live, gate):
+            gates.append(gate.any())
+            return real(p, live, gate)
+        eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+        maat.reach_stats = counted
+        try:
+            st = eng.run(eng.init_state(), 3)
+            st, n, cap = maat_oracle_epoch(eng, st, dev)
+            if not n.pop("closure"):
+                fail(f"MAAT at {label}: epoch 4 did not take the closure "
+                     "branch")
+            print(f"[oracle] MAAT at {label}, epoch 4 (closure branch): "
+                  f"mutual pairs, serial admission, linear extension, "
+                  f"acyclic survivors commit, serial apply ok ({n})",
+                  flush=True)
+            eng.run(st, epochs - 4)
+        finally:
+            maat.reach_stats = real
+        # reach_stats runs twice per epoch, both times on the epoch's gate
+        closure = int(torch.stack(gates[::2]).sum())
+        print(f"[K11] MAAT at {label}: the closure branch ran in {closure} "
+              f"of {epochs} epochs from a fresh state "
+              f"({time.monotonic() - t:.1f} s)", flush=True)
+        if out is None:
+            out = (cfg, *cap)
+        del eng, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def closure_library(p, live, k: int):
+    """The reference's closure as it runs on the MXU: ``k`` squarings of
+    a bf16 copy by ``torch.matmul``, then the diagonal and the column
+    sums.  ``chip_smoke``'s yardstick only."""
+    r = p & live[:, None] & live[None, :]
+    for _ in range(k):
+        f = r.to(torch.bfloat16)
+        r = r | (torch.matmul(f, f) > 0)
+    return torch.diagonal(r) & live, r.sum(dim=0, dtype=torch.int32)
+
+
+def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
+    """K9a on a ``modes`` epoch's edges; K9b, K11a and K11b on a real
+    MAAT epoch's P in which the closure branch runs; K14b over 655,360
+    queries on the 2^24-entry index with misses mixed in; K4b with HOT
+    keys, ``key_order`` and ``txn_write_perc=0.25`` at 65,536 x 10.
+    Each exactly against its plain version."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.ops import conflict, prng
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    b = SKEW_BATCH
+
+    # K9a on the conflicts of a TPU_BATCH epoch under SIMPLE (theta 0.6)
+    cfg = modes_config("SIMPLE")
+    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    st = eng.run(eng.init_state(), 5)
+    seen, real = {}, conflict.wavefront
+
+    def grab(uw, rank, active, max_level):
+        seen["args"] = (uw, rank, active, max_level)
+        return real(uw, rank, active, max_level)
+    conflict.wavefront = grab
+    try:
+        eng.step(st)
+    finally:
+        conflict.wavefront = real
+    args = seen["args"]
+    got, want = conflict.wavefront(*args), conflict.wavefront_plain(*args)
+    for x, y, nm in zip(got, want, ("levels", "overflow")):
+        if not torch.equal(x, y):
+            fail(f"K9a {nm} differs from plain")
+    uw, rank, active, ml = args
+    nnz = int(conflict.earlier_edges(uw | uw.T, rank, active).sum())
+    rec["K9a_wavefront_levels"].update(
+        max_abs_err=max(max_abs(x, y) for x, y in zip(got, want)),
+        ms=cuda_ms(lambda: conflict.wavefront(*args)),
+        plain_ms=cuda_ms(lambda: conflict.wavefront_plain(*args), iters=5),
+        library_ms=None)
+    # the conflicts, ranks and flags in, levels and flags out; the earlier
+    # test per pair, one relaxation per edge
+    bound(rec["K9a_wavefront_levels"], b * b + 5 * b + 5 * b,
+          b * b + 2 * nnz)
+    print(f"[K9a] modes epoch (TPU_BATCH, SIMPLE, theta 0.6): edges={nnz} "
+          f"max_level={ml} overflow={int(got[1].sum())} levels="
+          f"{torch.bincount(got[0].long()).tolist()}", flush=True)
+    del eng, st, seen, args, uw
+    torch.cuda.empty_cache()
+
+    # K9b, K11a, K11b on a MAAT epoch in which the closure branch runs
+    cfg, cap, p, live0 = maat_points(dev)
+    rounds, peel_rounds = cfg.sweep_rounds, cfg.maat_peel_rounds
+    rank = cap["batch"].rank
+    lv, un = conflict.precedence_levels(p, live0, rounds)
+    lvp, unp = conflict.precedence_levels_plain(p, live0, rounds)
+    if not (torch.equal(lv, lvp) and torch.equal(un, unp)):
+        fail("K9b differs from plain")
+    sub = int((p & live0[:, None] & live0[None, :]).sum())
+    rec["K9b_precedence_levels"].update(
+        max_abs_err=max(max_abs(lv, lvp), max_abs(un, unp)),
+        ms=cuda_ms(lambda: conflict.precedence_levels(p, live0, rounds)),
+        plain_ms=cuda_ms(lambda: conflict.precedence_levels_plain(
+            p, live0, rounds), iters=5), library_ms=None)
+    bound(rec["K9b_precedence_levels"], b * b + 6 * b, 2 * sub)
+    sr, anc = maat.reach_stats(p, live0, un)
+    srp, ancp = maat.reach_stats_plain(p, live0, un)
+    if not (torch.equal(sr, srp) and torch.equal(anc, ancp)):
+        fail("K11a differs from plain")
+    k = max(1, (b - 1).bit_length())
+    sl, al = closure_library(p, live0, k)
+    if not (torch.equal(sl, sr) and torch.equal(al, anc)):
+        fail("K11a differs from the bf16 torch.matmul closure")
+    reach_bits = int(anc.sum())
+    rec["K11a_maat_reach"].update(
+        max_abs_err=max(max_abs(sr, srp), max_abs(anc, ancp)),
+        ms=cuda_ms(lambda: maat.reach_stats(p, live0, un)),
+        plain_ms=cuda_ms(lambda: maat.reach_stats_plain(p, live0, un),
+                         iters=5),
+        library_ms=cuda_ms(lambda: closure_library(p, live0, k), iters=5))
+    # P, live and gate in, the flags and counts out; the searches OR one
+    # row word per reached txn and word
+    bound(rec["K11a_maat_reach"], b * b + 2 * b + 5 * b,
+          reach_bits * (-(-b // 32)))
+    ab = maat.peel(p, live0, sr, rank, rounds, peel_rounds, un)
+    abp = maat.peel_plain(p, live0, sr, rank, rounds, peel_rounds, un)
+    if not torch.equal(ab, abp):
+        fail("K11b differs from plain")
+    rec["K11b_maat_peel"].update(
+        max_abs_err=max_abs(ab, abp),
+        ms=cuda_ms(lambda: maat.peel(p, live0, sr, rank, rounds,
+                                     peel_rounds, un), iters=5),
+        plain_ms=cuda_ms(lambda: maat.peel_plain(
+            p, live0, sr, rank, rounds, peel_rounds, un), iters=2),
+        library_ms=None)
+    # P, the three flag vectors and the ranks in, the aborts out; each
+    # sweep relaxes every live edge at least once
+    bound(rec["K11b_maat_peel"], b * b + 3 * b + 4 * b + b, 2 * sub)
+    left, _ = maat.reach_stats(p, live0 & ~ab, un)
+    v = cap["verdict"]
+    print(f"[K11] ycsb_skew epoch 4: live0={int(live0.sum())} "
+          f"edges={sub} unstable={int(un.sum())} on_cycle={int(sr.sum())} "
+          f"reach_bits={reach_bits} peeled={int(ab.sum())} "
+          f"leftover={int(left.sum())}; verdict commits="
+          f"{int(v.commit.sum())} aborts={int(v.abort.sum())} defers="
+          f"{int(v.defer.sum())}", flush=True)
+    del cap, p, live0
+    torch.cuda.empty_cache()
+
+    # K14b over one forwarding epoch's lanes on the 2^24-entry index
+    n = BATCH * REQ
+    wl = YCSBWorkload(btree_config(), device=dev)
+    idx = wl.index
+    q = wl.generate(prng.split(prng.key_from_seed(17, dev))[1], BATCH)
+    q = q.keys.reshape(-1).contiguous()
+    q[::16] += ROWS                     # misses past the table
+    q[5::64] = -1 - q[5::64]            # and below it
+    got, want = idx.lookup(q), idx.lookup_plain(q)
+    if not torch.equal(got, want):
+        fail("K14b differs from plain")
+
+    def lib():
+        lo = torch.searchsorted(idx.keys, q).clamp_(max=idx.n - 1)
+        return torch.where(idx.keys[lo] == q, idx.slots[lo], idx.miss_slot)
+    if not torch.equal(lib(), got):
+        fail("K14b differs from torch.searchsorted")
+    hits = got != idx.miss_slot
+    n_hit_rows = int(torch.unique(got[hits]).numel())
+    rec["K14b_sorted_lookup"].update(
+        max_abs_err=max_abs(got, want), ms=cuda_ms(lambda: idx.lookup(q)),
+        plain_ms=cuda_ms(lambda: idx.lookup_plain(q)),
+        library_ms=cuda_ms(lib))
+    # queries in, slots out, the key and slot of each distinct hit entry
+    bound(rec["K14b_sorted_lookup"], 8 * n + 8 * n_hit_rows,
+          n * int(np.ceil(np.log2(idx.n))))
+    print(f"[K14b] {n} queries on {idx.n} entries: hits={int(hits.sum())} "
+          f"misses={int((~hits).sum())} distinct_hit_rows={n_hit_rows}",
+          flush=True)
+    del wl, idx
+    torch.cuda.empty_cache()
+
+    # K4b with HOT keys, key_order and the per-txn write gate
+    wlh = YCSBWorkload(config(False, skew_method="HOT", data_perc=100,
+                              access_perc=0.9, key_order=True,
+                              txn_write_perc=0.25), device=dev)
+    gk = prng.split(prng.key_from_seed(19, dev))[1]
+    qh, qp = wlh.generate(gk, BATCH), wlh.generate_plain(gk, BATCH)
+    if not (torch.equal(qh.keys, qp.keys)
+            and torch.equal(qh.is_write, qp.is_write)):
+        fail("K4b (HOT, key_order, txn_write_perc) differs from plain")
+    if not bool((qh.keys[:, 1:] >= qh.keys[:, :-1]).all()):
+        fail("K4b key_order: a txn's keys are not ascending")
+    r = {"max_abs_err": max(max_abs(qh.keys, qp.keys),
+                            max_abs(qh.is_write, qp.is_write)),
+         "ms": cuda_ms(lambda: wlh.generate(gk, BATCH)),
+         "plain_ms": cuda_ms(lambda: wlh.generate_plain(gk, BATCH), iters=5),
+         "library_ms": None}
+    # the hashes the output depends on: per element the hot draw, the
+    # chosen range's randint (two) and the write flag; per txn the write
+    # gate and a 10-key insertion sort
+    bound(r, 16 + 5 * n, n * (4 * THREEFRY_OPS + 20)
+          + BATCH * (THREEFRY_OPS + REQ * REQ))
+    rec["K4b_ycsb_generate[hot]"].update(r)
+    print(f"[K4b] HOT: hot_share={float((qh.keys < 100).float().mean()):.4f}"
+          f" read_only_txns={int((~qh.is_write.any(dim=1)).sum())} of "
+          f"{BATCH}", flush=True)
+    for nm in ("K9a_wavefront_levels", "K9b_precedence_levels",
+               "K11a_maat_reach", "K11b_maat_peel", "K14b_sorted_lookup",
+               "K4b_ycsb_generate[hot]"):
+        print_kernel(nm, rec[nm], card)
+
+
+def maat_oracle_epoch(eng, state, dev):
+    """One MAAT kernel epoch against numpy: P rebuilt from both hash
+    families' buckets (scipy's sparse product) equals the port's; no two
+    committed txns form a mutual pair, and every committed txn is one that
+    serial lex-first admission over the mutual pairs admits; ``order`` is
+    a linear extension of P on the committed txns; every survivor of the
+    mutual stage that is on no cycle of P over the survivors (strongly
+    connected components) commits, and only cycle members abort or defer
+    there; table rows [0, capacity) equal the epoch-start rows with the
+    committed writes applied serially in ``order``; the checksum of the
+    committed reads and the counters match.  Returns the new state, the
+    epoch's counts and (its capture, P, live0)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from deneva_tpu_torch.ops import conflict
+    from deneva_tpu_torch.workloads.ycsb import TABLE
+    cfg = eng.cfg
+    start = state.db[TABLE].columns["F0"].clone()
+    pre = {k: int(state.stats[k]) for k in
+           ("read_checksum", "write_cnt", "total_txn_commit_cnt")}
+    state, seen = capture_epoch(eng, state)
+    bt, v = seen["batch"], seen["verdict"]
+    p_port, live0 = maat_front(cfg, bt, seen["inc"])
+    keys = bt.keys.cpu().numpy().astype(np.int64)
+    isr, isw = bt.is_read.cpu().numpy(), bt.is_write.cpu().numpy()
+    lanes = bt.valid.cpu().numpy() & bt.active.cpu().numpy()[:, None]
+    rank = bt.rank.cpu().numpy()
+    b, k = keys.shape[0], cfg.conflict_buckets
+    rows = np.repeat(np.arange(b), keys.shape[1])
+    p = np.ones((b, b), bool)
+    for f in (0, 1):
+        bk = np_bucket(keys, f, k).reshape(-1)
+
+        def sp(m):
+            m = m.reshape(-1)
+            return csr_matrix((np.ones(int(m.sum()), np.float32),
+                               (rows[m], bk[m])), shape=(b, k))
+        p &= (sp(lanes & isr) @ sp(lanes & isw).T).toarray() > 0
+    np.fill_diagonal(p, False)
+    if not np.array_equal(p, p_port.cpu().numpy()):
+        fail("MAAT oracle: P differs from the numpy buckets' product")
+    act = bt.active.cpu().numpy()
+    com, abort, defer = (t.cpu().numpy() for t in (v.commit, v.abort,
+                                                   v.defer))
+    order = v.order.cpu().numpy().astype(np.int64)
+    mutual = p & p.T
+    admitted = np.zeros(b, bool)
+    for i in np.lexsort((np.arange(b), rank)):
+        if act[i] and not (mutual[i] & admitted).any():
+            admitted[i] = True
+    if (com & ~admitted).any() or mutual[np.ix_(com, com)].any():
+        fail("MAAT oracle: a committed txn is in a mutual pair or was not "
+             "admitted by the serial sweep")
+    pc = p[np.ix_(com, com)]
+    oc = order[com]
+    if not (oc[:, None] < oc[None, :])[pc].all():
+        fail("MAAT oracle: order is not a linear extension of P on the "
+             "committed txns")
+    l0 = live0.cpu().numpy()
+    idx = np.nonzero(l0)[0]
+    _, lab = connected_components(csr_matrix(p[np.ix_(idx, idx)]),
+                                  directed=True, connection="strong")
+    on_cycle = np.zeros(b, bool)
+    on_cycle[idx] = np.bincount(lab)[lab] > 1
+    if (l0 & ~on_cycle & ~com).any() or ((abort | defer) & l0
+                                         & ~on_cycle).any():
+        fail("MAAT oracle: a survivor on no cycle did not commit")
+    # serial apply of the committed writes in order
+    cm = com[:, None] & lanes
+    wl, rl = cm & isw, cm & isr & ~isw
+    ol = np.broadcast_to(order[:, None], keys.shape)
+    wk, wo = keys[wl], ol[wl]
+    srt = np.lexsort((wo, wk))
+    wk, wo = wk[srt], wo[srt]
+    # [:len] keeps an epoch that committed no write (ycsb_hot has them)
+    last = np.r_[wk[1:] != wk[:-1], True][:len(wk)]
+    win_k, win_o = wk[last], wo[last]
+    expect = start.clone()
+    expect[torch.from_numpy(win_k).to(dev)] = torch.from_numpy(
+        np_fingerprint(win_k, win_o).view(np.int32)).to(dev)
+    capy = eng.workload.n_rows
+    if not torch.equal(state.db[TABLE].columns["F0"][:capy],
+                       expect[:capy]):
+        fail("MAAT oracle: table differs from the serial apply in order")
+    vals = start[torch.from_numpy(keys[rl]).to(dev)].cpu().numpy()
+    cks = int(vals.view(np.uint32).astype(np.uint64).sum()) & MASK32
+    d = {k_: (int(state.stats[k_]) - pre[k_]) & MASK32 for k_ in pre}
+    if d["read_checksum"] != cks or d["write_cnt"] != int(wl.sum()) \
+            or d["total_txn_commit_cnt"] != int(com.sum()):
+        fail(f"MAAT oracle: counters {d} (checksum want {cks})")
+    closure = bool(conflict.precedence_levels_plain(
+        p_port, live0, cfg.sweep_rounds)[1].any())
+    return state, {"closure": closure, "active": int(act.sum()),
+                   "survivors": int(l0.sum()),
+                   "on_cycle": int(on_cycle.sum()), "commit": int(com.sum()),
+                   "abort": int(abort.sum()), "defer": int(defer.sum()),
+                   "edges": int(p.sum()), "mutual_pairs":
+                   int(mutual.sum()) // 2}, (seen, p_port, live0)
+
+
+def phase_slice4_epochs(dev) -> None:
+    """3 kernel epochs equal 3 plain epochs for MAAT (both table modes,
+    and at ycsb_hot), TPU_BATCH under SIMPLE and QRY_ONLY (the table
+    untouched) and TPU_BATCH on the ordered index (then its forwarding
+    oracle epoch).  The MAAT oracle runs in phase 3 (`maat_points`)."""
+    from deneva_tpu_torch.workloads.ycsb import TABLE, _field_fingerprint
+    for full in (False, True):
+        mode = "full_row" if full else "fingerprint"
+        epochs_equal(dev, skew_config(full, "MAAT"), 3, f"MAAT {mode}")
+        torch.cuda.empty_cache()
+    epochs_equal(dev, hot_config(False), 3, "MAAT ycsb_hot")
+    torch.cuda.empty_cache()
+    for mode in ("SIMPLE", "QRY_ONLY"):
+        _, sk = epochs_equal(dev, modes_config(mode), 3, f"TPU_BATCH {mode}")
+        f0 = sk.db[TABLE].columns["F0"][:ROWS].to(torch.int64) & MASK32
+        if not torch.equal(f0, _field_fingerprint(
+                torch.arange(ROWS, device=dev), 0)) \
+                or int(sk.stats["write_cnt"]) != 0:
+            fail(f"{mode}: the table changed")
+        print(f"[modes] {mode}: F0 equals the loaded table after 3 epochs",
+              flush=True)
+        torch.cuda.empty_cache()
+    eng, sk = epochs_equal(dev, btree_config(), 3, "TPU_BATCH IDX_BTREE")
+    _, n_win, n_read = oracle_epoch(eng, sk, dev)
+    print(f"[btree] forwarding oracle epoch on the ordered index ok "
+          f"(reads={n_read} written_keys={n_win})", flush=True)
+    del eng, sk
+    torch.cuda.empty_cache()
+
+
 def phase_simulate(dev, cfg, path: str, label: str, card: str
                    ) -> tuple[dict, dict]:
     """``run_simulation`` with every launch count zeroed just before it;
@@ -1358,7 +1802,10 @@ def phase_profile(dev, cfg, mode: str) -> None:
             "threefry_split", "incidence_kernel", "overlap_kernel",
             "pack_edges", "first_fit", "insert_kernel", "mark_kernel",
             "watermark_check", "commit_max", "commit_ring", "version_read",
-            "version_push")
+            "version_push", "pack_rows", "pack_cols", "earlier_edges",
+            "wavefront_kernel",
+            "precedence_kernel", "reach_kernel", "peel_kernel",
+            "lookup_kernel", "sort_rows")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -1390,10 +1837,16 @@ def main() -> int:
                              "K5K6_build_incidence", "K7_overlap",
                              "K8_first_fit", "K10_last_writer",
                              "K12a_watermark_check", "K12b_commit_watermarks",
-                             "K12c_version_read", "K12d_version_push")}
+                             "K12c_version_read", "K12d_version_push",
+                             "K4b_ycsb_generate[hot]",
+                             "K9a_wavefront_levels", "K9b_precedence_levels",
+                             "K11a_maat_reach", "K11b_maat_peel",
+                             "K14b_sorted_lookup")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
+    torch.cuda.empty_cache()
+    phase_slice4_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
     for full in (False, True):
         phase_epochs(dev, full)
@@ -1405,27 +1858,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lock_to_oracles(dev)
     torch.cuda.empty_cache()
+    phase_slice4_epochs(dev)
+    torch.cuda.empty_cache()
     launches: dict[str, int] = {}
     tput = {}
-    runs = [("TPU_BATCH", False, config(False, warmup_secs=1.0,
-                                        done_secs=3.0)),
-            ("TPU_BATCH", True, config(True, warmup_secs=1.0,
-                                       done_secs=3.0)),
-            ("OCC", False, occ_config(False, warmup_secs=1.0,
-                                      done_secs=3.0)),
-            ("NOCC", False, occ_config(False, "NOCC", warmup_secs=1.0,
-                                       done_secs=3.0))]
-    runs += [(alg, False, skew_config(False, alg, warmup_secs=1.0,
-                                      done_secs=3.0))
+    win = {"warmup_secs": 1.0, "done_secs": 3.0}
+    runs = [("TPU_BATCH", "fingerprint", config(False, **win)),
+            ("TPU_BATCH", "full_row", config(True, **win)),
+            ("OCC", "fingerprint", occ_config(False, **win)),
+            ("NOCC", "fingerprint", occ_config(False, "NOCC", **win))]
+    runs += [(alg, "fingerprint", skew_config(False, alg, **win))
              for alg in ("NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
-                         "CALVIN")]
-    for path, full, cfg in runs:
-        mode = "full_row" if full else "fingerprint"
-        counts, fields = phase_simulate(dev, cfg, path, f"{path} {mode}",
+                         "CALVIN", "MAAT")]
+    runs += [("MAAT", "ycsb_hot", hot_config(False, **win)),
+             ("MODES", "SIMPLE", modes_config("SIMPLE", **win)),
+             ("MODES", "QRY_ONLY", modes_config("QRY_ONLY", **win)),
+             ("BTREE", "fingerprint", btree_config(**win))]
+    for path, label, cfg in runs:
+        mode = "full_row" if cfg.sim_full_row else "fingerprint"
+        counts, fields = phase_simulate(dev, cfg, path, f"{path} {label}",
                                         info["card"])
-        tput[(path, mode)] = fields["tput"]
+        tput[(path, label)] = fields["tput"]
         for nm, c in counts.items():
-            key = f"{nm}[{mode}]" if nm == "K3_forward_execute" else nm
+            key = nm
+            if nm == "K3_forward_execute":
+                key = f"{nm}[{mode}]"
+            elif nm == "K4b_ycsb_generate" and cfg.skew_method == "HOT":
+                key = f"{nm}[hot]"
             launches[key] = launches.get(key, 0) + c
         torch.cuda.empty_cache()
     print(f"[vs_baseline] TPU_BATCH / OCC committed txn/s (fingerprint) = "
@@ -1439,7 +1898,11 @@ def main() -> int:
                            ("OCC fingerprint", occ_config(False)),
                            ("NO_WAIT fingerprint",
                             skew_config(False, "NO_WAIT")),
-                           ("MVCC fingerprint", skew_config(False, "MVCC"))):
+                           ("MVCC fingerprint", skew_config(False, "MVCC")),
+                           ("MAAT fingerprint", skew_config(False, "MAAT")),
+                           ("MAAT ycsb_hot", hot_config(False)),
+                           ("modes SIMPLE", modes_config("SIMPLE")),
+                           ("IDX_BTREE fingerprint", btree_config())):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []

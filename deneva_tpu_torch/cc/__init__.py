@@ -4,17 +4,20 @@ The registry of ``deneva_tpu/cc/__init__.py``, one backend per reference
 algorithm, with the reference's flags.  The port registers:
 
 * TPU_BATCH and CALVIN — on YCSB the forwarding executor
-  (``forward=True``): the sort is the validation, so they need no
-  validate function here (CALVIN's chained path, for workloads whose
-  writes read, comes with ROADMAP.md item 15);
+  (``forward=True``): the sort is the validation; under ``mode=SIMPLE``
+  and ``QRY_ONLY`` the wavefront levels of `validate_calvin` (CALVIN's
+  chained executor, for workloads whose writes read, comes with
+  ROADMAP.md item 15);
 * OCC — Kung-Robinson validation through the incidence sweep;
 * NO_WAIT, WAIT_DIE — 2PL through the same sweep, at four isolation
   levels;
 * TIMESTAMP, MVCC — T/O watermarks carried across epochs, with the
   later-reader sweep;
+* MAAT — reader-before-writer precedence: the mutual-pair sweep, the
+  level gate, and the closure and peel where the gate is set;
 * NOCC — the oracle that commits every active txn.
 
-MAAT and DGCC come with ROADMAP.md queue 1, items 14 and 16.
+DGCC comes with ROADMAP.md queue 1, item 16.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from deneva_tpu_torch.cc import calvin as _calvin
+from deneva_tpu_torch.cc import maat as _maat
 from deneva_tpu_torch.cc import occ as _occ
 from deneva_tpu_torch.cc import timestamp as _ts
 from deneva_tpu_torch.cc import twopl as _twopl
@@ -44,7 +49,7 @@ def _no_views(cfg) -> tuple[str, ...]:
 @dataclass(frozen=True)
 class CCBackend:
     alg: CCAlg
-    validate: Callable[..., tuple[Verdict, Any]] | None
+    validate: Callable[..., tuple[Verdict, Any]]
     # (cfg, device) -> the cross-epoch state validate carries
     init_state: Callable[[Any, Any], Any] = _no_state
     chained: bool = False
@@ -86,10 +91,17 @@ _REGISTRY: dict[CCAlg, CCBackend] = {
                           exempt_order_free=True,
                           repair_rule=_ts.repair_frontier_mvcc,
                           views=_ts.views),
-    CCAlg.CALVIN: CCBackend(CCAlg.CALVIN, None, chained=True, forward=True,
-                            exempt_order_free=True),
-    CCAlg.TPU_BATCH: CCBackend(CCAlg.TPU_BATCH, None, chained=True,
-                               forward=True, exempt_order_free=True),
+    CCAlg.MAAT: CCBackend(CCAlg.MAAT, _maat.validate_maat,
+                          exempt_order_free=True,
+                          repair_rule=_maat.repair_frontier,
+                          views=_maat.views),
+    CCAlg.CALVIN: CCBackend(CCAlg.CALVIN, _calvin.validate_calvin,
+                            chained=True, forward=True,
+                            exempt_order_free=True, views=_calvin.views),
+    CCAlg.TPU_BATCH: CCBackend(CCAlg.TPU_BATCH, _calvin.validate_tpu_batch,
+                               chained=True, forward=True,
+                               exempt_order_free=True,
+                               views=_calvin.views),
 }
 
 
@@ -98,5 +110,5 @@ def get_backend(alg: CCAlg | str) -> CCBackend:
     if alg not in _REGISTRY:
         raise NotImplementedError(
             f"cc_alg={alg.value} is not ported to deneva_tpu_torch yet "
-            "(ROADMAP.md queue 1, items 14 and 16)")
+            "(ROADMAP.md queue 1, item 16)")
     return _REGISTRY[alg]

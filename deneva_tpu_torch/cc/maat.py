@@ -1,0 +1,194 @@
+"""MAAT — dynamic timestamp-range validation (port of ``deneva_tpu/cc/maat.py``).
+
+Under epoch-snapshot execution every read saw the snapshot, so MAAT's
+one ordering constraint is reader-before-writer: ``P[i, j]`` when i read
+a key j writes (K7 over the read and write incidence).  P splits into:
+
+* mutual pairs ``P & P.T`` — both ranges cannot stay open; the lex-first
+  sweep over them (K8) admits the first validators, the losers abort and
+  the sweep's leftovers defer;
+* the residual digraph over the survivors (``live0``).  An acyclic txn
+  commits however deep its chain.  The level sweep over P (K9b) gates
+  the epoch: where no survivor is unstable the levels are the order.
+  Otherwise the transitive closure of P over ``live0`` (K11a) marks the
+  txns on a cycle; ``maat_peel_rounds`` peel rounds (K11b) abort the
+  locally youngest of those still unstable both ways; a second closure
+  over the survivors (K11a) defers the txns still on a cycle and gives
+  the ancestor counts as the topological order.
+
+The reference chooses the branch with ``lax.cond`` on the device.  The
+port launches K11a twice and K11b once in every epoch; each kernel reads
+the gate (the unstable flags) on the device and returns the fast branch's
+result when it is all false, so the epoch never waits on the host and
+its launch counts do not depend on the data.  The plain versions branch
+in Python.
+
+Cross-epoch state is unnecessary (``()``).  The repair frontier raises
+until ROADMAP.md item 16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deneva_tpu_torch import kernels
+from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
+                                      get_overlap)
+from deneva_tpu_torch.ops import conflict
+
+K11A_REACH = kernels.Kernel("dt_maat_reach", [
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P,
+    kernels.P, kernels.P])
+K11B_PEEL = kernels.Kernel("dt_maat_peel", [
+    kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32,
+    kernels.I32, kernels.I32, kernels.P, kernels.P, kernels.P])
+
+
+def views(cfg) -> tuple[str, ...]:
+    """The incidence views `must_precede` reads (``ro`` aliases ``r``
+    when no escrow exemption applies)."""
+    return ("ro", "w")
+
+
+def repair_frontier(cfg, state, batch, inc, committed, losers):
+    """MAAT's transaction-repair rule (``deneva_tpu/cc/maat.py:101``)."""
+    raise NotImplementedError(
+        "transaction repair is not ported to deneva_tpu_torch yet "
+        "(ROADMAP.md queue 1, item 16: planes)")
+
+
+def must_precede(cfg, inc: Incidence, b: int) -> torch.Tensor:
+    """P[i, j] = i must precede j (i read a key j writes), minus the
+    diagonal (``deneva_tpu/cc/maat.py:83``)."""
+    ov = get_overlap(cfg)
+    ro1 = inc.r1 if inc.ro1 is None else inc.ro1
+    ro2 = inc.r2 if inc.ro1 is None else inc.ro2
+    p = ov(ro1, inc.w1, ro2, inc.w2)
+    return p & ~torch.eye(b, dtype=torch.bool, device=p.device)
+
+
+# -- K11a: closure, diagonal, ancestor counts ------------------------------
+
+def reach_stats_plain(p: torch.Tensor, live: torch.Tensor,
+                      gate: torch.Tensor):
+    """``reach_of(live)`` of ``deneva_tpu/cc/maat.py:178-187`` with its
+    two reductions (``:196``, ``:216-220``): (self-reachable & live
+    bool[B], ancestor count int32[B]); zeros when ``gate`` has no set
+    flag (the fast branch).  The closure is ``max(1, (B-1).bit_length())``
+    boolean squarings; f32 products of 0/1 counts are exact."""
+    b = p.shape[0]
+    if not bool(gate.any()):
+        return (torch.zeros_like(live),
+                torch.zeros(b, dtype=torch.int32, device=p.device))
+    r = p & live[:, None] & live[None, :]
+    for _ in range(max(1, (b - 1).bit_length())):
+        f = r.to(torch.float32)
+        r = r | (torch.matmul(f, f) > 0)
+    return torch.diagonal(r) & live, r.sum(dim=0, dtype=torch.int32)
+
+
+def reach_stats(p: torch.Tensor, live: torch.Tensor, gate: torch.Tensor):
+    """K11a: the transitive closure of ``P`` over ``live`` as bit rows,
+    one breadth-first search per source, then the diagonal and the
+    column counts; skipped on the device when ``gate`` is all false."""
+    if kernels.on_cpu(p, live, gate):
+        return reach_stats_plain(p, live, gate)
+    b = live.shape[0]
+    dev = live.device
+    kernels.check("p", p, torch.bool, (b, b), dev)
+    kernels.check("live", live, torch.bool, (b,), dev)
+    kernels.check("gate", gate, torch.bool, (b,), dev)
+    words = -(-b // 32)
+    bits = torch.empty((b, words), dtype=torch.int32, device=dev)
+    self_reach = torch.empty(b, dtype=torch.bool, device=dev)
+    anc = torch.empty(b, dtype=torch.int32, device=dev)
+    K11A_REACH.launch(kernels.ptr(p), kernels.ptr(live), kernels.ptr(gate),
+                      b, kernels.ptr(bits), kernels.ptr(self_reach),
+                      kernels.ptr(anc), kernels.stream(live))
+    return self_reach, anc
+
+
+# -- K11b: the peel -----------------------------------------------------------
+
+def younger(rank: torch.Tensor) -> torch.Tensor:
+    """gt[i, j]: j validated after i — the higher rank, on equal rank the
+    higher lane (``deneva_tpu/cc/maat.py:140-142``)."""
+    lane = torch.arange(rank.shape[0], dtype=torch.int32, device=rank.device)
+    return (rank[None, :] > rank[:, None]) | (
+        (rank[None, :] == rank[:, None]) & (lane[None, :] > lane[:, None]))
+
+
+def peel_plain(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int,
+               gate):
+    """``peel`` of ``deneva_tpu/cc/maat.py:201-209`` for
+    ``peel_rounds`` rounds: each aborts the members of the initial cycle
+    set still unstable both ways that have no younger such neighbour in
+    ``P | P.T``.  Returns the aborted mask (zeros when ``gate`` is all
+    false)."""
+    aborted = torch.zeros_like(live0)
+    if not bool(gate.any()):
+        return aborted
+    gt = younger(rank)
+    sym = p | p.T
+    for _ in range(peel_rounds):
+        live = live0 & ~aborted
+        _, un_f = conflict.precedence_levels_plain(p, live, rounds)
+        _, un_r = conflict.precedence_levels_plain(p.T, live, rounds)
+        candr = un_f & un_r & on_cycle0
+        nb = sym & candr[:, None] & candr[None, :]
+        has_younger = (nb & gt).any(dim=1)
+        aborted = aborted | (candr & ~has_younger)
+    return aborted
+
+
+def peel(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int, gate):
+    """K11b: every peel round in one block, ``P`` and ``P.T`` as bit rows;
+    skipped on the device when ``gate`` is all false."""
+    if kernels.on_cpu(p, live0, on_cycle0, rank, gate):
+        return peel_plain(p, live0, on_cycle0, rank, rounds, peel_rounds,
+                          gate)
+    b = live0.shape[0]
+    dev = live0.device
+    kernels.check("p", p, torch.bool, (b, b), dev)
+    for name, t in (("live0", live0), ("on_cycle0", on_cycle0),
+                    ("gate", gate)):
+        kernels.check(name, t, torch.bool, (b,), dev)
+    kernels.check("rank", rank, torch.int32, (b,), dev)
+    words = -(-b // 32)
+    bits = torch.empty((2, b, words), dtype=torch.int32, device=dev)
+    aborted = torch.empty(b, dtype=torch.bool, device=dev)
+    K11B_PEEL.launch(kernels.ptr(p), kernels.ptr(live0),
+                     kernels.ptr(on_cycle0), kernels.ptr(rank),
+                     kernels.ptr(gate), b, rounds, peel_rounds,
+                     kernels.ptr(bits), kernels.ptr(aborted),
+                     kernels.stream(live0))
+    return aborted
+
+
+def validate_maat(cfg, state, batch: AccessBatch, inc: Incidence):
+    b = batch.active.shape[0]
+    p = must_precede(cfg, inc, b)
+    lane = torch.arange(b, dtype=torch.int32, device=p.device)
+
+    # stage 1: mutual pairs -> lex-first sweep, losers' ranges close
+    win, lose, und = conflict.first_fit(p & p.T, batch.rank, batch.active,
+                                        cfg.sweep_rounds)
+    closed = lose & batch.active
+    defer = und & batch.active
+
+    # stage 2: the residual digraph over the survivors; the level gate,
+    # then (on the device, where it is set) closure, peel, closure
+    live0 = batch.active & ~closed & ~defer
+    lv_f, un_f0 = conflict.precedence_levels(p, live0, cfg.sweep_rounds)
+    on_cycle0, _ = reach_stats(p, live0, un_f0)
+    aborted = peel(p, live0, on_cycle0, batch.rank, cfg.sweep_rounds,
+                   cfg.maat_peel_rounds, un_f0)
+    defer2, anc = reach_stats(p, live0 & ~aborted, un_f0)
+    ordkey = torch.where(un_f0.any(), anc, lv_f)
+
+    defer = defer | (defer2 & live0)
+    commit = live0 & ~aborted & ~defer2
+    v = Verdict(commit=commit, abort=(closed | aborted) & batch.active,
+                defer=defer, order=ordkey * b + lane,
+                level=torch.zeros_like(batch.rank))
+    return v, state

@@ -6,10 +6,13 @@ reference's name, type and default, so one ``--flag=value`` list drives
 both packages.
 
 The port runs YCSB on one partition and one device, over a full or a
-partial pool: ``CC_ALG=TPU_BATCH`` and ``CALVIN`` through the
-single-pass forwarding executor; ``OCC``, ``NO_WAIT`` and ``WAIT_DIE``
-(at all four isolation levels), ``TIMESTAMP`` and ``MVCC`` through the
-sweep path; ``NOCC`` (or ``mode=NOCC``) as the oracle.  A flag that
+partial pool, with zipfian or HOT keys, ``key_order``, any
+``txn_write_perc`` and either index: ``CC_ALG=TPU_BATCH`` and ``CALVIN``
+through the single-pass forwarding executor; ``OCC``, ``NO_WAIT`` and
+``WAIT_DIE`` (at all four isolation levels), ``TIMESTAMP``, ``MVCC`` and
+``MAAT`` through the sweep path; ``NOCC`` (or ``mode=NOCC``) as the
+oracle; ``mode=SIMPLE`` and ``QRY_ONLY`` (validation, no execution)
+under any of them.  A flag that
 would leave those slices raises in :meth:`Config.validate` and names
 the ROADMAP.md item that brings it; a flag the port does not know at
 all raises in :meth:`Config.from_args`.  Nothing is silently ignored.
@@ -106,6 +109,8 @@ class Config:
     max_accesses: int = 16
     defer_rounds_max: int = 8      # defer budget before forced abort
     sweep_rounds: int = 24         # serialization-sweep fixpoint iterations
+    maat_peel_rounds: int = 16     # MAAT cycle-peel iterations per epoch
+    exec_subrounds: int = 4        # chained-execution levels per epoch (CALVIN/TPU_BATCH)
     mvcc_his_len: int = 4          # in-state version history depth (HIS_RECYCLE_LEN analogue)
     escrow_order_free: bool = True  # honor workload order_free declarations
     escrow_sweep: bool = True      # ... in the sweep backends too
@@ -147,9 +152,17 @@ class Config:
                    f"bad skew_method {self.skew_method!r}")
             _check(0.0 <= self.txn_write_perc <= 1.0,
                    "txn_write_perc must be in [0, 1]")
+            if self.skew_method == "HOT":
+                _check(1 <= self.data_perc < self.synth_table_size,
+                       "HOT skew: data_perc (hot-set key count) must be in "
+                       "[1, synth_table_size)")
+                _check(0.0 <= self.access_perc <= 1.0,
+                       "access_perc must be in [0, 1]")
         _check(self.isolation_level in (
             "SERIALIZABLE", "READ_COMMITTED", "READ_UNCOMMITTED", "NOLOCK"),
             f"bad isolation_level {self.isolation_level!r}")
+        _check(self.index_struct in ("IDX_HASH", "IDX_BTREE"),
+               f"bad index_struct {self.index_struct!r}")
         # the slice the port runs so far
         for cond, what, item in _NOT_PORTED:
             if cond(self):
@@ -192,12 +205,8 @@ class Config:
 _NOT_PORTED = (
     (lambda c: c.workload != WorkloadKind.YCSB,
      "workload other than YCSB", "item 15: TPC-C and PPS"),
-    (lambda c: c.cc_alg == CCAlg.MAAT,
-     "cc_alg=MAAT", "item 14: maat"),
     (lambda c: c.cc_alg == CCAlg.DGCC,
      "cc_alg=DGCC", "item 16: depgraph + dgcc"),
-    (lambda c: c.mode in (Mode.SIMPLE, Mode.QRY_ONLY),
-     "mode SIMPLE/QRY_ONLY", "item 12: Mode.SIMPLE/QRY_ONLY"),
     (lambda c: c.part_cnt > 1,
      "part_cnt > 1", "item 18: cluster runtime"),
     (lambda c: c.device_parts > 1,
@@ -207,13 +216,6 @@ _NOT_PORTED = (
      "metrics/audit/ctrl/ctrl_dgcc/repair", "item 16: planes"),
     (lambda c: bool(c.checkpoint_path) or c.resume,
      "checkpoint_path/resume", "item 17: checkpoint"),
-    (lambda c: c.index_struct != "IDX_HASH",
-     "index_struct=IDX_BTREE", "item 15: SortedIndex"),
-    (lambda c: c.skew_method != "ZIPF",
-     "skew_method=HOT", "item 11: YCSB options"),
-    (lambda c: c.key_order, "key_order", "item 11: YCSB options"),
-    (lambda c: c.txn_write_perc < 1.0,
-     "txn_write_perc < 1", "item 11: YCSB options"),
     (lambda c: c.sim_full_row and c.tup_size % 4 != 0,
      "sim_full_row with tup_size % 4 != 0", "item 11: YCSB options"),
 )

@@ -13,7 +13,12 @@ dtypes, for leaf-by-leaf comparison:
 
 ``db/<ring>/wts`` is MVCC's per-row `VersionRing`; ``cc_state`` holds the
 T/O watermarks (``rts``, ``wts``) and MVCC's boundary ring (``his``,
-``pos``), absent for stateless backends.
+``pos``), absent for stateless backends (OCC, 2PL, MAAT, CALVIN,
+TPU_BATCH and NOCC carry ``()``).
+
+`index_from_reference` carries a workload's primary index, whose arrays
+live on the workload and not in the state: the reference's
+``SortedIndex`` keys and slots, or its ``DenseIndex`` parameters.
 
 uint32 leaves cross as int32 bit patterns (table columns) or int64
 values (rng, counters), as the port holds them.
@@ -27,6 +32,7 @@ import torch
 from deneva_tpu_torch.cc.timestamp import MVCCState, TOState
 from deneva_tpu_torch.engine.pool import PoolState
 from deneva_tpu_torch.engine.step import EngineState
+from deneva_tpu_torch.storage.index import DenseIndex, SortedIndex
 from deneva_tpu_torch.storage.table import (DeviceTable, VersionRing,
                                             to_numpy_column)
 
@@ -149,3 +155,15 @@ def from_reference_state(tree, cfg, device) -> EngineState:
         rng=_t(tree.rng, device, wide=True),
         epoch=_t(tree.epoch, device),
         stats={k: _t(v, device, wide=True) for k, v in tree.stats.items()})
+
+
+def index_from_reference(index, device):
+    """The port's copy of a reference ``DenseIndex`` or ``SortedIndex``
+    (after ``jax.device_get``): the sorted arrays are taken as they are,
+    already in the reference's stable order."""
+    if hasattr(index, "keys"):
+        return SortedIndex(keys=_t(index.keys, device),
+                           slots=_t(index.slots, device), n=int(index.n),
+                           miss_slot=int(index.miss_slot))
+    return DenseIndex(base=int(index.base), stride=int(index.stride),
+                      size=int(index.size), miss_slot=int(index.miss_slot))

@@ -19,15 +19,27 @@
 //   atomicAdd per block is exact.
 //
 // K4b replaces deneva_tpu/workloads/ycsb.py:277 generate with
-// deneva_tpu/ops/sampling.py:54 Zipfian.sample: split(gen_key, 3) -> k1,
-// k2; keys = zipf quantile of uniform(k1); is_write = uniform(k2) < p.
-// One thread per element; the two split keys are hashed once per block.
-// The quantile is evaluated in float32 op by op as the reference does
-// (round-to-nearest intrinsics, so nvcc contracts nothing into an FMA),
-// except that the power is taken in float64 and rounded to float32 — the
-// plain version does the same (deneva_tpu_torch/ops/sampling.py).
-//   Bound: operations — two 20-round threefry hashes and a pow per
-//   element against 5 output bytes.
+// deneva_tpu/ops/sampling.py:54 Zipfian.sample and :70 HotSet.sample:
+// split(gen_key, 3) -> k1, k2, k3; keys from k1; is_write = uniform(k2) <
+// write_perc; under txn_write_perc < 1 a per-txn draw from k3 gates the
+// row's writes; under key_order each txn's keys are sorted ascending (the
+// write flags stay put).  One thread per element; the split keys are
+// hashed once per block.
+//   Zipf: the quantile is evaluated in float32 op by op as the reference
+//   does (round-to-nearest intrinsics, so nvcc contracts nothing into an
+//   FMA), except that the power is taken in float64 and rounded to
+//   float32 — the plain version does the same
+//   (deneva_tpu_torch/ops/sampling.py).
+//   HOT: split(k1, 3) -> h1, h2, h3; a Bernoulli from h1 picks the hot or
+//   the cold range, and jax.random.randint draws from h2 or h3, each split
+//   again in two for its high and low words, folded by remainders in
+//   wrapping uint32 (jax/_src/random.py:581 _randint).  Only the chosen
+//   range is drawn: the other is a pure function never read.  No pow, so
+//   the keys equal the reference's bit for bit.
+//   key_order: a second launch, one thread per txn, insertion-sorts its
+//   req_per_query (<= 64) keys in registers.
+//   Bound: operations — up to six 20-round threefry hashes (or two and a
+//   pow) per element against 5 output bytes.
 #include "common.cuh"
 #include "threefry.cuh"
 #include "value_law.cuh"
@@ -135,34 +147,72 @@ __global__ void write_row_kernel(uint8_t* __restrict__ f0, int tup,
                4u * static_cast<uint32_t>(u));
 }
 
+// jax.random.split's key `i` of (k0, k1): counters (0, i).
+__device__ __forceinline__ void split_key(uint32_t k0, uint32_t k1, uint32_t i,
+                                          uint32_t* out) {
+  uint32_t x0 = 0u, x1 = i;
+  dt_threefry2x32(k0, k1, x0, x1);
+  out[0] = x0;
+  out[1] = x1;
+}
+
+// jax.random.randint's value at flat index `idx` for [lo, hi): the two
+// split keys' draws folded into the span in wrapping uint32 arithmetic.
+__device__ __forceinline__ int32_t randint_at(const uint32_t* ka,
+                                              const uint32_t* kb,
+                                              uint64_t idx, int32_t lo,
+                                              int32_t hi) {
+  const uint32_t span = hi > lo ? static_cast<uint32_t>(hi - lo) : 1u;
+  uint32_t mult = 65536u % span;
+  mult = (mult * mult) % span;
+  const uint32_t higher = dt_random_bits(ka[0], ka[1], idx);
+  const uint32_t lower = dt_random_bits(kb[0], kb[1], idx);
+  const uint32_t off = ((higher % span) * mult + lower % span) % span;
+  return lo + static_cast<int32_t>(off);
+}
+
 __global__ void generate_kernel(const int64_t* __restrict__ gen_key,
-                                int total, int theta_zero, int n_rows,
-                                float n_f, float zetan, float eta,
-                                float alpha, float thresh1, float p_write,
+                                int total, int req, int theta_zero,
+                                int n_rows, float n_f, float zetan, float eta,
+                                float alpha, float thresh1, int hot_max,
+                                float access_perc, float p_write,
+                                int write_gate, float p_txn_write,
                                 int32_t* __restrict__ keys,
                                 uint8_t* __restrict__ is_write) {
-  __shared__ uint32_t sk[4];
+  // k1, k2, k3, then HOT's h1, h2a, h2b, h3a, h3b
+  __shared__ uint32_t sk[16];
   if (threadIdx.x == 0) {
-    // jax.random.split(gen_key, 3): rows 0 (k1) and 1 (k2)
     const uint32_t g0 = static_cast<uint32_t>(gen_key[0]);
     const uint32_t g1 = static_cast<uint32_t>(gen_key[1]);
-    uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
-    dt_threefry2x32(g0, g1, a0, a1);
-    dt_threefry2x32(g0, g1, b0, b1);
-    sk[0] = a0;
-    sk[1] = a1;
-    sk[2] = b0;
-    sk[3] = b1;
+    for (uint32_t c = 0; c < 3; ++c) split_key(g0, g1, c, sk + 2 * c);
+    if (hot_max > 0) {
+      uint32_t h[6];
+      for (uint32_t c = 0; c < 3; ++c) split_key(sk[0], sk[1], c, h + 2 * c);
+      sk[6] = h[0];
+      sk[7] = h[1];
+      split_key(h[2], h[3], 0u, sk + 8);
+      split_key(h[2], h[3], 1u, sk + 10);
+      split_key(h[4], h[5], 0u, sk + 12);
+      split_key(h[4], h[5], 1u, sk + 14);
+    }
   }
   __syncthreads();
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += gridDim.x * blockDim.x) {
-    const float u =
-        dt_bits_to_uniform(dt_random_bits(sk[0], sk[1], (uint64_t)i));
     int32_t v;
-    if (theta_zero) {
+    if (hot_max > 0) {
+      const bool hot =
+          dt_bits_to_uniform(dt_random_bits(sk[6], sk[7], (uint64_t)i)) <
+          access_perc;
+      v = hot ? randint_at(sk + 8, sk + 10, i, 0, hot_max)
+              : randint_at(sk + 12, sk + 14, i, hot_max, n_rows);
+    } else if (theta_zero) {
+      const float u =
+          dt_bits_to_uniform(dt_random_bits(sk[0], sk[1], (uint64_t)i));
       v = min(__float2int_rz(__fmul_rn(u, n_f)), n_rows - 1);
     } else {
+      const float u =
+          dt_bits_to_uniform(dt_random_bits(sk[0], sk[1], (uint64_t)i));
       const float uz = __fmul_rn(u, zetan);
       const float base = __fadd_rn(__fsub_rn(__fmul_rn(eta, u), eta), 1.0f);
       const float pw = __double2float_rn(
@@ -172,10 +222,30 @@ __global__ void generate_kernel(const int64_t* __restrict__ gen_key,
       v = max(0, min(v, n_rows - 1));
     }
     keys[i] = v;
-    const float u2 =
-        dt_bits_to_uniform(dt_random_bits(sk[2], sk[3], (uint64_t)i));
-    is_write[i] = u2 < p_write;
+    bool w = dt_bits_to_uniform(dt_random_bits(sk[2], sk[3], (uint64_t)i)) <
+             p_write;
+    if (write_gate)
+      w = w && dt_bits_to_uniform(dt_random_bits(
+                   sk[4], sk[5], static_cast<uint64_t>(i / req))) <
+                   p_txn_write;
+    is_write[i] = w;
   }
+}
+
+constexpr int kMaxSortedReq = 64;
+
+__global__ void sort_rows_kernel(int32_t* __restrict__ keys, int n, int req) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  int32_t* row = keys + static_cast<size_t>(r) * req;
+  int32_t k[kMaxSortedReq];
+  for (int c = 0; c < req; ++c) {
+    const int32_t x = row[c];
+    int d = c;
+    for (; d > 0 && k[d - 1] > x; --d) k[d] = k[d - 1];
+    k[d] = x;
+  }
+  for (int c = 0; c < req; ++c) row[c] = k[c];
 }
 
 }  // namespace
@@ -207,14 +277,26 @@ DT_EXPORT int dt_forward_execute(void* f0, int tup, const int32_t* keys,
   return dt_status();
 }
 
-// K4b: total = n * req_per_query draws into keys int32 / is_write bool.
-DT_EXPORT int dt_ycsb_generate(const int64_t* gen_key, int total,
-                               int theta_zero, int n_rows, float n_f,
+// K4b: n txns of req draws into keys int32 / is_write bool [n, req].
+// hot_max > 0 selects HOT keys, else zipf; write_gate applies the per-txn
+// draw; key_order sorts each row (req <= 64).
+DT_EXPORT int dt_ycsb_generate(const int64_t* gen_key, int n, int req,
+                               int n_rows, int theta_zero, float n_f,
                                float zetan, float eta, float alpha,
-                               float thresh1, float p_write, int32_t* keys,
-                               uint8_t* is_write, void* stream) {
-  generate_kernel<<<dt_blocks(total, 256), 256, 0, dt_stream(stream)>>>(
-      gen_key, total, theta_zero, n_rows, n_f, zetan, eta, alpha, thresh1,
-      p_write, keys, is_write);
+                               float thresh1, int hot_max, float access_perc,
+                               float p_write, int write_gate,
+                               float p_txn_write, int key_order,
+                               int32_t* keys, uint8_t* is_write,
+                               void* stream) {
+  if (key_order && req > kMaxSortedReq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = dt_stream(stream);
+  const int total = n * req;
+  generate_kernel<<<dt_blocks(total, 256), 256, 0, s>>>(
+      gen_key, total, req, theta_zero, n_rows, n_f, zetan, eta, alpha,
+      thresh1, hot_max, access_perc, p_write, write_gate, p_txn_write, keys,
+      is_write);
+  if (key_order)
+    sort_rows_kernel<<<dt_blocks(n, 128), 128, 0, s>>>(keys, n, req);
   return dt_status();
 }

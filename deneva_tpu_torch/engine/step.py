@@ -8,16 +8,20 @@ partial one:
        runnable slots, whose pool fields the step gathers)
     3. plan the RW-sets
     4. validate, by one of three routes:
-       - TPU_BATCH / CALVIN on YCSB: forward_verdict sorts the lanes
-         (K1) and scans the plan (K2); everything commits;
-       - a sweep backend (OCC, NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC):
-         hashed incidence (K5+K6), overlap (K7), first-fit sweep (K8);
-         T/O checks (K12a) and records (K12b) its watermarks, carried
-         across epochs in ``cc_state``; then the defer budget;
+       - TPU_BATCH / CALVIN on YCSB under ``mode=NORMAL``:
+         forward_verdict sorts the lanes (K1) and scans the plan (K2);
+         everything commits;
+       - the backend's validate (OCC, NO_WAIT, WAIT_DIE, TIMESTAMP,
+         MVCC, MAAT; TPU_BATCH / CALVIN under SIMPLE and QRY_ONLY):
+         hashed incidence (K5+K6), overlap (K7), then first-fit sweep
+         (K8); T/O checks (K12a) and records (K12b) its watermarks,
+         carried across epochs in ``cc_state``; MAAT adds the level gate
+         (K9b), closure and peel (K11a, K11b); CALVIN / TPU_BATCH the
+         wavefront levels (K9a); then the defer budget;
        - NOCC (``cc_alg`` or ``mode``): everything commits
     5. execute: the forwarding plan (K3), or the masked arm with the
        last-writer resolution (K10) and, under MVCC, the version ring
-       (K12c reads, K12d pushes)
+       (K12c reads, K12d pushes); nothing under SIMPLE and QRY_ONLY
     6. update the pool and the device counters (plain PyTorch)
 
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
@@ -112,7 +116,7 @@ class Engine:
         self.device = kernels.resolve_device(
             workload.device if device is None else device)
         self.backend = get_backend(cfg.cc_alg)
-        if self.backend.validate is None and cfg.mode == Mode.NORMAL \
+        if self.backend.chained and cfg.mode == Mode.NORMAL \
                 and not forwarding_applies(self.backend, workload):
             raise NotImplementedError(
                 f"cc_alg={cfg.cc_alg.value} on a workload whose writes read "
@@ -204,13 +208,14 @@ class Engine:
             exec_commit = verdict.commit & ~forced
             release = verdict.commit | forced
 
-        # 5. execute
+        # 5. execute (SIMPLE / QRY_ONLY ack without touching the tables,
+        # reference config.h:276-281)
+        db = state.db
         if forwarding:
-            db = wl.execute(state.db, queries, None, verdict.order, stats,
+            db = wl.execute(db, queries, None, verdict.order, stats,
                             fwd_rank=fwd)
-        else:
-            db = wl.execute(state.db, queries, exec_commit, verdict.order,
-                            stats)
+        elif cfg.mode in (Mode.NORMAL, Mode.NOCC):
+            db = wl.execute(db, queries, exec_commit, verdict.order, stats)
 
         # 6. update pool + counters (forced txns release like commits)
         pre_abort_cnt = sel(pool.abort_cnt)

@@ -30,8 +30,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
-           "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu")
-HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh")
+           "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
+           "levels.cu", "maat.cu", "index.cu")
+HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
+           "bits.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -133,7 +135,12 @@ class Kernel:
             self._fn = fn
         err = self._fn(*args)
         if err != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
+            # the kernels also return 1 (invalid value) for a size they do
+            # not take: shared memory that does not fit, too long a row
+            why = " (invalid value, or a size the kernel does not take)" \
+                if err == 1 else ""
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} at "
+                               f"launch{why}")
         self.launches += 1
 
 
@@ -201,9 +208,9 @@ def on_cpu(*ts: torch.Tensor) -> bool:
 def all_kernels() -> dict[str, Kernel]:
     """Every kernel of the main path, by name (imports the modules that
     own them)."""
-    from deneva_tpu_torch.cc import timestamp
+    from deneva_tpu_torch.cc import maat, timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
-    from deneva_tpu_torch.storage import table
+    from deneva_tpu_torch.storage import index, table
     from deneva_tpu_torch.workloads import ycsb
     return {"K1_sort_lanes": forward.K1_SORT,
             "K2_plan_scans": forward.K2_SCAN,
@@ -213,8 +220,13 @@ def all_kernels() -> dict[str, Kernel]:
             "K5K6_build_incidence": conflict.K56_INCIDENCE,
             "K7_overlap": conflict.K7_OVERLAP,
             "K8_first_fit": conflict.K8_FIRST_FIT,
+            "K9a_wavefront_levels": conflict.K9A_WAVEFRONT,
+            "K9b_precedence_levels": conflict.K9B_PRECEDENCE,
             "K10_last_writer": scatter.K10_LAST_WRITER,
+            "K11a_maat_reach": maat.K11A_REACH,
+            "K11b_maat_peel": maat.K11B_PEEL,
             "K12a_watermark_check": timestamp.K12A_CHECK,
             "K12b_commit_watermarks": timestamp.K12B_COMMIT,
             "K12c_version_read": ycsb.K12C_READ,
-            "K12d_version_push": table.K12D_PUSH}
+            "K12d_version_push": table.K12D_PUSH,
+            "K14b_sorted_lookup": index.K14B_LOOKUP}

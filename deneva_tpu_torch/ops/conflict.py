@@ -19,6 +19,18 @@ its plain PyTorch version, written op for op from the reference:
   second family in one kernel.
 * **K8** `first_fit` — replaces ``ops/conflict.py:78`` `earlier_edges`
   fused into ``:96`` `greedy_first_fit`.
+
+Two more carry the level sweeps (``csrc/levels.cu``), one max-plus
+relaxation in two orientations:
+
+* **K9a** `wavefront` — replaces ``ops/conflict.py:123``
+  `wavefront_levels` with ``:78`` `earlier_edges` fused into its bit
+  packing, as ``cc/calvin.py:62-65`` calls them on ``uw | uw.T``: the
+  longest chain depth along the rows of the earlier-edge DAG, clamped,
+  with the overflow flags (`validate_calvin`'s levels).
+* **K9b** `precedence_levels` — replaces ``ops/conflict.py:141``: the
+  same along the columns of a possibly cyclic digraph restricted to the
+  active txns, with the instability flags (MAAT's gate).
 """
 
 from __future__ import annotations
@@ -46,6 +58,12 @@ K7_OVERLAP = kernels.Kernel("dt_overlap", [
 K8_FIRST_FIT = kernels.Kernel("dt_first_fit", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
     kernels.P, kernels.P, kernels.P, kernels.P])
+K9A_WAVEFRONT = kernels.Kernel("dt_wavefront_levels", [
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
+    kernels.P, kernels.P, kernels.P])
+K9B_PRECEDENCE = kernels.Kernel("dt_precedence_levels", [
+    kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P, kernels.P,
+    kernels.P, kernels.P])
 
 
 # -- K6: incidence ------------------------------------------------------
@@ -228,3 +246,91 @@ def first_fit(conflict: torch.Tensor, rank: torch.Tensor,
                         kernels.ptr(win), kernels.ptr(lose),
                         kernels.ptr(und), kernels.stream(active))
     return win, lose, und
+
+
+# -- K9: the level sweeps -------------------------------------------------
+
+def wavefront_levels(edges: torch.Tensor, max_level: int):
+    """Longest-chain depth per txn in the (DAG) earlier-edges graph,
+    ``max_level + 1`` Jacobi rounds.  Returns (levels int32[B] clamped to
+    ``max_level``, overflow bool[B])."""
+    lv = torch.zeros(edges.shape[0], dtype=torch.int32, device=edges.device)
+    for _ in range(max_level + 1):
+        cand = torch.where(edges, lv[None, :] + 1, 0)
+        lv = torch.maximum(lv, cand.amax(dim=1))
+    return torch.clamp_max(lv, max_level), lv > max_level
+
+
+def wavefront_plain(uw: torch.Tensor, rank: torch.Tensor,
+                    active: torch.Tensor, max_level: int):
+    """Plain K9a: the levels of the earlier edges of the symmetric
+    conflicts ``uw | uw.T``."""
+    return wavefront_levels(earlier_edges(uw | uw.T, rank, active),
+                            max_level)
+
+
+def precedence_levels_plain(prec: torch.Tensor, active: torch.Tensor,
+                            rounds: int):
+    """Longest-path levels of a possibly cyclic must-precede digraph
+    (``P[i, j]``: i before j) over the active txns, ``rounds`` Jacobi
+    rounds and one probe round.  Returns (levels int32[B], unstable
+    bool[B]): a level still moving on the probe, or at the round cap."""
+    p = prec & active[:, None] & active[None, :]
+
+    def body(lv):
+        cand = torch.where(p, lv[:, None] + 1, 0)
+        return torch.maximum(lv, cand.amax(dim=0))
+    lv = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
+    for _ in range(rounds):
+        lv = body(lv)
+    lv2 = body(lv)
+    return lv, ((lv2 != lv) | (lv >= rounds)) & active
+
+
+def _levels_out(shape: tuple, b: int, dev) -> tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]:
+    return (torch.empty(shape, dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.bool, device=dev))
+
+
+def wavefront(uw: torch.Tensor, rank: torch.Tensor, active: torch.Tensor,
+              max_level: int):
+    """K9a: the earlier edges of ``uw | uw.T`` built as they are packed to
+    bits (``uw``'s columns by a tiled transpose, then its rows), then the
+    rounds in one block."""
+    if kernels.on_cpu(uw, rank, active):
+        return wavefront_plain(uw, rank, active, max_level)
+    b = active.shape[0]
+    dev = active.device
+    kernels.check("uw", uw, torch.bool, (b, b), dev)
+    kernels.check("rank", rank, torch.int32, (b,), dev)
+    kernels.check("active", active, torch.bool, (b,), dev)
+    if max_level < 0:
+        raise ValueError("K9a takes max_level >= 0")
+    bits, lv, over = _levels_out((2 * b + 1, -(-b // 32)), b, dev)
+    K9A_WAVEFRONT.launch(kernels.ptr(uw), kernels.ptr(rank),
+                         kernels.ptr(active), b, max_level, kernels.ptr(bits),
+                         kernels.ptr(lv), kernels.ptr(over),
+                         kernels.stream(active))
+    return lv, over
+
+
+def precedence_levels(prec: torch.Tensor, active: torch.Tensor,
+                      rounds: int):
+    """K9b: ``prec`` packed to bits, then the rounds and the probe in one
+    block."""
+    if kernels.on_cpu(prec, active):
+        return precedence_levels_plain(prec, active, rounds)
+    b = active.shape[0]
+    dev = active.device
+    kernels.check("prec", prec, torch.bool, (b, b), dev)
+    kernels.check("active", active, torch.bool, (b,), dev)
+    if rounds < 0:
+        raise ValueError("K9b takes rounds >= 0")
+    bits, lv, unstable = _levels_out((b, -(-b // 32)), b, dev)
+    K9B_PRECEDENCE.launch(kernels.ptr(prec), kernels.ptr(active), b, rounds,
+                          kernels.ptr(bits), kernels.ptr(lv),
+                          kernels.ptr(unstable), kernels.stream(active))
+    return lv, unstable

@@ -6,7 +6,7 @@ with it needs the same stream, so the port reproduces that generator bit
 for bit instead of using a ``torch.Generator`` (jax ``_src/prng.py``:
 ``threefry_2x32`` :1092, ``_threefry_split_foldlike`` :1156,
 ``_threefry_random_bits_partitionable`` :1184; ``_src/random.py``:
-``_uniform`` :435, ``_bernoulli`` :1075).
+``_uniform`` :435, ``_randint`` :581, ``_bernoulli`` :1075).
 
 A key is the raw ``uint32[2]`` pair, held as an int64 tensor of two
 values in [0, 2^32).  The counter of element ``i`` of a draw of any shape
@@ -109,3 +109,19 @@ def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: uniform < float32(p)."""
     pf = torch.tensor(p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < pf
+
+
+def randint(key: torch.Tensor, shape: tuple, lo: int, hi: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, lo, hi, int32)`` for
+    ``0 <= lo``, ``hi < 2^31``: two 32-bit draws from ``split(key)``
+    folded into ``[lo, hi)`` by remainders in wrapping uint32 arithmetic,
+    the multiplier ``(2^16 % span)^2 % span`` included (it wraps to 0
+    once span exceeds 2^16)."""
+    k = split_plain(key, 2)
+    higher, lower = random_bits(k[0], shape), random_bits(k[1], shape)
+    span = hi - lo if hi > lo else 1
+    mult = (65536 % span) ** 2 & MASK32
+    mult %= span
+    off = (((higher % span) * mult & MASK32) + lower % span) & MASK32
+    return (lo + off % span).to(torch.int32)

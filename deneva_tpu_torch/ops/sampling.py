@@ -1,4 +1,4 @@
-"""Zipfian key sampling (reference `benchmarks/ycsb_query.cpp:181-202`).
+"""Key sampling: zipfian and HOT (reference `benchmarks/ycsb_query.cpp:181-260`).
 
 The port of ``deneva_tpu/ops/sampling.py``: Gray et al.'s closed-form
 zipfian quantile over host-computed zeta constants, evaluated in float32
@@ -15,8 +15,12 @@ fraction of a percent of keys then differs, each by exactly one
 (measured in ``tests/test_torch_sampling.py``).  At theta = 0 the sampler
 is one correctly rounded multiply and matches bit for bit.
 
-This module holds the plain version of K4b's Zipf half; the kernel is
-launched by `workloads.ycsb.YCSBWorkload.generate`.
+`HotSet` (``deneva_tpu/ops/sampling.py:70``) draws a Bernoulli and two
+``randint`` per key on the same threefry stream and has no ``pow``, so
+it matches the reference bit for bit.
+
+This module holds the plain versions of K4b's two samplers; the kernel
+is launched by `workloads.ycsb.YCSBWorkload.generate`.
 """
 
 from __future__ import annotations
@@ -85,3 +89,38 @@ class Zipfian:
     def sample(self, key: torch.Tensor, shape: tuple) -> torch.Tensor:
         """Zipfian variates, int32 in [0, n)  (`ycsb_query.cpp:190-202`)."""
         return self.sample_uniform(prng.uniform(key, shape))
+
+    def kernel_params(self) -> tuple:
+        """K4b's sampler arguments: theta_zero, n, zetan, eta, alpha,
+        thresh1, then hot_max 0 (not HOT) and access_perc."""
+        p = self.f32_params
+        f = np.float32
+        return (int(p["theta_zero"]), p["n"], p.get("zetan", f(0)),
+                p.get("eta", f(0)), p.get("alpha", f(0)),
+                p.get("thresh1", f(0)), 0, f(0))
+
+
+@dataclass(frozen=True)
+class HotSet:
+    """HOT skew sampler (reference `ycsb_query.cpp:205-260`,
+    config.h:162-167): ``access_perc`` of accesses hit the first
+    ``hot_max`` keys uniformly, the rest ``[hot_max, n)`` uniformly.
+    ``data_perc`` is an absolute key count despite its name."""
+
+    n: int
+    hot_max: int
+    access_perc: float
+
+    def sample(self, key: torch.Tensor, shape: tuple) -> torch.Tensor:
+        k1, k2, k3 = prng.split_plain(key, 3)
+        is_hot = prng.bernoulli(k1, self.access_perc, shape)
+        hot = prng.randint(k2, shape, 0, self.hot_max)
+        cold = prng.randint(k3, shape, self.hot_max, self.n)
+        return torch.where(is_hot, hot, cold)
+
+    def kernel_params(self) -> tuple:
+        """K4b's sampler arguments, in `Zipfian.kernel_params`' order:
+        the zipf constants unused, hot_max > 0 selecting HOT."""
+        f = np.float32
+        return (0, f(0), f(0), f(0), f(0), f(0), self.hot_max,
+                f(self.access_perc))

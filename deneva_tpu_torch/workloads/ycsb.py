@@ -2,10 +2,11 @@
 
 The port of ``deneva_tpu/workloads/ycsb.py``, single-partition arm: one
 table of ``synth_table_size`` rows with ``field_per_tuple`` string
-fields; a query is ``req_per_query`` zipfian keys, each read (field F0)
-or blindly overwritten with a pure function of (key, writer rank).
+fields; a query is ``req_per_query`` zipfian or HOT keys, each read
+(field F0) or blindly overwritten with a pure function of (key, writer
+rank).
 
-Two kernels carry it on the card:
+Three kernels carry it on the card:
 
 * **K3** `_forward_execute_f0` (``csrc/ycsb.cu``) — replaces
   ``deneva_tpu/workloads/ycsb.py:78``: read lanes gather F0 (forwarded
@@ -14,16 +15,21 @@ Two kernels carry it on the card:
   and the checksum finish in one launch before the winners' stores run
   in a second, so no read sees a value written in its own epoch.
 * **K4b** `YCSBWorkload.generate` (``csrc/ycsb.cu``) — replaces
-  ``deneva_tpu/workloads/ycsb.py:277`` with ``ops/sampling.py:54``: the
-  threefry draws, the zipfian quantile and the bernoulli write flags in
-  one elementwise pass.
-
+  ``deneva_tpu/workloads/ycsb.py:277`` with ``ops/sampling.py:54,70``:
+  the threefry draws, the zipfian quantile or the HOT draw (a Bernoulli
+  and two ``randint``), the Bernoulli write flags and, under
+  ``txn_write_perc < 1``, the per-txn write gate in one elementwise
+  pass; under ``key_order`` a second launch sorts each txn's keys.
 * **K12c** `_versioned_read_f0` (``csrc/version.cu``) — replaces
   ``deneva_tpu/storage/table.py:230,241`` `VersionRing.rows` and
   `version_from` as the MVCC read arm (``deneva_tpu/workloads/ycsb.py:
   552-579``) uses them: each committed read gathers F0 and its row's
   version ring, and a read that a retained overwrite postdates takes
   ``f(key, v*)``, the version current at its ts; then the checksum.
+
+Under ``index_struct=IDX_BTREE`` the key -> slot probe is the ordered
+index's (`storage.index.SortedIndex`, kernel K14b) instead of the affine
+map; both give the same slots.
 
 The sweep backends take the masked arm of `execute` instead: a plain
 gather and checksum of the committed reads (K12c under MVCC), then the
@@ -49,9 +55,9 @@ from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.ops.forward import seg_first
 from deneva_tpu_torch.ops.hashing import mul32 as _mul32
 from deneva_tpu_torch.ops.hashing import u32 as _u32
-from deneva_tpu_torch.ops.sampling import Zipfian
+from deneva_tpu_torch.ops.sampling import HotSet, Zipfian
 from deneva_tpu_torch.storage.catalog import parse_schema
-from deneva_tpu_torch.storage.index import DenseIndex
+from deneva_tpu_torch.storage.index import DenseIndex, SortedIndex
 from deneva_tpu_torch.storage.table import DeviceTable, VersionRing
 
 TABLE = "MAIN_TABLE"
@@ -68,9 +74,10 @@ K12C_READ = kernels.Kernel("dt_version_read", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.P, kernels.P])
 K4_GEN = kernels.Kernel("dt_ycsb_generate", [
-    kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.F32,
+    kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.I32,
     kernels.F32, kernels.F32, kernels.F32, kernels.F32, kernels.F32,
-    kernels.P, kernels.P, kernels.P])
+    kernels.I32, kernels.F32, kernels.F32, kernels.I32, kernels.F32,
+    kernels.I32, kernels.P, kernels.P, kernels.P])
 
 
 @dataclass
@@ -241,15 +248,27 @@ class YCSBWorkload:
             + "INDEX=MAIN_INDEX\n\tMAIN_TABLE,0\n")
         self.n_rows = cfg.synth_table_size
         self.n_parts = max(cfg.part_cnt, 1)
-        if self.n_parts != 1 or cfg.elastic or cfg.skew_method != "ZIPF" \
-                or cfg.index_struct != "IDX_HASH":
+        if self.n_parts != 1 or cfg.elastic:
             raise NotImplementedError(
-                "deneva_tpu_torch's YCSB runs one partition, zipfian keys "
-                "and the dense index (ROADMAP.md queue 1, slices 2-5)")
+                "deneva_tpu_torch's YCSB runs one partition (ROADMAP.md "
+                "queue 1, items 18-19)")
         self.n_local = self.n_rows
         self.index = DenseIndex(base=0, stride=1, size=self.n_rows,
                                 miss_slot=self.n_rows)
-        self.zipf = Zipfian(self.n_rows, cfg.zipf_theta)
+        if cfg.index_struct == "IDX_BTREE":
+            # the ordered index on the primary path: the same key -> slot
+            # map through a binary search (global.h:320-324)
+            self.index = SortedIndex.build(
+                self._owned_keys(0, self.n_local),
+                torch.arange(self.n_local, dtype=torch.int32,
+                             device=self.device), miss_slot=self.n_local)
+        # key sampler: Gray zipfian or HOT two-tier uniform
+        # (SKEW_METHOD, config.h:162-167)
+        if cfg.skew_method == "HOT":
+            self.sampler = HotSet(self.n_rows, int(cfg.data_perc),
+                                  cfg.access_perc)
+        else:
+            self.sampler = Zipfian(self.n_rows, cfg.zipf_theta)
         self.n_req = cfg.req_per_query
 
     def txn_type_of(self, q: YCSBQuery) -> torch.Tensor:
@@ -290,27 +309,40 @@ class YCSBWorkload:
     # -- query generation (ycsb_query.cpp:303-376) ---------------------
     def generate_plain(self, rng: torch.Tensor, n: int) -> YCSBQuery:
         """Plain K4b, op for op from the reference."""
+        cfg = self.cfg
         shape = (n, self.n_req)
-        k1, k2, _ = prng.split_plain(rng, 3)
-        return YCSBQuery(
-            keys=self.zipf.sample(k1, shape),
-            is_write=prng.bernoulli(k2, self.cfg.write_perc, shape))
+        k1, k2, k3 = prng.split_plain(rng, 3)
+        keys = self.sampler.sample(k1, shape)
+        if cfg.key_order:
+            # KEY_ORDER (config.h:106): each txn's keys ascending; the
+            # write flags are iid per slot and stay where they are
+            keys = torch.sort(keys, dim=1).values
+        is_write = prng.bernoulli(k2, cfg.write_perc, shape)
+        if cfg.txn_write_perc < 1.0:
+            # TXN_WRITE_PERC: one draw per txn gates all its writes
+            # (ycsb_query.cpp:313,331)
+            is_write = is_write & prng.bernoulli(k3, cfg.txn_write_perc,
+                                                 (n, 1))
+        return YCSBQuery(keys=keys, is_write=is_write)
 
     def generate(self, rng: torch.Tensor, n: int) -> YCSBQuery:
         """K4b: ``n`` fresh queries from the raw key ``rng``."""
         if kernels.on_cpu(rng):
             return self.generate_plain(rng, n)
+        cfg = self.cfg
         shape = (n, self.n_req)
         kernels.check("rng", rng, torch.int64, (2,))
         keys = torch.empty(shape, dtype=torch.int32, device=rng.device)
         is_write = torch.empty(shape, dtype=torch.bool, device=rng.device)
-        p = self.zipf.f32_params
-        K4_GEN.launch(kernels.ptr(rng), n * self.n_req,
-                      int(p["theta_zero"]), self.zipf.n, p["n"],
-                      p.get("zetan", 0.0), p.get("eta", 0.0),
-                      p.get("alpha", 0.0), p.get("thresh1", 0.0),
-                      np.float32(self.cfg.write_perc), kernels.ptr(keys),
-                      kernels.ptr(is_write), kernels.stream(rng))
+        # key_order sorts a row in registers: the kernel refuses rows of
+        # more than 64 keys
+        K4_GEN.launch(kernels.ptr(rng), n, self.n_req, self.n_rows,
+                      *self.sampler.kernel_params(),
+                      np.float32(cfg.write_perc),
+                      int(cfg.txn_write_perc < 1.0),
+                      np.float32(cfg.txn_write_perc), int(cfg.key_order),
+                      kernels.ptr(keys), kernels.ptr(is_write),
+                      kernels.stream(rng))
         return YCSBQuery(keys=keys, is_write=is_write)
 
     # -- RW-set planning ------------------------------------------------

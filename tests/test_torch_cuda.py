@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: each kernel alone, and whole epochs of the forwarding, OCC,
-NOCC, NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC paths.  Marked ``cuda``;
+NOCC, NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and MAAT paths, of SIMPLE and
+QRY_ONLY, of HOT keys and of the ordered index.  Marked ``cuda``;
 without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from chip_smoke import PATH_LAUNCHES, plain_path
+from deneva_tpu_torch.cc import maat
 from deneva_tpu_torch.ops import conflict, forward, prng, scatter
+from deneva_tpu_torch.storage.index import SortedIndex
 from deneva_tpu_torch.workloads import ycsb
 
 pytestmark = pytest.mark.cuda
@@ -260,6 +263,13 @@ def test_wrappers_refuse_bad_inputs(dev):
         conflict.overlap(inc, inc)          # K not a multiple of 8
     with pytest.raises(TypeError):
         scatter.last_writer(k.long(), r, w, 10)
+    # a size refused on the card surfaces through the launch status
+    from deneva_tpu_torch.config import Config
+    wl = ycsb.YCSBWorkload(Config.from_args(
+        ["--synth_table_size=4096", "--req_per_query=65",
+         "--max_accesses=65", "--key_order=true"]), device=dev)
+    with pytest.raises(RuntimeError):       # K4b sorts rows of <= 64 keys
+        wl.generate(prng.key_from_seed(3, dev), 4)
 
 
 def _to_batch(b, a, dev, seed, order_free):
@@ -412,3 +422,133 @@ def test_lock_and_to_epochs_through_kernels_match_plain_epochs(dev, alg,
             assert torch.equal(t[cap + 1:], lp[path][cap + 1:]), path
         else:
             assert torch.equal(t, lp[path]), path
+
+
+# -- slice 4: K9a, K9b, K11a, K11b, K14b, K4b's options ------------------------
+
+def _digraph(b, seed, density, cycles=True):
+    """A seeded digraph without self-loops; ``cycles=False`` keeps only
+    i -> j for i < j."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(b, b, generator=g) < density
+    p.fill_diagonal_(False)
+    if not cycles:
+        p = torch.triu(p)
+    rank = torch.randint(0, max(b // 4, 1), (b,), generator=g,
+                         dtype=torch.int32)
+    active = torch.rand(b, generator=g) < 0.85
+    return p, rank, active
+
+
+@pytest.mark.parametrize("b", [16, 100, 1024, 2048])
+@pytest.mark.parametrize("max_level", [0, 3, 24])
+def test_wavefront_levels_matches_plain(dev, b, max_level):
+    # p is not symmetric: the kernel ORs in its transpose
+    p, rank, active = _digraph(b, b + max_level, min(0.3, 8.0 / b))
+    p, rank, active = p.to(dev), rank.to(dev), active.to(dev)
+    got = conflict.wavefront(p, rank, active, max_level)
+    want = conflict.wavefront_plain(p, rank, active, max_level)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b", [16, 100, 1024, 2048])
+@pytest.mark.parametrize("rounds", [0, 1, 3, 24])
+@pytest.mark.parametrize("cycles", [False, True])
+def test_precedence_levels_matches_plain(dev, b, rounds, cycles):
+    p, _, active = _digraph(b, b * 7 + rounds, min(0.2, 3.0 / b), cycles)
+    p, active = p.to(dev), active.to(dev)
+    got = conflict.precedence_levels(p, active, rounds)
+    want = conflict.precedence_levels_plain(p, active, rounds)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b", [16, 100, 1024, 2048])
+@pytest.mark.parametrize("density", [0.5, 3.0])
+@pytest.mark.parametrize("gate_on", [False, True])
+def test_maat_closure_and_peel_match_plain(dev, b, density, gate_on):
+    p, rank, live = _digraph(b, b + int(density), min(0.5, density / b))
+    p, rank, live = p.to(dev), rank.to(dev), live.to(dev)
+    gate = torch.zeros(b, dtype=torch.bool, device=dev)
+    gate[b // 2] = gate_on
+    sr, anc = maat.reach_stats(p, live, gate)
+    srp, ancp = maat.reach_stats_plain(p, live, gate)
+    assert torch.equal(sr, srp) and torch.equal(anc, ancp)
+    for rounds in (1, 24):
+        got = maat.peel(p, live, sr, rank, rounds, 16, gate)
+        want = maat.peel_plain(p, live, sr, rank, rounds, 16, gate)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,span,m", [(0, 10, 100), (1, 3, 50),
+                                      (1000, 300, 10000),
+                                      (1 << 20, 1 << 21, 655360)])
+def test_sorted_lookup_matches_plain(dev, n, span, m):
+    g = torch.Generator().manual_seed(n)
+    keys = torch.randint(0, span, (n,), generator=g, dtype=torch.int32)
+    slots = torch.randperm(n, generator=g).to(torch.int32)
+    idx = SortedIndex.build(keys.to(dev), slots.to(dev), miss_slot=n)
+    q = torch.randint(-2, span + 2, (m,), generator=g,
+                      dtype=torch.int32).to(dev)
+    assert torch.equal(idx.lookup(q), idx.lookup_plain(q))
+    q2 = q[: m - m % 10].reshape(-1, 10)
+    assert torch.equal(idx.lookup(q2), idx.lookup_plain(q2))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--skew_method=HOT", "--data_perc=100", "--access_perc=0.9"],
+    ["--skew_method=HOT", "--data_perc=70000", "--access_perc=0.5",
+     "--key_order=true", "--txn_write_perc=0.25"],
+    ["--zipf_theta=0.9", "--key_order=true"],
+    ["--zipf_theta=0.0", "--txn_write_perc=0.5"]])
+@pytest.mark.parametrize("n", [1, 6554])
+def test_generate_options_match_plain(dev, flags, n):
+    from deneva_tpu_torch.config import Config
+    cfg = Config.from_args(["--epoch_batch=8192", "--max_txn_in_flight=8192",
+                            "--synth_table_size=1000003"] + flags)
+    wl = ycsb.YCSBWorkload(cfg, device=dev)
+    key = prng.key_from_seed(9, dev)
+    q, qp = wl.generate(key, n), wl.generate_plain(key, n)
+    assert torch.equal(q.is_write, qp.is_write)
+    assert torch.equal(q.keys, qp.keys)
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("MAAT", ["--cc_alg=MAAT"]),
+    ("MAAT", ["--cc_alg=MAAT", "--skew_method=HOT", "--data_perc=100",
+              "--access_perc=0.9", "--sim_full_row=true"]),
+    ("MODES", ["--cc_alg=TPU_BATCH", "--mode=SIMPLE"]),
+    ("MODES", ["--cc_alg=CALVIN", "--mode=QRY_ONLY"]),
+    ("BTREE", ["--cc_alg=TPU_BATCH", "--index_struct=IDX_BTREE",
+               "--key_order=true", "--txn_write_perc=0.5"])])
+def test_slice4_epochs_through_kernels_match_plain_epochs(dev, path, flags):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.convert import state_leaves
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    pool = 2048 if path == "BTREE" else 8192
+    cfg = Config.from_args([
+        "--epoch_batch=2048", f"--max_txn_in_flight={pool}",
+        "--synth_table_size=65536", "--zipf_theta=0.9",
+        "--conflict_buckets=8192", "--field_per_tuple=2"] + flags)
+    wk = ycsb.YCSBWorkload(cfg, device=dev)
+    wp = ycsb.YCSBWorkload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    for nm, kern in all_kernels().items():
+        want = 4 * PATH_LAUNCHES[path].get(nm, 0)
+        assert kern.launches == before[nm] + want, nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    lk, lp = state_leaves(sk), state_leaves(sp)
+    cap = cfg.synth_table_size
+    for path_, t in lk.items():
+        if path_.startswith("db/MAIN_TABLE/") and t.ndim >= 1:
+            assert torch.equal(t[:cap], lp[path_][:cap]), path_
+            assert torch.equal(t[cap + 1:], lp[path_][cap + 1:]), path_
+        else:
+            assert torch.equal(t, lp[path_]), path_

@@ -156,3 +156,72 @@ def test_table_gather_scatter_match_reference():
             (rs >= 0) & (rs < 100)].view(np.uint32),
         np.asarray(jt.gather(jnp.asarray(rs), ("F3",))["F3"])[
             (rs >= 0) & (rs < 100)])
+
+
+# -- HOT keys, key_order, txn_write_perc (K4b's options) ---------------------
+
+GEN = ["--epoch_batch=256", "--max_txn_in_flight=256",
+       "--synth_table_size=4096", "--req_per_query=10"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--skew_method=HOT", "--data_perc=16", "--access_perc=0.5"],
+    ["--skew_method=HOT", "--data_perc=100", "--access_perc=0.9",
+     "--key_order=true"],
+    ["--skew_method=HOT", "--data_perc=3000", "--access_perc=0.03",
+     "--txn_write_perc=0.25", "--write_perc=0.8", "--read_perc=0.2"],
+    ["--zipf_theta=0", "--key_order=true", "--txn_write_perc=0.5"],
+    ["--skew_method=HOT", "--data_perc=16", "--access_perc=0.5",
+     "--key_order=true", "--txn_write_perc=0.25"]])
+@pytest.mark.parametrize("seed", [7, -3])
+def test_generate_options_match_reference(flags, seed):
+    import jax
+
+    from deneva_tpu.config import Config as JConfig
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.ops import prng
+    jwl = jy.YCSBWorkload(JConfig.from_args(GEN + flags))
+    twl = ty.YCSBWorkload(Config.from_args(GEN + flags), device="cpu")
+    jq = jwl.generate(jax.random.PRNGKey(seed), 2048)
+    tq = twl.generate(prng.key_from_seed(seed, "cpu"), 2048)
+    np.testing.assert_array_equal(tq.keys.numpy(), np.asarray(jq.keys))
+    np.testing.assert_array_equal(tq.is_write.numpy(),
+                                  np.asarray(jq.is_write))
+    keys = tq.keys.numpy()
+    if "--key_order=true" in flags:
+        assert (np.diff(keys, axis=1) >= 0).all()
+    if "--txn_write_perc=0.25" in flags:
+        assert 0.6 < (~tq.is_write.numpy().any(axis=1)).mean() < 0.9
+
+
+@pytest.mark.parametrize("alg,pool,extra", [
+    ("TPU_BATCH", 256, ["--key_order=true", "--txn_write_perc=0.25"]),
+    ("MAAT", 1024, []),
+    ("OCC", 1024, ["--txn_write_perc=0.5", "--sim_full_row=true"])])
+def test_hot_generated_epochs_match_reference(alg, pool, extra):
+    """Generated epochs at HOT (beside ``tests/test_engine.py:300``): the
+    whole path, the threefry stream and the HOT draws included, is
+    bit-exact, so nothing is injected."""
+    import jax
+    from test_torch_occ import _assert_same
+
+    from deneva_tpu.config import Config as JConfig
+    from deneva_tpu.engine.step import Engine as JEngine
+    from deneva_tpu.workloads import get_workload as j_workload
+    from deneva_tpu_torch import convert
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads import get_workload
+    args = ["--epoch_batch=256", f"--max_txn_in_flight={pool}",
+            "--synth_table_size=4096", "--conflict_buckets=1024",
+            "--skew_method=HOT", "--data_perc=16", "--access_perc=0.5",
+            f"--cc_alg={alg}", "--field_per_tuple=10", "--tup_size=100",
+            "--seed=11"] + extra
+    jcfg, tcfg = JConfig.from_args(args), Config.from_args(args)
+    jeng = JEngine(jcfg, j_workload(jcfg))
+    teng = Engine(tcfg, get_workload(tcfg, device="cpu"))
+    js = jeng.init_state()
+    ts = convert.from_reference_state(jax.device_get(js), tcfg, "cpu")
+    js, ts = jeng.jit_run(js, 5), teng.run(ts, 5)
+    _assert_same(js, ts, tcfg.synth_table_size)
+    assert int(ts.stats["total_txn_commit_cnt"]) > 0
