@@ -33,7 +33,15 @@ paths drive it:
   settings, theta 0.6, under ``mode=SIMPLE`` and ``QRY_ONLY``
   (validation through the wavefront levels K9a, no execution);
 * ordered index — the forwarding path with ``index_struct=IDX_BTREE``
-  (K1-K4 and the sorted-index probe K14b).
+  (K1-K4 and the sorted-index probe K14b);
+* TPC-C — Payment + NewOrder at the ``tpcc_scaling`` point of 64
+  warehouses (``paper_base`` with ``max_accesses=32`` and the reference's
+  TPC-C defaults: 1.92 M customers, 6.4 M stock rows, nothing cut) under
+  TPU_BATCH, and at the ``tpcc_escrow`` point of 4 warehouses under
+  TPU_BATCH, CALVIN, NO_WAIT, OCC and MVCC: generation K4a, K19 and the
+  CUSTOMER_LAST probe K14a; the escrow adds K14c and ring appends K14d,
+  four passes of them through the chained executor (TPU_BATCH, CALVIN,
+  with K5+K6, K7, K9a) or one on the sweep path (with K8, K10, K12a-b).
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -63,6 +71,12 @@ Phases (any error or mismatch exits non-zero and prints no result):
                ``ycsb_skew``'s epoch-4 P; K14b over 655,360 probes of the
                2^24-entry index with misses mixed in; K4b with HOT keys,
                ``key_order`` and ``txn_write_perc=0.25`` at 65,536 x 10.
+               TPC-C: K19 and K14a on one 64-warehouse epoch's 2,048
+               txns (K14a also on 655,360 probes with misses), K14c on
+               each table's scatter-add of a real epoch at 64 and at 4
+               warehouses (``index_put_(accumulate=True)`` the
+               yardstick), K14d on ORDER-LINE's 30,720 lanes across
+               the ring's end.
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -80,24 +94,35 @@ Phases (any error or mismatch exits non-zero and prints no result):
                the load, one per key and epoch, kept in numpy).  3 kernel
                epochs equal 3 plain epochs for MAAT at ``ycsb_hot``,
                SIMPLE and QRY_ONLY (whose F0 stays the loaded table) and
-               IDX_BTREE (then its forwarding oracle epoch).
+               IDX_BTREE (then its forwarding oracle epoch).  TPC-C:
+               3 kernel epochs equal 3 plain epochs for TPU_BATCH at 64
+               warehouses and CALVIN, NO_WAIT, OCC (escrow off) and MVCC
+               at 4; one TPU_BATCH epoch against a numpy oracle that
+               applies the committed txns level by level; the run's
+               money conservation and dense O_IDs; the cost of an empty
+               chained pass and of the O_ID rank glue.
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
                both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
                WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
                ``ycsb_skew`` point, MAAT at ``ycsb_hot``, TPU_BATCH under
-               SIMPLE and QRY_ONLY and on IDX_BTREE; the ``[summary]``
+               SIMPLE and QRY_ONLY and on IDX_BTREE, TPC-C under
+               TPU_BATCH at 64 and 4 warehouses and CALVIN, NO_WAIT, OCC
+               and MVCC at 4; the ``[summary]``
                numbers and committed txn/s, the TPU_BATCH / OCC ratio
                (``bench.py``'s ``vs_baseline``); with counts zeroed just
                before each run, every kernel's launches equal its
                per-epoch count on that path (``PATH_LAUNCHES``) times the
-               epochs run; the sweep backends must commit and abort.
+               epochs run; the YCSB sweep backends must commit and
+               abort, TPC-C's may abort, the others never.
 6. report    — one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, before the report, a profile of 50 epochs per
 forwarding mode and of OCC, NO_WAIT, MVCC, MAAT (``ycsb_skew`` and
-``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode: host and wall
-time per epoch, device time by kernel and the device's idle share.
+``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode, and of TPC-C
+(TPU_BATCH at 64 warehouses, NO_WAIT at 4): host and wall time per
+epoch, device time by kernel and the device's idle share; for TPC-C
+also the host syncs in one epoch and the host's hot spots (cProfile).
 
 Without a CUDA device, or in a directory without the package, it exits
 non-zero before printing any result.
@@ -168,6 +193,14 @@ KERNELS = {
                           "deneva_tpu/storage/table.py:257"),
     "K14b_sorted_lookup": ("deneva_tpu_torch/csrc/index.cu",
                            "deneva_tpu/storage/index.py:159"),
+    "K14a_hash_lookup": ("deneva_tpu_torch/csrc/index.cu",
+                         "deneva_tpu/storage/index.py:97"),
+    "K14c_scatter_add": ("deneva_tpu_torch/csrc/table.cu",
+                         "deneva_tpu/storage/table.py:126"),
+    "K14d_append": ("deneva_tpu_torch/csrc/table.cu",
+                    "deneva_tpu/storage/table.py:137"),
+    "K19_tpcc_generate": ("deneva_tpu_torch/csrc/tpcc.cu",
+                          "deneva_tpu/workloads/tpcc.py:470"),
 }
 
 
@@ -284,8 +317,30 @@ PATH_LAUNCHES = {
     "TIMESTAMP": _TO,
     "MVCC": {**_TO, "K12c_version_read": 1, "K12d_version_push": 1},
 }
-# paths whose runs must abort (the others commit every selected txn)
+# TPC-C: generation (K4a, K19, the by-last-name probe K14a); each
+# executed pass adds through K14c five times (W_YTD, D_YTD, the customer,
+# D_NEXT_O_ID, stock) and appends through K14d four times (HISTORY,
+# ORDER, NEW-ORDER, ORDER-LINE).  The chained executor runs
+# exec_subrounds = 4 passes and takes no K10; the sweep path one pass.
+_TPCC_GEN = {"K4a_threefry_split": 1, "K19_tpcc_generate": 1,
+             "K14a_hash_lookup": 1}
+_TPCC_SWEEP = {**_TPCC_GEN, "K5K6_build_incidence": 1, "K7_overlap": 1,
+               "K8_first_fit": 1, "K10_last_writer": 1,
+               "K14c_scatter_add": 5, "K14d_append": 4}
+PATH_LAUNCHES.update({
+    "TPCC_CHAINED": {**_TPCC_GEN, "K5K6_build_incidence": 1,
+                     "K7_overlap": 1, "K9a_wavefront_levels": 1,
+                     "K14c_scatter_add": 20, "K14d_append": 16},
+    "TPCC_SWEEP": _TPCC_SWEEP,
+    "TPCC_TO": {**_TPCC_SWEEP, "K12a_watermark_check": 1,
+                "K12b_commit_watermarks": 1},
+    "TPCC_MAAT": {**_TPCC_SWEEP, "K9b_precedence_levels": 1,
+                  "K11a_maat_reach": 2, "K11b_maat_peel": 1},
+})
+# paths whose runs must abort, and paths that may (TPC-C's sweep backends
+# under escrow abort only on stock conflicts); the others never abort
 ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT")
+MAY_ABORT = ("TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT")
 
 
 @contextlib.contextmanager
@@ -317,7 +372,11 @@ def plain_path(wl):
               conflict.precedence_levels_plain),
              (maat, "reach_stats", maat.reach_stats_plain),
              (maat, "peel", maat.peel_plain),
-             (index.SortedIndex, "lookup", index.SortedIndex.lookup_plain)]
+             (index.SortedIndex, "lookup", index.SortedIndex.lookup_plain),
+             (index.HashIndex, "lookup", index.HashIndex.lookup_plain),
+             (table.DeviceTable, "scatter_add",
+              table.DeviceTable.scatter_add_plain),
+             (table.DeviceTable, "append", table.DeviceTable.append_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1724,6 +1783,503 @@ def phase_slice4_epochs(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# -- TPC-C (slice 5): the tpcc_scaling and tpcc_escrow points ----------------
+
+def tpcc_fields() -> list[str]:
+    import dataclasses
+
+    from deneva_tpu_torch.workloads.tpcc import TPCCQuery
+    return [f.name for f in dataclasses.fields(TPCCQuery)]
+
+
+def tpcc_config(num_wh: int, alg: str = "TPU_BATCH", **kw):
+    """``tpcc_scaling`` / ``tpcc_escrow`` of ``deneva_tpu/harness/
+    experiments.py:113-131,194-215`` (the reference's ``scripts/
+    experiments.py:188-235``): ``paper_base`` (``epoch_batch=2048`` over
+    ``max_txn_in_flight=10000``, 8192 buckets, dual hashing) with
+    ``max_accesses=32``, ``perc_payment=0.5`` and the reference's TPC-C
+    defaults: 3000 customers per district, 100,000 items, 15 items per
+    txn, ``insert_table_cap=2^17``, ``mpr_neworder=0.01``, the
+    CUSTOMER_LAST index, escrow on.  Nothing is cut: at 64 warehouses
+    the tables hold 1.92 M customers and 6.4 M stock rows."""
+    from deneva_tpu_torch.config import Config
+    args = ["--workload=TPCC", f"--num_wh={num_wh}", f"--cc_alg={alg}",
+            "--max_accesses=32", f"--epoch_batch={SKEW_BATCH}",
+            f"--max_txn_in_flight={SKEW_POOL}",
+            f"--conflict_buckets={BUCKETS}", "--conflict_exact=true",
+            "--perc_payment=0.5", "--seed=7"]
+    args += [f"--{k}={v}" for k, v in kw.items()]
+    return Config.from_args(args)
+
+
+def tpcc_engine(dev, cfg):
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads.tpcc import TPCCWorkload
+    return Engine(cfg, TPCCWorkload(cfg, device=dev))
+
+
+def table_clone(tab, cols=None):
+    """A copy of a table's named columns (all by default) and cursor."""
+    import dataclasses
+    names = tab.columns if cols is None else cols
+    return dataclasses.replace(
+        tab, columns={c: tab.columns[c].clone() for c in names},
+        row_cnt=tab.row_cnt.clone())
+
+
+def capture_writes(eng, state):
+    """One kernel epoch, keeping the arguments of every ``scatter_add``
+    and ``append`` call (table name, slots or mask, values), cloned."""
+    from deneva_tpu_torch.storage.table import DeviceTable
+    calls = []
+    real_add, real_app = DeviceTable.scatter_add, DeviceTable.append
+
+    def add(tab, slots, updates, mask=None):
+        calls.append(("add", tab.name, slots.clone(),
+                      None if mask is None else mask.clone(),
+                      {c: v.clone() for c, v in updates.items()}))
+        return real_add(tab, slots, updates, mask)
+
+    def app(tab, rows, mask):
+        calls.append(("append", tab.name, None, mask.clone(),
+                      {c: v.clone() for c, v in rows.items()}))
+        return real_app(tab, rows, mask)
+    DeviceTable.scatter_add, DeviceTable.append = add, app
+    try:
+        state = eng.step(state)
+    finally:
+        DeviceTable.scatter_add, DeviceTable.append = real_add, real_app
+    torch.cuda.synchronize()
+    return state, calls
+
+
+def phase_tpcc_kernels(dev, rec: dict, card: str) -> None:
+    """K19 and K14a on one epoch's generation at 64 warehouses (and K14a
+    on 655,360 probes with misses), K14c on a real epoch's scatter-adds
+    at 64 and at 4 warehouses, K14d on ORDER-LINE's 30,720 lanes across
+    a ring wrap: each exact against its plain version."""
+    from deneva_tpu_torch.ops import prng
+    cfg = tpcc_config(64)
+    eng = tpcc_engine(dev, cfg)
+    wl = eng.workload
+    b, i = cfg.epoch_batch, cfg.max_items_per_txn
+    key = prng.split(prng.key_from_seed(23, dev))[1]
+
+    # K19 (with K14a and the glue it feeds) against the plain generator
+    q, qp = wl.generate(key, b), wl.generate_plain(key, b)
+    err = 0
+    for f in tpcc_fields():
+        x, y = getattr(q, f), getattr(qp, f)
+        if f == "h_amount":
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            fail(f"K19: field {f} differs from plain")
+        err = max(err, max_abs(x, y))
+    rec["K19_tpcc_generate"].update(
+        max_abs_err=err, ms=cuda_ms(lambda: wl.generate_kernel(key, b)),
+        plain_ms=cuda_ms(lambda: wl.generate_plain(key, b), iters=3),
+        library_ms=None)
+    # per txn 23 hashes (12 draws, 4 of them randint, 2 NURand), per item
+    # lane 9 (NURand, randint, Bernoulli, randint) and the dedup compares;
+    # out: 8 words and a flag per txn, 3 words and a flag per item lane
+    bound(rec["K19_tpcc_generate"], 16 + b * 37 + b * i * 13,
+          (23 * b + 9 * b * i) * THREEFRY_OPS + b * i * i)
+    in_cnt = torch.arange(i, device=dev) < q.ol_cnt[:, None]
+    print(f"[K19] B={b}: payments={int((q.txn_type == 0).sum())} "
+          f"remote_customers={int((q.c_w_id != q.w_id).sum())} "
+          f"items_valid={int(q.item_valid.sum())} of {int(in_cnt.sum())} "
+          f"remote_supply={int((q.supply_w != q.w_id[:, None]).sum())}",
+          flush=True)
+
+    # K14a on the epoch's probes, then on 655,360 with misses
+    _, probe, use_mid = wl.generate_kernel(key, b)
+    idx = wl.last_idx
+    got, want = idx.lookup(probe), idx.lookup_plain(probe)
+    if not torch.equal(got, want):
+        fail("K14a differs from plain on the epoch's probes")
+    rec["K14a_hash_lookup"].update(
+        max_abs_err=max_abs(got, want), ms=cuda_ms(lambda: idx.lookup(probe)),
+        plain_ms=cuda_ms(lambda: idx.lookup_plain(probe)), library_ms=None)
+    # probes in, slots out, the key and slot of each home cell
+    bound(rec["K14a_hash_lookup"], 16 * b, 20 * b)
+    g = torch.Generator(device=dev).manual_seed(29)
+    top = int(idx.keys.max()) + 1
+    big = torch.randint(0, top + top // 4, (BATCH * REQ,), generator=g,
+                        device=dev, dtype=torch.int32)
+    gb, wb = idx.lookup(big), idx.lookup_plain(big)
+    if not torch.equal(gb, wb):
+        fail("K14a differs from plain on 655,360 probes")
+    print(f"[K14a] {b} epoch probes: by_last_payments={int(use_mid.sum())}; "
+          f"{big.numel()} probes ({int((gb == idx.miss_slot).sum())} "
+          f"misses) on {int((idx.keys >= 0).sum())} keys in {idx.cap} "
+          f"cells, max_probe {idx.max_probe}: "
+          f"{cuda_ms(lambda: idx.lookup(big)):.4f} ms (plain "
+          f"{cuda_ms(lambda: idx.lookup_plain(big)):.4f}; K14b on 655,360 "
+          f"probes of 2^24 entries {rec['K14b_sorted_lookup']['ms']:.4f}; "
+          f"card {card})", flush=True)
+    del big, gb, wb
+
+    # K14c and K14d on a real epoch's calls (after two warm-up epochs)
+    state = eng.run(eng.init_state(), 2)
+    state, calls = capture_writes(eng, state)
+    k14c_cases(dev, state, calls, rec, card, "64wh")
+    eng4 = tpcc_engine(dev, tpcc_config(4))
+    s4, calls4 = capture_writes(eng4, eng4.run(eng4.init_state(), 2))
+    k14c_cases(dev, s4, calls4, None, card, "4wh")
+    del eng4, s4, calls4
+    k14d_case(dev, state, calls, rec, card)
+    for nm in ("K19_tpcc_generate", "K14a_hash_lookup", "K14c_scatter_add",
+               "K14d_append"):
+        print_kernel(nm, rec[nm], card)
+
+
+def k14c_cases(dev, state, calls, rec, card, label) -> None:
+    """Each table's first scatter-add of the epoch (level 0) replayed on
+    clones through K14c and its plain version; the DISTRICT D_YTD call at
+    64 warehouses is the kernel's record, with ``index_put_(accumulate=
+    True)`` on the live lanes as the one-call yardstick."""
+    seen = set()
+    for kind, name, slots, mask, vals in calls:
+        tag = (name, tuple(vals))
+        if kind != "add" or tag in seen:
+            continue
+        seen.add(tag)
+        tab = state.db[name]
+        a, p = table_clone(tab, vals), table_clone(tab, vals)
+        a.scatter_add(slots, vals, mask=mask)
+        p.scatter_add_plain(slots, vals, mask=mask)
+        cap = tab.capacity
+        err = 0
+        for c in vals:
+            x, y = a.columns[c][:cap], p.columns[c][:cap]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                fail(f"K14c ({label} {name} {c}) differs from plain")
+            err = max(err, max_abs(x, y))
+        live = (mask if mask is not None else torch.ones_like(slots,
+                dtype=torch.bool)) & (slots >= 0) & (slots < cap)
+        s_live = slots[live].long()
+        v_live = {c: v[live] for c, v in vals.items()}
+        rows = int(torch.unique(s_live).numel())
+        seg = int(torch.bincount(s_live).max()) if s_live.numel() else 0
+        r = {"max_abs_err": err,
+             "ms": cuda_ms(lambda: a.scatter_add(slots, vals, mask=mask)),
+             "plain_ms": cuda_ms(lambda: p.scatter_add_plain(
+                 slots, vals, mask=mask), iters=3),
+             "library_ms": cuda_ms(lambda: [
+                 a.columns[c].index_put_((s_live,), v_live[c],
+                                         accumulate=True)
+                 for c in vals])}
+        n, nl = slots.numel(), int(live.sum())
+        # slot and mask of every lane in, the values of live lanes only;
+        # each touched row read and written once per column
+        bound(r, n * 5 + 4 * nl * len(vals) + rows * 8 * len(vals),
+              nl * len(vals))
+        print(f"[K14c] {label} {name} {'+'.join(vals)}: lanes={n} "
+              f"live={nl} rows={rows} longest_segment={seg} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"index_put_ms={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}; card {card})",
+              flush=True)
+        if rec is not None and tag == ("DISTRICT", ("D_YTD",)):
+            rec["K14c_scatter_add"].update(r)
+
+
+def k14d_case(dev, state, calls, rec, card) -> None:
+    """ORDER-LINE's append of the epoch (30,720 lanes) replayed through
+    K14d and its plain version on clones whose cursor sits just before
+    the ring's end, so the call wraps."""
+    kind, name, _, mask, rows = next(c for c in calls if c[0] == "append"
+                                     and c[1] == "ORDER-LINE")
+    tab = state.db[name]
+    cap, live = tab.capacity, int(mask.sum())
+    a, p = table_clone(tab), table_clone(tab)
+    for t in (a, p):
+        t.row_cnt.fill_(cap - live // 2)
+    _, sa = a.append(rows, mask)
+    _, sp = p.append_plain(rows, mask)
+    if not (torch.equal(sa, sp) and torch.equal(a.row_cnt, p.row_cnt)):
+        fail("K14d slots or row_cnt differ from plain")
+    for c in tab.columns:
+        if not torch.equal(a.columns[c][:cap], p.columns[c][:cap]):
+            fail(f"K14d column {c} differs from plain")
+    wrapped = int(((sa < live) & mask).sum())
+    if wrapped == 0:
+        fail("K14d: the ring did not wrap")
+    r = {"max_abs_err": max_abs(sa, sp),
+         "ms": cuda_ms(lambda: a.append(rows, mask)),
+         "plain_ms": cuda_ms(lambda: p.append_plain(rows, mask)),
+         "library_ms": None}
+    n, k = mask.numel(), len(rows)
+    # mask in, the values of inserted lanes only; slots out, one row per
+    # inserted lane, the cursor
+    bound(r, n + 4 * live * k + 4 * n + 4 * live * k + 8, n)
+    rec["K14d_append"].update(r)
+    print(f"[K14d] ORDER-LINE: lanes={n} inserted={live} wrapped={wrapped} "
+          f"capacity={cap} columns={k}", flush=True)
+
+
+def tpcc_epochs_equal(dev, cfg, n: int, label: str):
+    """``n`` TPC-C epochs through the kernels equal ``n`` through the
+    plain versions: every table's rows [0, capacity), its padded rows and
+    cursor, the pool, cc state, rng and counters."""
+    from deneva_tpu_torch.convert import state_leaves
+    t = time.monotonic()
+    ek, ep = tpcc_engine(dev, cfg), tpcc_engine(dev, cfg)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    sk = ek.run(sk, n)
+    with plain_path(ep.workload):
+        sp = ep.run(sp, n)
+    torch.cuda.synchronize()
+    lk, lp = state_leaves(sk), state_leaves(sp)
+    for path, x in lk.items():
+        y = lp[path]
+        if path.startswith("db/") and x.ndim:
+            cap = sk.db[path.split("/")[1]].capacity
+            same = torch.equal(x[:cap], y[:cap]) \
+                and torch.equal(x[cap + 1:], y[cap + 1:])
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            fail(f"{label}: leaf {path} differs between kernel and plain "
+                 "epochs")
+    print(f"[tpcc-epochs] {label}: {n} kernel epochs == {n} plain epochs "
+          f"({len(lk)} leaves; commits "
+          f"{int(sk.stats['total_txn_commit_cnt'])}, aborts "
+          f"{int(sk.stats['total_txn_abort_cnt'])}, defers "
+          f"{int(sk.stats['defer_cnt'])}) in {time.monotonic() - t:.1f} s",
+          flush=True)
+    return ek, sk
+
+
+def tpcc_oracle_epoch(eng, state):
+    """One TPU_BATCH kernel epoch against numpy: the committed txns
+    applied level by level in plain Python — payments' escrow adds in
+    lane order (float32, one rounding each), NewOrders' O_IDs dense per
+    district in (level, order), the stock quantity rule, the HISTORY,
+    ORDER, NEW-ORDER and ORDER-LINE rows appended in lane order at the
+    cursor; every table row [0, capacity), each cursor, the read
+    checksum and the write count must equal the epoch's bit for bit."""
+    import dataclasses
+    wl, cfg = eng.workload, eng.cfg
+    pre = {nm: ({c: v[:t.capacity].cpu().numpy().copy()
+                 for c, v in t.columns.items()}, int(t.row_cnt), t.capacity)
+           for nm, t in state.db.items()}
+    cks0, wc0 = int(state.stats["read_checksum"]), int(state.stats["write_cnt"])
+    seen = {}
+    be, real_plan = eng.backend, wl.plan
+
+    def validate(cfg_, cs, batch, inc):
+        v, st = be.validate(cfg_, cs, batch, inc)
+        seen["v"] = v
+        return v, st
+
+    def plan(db, q):
+        seen["q"] = q
+        return real_plan(db, q)
+    eng.backend = dataclasses.replace(be, validate=validate)
+    wl.plan = plan
+    try:
+        state = eng.step(state)
+    finally:
+        eng.backend = be
+        del wl.plan
+    torch.cuda.synchronize()
+    q = {f: getattr(seen["q"], f).cpu().numpy() for f in tpcc_fields()}
+    v = seen["v"]
+    commit, level, order = (x.cpu().numpy() for x in (v.commit, v.level,
+                                                      v.order))
+    tab = {nm: {c: a.copy() for c, a in cols.items()}
+           for nm, (cols, _, _) in pre.items()}
+    cur = {nm: rc for nm, (_, rc, _) in pre.items()}
+    caps = {nm: cap for nm, (_, _, cap) in pre.items()}
+    f32 = np.float32
+    cks, wc = 0, 0
+    nd, cpd, mi = 10, cfg.cust_per_dist, cfg.max_items
+    n_items = cfg.max_items_per_txn
+
+    def append(nm, row):
+        slot = cur[nm] % caps[nm]
+        for c, x in row.items():
+            tab[nm][c][slot] = x
+        cur[nm] += 1
+    levels = []
+    for lvl in range(cfg.exec_subrounds):
+        lanes = np.nonzero(commit & (level == lvl))[0]
+        levels.append(len(lanes))
+        pays = [i for i in lanes if q["txn_type"][i] == 0]
+        nos = [i for i in lanes if q["txn_type"][i] == 1]
+        for i in pays:
+            amt = f32(q["h_amount"][i])
+            w, d = q["w_id"][i], q["d_id"][i]
+            cs = (q["c_w_id"][i] * nd + q["c_d_id"][i]) * cpd + q["c_id"][i]
+            tab["WAREHOUSE"]["W_YTD"][w] = f32(tab["WAREHOUSE"]["W_YTD"][w]
+                                               + amt)
+            tab["DISTRICT"]["D_YTD"][w * nd + d] = f32(
+                tab["DISTRICT"]["D_YTD"][w * nd + d] + amt)
+            cu = tab["CUSTOMER"]
+            cu["C_BALANCE"][cs] = f32(cu["C_BALANCE"][cs] + (-amt))
+            cu["C_YTD_PAYMENT"][cs] = f32(cu["C_YTD_PAYMENT"][cs] + amt)
+            cu["C_PAYMENT_CNT"][cs] += 1
+            append("HISTORY", {"H_C_ID": q["c_id"][i],
+                               "H_C_D_ID": q["c_d_id"][i],
+                               "H_C_W_ID": q["c_w_id"][i], "H_D_ID": d,
+                               "H_W_ID": w, "H_AMOUNT": amt})
+            wc += 6
+        nxt = tab["DISTRICT"]["D_NEXT_O_ID"].copy()
+        per: dict[int, int] = {}
+        oid = {}
+        for i in sorted(nos, key=lambda i: (order[i], i)):
+            ds = int(q["w_id"][i] * nd + q["d_id"][i])
+            oid[i] = nxt[ds] + per.get(ds, 0)
+            per[ds] = per.get(ds, 0) + 1
+        for ds, k in per.items():
+            tab["DISTRICT"]["D_NEXT_O_ID"][ds] += k
+        st = tab["STOCK"]
+        for i in nos:
+            w, d = q["w_id"][i], q["d_id"][i]
+            lane = (f32(f32(tab["WAREHOUSE"]["W_TAX"][w]
+                            + tab["DISTRICT"]["D_TAX"][w * nd + d])
+                        + tab["CUSTOMER"]["C_DISCOUNT"][
+                            (w * nd + d) * cpd + q["c_id"][i]]) * f32(1000))
+            cks = (cks + int(lane)) & MASK32
+            for j in range(n_items):
+                if not q["item_valid"][i, j]:
+                    continue
+                s = q["supply_w"][i, j] * mi + q["items"][i, j]
+                left = int(st["S_QUANTITY"][s]) - int(q["quantity"][i, j])
+                st["S_QUANTITY"][s] = left if left > 10 else left + 91
+                st["S_REMOTE_CNT"][s] += int(q["supply_w"][i, j] != w)
+                wc += 1
+            wc += 2
+        for i in nos:
+            w, d = q["w_id"][i], q["d_id"][i]
+            valid = q["item_valid"][i]
+            append("ORDER", {"O_ID": oid[i], "O_C_ID": q["c_id"][i],
+                             "O_D_ID": d, "O_W_ID": w, "O_ENTRY_D": 2013,
+                             "O_OL_CNT": q["ol_cnt"][i], "O_ALL_LOCAL": int(
+                                 (~valid | (q["supply_w"][i] == w)).all())})
+            append("NEW-ORDER", {"NO_O_ID": oid[i], "NO_D_ID": d,
+                                 "NO_W_ID": w})
+        for i in nos:
+            for j in range(n_items):
+                if q["item_valid"][i, j]:
+                    append("ORDER-LINE", {
+                        "OL_O_ID": oid[i], "OL_D_ID": q["d_id"][i],
+                        "OL_W_ID": q["w_id"][i], "OL_NUMBER": j,
+                        "OL_I_ID": q["items"][i, j],
+                        "OL_QUANTITY": q["quantity"][i, j]})
+    for nm, t in state.db.items():
+        if int(t.row_cnt) != cur[nm]:
+            fail(f"tpcc oracle: {nm} row_cnt {int(t.row_cnt)} != {cur[nm]}")
+        for c, col in t.columns.items():
+            have = col[:t.capacity].cpu().numpy()
+            want = tab[nm][c].astype(have.dtype)
+            if not np.array_equal(have.view(np.int32), want.view(np.int32)):
+                bad = int((have.view(np.int32) != want.view(np.int32)).sum())
+                fail(f"tpcc oracle: {nm}/{c} differs in {bad} rows")
+    got_cks = (int(state.stats["read_checksum"]) - cks0) & MASK32
+    got_wc = (int(state.stats["write_cnt"]) - wc0) & MASK32
+    if got_cks != cks or got_wc != wc & MASK32:
+        fail(f"tpcc oracle: checksum {got_cks} vs {cks}, writes {got_wc} "
+             f"vs {wc}")
+    return state, {"committed_by_level": levels,
+                   "defers": int(v.defer.sum()), "checksum": cks,
+                   "writes": wc}
+
+
+def tpcc_invariants(state, d_ytd0, w_ytd0, bal0) -> dict:
+    """Over the run since the load: D_YTD, W_YTD and the balances moved
+    by exactly the HISTORY amounts (``tests/test_tpcc.py:164``), and each
+    district's O_IDs are 3001 .. D_NEXT_O_ID - 1, each once."""
+    db = state.db
+    n_hist = int(db["HISTORY"].row_cnt)
+    if n_hist >= db["HISTORY"].capacity:
+        fail("tpcc invariants: HISTORY wrapped")
+    paid = float(db["HISTORY"].columns["H_AMOUNT"][:n_hist].double().sum())
+    for nm, col, before, sign in (("DISTRICT", "D_YTD", d_ytd0, 1),
+                                  ("WAREHOUSE", "W_YTD", w_ytd0, 1),
+                                  ("CUSTOMER", "C_BALANCE", bal0, -1)):
+        cap = db[nm].capacity
+        moved = sign * float(db[nm].columns[col][:cap].double().sum()
+                             - before)
+        if abs(moved - paid) > 1e-5 * max(abs(paid), 1.0):
+            fail(f"tpcc invariants: {col} moved {moved}, paid {paid}")
+    n_ord = int(db["ORDER"].row_cnt)
+    o_w, o_d, o_id = (db["ORDER"].columns[c][:n_ord].long()
+                      for c in ("O_W_ID", "O_D_ID", "O_ID"))
+    ds = o_w * 10 + o_d
+    nd = db["DISTRICT"].capacity
+    nxt = db["DISTRICT"].columns["D_NEXT_O_ID"][:nd].long()
+    cnt = torch.bincount(ds, minlength=nd)
+    if not torch.equal(cnt, nxt - 3001):
+        fail("tpcc invariants: orders per district != D_NEXT_O_ID advance")
+    key = torch.sort(ds * (1 << 24) + o_id).values
+    k_ds, k_id = key >> 24, key & ((1 << 24) - 1)
+    first = torch.ones_like(k_ds, dtype=torch.bool)
+    first[1:] = k_ds[1:] != k_ds[:-1]
+    prev = torch.cat([k_id[:1], k_id[:-1]])
+    if not bool(torch.where(first, k_id == 3001, k_id == prev + 1).all()):
+        fail("tpcc invariants: a district's O_IDs are not dense")
+    return {"payments_paid": paid, "history_rows": n_hist, "orders": n_ord}
+
+
+def phase_tpcc_epochs(dev, card: str) -> None:
+    """3 kernel epochs equal 3 plain epochs for TPU_BATCH at 64
+    warehouses and CALVIN, NO_WAIT, OCC (escrow off) and MVCC at 4; then
+    TPU_BATCH's numpy oracle epoch and the run's invariants, the cost of
+    an empty chained pass and of the O_ID rank glue."""
+    eng, st = tpcc_epochs_equal(dev, tpcc_config(64), 3, "TPU_BATCH 64wh")
+    torch.cuda.empty_cache()
+    for alg, kw in (("CALVIN", {}), ("NO_WAIT", {}),
+                    ("OCC", {"escrow_sweep": False}), ("MVCC", {})):
+        tpcc_epochs_equal(dev, tpcc_config(4, alg, **kw), 3,
+                          f"{alg} 4wh" + (" escrow off" if kw else ""))
+        torch.cuda.empty_cache()
+    wl = eng.workload
+    base = wl.load()
+    sums = [float(base[nm].columns[c][:base[nm].capacity].double().sum())
+            for nm, c in (("DISTRICT", "D_YTD"), ("WAREHOUSE", "W_YTD"),
+                          ("CUSTOMER", "C_BALANCE"))]
+    del base
+    st, info = tpcc_oracle_epoch(eng, st)
+    print(f"[tpcc-oracle] TPU_BATCH 64wh epoch 4: {info}", flush=True)
+    print(f"[tpcc-invariants] TPU_BATCH 64wh after 4 epochs: "
+          f"{tpcc_invariants(st, *sums)}", flush=True)
+    # an empty chained pass (a level above the epoch's deepest) and one
+    # with the epoch's level-0 mask, device and host time
+    from deneva_tpu_torch.engine.step import init_device_stats
+    from deneva_tpu_torch.ops import prng
+    q = wl.generate(prng.split(prng.key_from_seed(31, dev))[1],
+                    eng.cfg.epoch_batch)
+    order = torch.arange(1, q.w_id.numel() + 1, dtype=torch.int32,
+                         device=dev)
+    none = torch.zeros_like(q.w_id, dtype=torch.bool)
+    stats = init_device_stats(2, 1, dev)
+
+    def empty_pass():
+        wl.execute(st.db, q, none, order, stats, level_exec=True)
+    dev_ms = cuda_ms(empty_pass)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        empty_pass()
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+    torch.cuda.synchronize()
+    dk = wl.dist_key(q.w_id, q.d_id)
+    glue_ms = cuda_ms(lambda: wl._order_rank(~none, dk, order))
+    print(f"[chained] empty pass: device {dev_ms:.4f} ms, host "
+          f"{host_ms:.4f} ms (9 launches, level_exec; card {card})",
+          flush=True)
+    print(f"[glue] TPC-C O_ID rank (3 stable argsorts, a cummax, a "
+          f"scatter) at B={q.w_id.numel()}: {glue_ms:.4f} ms (plain "
+          f"PyTorch; card {card})", flush=True)
+    del eng, st
+    torch.cuda.empty_cache()
+
+
 def phase_simulate(dev, cfg, path: str, label: str, card: str
                    ) -> tuple[dict, dict]:
     """``run_simulation`` with every launch count zeroed just before it;
@@ -1740,7 +2296,8 @@ def phase_simulate(dev, cfg, path: str, label: str, card: str
     fields = parse_summary(st.summary_line())
     commits = fields["total_txn_commit_cnt"]
     aborts = fields["total_txn_abort_cnt"]
-    if commits <= 0 or (aborts > 0) != (path in ABORTING):
+    if commits <= 0 or (path not in MAY_ABORT
+                        and (aborts > 0) != (path in ABORTING)):
         fail(f"simulate {label}: commits {commits} aborts {aborts}")
     for nm, c in counts.items():
         want = PATH_LAUNCHES[path].get(nm, 0) * st.epochs_run
@@ -1756,6 +2313,53 @@ def phase_simulate(dev, cfg, path: str, label: str, card: str
     return counts, fields
 
 
+def host_hot_spots(eng, st, mode: str, n: int = 20):
+    """The host's side of an epoch (``--profile``, TPC-C cells): how many
+    times one epoch synchronizes with the device (torch's sync debug
+    mode), and the port's functions that take the most host time over
+    ``n`` epochs under cProfile."""
+    import cProfile
+    import pstats
+    import warnings
+    syncs = []
+    real = warnings.showwarning
+    warnings.showwarning = lambda msg, *a, **k: syncs.append(str(msg))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = eng.run(st, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        warnings.showwarning = real
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.enable()
+    st = eng.run(st, n)
+    prof.disable()
+    host = (time.perf_counter() - t) / n
+    torch.cuda.synchronize()
+    # torch also warns once that the debug mode is a prototype; count
+    # the synchronizing-operation warnings only
+    n_sync = sum("called a synchronizing" in m for m in syncs)
+    other = [m[:60] for m in syncs if "called a synchronizing" not in m]
+    print(f"[profile] {mode}: {n_sync} host syncs in one epoch (other "
+          f"warnings: {other}); host {host * 1e3:.4f} ms/epoch under "
+          f"cProfile, by function (own time, then with callees, "
+          f"ms/epoch):", flush=True)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    for (fname, line, fn), (_, ncalls, tt, ct, _) in rows:
+        where = fname.split("deneva_tpu_torch/")[-1] if "deneva_tpu_torch" \
+            in fname else fn
+        print(f"[profile]   {tt / n * 1e3:8.4f} {ct / n * 1e3:8.4f} "
+              f"{ncalls / n:7.1f}x  {where}:{line} {fn}", flush=True)
+    return st
+
+
 def phase_profile(dev, cfg, mode: str) -> None:
     """Where an epoch's time goes (``--profile`` only): host enqueue time
     and wall time per epoch, device time by kernel, and the device's idle
@@ -1766,8 +2370,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from deneva_tpu_torch.engine.step import Engine
-    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
-    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    from deneva_tpu_torch.workloads import get_workload
+    eng = Engine(cfg, get_workload(cfg, device=dev))
     st = eng.run(eng.init_state(), 20)
     torch.cuda.synchronize()
     n = 200
@@ -1779,6 +2383,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
     print(f"[profile] {mode}: host {host / n * 1e3:.4f} ms/epoch, wall "
           f"{wall / n * 1e3:.4f} ms/epoch ({n} epochs, no profiler)",
           flush=True)
+    if mode.startswith("TPCC"):
+        st = host_hot_spots(eng, st, mode)
     m = 50
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1805,7 +2411,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
             "version_push", "pack_rows", "pack_cols", "earlier_edges",
             "wavefront_kernel",
             "precedence_kernel", "reach_kernel", "peel_kernel",
-            "lookup_kernel", "sort_rows")
+            "lookup_kernel", "sort_rows", "scatter_add_", "append_kernel",
+            "tpcc_generate")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -1841,12 +2448,16 @@ def main() -> int:
                              "K4b_ycsb_generate[hot]",
                              "K9a_wavefront_levels", "K9b_precedence_levels",
                              "K11a_maat_reach", "K11b_maat_peel",
-                             "K14b_sorted_lookup")}
+                             "K14b_sorted_lookup", "K14a_hash_lookup",
+                             "K14c_scatter_add", "K14d_append",
+                             "K19_tpcc_generate")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
     phase_slice4_kernels(dev, rec, info["card"])
+    torch.cuda.empty_cache()
+    phase_tpcc_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
     for full in (False, True):
         phase_epochs(dev, full)
@@ -1859,6 +2470,8 @@ def main() -> int:
     phase_lock_to_oracles(dev)
     torch.cuda.empty_cache()
     phase_slice4_epochs(dev)
+    torch.cuda.empty_cache()
+    phase_tpcc_epochs(dev, info["card"])
     torch.cuda.empty_cache()
     launches: dict[str, int] = {}
     tput = {}
@@ -1874,6 +2487,14 @@ def main() -> int:
              ("MODES", "SIMPLE", modes_config("SIMPLE", **win)),
              ("MODES", "QRY_ONLY", modes_config("QRY_ONLY", **win)),
              ("BTREE", "fingerprint", btree_config(**win))]
+    runs += [("TPCC_CHAINED", "tpcc 64wh", tpcc_config(64, **win)),
+             ("TPCC_CHAINED", "tpcc 4wh", tpcc_config(4, **win)),
+             ("TPCC_CHAINED", "CALVIN tpcc 4wh",
+              tpcc_config(4, "CALVIN", **win)),
+             ("TPCC_SWEEP", "NO_WAIT tpcc 4wh",
+              tpcc_config(4, "NO_WAIT", **win)),
+             ("TPCC_SWEEP", "OCC tpcc 4wh", tpcc_config(4, "OCC", **win)),
+             ("TPCC_TO", "MVCC tpcc 4wh", tpcc_config(4, "MVCC", **win))]
     for path, label, cfg in runs:
         mode = "full_row" if cfg.sim_full_row else "fingerprint"
         counts, fields = phase_simulate(dev, cfg, path, f"{path} {label}",
@@ -1902,7 +2523,9 @@ def main() -> int:
                            ("MAAT fingerprint", skew_config(False, "MAAT")),
                            ("MAAT ycsb_hot", hot_config(False)),
                            ("modes SIMPLE", modes_config("SIMPLE")),
-                           ("IDX_BTREE fingerprint", btree_config())):
+                           ("IDX_BTREE fingerprint", btree_config()),
+                           ("TPCC TPU_BATCH 64wh", tpcc_config(64)),
+                           ("TPCC NO_WAIT 4wh", tpcc_config(4, "NO_WAIT"))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []

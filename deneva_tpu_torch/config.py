@@ -5,14 +5,16 @@ fields the ported slice reads or guards.  Every field keeps the
 reference's name, type and default, so one ``--flag=value`` list drives
 both packages.
 
-The port runs YCSB on one partition and one device, over a full or a
-partial pool, with zipfian or HOT keys, ``key_order``, any
-``txn_write_perc`` and either index: ``CC_ALG=TPU_BATCH`` and ``CALVIN``
-through the single-pass forwarding executor; ``OCC``, ``NO_WAIT`` and
-``WAIT_DIE`` (at all four isolation levels), ``TIMESTAMP``, ``MVCC`` and
-``MAAT`` through the sweep path; ``NOCC`` (or ``mode=NOCC``) as the
-oracle; ``mode=SIMPLE`` and ``QRY_ONLY`` (validation, no execution)
-under any of them.  A flag that
+The port runs YCSB and TPC-C (Payment + NewOrder) on one partition and
+one device, over a full or a partial pool.  YCSB takes zipfian or HOT
+keys, ``key_order``, any ``txn_write_perc`` and either index;
+``CC_ALG=TPU_BATCH`` and ``CALVIN`` run it through the single-pass
+forwarding executor, and TPC-C, whose writes read, through the chained
+executor.  ``OCC``, ``NO_WAIT`` and ``WAIT_DIE`` (at all four isolation
+levels), ``TIMESTAMP``, ``MVCC`` and ``MAAT`` run both through the sweep
+path; ``NOCC`` (or ``mode=NOCC``) is the oracle; ``mode=SIMPLE`` and
+``QRY_ONLY`` (validation, no execution) apply under any of them.  A
+flag that
 would leave those slices raises in :meth:`Config.validate` and names
 the ROADMAP.md item that brings it; a flag the port does not know at
 all raises in :meth:`Config.from_args`.  Nothing is silently ignored.
@@ -90,6 +92,23 @@ class Config:
     sim_full_row: bool = False     # SIM_FULL_ROW: uint8 payload columns
     ycsb_abort_mode: bool = False  # sentinel forced-abort check (config.h:103)
 
+    # ---- TPCC (reference config.h:178-209) ----
+    num_wh: int = 4
+    perc_payment: float = 0.5
+    wh_update: bool = True
+    mpr_neworder: float = 0.01     # remote-warehouse item probability
+    tpcc_full_schema: bool = False
+    cust_per_dist: int = 3000      # CUST_PER_DIST_NORM (config.h:188)
+    tpcc_by_last_index: bool = True  # resolve payment-by-lastname through
+    #                                  the CUSTOMER_LAST nonunique index
+    #                                  (hash probe + postings walk, like
+    #                                  index_hash.cpp:68-100); False =
+    #                                  closed-form arithmetic bypass
+    max_items: int = 100000        # MAX_ITEMS_NORM (config.h:187)
+    max_items_per_txn: int = 15    # MAX_ITEMS_PER_TXN (config.h:189)
+    insert_table_cap: int = 1 << 17  # ring capacity of HISTORY/ORDER/... tables
+    #                                  (ORDER-LINE gets cap*max_items_per_txn)
+
     # ---- client / pool ----
     max_txn_in_flight: int = 10000
     backoff: bool = True
@@ -110,6 +129,9 @@ class Config:
     defer_rounds_max: int = 8      # defer budget before forced abort
     sweep_rounds: int = 24         # serialization-sweep fixpoint iterations
     maat_peel_rounds: int = 16     # MAAT cycle-peel iterations per epoch
+    tpcc_order_index: bool = False  # maintain the dynamic ordered ORDER
+    #                                 index (index_btree insert analogue;
+    #                                 one merge sort per epoch)
     exec_subrounds: int = 4        # chained-execution levels per epoch (CALVIN/TPU_BATCH)
     mvcc_his_len: int = 4          # in-state version history depth (HIS_RECYCLE_LEN analogue)
     escrow_order_free: bool = True  # honor workload order_free declarations
@@ -158,6 +180,25 @@ class Config:
                        "[1, synth_table_size)")
                 _check(0.0 <= self.access_perc <= 1.0,
                        "access_perc must be in [0, 1]")
+        else:
+            _check(not self.ycsb_abort_mode,
+                   "ycsb_abort_mode is YCSB-only (the sentinel key would "
+                   "force-abort hot TPCC/PPS rows)")
+        if self.workload == WorkloadKind.TPCC:
+            _check(self.max_accesses >= 3 + self.max_items_per_txn,
+                   "TPCC max_accesses must cover wh+dist+cust+items "
+                   f"(>= {3 + self.max_items_per_txn})")
+        if self.tpcc_order_index:
+            _check(self.workload == WorkloadKind.TPCC,
+                   "tpcc_order_index is TPC-C only")
+            _check(self.device_parts == 1,
+                   "tpcc_order_index does not compose with multi-chip "
+                   "execution yet")
+            _check(self.num_wh * 10 < 1024
+                   and self.insert_table_cap + 3001 < (1 << 21),
+                   "order_index_key packs district * 2^21 + o_id into "
+                   "int32: needs num_wh <= 102 and insert_table_cap + "
+                   "3001 < 2^21")
         _check(self.isolation_level in (
             "SERIALIZABLE", "READ_COMMITTED", "READ_UNCOMMITTED", "NOLOCK"),
             f"bad isolation_level {self.isolation_level!r}")
@@ -203,8 +244,10 @@ class Config:
 
 # (predicate, what, ROADMAP item) for every setting outside the slices
 _NOT_PORTED = (
-    (lambda c: c.workload != WorkloadKind.YCSB,
-     "workload other than YCSB", "item 15: TPC-C and PPS"),
+    (lambda c: c.workload not in (WorkloadKind.YCSB, WorkloadKind.TPCC),
+     "workload other than YCSB and TPCC (PPS)", "item 15b: PPS"),
+    (lambda c: c.tpcc_order_index,
+     "tpcc_order_index", "item 15a: K14e DynamicSortedIndex"),
     (lambda c: c.cc_alg == CCAlg.DGCC,
      "cc_alg=DGCC", "item 16: depgraph + dgcc"),
     (lambda c: c.part_cnt > 1,

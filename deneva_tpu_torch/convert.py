@@ -16,15 +16,24 @@ T/O watermarks (``rts``, ``wts``) and MVCC's boundary ring (``his``,
 ``pos``), absent for stateless backends (OCC, 2PL, MAAT, CALVIN,
 TPU_BATCH and NOCC carry ``()``).
 
+The pool's queries are the workload's: ``YCSBQuery`` or ``TPCCQuery``,
+chosen by ``cfg.workload``, with every field of the reference's query
+carried under its name.  Ring tables (TPC-C's HISTORY, ORDER, NEW-ORDER,
+ORDER-LINE) keep their free-running ``row_cnt``.
+
 `index_from_reference` carries a workload's primary index, whose arrays
 live on the workload and not in the state: the reference's
 ``SortedIndex`` keys and slots, or its ``DenseIndex`` parameters.
+TPC-C's CUSTOMER_LAST index also lives on the workload; the port
+rebuilds it from numpy (`workloads.tpcc.TPCCWorkload`).
 
 uint32 leaves cross as int32 bit patterns (table columns) or int64
 values (rng, counters), as the port holds them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,7 +47,7 @@ from deneva_tpu_torch.storage.table import (DeviceTable, VersionRing,
 
 POOL_FIELDS = ("ts", "seq", "abort_cnt", "defer_cnt", "ready_epoch",
                "entry_epoch", "occupied", "next_seq")
-QUERY_FIELDS = ("keys", "is_write")
+QUERY_FIELDS = ("keys", "is_write")      # YCSBQuery's
 CC_FIELDS = ("rts", "wts", "his", "pos")
 
 
@@ -58,10 +67,14 @@ def _db_and_cc(db, cc_state, leaf) -> dict:
     return out
 
 
+def _query_fields(q) -> tuple[str, ...]:
+    return tuple(f.name for f in dataclasses.fields(q))
+
+
 def flatten_reference(tree) -> dict[str, np.ndarray]:
     """The reference's host ``EngineState`` as a flat numpy map."""
     out = _db_and_cc(tree.db, tree.cc_state, np.asarray)
-    for f in QUERY_FIELDS:
+    for f in _query_fields(tree.pool.queries):
         out[f"pool/queries/{f}"] = np.asarray(getattr(tree.pool.queries, f))
     for f in POOL_FIELDS:
         out[f"pool/{f}"] = np.asarray(getattr(tree.pool, f))
@@ -76,7 +89,7 @@ def state_leaves(state: EngineState) -> dict[str, torch.Tensor]:
     """The port's state as a flat map of its own tensors (same paths as
     `to_numpy_state`), for comparisons that stay on the device."""
     out = _db_and_cc(state.db, state.cc_state, lambda t: t)
-    for f in QUERY_FIELDS:
+    for f in _query_fields(state.pool.queries):
         out[f"pool/queries/{f}"] = getattr(state.pool.queries, f)
     for f in POOL_FIELDS:
         out[f"pool/{f}"] = getattr(state.pool, f)
@@ -116,7 +129,6 @@ def from_reference_state(tree, cfg, device) -> EngineState:
     """The port's `EngineState` from the reference's host state: table
     columns, ``row_cnt``, MVCC's version ring, the T/O state, every pool
     field, the raw rng key, ``epoch`` and every stats leaf."""
-    from deneva_tpu_torch.workloads.ycsb import YCSBQuery
     device = torch.device(device)
     db = {}
     for name, tab in tree.db.items():
@@ -132,14 +144,14 @@ def from_reference_state(tree, cfg, device) -> EngineState:
         db[name] = DeviceTable(
             columns=cols, row_cnt=_t(tab.row_cnt, device), name=tab.name,
             capacity=int(tab.capacity), full_row=bool(tab.full_row),
-            ref_dtypes=ref)
+            ref_dtypes=ref, ring=bool(getattr(tab, "ring", False)))
     q = tree.pool.queries
     pool = PoolState(
-        queries=YCSBQuery(keys=_t(q.keys, device),
-                          is_write=_t(q.is_write, device)),
+        queries=_query_class(cfg)(**{f: _t(getattr(q, f), device)
+                                     for f in _query_fields(q)}),
         **{f: _t(getattr(tree.pool, f), device) for f in POOL_FIELDS})
-    if pool.queries.keys.shape[0] != max(cfg.epoch_batch,
-                                         cfg.max_txn_in_flight):
+    lead = getattr(pool.queries, _query_fields(q)[0]).shape[0]
+    if lead != max(cfg.epoch_batch, cfg.max_txn_in_flight):
         raise ValueError("reference state's pool does not match cfg")
     cs = tree.cc_state
     if hasattr(cs, "his"):
@@ -155,6 +167,16 @@ def from_reference_state(tree, cfg, device) -> EngineState:
         rng=_t(tree.rng, device, wide=True),
         epoch=_t(tree.epoch, device),
         stats={k: _t(v, device, wide=True) for k, v in tree.stats.items()})
+
+
+def _query_class(cfg):
+    """The port's query batch type of ``cfg.workload``."""
+    from deneva_tpu_torch.config import WorkloadKind
+    if cfg.workload == WorkloadKind.TPCC:
+        from deneva_tpu_torch.workloads.tpcc import TPCCQuery
+        return TPCCQuery
+    from deneva_tpu_torch.workloads.ycsb import YCSBQuery
+    return YCSBQuery
 
 
 def index_from_reference(index, device):

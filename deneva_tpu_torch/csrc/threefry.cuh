@@ -52,3 +52,29 @@ __device__ __forceinline__ float dt_bits_to_uniform(uint32_t bits) {
   const float f = __uint_as_float((bits >> 9) | 0x3F800000u);
   return fmaxf(__fsub_rn(f, 1.0f), 0.0f);
 }
+
+// jax.random.split's key `i` of (k0, k1): counters (0, i).
+__device__ __forceinline__ void dt_split_key(uint32_t k0, uint32_t k1,
+                                             uint32_t i, uint32_t* out) {
+  uint32_t x0 = 0u, x1 = i;
+  dt_threefry2x32(k0, k1, x0, x1);
+  out[0] = x0;
+  out[1] = x1;
+}
+
+// jax.random.randint's value at flat index `idx` for [lo, hi): the two
+// split keys' draws (ka the high word's, kb the low word's) folded into
+// the span in wrapping uint32 arithmetic (jax/_src/random.py:581
+// _randint; the multiplier (2^16 % span)^2 % span wraps to 0 above 2^16).
+__device__ __forceinline__ int32_t dt_randint_at(const uint32_t* ka,
+                                                 const uint32_t* kb,
+                                                 uint64_t idx, int32_t lo,
+                                                 int32_t hi) {
+  const uint32_t span = hi > lo ? static_cast<uint32_t>(hi - lo) : 1u;
+  uint32_t mult = 65536u % span;
+  mult = (mult * mult) % span;
+  const uint32_t higher = dt_random_bits(ka[0], ka[1], idx);
+  const uint32_t lower = dt_random_bits(kb[0], kb[1], idx);
+  const uint32_t off = ((higher % span) * mult + lower % span) % span;
+  return lo + static_cast<int32_t>(off);
+}

@@ -147,30 +147,6 @@ __global__ void write_row_kernel(uint8_t* __restrict__ f0, int tup,
                4u * static_cast<uint32_t>(u));
 }
 
-// jax.random.split's key `i` of (k0, k1): counters (0, i).
-__device__ __forceinline__ void split_key(uint32_t k0, uint32_t k1, uint32_t i,
-                                          uint32_t* out) {
-  uint32_t x0 = 0u, x1 = i;
-  dt_threefry2x32(k0, k1, x0, x1);
-  out[0] = x0;
-  out[1] = x1;
-}
-
-// jax.random.randint's value at flat index `idx` for [lo, hi): the two
-// split keys' draws folded into the span in wrapping uint32 arithmetic.
-__device__ __forceinline__ int32_t randint_at(const uint32_t* ka,
-                                              const uint32_t* kb,
-                                              uint64_t idx, int32_t lo,
-                                              int32_t hi) {
-  const uint32_t span = hi > lo ? static_cast<uint32_t>(hi - lo) : 1u;
-  uint32_t mult = 65536u % span;
-  mult = (mult * mult) % span;
-  const uint32_t higher = dt_random_bits(ka[0], ka[1], idx);
-  const uint32_t lower = dt_random_bits(kb[0], kb[1], idx);
-  const uint32_t off = ((higher % span) * mult + lower % span) % span;
-  return lo + static_cast<int32_t>(off);
-}
-
 __global__ void generate_kernel(const int64_t* __restrict__ gen_key,
                                 int total, int req, int theta_zero,
                                 int n_rows, float n_f, float zetan, float eta,
@@ -184,16 +160,16 @@ __global__ void generate_kernel(const int64_t* __restrict__ gen_key,
   if (threadIdx.x == 0) {
     const uint32_t g0 = static_cast<uint32_t>(gen_key[0]);
     const uint32_t g1 = static_cast<uint32_t>(gen_key[1]);
-    for (uint32_t c = 0; c < 3; ++c) split_key(g0, g1, c, sk + 2 * c);
+    for (uint32_t c = 0; c < 3; ++c) dt_split_key(g0, g1, c, sk + 2 * c);
     if (hot_max > 0) {
       uint32_t h[6];
-      for (uint32_t c = 0; c < 3; ++c) split_key(sk[0], sk[1], c, h + 2 * c);
+      for (uint32_t c = 0; c < 3; ++c) dt_split_key(sk[0], sk[1], c, h + 2 * c);
       sk[6] = h[0];
       sk[7] = h[1];
-      split_key(h[2], h[3], 0u, sk + 8);
-      split_key(h[2], h[3], 1u, sk + 10);
-      split_key(h[4], h[5], 0u, sk + 12);
-      split_key(h[4], h[5], 1u, sk + 14);
+      dt_split_key(h[2], h[3], 0u, sk + 8);
+      dt_split_key(h[2], h[3], 1u, sk + 10);
+      dt_split_key(h[4], h[5], 0u, sk + 12);
+      dt_split_key(h[4], h[5], 1u, sk + 14);
     }
   }
   __syncthreads();
@@ -204,8 +180,8 @@ __global__ void generate_kernel(const int64_t* __restrict__ gen_key,
       const bool hot =
           dt_bits_to_uniform(dt_random_bits(sk[6], sk[7], (uint64_t)i)) <
           access_perc;
-      v = hot ? randint_at(sk + 8, sk + 10, i, 0, hot_max)
-              : randint_at(sk + 12, sk + 14, i, hot_max, n_rows);
+      v = hot ? dt_randint_at(sk + 8, sk + 10, i, 0, hot_max)
+              : dt_randint_at(sk + 12, sk + 14, i, hot_max, n_rows);
     } else if (theta_zero) {
       const float u =
           dt_bits_to_uniform(dt_random_bits(sk[0], sk[1], (uint64_t)i));

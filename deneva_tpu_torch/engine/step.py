@@ -19,9 +19,11 @@ partial one:
          (K9b), closure and peel (K11a, K11b); CALVIN / TPU_BATCH the
          wavefront levels (K9a); then the defer budget;
        - NOCC (``cc_alg`` or ``mode``): everything commits
-    5. execute: the forwarding plan (K3), or the masked arm with the
-       last-writer resolution (K10) and, under MVCC, the version ring
-       (K12c reads, K12d pushes); nothing under SIMPLE and QRY_ONLY
+    5. execute: the forwarding plan (K3); TPU_BATCH / CALVIN on a
+       workload whose writes read (TPC-C) through the chained executor,
+       one masked pass per level; or the masked arm with the last-writer
+       resolution (K10) and, under MVCC, the version ring (K12c reads,
+       K12d pushes); nothing under SIMPLE and QRY_ONLY
     6. update the pool and the device counters (plain PyTorch)
 
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
@@ -97,6 +99,26 @@ def _acc(stats: dict, key: str, delta) -> None:
     stats[key] = (stats[key] + delta) & MASK32
 
 
+def _run_levels(cfg, wl, db, queries, exec_commit, verdict, stats,
+                level_exec: bool = True):
+    """Chained sub-round execution (``deneva_tpu/engine/step.py:141``):
+    level-l txns run after every write of levels < l, each pass gathering
+    from the tables the previous passes wrote.
+
+    The reference's ``lax.while_loop`` runs ``max committed level + 1``
+    passes; learning that depth here would sync the host, so the port
+    runs all ``exec_subrounds`` passes (the levels ``validate_calvin``
+    can give).  A pass above the deepest level has an empty mask, and an
+    empty pass writes no table row and adds 0 to every counter, so the
+    result is the reference's.  ``level_exec`` lets the executor take
+    every valid stock lane of a level as its final writer (no K10)."""
+    for lvl in range(cfg.exec_subrounds):
+        m = exec_commit & (verdict.level == lvl)
+        db = wl.execute(db, queries, m, verdict.order, stats,
+                        level_exec=level_exec)
+    return db, stats
+
+
 def count_by_type(stats: dict, wl, queries, commit, abort) -> None:
     """Fold per-type commit/abort one-hots into the device stats."""
     tt = wl.txn_type_of(queries)
@@ -116,24 +138,14 @@ class Engine:
         self.device = kernels.resolve_device(
             workload.device if device is None else device)
         self.backend = get_backend(cfg.cc_alg)
-        if self.backend.chained and cfg.mode == Mode.NORMAL \
-                and not forwarding_applies(self.backend, workload):
-            raise NotImplementedError(
-                f"cc_alg={cfg.cc_alg.value} on a workload whose writes read "
-                "needs the chained executor, not ported to deneva_tpu_torch "
-                "yet (ROADMAP.md queue 1, item 15: TPC-C and PPS)")
         cap = max(cfg.max_txn_in_flight, cfg.epoch_batch)
         self.pool = TxnPool(capacity=cap, batch=cfg.epoch_batch,
                             gen_chunk=cfg.epoch_batch, backoff=cfg.backoff)
 
     def init_state(self, seed: int | None = None) -> EngineState:
-        from deneva_tpu_torch.workloads.ycsb import YCSBQuery
         cfg, dev = self.cfg, self.device
         db = self.workload.load()
-        shape = (self.pool.p, self.workload.n_req)
-        empty_q = YCSBQuery(
-            keys=torch.zeros(shape, dtype=torch.int32, device=dev),
-            is_write=torch.zeros(shape, dtype=torch.bool, device=dev))
+        empty_q = self.workload.empty_query(self.pool.p, dev)
         return EngineState(
             db=db, cc_state=self.backend.init_state(cfg, dev),
             pool=self.pool.create(empty_q, dev),
@@ -214,6 +226,9 @@ class Engine:
         if forwarding:
             db = wl.execute(db, queries, None, verdict.order, stats,
                             fwd_rank=fwd)
+        elif be.chained and cfg.mode == Mode.NORMAL:
+            db, stats = _run_levels(cfg, wl, db, queries, exec_commit,
+                                    verdict, stats)
         elif cfg.mode in (Mode.NORMAL, Mode.NOCC):
             db = wl.execute(db, queries, exec_commit, verdict.order, stats)
 

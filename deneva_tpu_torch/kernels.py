@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
-           "levels.cu", "maat.cu", "index.cu")
+           "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
            "bits.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -211,7 +211,7 @@ def all_kernels() -> dict[str, Kernel]:
     from deneva_tpu_torch.cc import maat, timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.storage import index, table
-    from deneva_tpu_torch.workloads import ycsb
+    from deneva_tpu_torch.workloads import tpcc, ycsb
     return {"K1_sort_lanes": forward.K1_SORT,
             "K2_plan_scans": forward.K2_SCAN,
             "K3_forward_execute": ycsb.K3_EXEC,
@@ -229,4 +229,8 @@ def all_kernels() -> dict[str, Kernel]:
             "K12b_commit_watermarks": timestamp.K12B_COMMIT,
             "K12c_version_read": ycsb.K12C_READ,
             "K12d_version_push": table.K12D_PUSH,
-            "K14b_sorted_lookup": index.K14B_LOOKUP}
+            "K14a_hash_lookup": index.K14A_LOOKUP,
+            "K14b_sorted_lookup": index.K14B_LOOKUP,
+            "K14c_scatter_add": table.K14C_SCATTER_ADD,
+            "K14d_append": table.K14D_APPEND,
+            "K19_tpcc_generate": tpcc.K19_GEN}

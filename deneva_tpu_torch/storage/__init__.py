@@ -7,5 +7,5 @@ column, accessed by vectorized gather/scatter over slot ids.
 from deneva_tpu_torch.storage.catalog import (Catalog, Column,  # noqa: F401
                                               TableSchema, parse_schema)
 from deneva_tpu_torch.storage.index import (DenseIndex,  # noqa: F401
-                                            SortedIndex)
+                                            HashIndex, SortedIndex)
 from deneva_tpu_torch.storage.table import DeviceTable  # noqa: F401

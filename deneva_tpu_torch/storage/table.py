@@ -15,7 +15,27 @@ size]`` exactly as in the reference.
 
 Unlike the reference's immutable arrays, the port writes columns in
 place: a full-row YCSB table at paper scale is 16.8 GB, and a functional
-copy per epoch would double it.
+copy per epoch would double it.  A caller that reads a column and then
+writes it (TPC-C's ``D_NEXT_O_ID``, ``S_QUANTITY``) gathers first, as
+the reference's program order does; a gather returns a copy.
+
+TPC-C's two batched writes are kernels (``csrc/table.cu``):
+
+* **K14c** `DeviceTable.scatter_add` — replaces ``deneva_tpu/storage/
+  table.py:126``: commutative adds of many lanes into many columns, exact
+  under duplicate slots.  Integer columns add in any order; float
+  columns add each slot's lanes **in lane order onto the old value**,
+  as the reference's scatter-add does on the CPU, so float32 rows match
+  it bit for bit (such a call sorts its lanes in one block's shared
+  memory, in chunks of up to 8,192 lanes launched one after another);
+* **K14d** `DeviceTable.append` — replaces ``:137``: prefix-sum slots
+  from the device-resident ``row_cnt`` (a ring table's cursor runs free
+  and slots take ``% capacity``; otherwise rows past capacity drop and
+  the cursor clamps), every column's row written, the cursor advanced.
+
+Masked and out-of-range lanes of both write nothing.  The reference
+steers them onto its trash row, whose value it leaves unspecified; the
+port leaves that row alone, so only rows ``[0, capacity)`` compare.
 
 MVCC's per-row `VersionRing` lives here too, with **K12d**
 `VersionRing.push` (``csrc/version.cu``), which replaces
@@ -26,6 +46,8 @@ applies YCSB's value law and sits beside K3 in `workloads.ycsb`.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import ctypes
 
 import numpy as np
 import torch
@@ -66,10 +88,13 @@ class DeviceTable:
     # column -> numpy dtype of the reference's column ("uint32" marks an
     # int32 tensor that holds uint32 bit patterns)
     ref_dtypes: dict[str, str] = field(default_factory=dict)
+    ring: bool = False     # append wraps (windowed retention for insert-only
+    #                        tables: HISTORY/ORDER/ORDER-LINE keep the last
+    #                        `capacity` rows instead of growing unboundedly)
 
     @classmethod
     def create(cls, schema: TableSchema, capacity: int, device,
-               full_row: bool = False) -> "DeviceTable":
+               full_row: bool = False, ring: bool = False) -> "DeviceTable":
         nrows = padded_rows(capacity)
         cols, ref = {}, {}
         for c in schema.columns:
@@ -79,7 +104,7 @@ class DeviceTable:
         return cls(columns=cols,
                    row_cnt=torch.zeros((), dtype=torch.int32, device=device),
                    name=schema.name, capacity=capacity, full_row=full_row,
-                   ref_dtypes=ref)
+                   ref_dtypes=ref, ring=ring)
 
     def gather(self, slots: torch.Tensor, cols: tuple[str, ...] | None = None
                ) -> dict[str, torch.Tensor]:
@@ -101,6 +126,159 @@ class DeviceTable:
             col.index_put_((slots,), v.to(col.dtype))
         return self
 
+    def _word_columns(self, updates: dict[str, torch.Tensor], n: int
+                      ) -> tuple[list, list]:
+        """(columns, values) of a kernel call: every column a contiguous
+        4-byte column, every value a contiguous [n] tensor of its dtype."""
+        if self.full_row:
+            raise ValueError(f"{self.name}: K14c / K14d take 4-byte columns,"
+                             " not full_row tables")
+        cols, vals = [], []
+        dev = self.row_cnt.device
+        for name, v in updates.items():
+            col = self.columns[name]
+            kernels.check(name, col, col.dtype, device=dev)
+            if col.dtype not in (torch.int32, torch.float32):
+                raise TypeError(f"{name}: dtype {col.dtype}, expected int32 "
+                                "or float32")
+            v = v.to(col.dtype).reshape(-1).contiguous()
+            kernels.check(f"{name} values", v, col.dtype, (n,), dev)
+            cols.append(col)
+            vals.append(v)
+        if len(cols) > MAX_KERNEL_COLS:
+            raise ValueError(f"{self.name}: at most {MAX_KERNEL_COLS} "
+                             "columns per call")
+        return cols, vals
+
+    def scatter_add_plain(self, slots: torch.Tensor,
+                          updates: dict[str, torch.Tensor],
+                          mask: torch.Tensor | None = None) -> "DeviceTable":
+        """Plain K14c, in place.  Integer columns take one ``index_add_``
+        (exact in any order, wrapping as int32 does); a float column adds
+        in rounds by each lane's rank among the lanes of its slot, so
+        every slot sums its lanes one after another, in lane order, onto
+        the old value."""
+        slots = _sanitize(slots.reshape(-1), self.capacity,
+                          None if mask is None else mask.reshape(-1))
+        keep = slots < self.capacity
+        s = slots[keep].long()
+        rank = None
+        for name, v in updates.items():
+            col = self.columns[name]
+            v = v.reshape(-1).to(col.dtype)[keep]
+            if not col.dtype.is_floating_point:
+                col.index_add_(0, s, v)
+                continue
+            if rank is None:
+                rank = _rank_in_slot(s)
+                rounds = int(rank.max()) + 1 if rank.numel() else 0
+            for r in range(rounds):
+                at = rank == r
+                col[s[at]] = col[s[at]] + v[at]
+        return self
+
+    def scatter_add(self, slots: torch.Tensor,
+                    updates: dict[str, torch.Tensor],
+                    mask: torch.Tensor | None = None) -> "DeviceTable":
+        """K14c: commutative read-modify-write of many lanes (balance +=
+        x, count += 1), in place, exact under duplicate slots; masked
+        and out-of-range lanes add nothing.  One launch for all of the
+        call's columns."""
+        if kernels.on_cpu(slots, self.row_cnt):
+            return self.scatter_add_plain(slots, updates, mask)
+        n = slots.numel()
+        dev = self.row_cnt.device
+        slots = slots.reshape(-1)
+        kernels.check("slots", slots, torch.int32, (n,), dev)
+        if mask is not None:
+            mask = mask.reshape(-1)
+            kernels.check("mask", mask, torch.bool, (n,), dev)
+        cols, vals = self._word_columns(updates, n)
+        k = len(cols)
+        K14C_SCATTER_ADD.launch(
+            kernels.ptr(slots), None if mask is None else kernels.ptr(mask),
+            n, self.capacity, k, _ptr_array(cols), _ptr_array(vals),
+            ctypes.cast((ctypes.c_int * k)(*[int(c.dtype == torch.float32)
+                                             for c in cols]),
+                        ctypes.c_void_p), kernels.stream(slots))
+        return self
+
+    def append_plain(self, rows: dict[str, torch.Tensor], mask: torch.Tensor
+                     ) -> tuple["DeviceTable", torch.Tensor]:
+        """Plain K14d, op for op from ``deneva_tpu/storage/table.py:137``;
+        writes rows and ``row_cnt`` in place.  Returns (table, slots),
+        the trash slot for lanes that write nothing."""
+        m = mask.reshape(-1).to(torch.int32)
+        offs = torch.cumsum(m, 0, dtype=torch.int32) - m
+        slots = self.row_cnt + offs          # int32: a ring cursor wraps
+        total = m.sum().to(torch.int32)
+        trash = torch.full_like(slots, self.capacity)
+        if self.ring:
+            slots = torch.where(m > 0, torch.remainder(slots, self.capacity),
+                                trash)
+            new_cnt = self.row_cnt + total
+        else:
+            slots = torch.where((m > 0) & (slots < self.capacity), slots,
+                                trash)
+            new_cnt = torch.clamp_max(self.row_cnt + total, self.capacity)
+        keep = slots < self.capacity
+        at = slots[keep].long()
+        for name, v in rows.items():
+            col = self.columns[name]
+            col[at] = v.reshape(-1).to(col.dtype)[keep]
+        self.row_cnt.copy_(new_cnt)
+        return self, slots
+
+    def append(self, rows: dict[str, torch.Tensor], mask: torch.Tensor
+               ) -> tuple["DeviceTable", torch.Tensor]:
+        """K14d: insert up to len(mask) rows at prefix-sum slots from
+        ``row_cnt`` (`table_t::get_new_row` without the latch); returns
+        (table, slots)."""
+        if kernels.on_cpu(mask, self.row_cnt):
+            return self.append_plain(rows, mask)
+        n = mask.numel()
+        dev = self.row_cnt.device
+        mask = mask.reshape(-1)
+        kernels.check("mask", mask, torch.bool, (n,), dev)
+        kernels.check("row_cnt", self.row_cnt, torch.int32, (), dev)
+        cols, vals = self._word_columns(rows, n)
+        slots = torch.empty(n, dtype=torch.int32, device=dev)
+        K14D_APPEND.launch(kernels.ptr(mask), n, kernels.ptr(self.row_cnt),
+                           self.capacity, int(self.ring), len(cols),
+                           _ptr_array(cols), _ptr_array(vals),
+                           kernels.ptr(slots), kernels.stream(mask))
+        return self, slots
+
+
+def fill_columns(tab: DeviceTable, n: int, cols: dict) -> DeviceTable:
+    """Loader helper (``deneva_tpu/storage/table.py:332``): set the first
+    ``n`` rows of the named columns and set ``row_cnt`` to ``n``."""
+    for name, v in cols.items():
+        col = tab.columns[name]
+        col[:n] = torch.as_tensor(v).to(device=col.device, dtype=col.dtype)
+    tab.row_cnt.fill_(n)
+    return tab
+
+
+def _rank_in_slot(s: torch.Tensor) -> torch.Tensor:
+    """Each lane's position among the lanes of its slot, in lane order."""
+    n = s.numel()
+    order = torch.sort(s, stable=True).indices
+    ss = s[order]
+    lane = torch.arange(n, dtype=torch.int64, device=s.device)
+    head = torch.ones(n, dtype=torch.bool, device=s.device)
+    head[1:] = ss[1:] != ss[:-1]
+    pos = lane - torch.cummax(torch.where(head, lane, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos
+    return rank
+
+
+def _ptr_array(ts: list[torch.Tensor]) -> ctypes.c_void_p:
+    """A host array of device pointers (the cast keeps it alive)."""
+    arr = (ctypes.c_void_p * max(len(ts), 1))(*[t.data_ptr() for t in ts])
+    return ctypes.cast(arr, ctypes.c_void_p)
+
 
 def _sanitize(slots: torch.Tensor, capacity: int,
               mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -116,6 +294,14 @@ def to_numpy_column(t: torch.Tensor, ref_dtype: str) -> np.ndarray:
     a = t.detach().cpu().numpy()
     return a.view(np.uint32) if ref_dtype == "uint32" else a
 
+
+MAX_KERNEL_COLS = 16      # columns one K14c / K14d call takes
+K14C_SCATTER_ADD = kernels.Kernel("dt_scatter_add", [
+    kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.P,
+    kernels.P, kernels.P, kernels.P])
+K14D_APPEND = kernels.Kernel("dt_append", [
+    kernels.P, kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.I32,
+    kernels.P, kernels.P, kernels.P, kernels.P])
 
 K12D_PUSH = kernels.Kernel("dt_version_push", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.I32,

@@ -16,8 +16,37 @@ import torch
 DB = dict
 
 
+def _one_partition(n_parts: int) -> None:
+    if n_parts != 1:
+        raise NotImplementedError(
+            "deneva_tpu_torch runs one partition (ROADMAP.md queue 1, "
+            "item 18: cluster runtime)")
+
+
+def partition_owned(key: torch.Tensor, n_parts: int, me: int
+                    ) -> torch.Tensor:
+    """bool mask: does this node own ``key`` under modulo striping
+    (``deneva_tpu/workloads/base.py:39``; reference GET_NODE_ID,
+    `system/global.h:294`)?  The port runs one partition."""
+    _one_partition(n_parts)
+    return torch.ones_like(key, dtype=torch.bool)
+
+
+def partition_slot(key: torch.Tensor, n_parts: int, me: int,
+                   n_local: int) -> torch.Tensor:
+    """Local storage slot of a striped global key
+    (``deneva_tpu/workloads/base.py:58``): on one partition, the key."""
+    _one_partition(n_parts)
+    return key
+
+
 class Workload(Protocol):
     def load(self) -> DB: ...
+
+    def empty_query(self, n: int, device) -> Any:
+        """An all-zero query batch with leading dim n (the pool's initial
+        contents)."""
+        ...
 
     def generate(self, rng: torch.Tensor, n: int) -> Any:
         """Return a query batch with leading dim n."""
@@ -28,6 +57,6 @@ class Workload(Protocol):
         ...
 
     def execute(self, db: DB, queries: Any, mask, order: torch.Tensor,
-                stats: dict, fwd_rank=None) -> DB:
+                stats: dict, fwd_rank=None, level_exec: bool = False) -> DB:
         """Apply txns to ``db``; update the device stats dict."""
         ...

@@ -274,6 +274,14 @@ class YCSBWorkload:
     def txn_type_of(self, q: YCSBQuery) -> torch.Tensor:
         return q.is_write.any(dim=1).to(torch.int32)
 
+    def empty_query(self, n: int, device) -> YCSBQuery:
+        """An all-zero query batch of ``n`` rows (the pool's initial
+        contents)."""
+        shape = (n, self.n_req)
+        return YCSBQuery(
+            keys=torch.zeros(shape, dtype=torch.int32, device=device),
+            is_write=torch.zeros(shape, dtype=torch.bool, device=device))
+
     def _owned_keys(self, lo: int, hi: int) -> torch.Tensor:
         """Global keys owned by this node in slots [lo, hi) — one
         partition owns every key, in key order."""
@@ -358,7 +366,7 @@ class YCSBWorkload:
 
     # -- execution (ycsb_txn.cpp:177-209 collapsed to one batch) -------
     def execute(self, db, q: YCSBQuery, mask, order: torch.Tensor,
-                stats: dict, fwd_rank=None):
+                stats: dict, fwd_rank=None, level_exec: bool = False):
         """Apply the epoch: the forwarding arm over a sorted plan
         (``fwd_rank``, K3), or the masked arm over the committed ``mask``
         (``deneva_tpu/workloads/ycsb.py:544-606``)."""
@@ -373,19 +381,20 @@ class YCSBWorkload:
                                                tab.capacity, mono=True)
         else:
             cks, wcnt = self._execute_masked(tab, db.get(VER_TABLE), q,
-                                             mask, order)
+                                             mask, order, level_exec)
         stats["read_checksum"] = (stats["read_checksum"] + cks) & MASK32
         stats["write_cnt"] = (stats["write_cnt"] + wcnt) & MASK32
         return db
 
     def _execute_masked(self, tab: DeviceTable, ver: VersionRing | None,
                         q: YCSBQuery, mask: torch.Tensor,
-                        order: torch.Tensor):
+                        order: torch.Tensor, level_exec: bool = False):
         """Masked arm: committed reads gather F0 into the checksum (from
         the epoch-start rows: the gather precedes every write; under MVCC
         through K12c, stale reads served their version); committed
         writes store f(key, order), the last writer per slot by (order,
-        lane) through K10, whose winners MVCC records in the version ring
+        lane) through K10 (in a chained level, ``level_exec``, every
+        write lane), whose winners MVCC records in the version ring
         (K12d); losers steer to the trash row.  Returns (checksum,
         write_cnt) as int64 in [0, 2^32)."""
         full = self.cfg.sim_full_row
@@ -411,7 +420,10 @@ class YCSBWorkload:
         wmask = wm.reshape(-1)
         wslots = torch.where(wm, slots, tab.capacity).reshape(-1)
         worder = order[:, None].expand(slots.shape).reshape(-1)
-        win = scatter.last_writer(wslots, worder, wmask, tab.capacity)
+        # a chained level's committed set is write-conflict-free and a
+        # txn's own duplicate lanes write one value: every lane is final
+        win = wmask if level_exec else scatter.last_writer(
+            wslots, worder, wmask, tab.capacity)
         keys = q.keys.reshape(-1)
         wvals = _field_bytes(keys, worder, self.cfg.tup_size) if full \
             else _field_fingerprint(keys, worder).to(torch.int32)

@@ -34,7 +34,8 @@ def test_from_args_parses_like_reference():
 
 
 RAISING = [
-    ("--cc_alg=DGCC", 16), ("--workload=TPCC", 15),
+    ("--cc_alg=DGCC", 16), ("--workload=PPS", "15b"),
+    ("--workload=TPCC --max_accesses=18 --tpcc_order_index=true", "15a"),
     ("--part_cnt=2", 18), ("--device_parts=2", 19), ("--elastic=true", 18),
     ("--audit=true", 16), ("--metrics=true", 16), ("--ctrl=true", 16),
     ("--repair=true", 16),
@@ -138,3 +139,46 @@ def test_slice4_reference_checks_apply(flags, match):
     for cls in (Config, JConfig):
         with pytest.raises(ValueError, match=match):
             cls.from_args(SWEEP + flags)
+
+
+TPCC = ["--workload=TPCC", "--num_wh=2", "--cust_per_dist=120",
+        "--max_items=200", "--max_items_per_txn=5", "--max_accesses=8",
+        "--epoch_batch=64", "--max_txn_in_flight=256"]
+
+
+@pytest.mark.parametrize("alg", ["TPU_BATCH", "CALVIN", "OCC", "NO_WAIT",
+                                 "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT"])
+def test_tpcc_is_admitted_under_every_algorithm(alg):
+    mine = Config.from_args(TPCC + [f"--cc_alg={alg}"])
+    ref = JConfig.from_args(TPCC + [f"--cc_alg={alg}"])
+    for f in dataclasses.fields(Config):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--max_accesses=7"], "max_accesses must cover"),
+    (["--ycsb_abort_mode=true"], "YCSB-only"),
+    (["--workload=YCSB", "--max_accesses=10", "--tpcc_order_index=true"],
+     "TPC-C only"),
+    (["--tpcc_order_index=true", "--num_wh=200"], "order_index_key")])
+def test_tpcc_reference_checks_apply(flags, match):
+    for cls in (Config, JConfig):
+        with pytest.raises(ValueError, match=match):
+            cls.from_args(TPCC + flags)
+
+
+def test_tpcc_simulation_prints_the_per_type_families(capsys):
+    from deneva_tpu_torch.engine.driver import run_simulation
+    cfg = Config.from_args(TPCC + ["--cc_alg=TPU_BATCH", "--warmup_secs=0",
+                                   "--done_secs=0.3", "--prog_timer_secs=0"])
+    st = run_simulation(cfg, device="cpu")
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[summary]") and line == st.summary_line()
+    for fam in ("tpcc_payment", "tpcc_new_order"):
+        for kind in ("commit", "abort"):
+            assert f"{fam}_{kind}_cnt=" in line
+        assert f"{fam}_latency" in line
+    f = st.summary_fields()
+    assert f["tpcc_payment_commit_cnt"] > 0
+    assert f["tpcc_new_order_commit_cnt"] > 0
+    assert f["total_txn_abort_cnt"] == 0

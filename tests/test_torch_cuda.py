@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: each kernel alone, and whole epochs of the forwarding, OCC,
 NOCC, NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and MAAT paths, of SIMPLE and
-QRY_ONLY, of HOT keys and of the ordered index.  Marked ``cuda``;
+QRY_ONLY, of HOT keys, of the ordered index, and of TPC-C (the chained
+executor and the sweep backends, with K19, K14a, K14c and K14d alone at
+small and at path shapes).  Marked ``cuda``;
 without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -552,3 +554,137 @@ def test_slice4_epochs_through_kernels_match_plain_epochs(dev, path, flags):
             assert torch.equal(t[cap + 1:], lp[path_][cap + 1:]), path_
         else:
             assert torch.equal(t, lp[path_]), path_
+
+
+# -- TPC-C: K19, K14a, K14c, K14d and the chained executor ------------------
+
+TPCC_SMALL = ["--workload=TPCC", "--num_wh=2", "--cust_per_dist=120",
+              "--max_items=200", "--max_items_per_txn=5", "--max_accesses=8",
+              "--epoch_batch=64", "--conflict_buckets=1024",
+              "--max_txn_in_flight=256", "--insert_table_cap=16384"]
+# the tpcc_scaling point at 64 warehouses (paper_base, max_accesses=32)
+TPCC_PATH = ["--workload=TPCC", "--num_wh=64", "--max_accesses=32",
+             "--epoch_batch=2048", "--conflict_buckets=8192",
+             "--max_txn_in_flight=10000"]
+
+
+def _tpcc(dev, args):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.workloads.tpcc import TPCCWorkload
+    cfg = Config.from_args(args)
+    return cfg, TPCCWorkload(cfg, device=dev)
+
+
+@pytest.mark.parametrize("args,n", [
+    (TPCC_SMALL, 1), (TPCC_SMALL, 777),
+    (TPCC_SMALL + ["--tpcc_by_last_index=false", "--mpr_neworder=1"], 500),
+    (TPCC_SMALL + ["--max_items_per_txn=15", "--max_accesses=18",
+                   "--num_wh=1"], 300),
+    (TPCC_PATH, 2048)])
+def test_tpcc_generate_matches_plain(dev, args, n):
+    from deneva_tpu_torch.workloads.tpcc import TPCCQuery
+    _, wl = _tpcc(dev, args)
+    for seed in (1, 2):
+        key = prng.key_from_seed(seed, dev)
+        q, qp = wl.generate(key, n), wl.generate_plain(key, n)
+        for f in TPCCQuery.__dataclass_fields__:
+            assert torch.equal(getattr(q, f), getattr(qp, f)), f
+
+
+@pytest.mark.parametrize("n_keys,m", [(0, 10), (100, 1000), (640000, 655360)])
+def test_hash_lookup_matches_plain(dev, n_keys, m):
+    from deneva_tpu_torch.storage.index import HashIndex
+    g = torch.Generator().manual_seed(n_keys)
+    keys = torch.randperm(4 * max(n_keys, 1), generator=g)[:n_keys]
+    slots = torch.randint(0, 2**30, (n_keys,), generator=g)
+    idx = HashIndex.build(keys.numpy(), slots.numpy(), miss_slot=-3,
+                          device=dev)
+    q = torch.randint(-1, 4 * max(n_keys, 1) + 5, (m,), generator=g,
+                      dtype=torch.int32).to(dev)
+    assert torch.equal(idx.lookup(q), idx.lookup_plain(q))
+    short = HashIndex(keys=idx.keys, slots=idx.slots, cap=idx.cap,
+                      max_probe=1, miss_slot=-3)
+    assert torch.equal(short.lookup(q), short.lookup_plain(q))
+
+
+def _table_pair(dev, cap, ring=False):
+    from deneva_tpu_torch.storage.catalog import parse_schema
+    from deneva_tpu_torch.storage.table import DeviceTable
+    sch = parse_schema("TABLE=T\n\t8,double,F\n\t8,int64_t,I\n"
+                       "\t8,double,G\n").table("T")
+    a = DeviceTable.create(sch, cap, dev, ring=ring)
+    g = torch.Generator().manual_seed(cap)
+    for c in a.columns.values():
+        c[:cap] = (torch.rand(cap, generator=g) * 1000).to(c.dtype).to(dev)
+    return a, copy.deepcopy(a)
+
+
+@pytest.mark.parametrize("n,cap,cols", [
+    (1, 4, "FIG"), (2048, 4, "F"), (2048, 640, "FIG"), (8192, 64, "FG"),
+    (30720, 6400000, "I"), (5000, 3, "I"), (20000, 16, "FIG"),
+    (16385, 5, "F")])
+def test_scatter_add_matches_plain(dev, n, cap, cols):
+    a, b = _table_pair(dev, cap)
+    g = torch.Generator().manual_seed(n)
+    slots = torch.randint(-2, cap + 3, (n,), generator=g,
+                          dtype=torch.int32).to(dev)
+    mask = (torch.rand(n, generator=g) < 0.8).to(dev)
+    vals = {c: (torch.rand(n, generator=g) * 4999 + 1).to(
+        a.columns[c].dtype).to(dev) for c in cols}
+    a.scatter_add(slots, vals, mask=mask)
+    b.scatter_add_plain(slots, vals, mask=mask)
+    for c in a.columns:
+        assert torch.equal(a.columns[c][:cap], b.columns[c][:cap]), c
+        assert torch.equal(a.columns[c][cap + 1:], b.columns[c][cap + 1:])
+
+
+@pytest.mark.parametrize("ring,cap,n,start", [
+    (True, 1000, 700, 600), (False, 1000, 700, 600),
+    (True, 1966080, 30720, 1966080 - 5000), (True, 1024, 900, 2**31 - 100)])
+def test_append_matches_plain(dev, ring, cap, n, start):
+    a, b = _table_pair(dev, cap, ring=ring)
+    a.row_cnt.fill_(start)
+    b.row_cnt.fill_(start)
+    g = torch.Generator().manual_seed(n)
+    mask = (torch.rand(n, generator=g) < 0.7).to(dev)
+    rows = {c: torch.randint(0, 99, (n,), generator=g).to(
+        a.columns[c].dtype).to(dev) for c in a.columns}
+    _, sa = a.append(rows, mask)
+    _, sb = b.append_plain(rows, mask)
+    assert torch.equal(sa, sb) and torch.equal(a.row_cnt, b.row_cnt)
+    for c in a.columns:
+        assert torch.equal(a.columns[c][:cap], b.columns[c][:cap]), c
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("TPCC_CHAINED", ["--cc_alg=TPU_BATCH", "--num_wh=1"]),
+    ("TPCC_CHAINED", ["--cc_alg=CALVIN", "--tpcc_full_schema=true",
+                      "--insert_table_cap=256"]),
+    ("TPCC_SWEEP", ["--cc_alg=NO_WAIT"]),
+    ("TPCC_SWEEP", ["--cc_alg=OCC", "--escrow_sweep=false"]),
+    ("TPCC_TO", ["--cc_alg=MVCC"]),
+    ("TPCC_MAAT", ["--cc_alg=MAAT"])])
+def test_tpcc_epochs_through_kernels_match_plain_epochs(dev, path, flags):
+    from deneva_tpu_torch.convert import state_leaves
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    cfg, wk = _tpcc(dev, TPCC_SMALL + flags)
+    _, wp = _tpcc(dev, TPCC_SMALL + flags)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    for nm, kern in all_kernels().items():
+        want = 4 * PATH_LAUNCHES[path].get(nm, 0)
+        assert kern.launches == before[nm] + want, nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    lk, lp = state_leaves(sk), state_leaves(sp)
+    for p, t in lk.items():
+        if p.startswith("db/") and t.ndim >= 1:
+            cap = sk.db[p.split("/")[1]].capacity
+            assert torch.equal(t[:cap], lp[p][:cap]), p
+            assert torch.equal(t[cap + 1:], lp[p][cap + 1:]), p
+        else:
+            assert torch.equal(t, lp[p]), p

@@ -125,10 +125,29 @@ def test_calvin_epochs_match_reference():
 
 
 def test_calvin_chained_path_raises_on_reads_feeding_writes():
+    """A workload whose reads feed its writes sends CALVIN to the chained
+    executor.  The port used to raise there; it now has the executor
+    (``engine.step._run_levels``), so such a YCSB workload's epochs run
+    level by level and match the reference's chained epochs."""
+    from deneva_tpu.workloads.ycsb import YCSBWorkload as JYCSB
     from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
 
     class NotBlind(YCSBWorkload):
         blind_writes = False
-    cfg = Config.from_args(BASE + ["--cc_alg=CALVIN"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Engine(cfg, NotBlind(cfg, device="cpu"))
+
+    class JNotBlind(JYCSB):
+        blind_writes = False
+    args = BASE + ["--cc_alg=CALVIN"]
+    jcfg, tcfg = JConfig.from_args(args), Config.from_args(args)
+    jeng = JEngine(jcfg, JNotBlind(jcfg))
+    teng = Engine(tcfg, NotBlind(tcfg, device="cpu"))
+    keys, is_w = _bank(tcfg.synth_table_size)
+    _inject(jeng.workload, teng.workload, keys, is_w)
+    js = jeng.init_state()
+    ts = convert.from_reference_state(jax.device_get(js), tcfg, "cpu")
+    js = jeng.jit_run(js, EPOCHS)
+    ts = teng.run(ts, EPOCHS)
+    _assert_same(js, ts, tcfg.synth_table_size)
+    assert int(ts.stats["total_txn_abort_cnt"]) == 0
+    assert int(ts.stats["total_txn_commit_cnt"]) > 0
+    assert int(ts.stats["defer_cnt"]) > 0
