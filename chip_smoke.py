@@ -41,7 +41,16 @@ paths drive it:
   TPU_BATCH, CALVIN, NO_WAIT, OCC and MVCC: generation K4a, K19 and the
   CUSTOMER_LAST probe K14a; the escrow adds K14c and ring appends K14d,
   four passes of them through the chained executor (TPU_BATCH, CALVIN,
-  with K5+K6, K7, K9a) or one on the sweep path (with K8, K10, K12a-b).
+  with K5+K6, K7, K9a) or one on the sweep path (with K8, K10, K12a-b);
+  every algorithm at 4 warehouses, and ``tpcc_order_index``'s cells
+  (TPU_BATCH and CALVIN at 4, 16 and 64 warehouses, the dynamic ORDER
+  index of 2^20 entries off and on: K14e's merge once per executed
+  pass);
+* PPS — the ``pps_scaling`` point at Deneva's own scale (10,000 parts,
+  1,000 products, 1,000 suppliers, 10 parts per product, the default
+  mix) under all eight algorithms, and ``escrow_ablation``'s PPS cells:
+  generation K4a and K20, the PART_AMOUNT escrow adds K14c, the PRODUCTS
+  writers' K10 on the sweep path.
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -76,7 +85,11 @@ Phases (any error or mismatch exits non-zero and prints no result):
                each table's scatter-add of a real epoch at 64 and at 4
                warehouses (``index_put_(accumulate=True)`` the
                yardstick), K14d on ORDER-LINE's 30,720 lanes across
-               the ring's end.
+               the ring's end.  K20 on one ``pps_scaling`` epoch's
+               2,048 txns (and with spans above 2^16); K14e's merge on a
+               real 64-warehouse NewOrder insert into an index of 2^20
+               entries holding 2^19, on an all-masked call and on a call
+               across the capacity; K14e's probes on the merged index.
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -100,29 +113,49 @@ Phases (any error or mismatch exits non-zero and prints no result):
                at 4; one TPU_BATCH epoch against a numpy oracle that
                applies the committed txns level by level; the run's
                money conservation and dense O_IDs; the cost of an empty
-               chained pass and of the O_ID rank glue.
+               chained pass and of the O_ID rank glue.  PPS: 3 kernel
+               epochs equal 3 plain epochs under TPU_BATCH, CALVIN,
+               NO_WAIT, OCC, MVCC and MAAT; one TPU_BATCH epoch against
+               numpy (PART_AMOUNT's adds, PRODUCT_PART the last
+               committed writer in serial order).  TPC-C at 64
+               warehouses with the ORDER index: 3 kernel epochs equal 3
+               plain epochs, then after 20 more the index oracle (every
+               ORDER row at its slot, each district's walk dense and
+               ascending) through the K14e probes.
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
                both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
                WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
                ``ycsb_skew`` point, MAAT at ``ycsb_hot``, TPU_BATCH under
                SIMPLE and QRY_ONLY and on IDX_BTREE, TPC-C under
-               TPU_BATCH at 64 and 4 warehouses and CALVIN, NO_WAIT, OCC
-               and MVCC at 4; the ``[summary]``
+               TPU_BATCH at 64 and 4 warehouses and every other
+               algorithm at 4 (NO_WAIT, OCC and MVCC with escrow off
+               too), ``tpcc_order_index``'s cells, PPS under all eight
+               algorithms and ``escrow_ablation``'s four PPS cells (none
+               may overflow its index, the chained ones never abort);
+               the ``[summary]``
                numbers and committed txn/s, the TPU_BATCH / OCC ratio
                (``bench.py``'s ``vs_baseline``); with counts zeroed just
                before each run, every kernel's launches equal its
                per-epoch count on that path (``PATH_LAUNCHES``) times the
                epochs run; the YCSB sweep backends must commit and
-               abort, TPC-C's may abort, the others never.
-6. report    — one ``{"kernels": [...]}`` line, then as the last line
+               abort, TPC-C's and PPS's may abort, the others never.
+6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
+               no reference path runs, with ``"path": false`` and the
+               launches of the index oracle), then as the last line
                ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, before the report, a profile of 50 epochs per
 forwarding mode and of OCC, NO_WAIT, MVCC, MAAT (``ycsb_skew`` and
-``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode, and of TPC-C
-(TPU_BATCH at 64 warehouses, NO_WAIT at 4): host and wall time per
-epoch, device time by kernel and the device's idle share; for TPC-C
-also the host syncs in one epoch and the host's hot spots (cProfile).
+``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode, of TPC-C
+(TPU_BATCH at 64 warehouses with the ORDER index off and on, NO_WAIT
+at 4) and of PPS (TPU_BATCH, OCC): host and wall time per epoch, device
+time by kernel and the device's idle share; for TPC-C and PPS also the
+host syncs in one epoch and the host's hot spots (cProfile).
+
+``--order-index-window`` runs only the 64-warehouse TPU_BATCH cell of
+``tpcc_order_index`` at ``paper_base``'s 10 s + 30 s windows and reports
+whether, and after how many epochs, the driver refuses it for an
+overflowed index.
 
 Without a CUDA device, or in a directory without the package, it exits
 non-zero before printing any result.
@@ -201,7 +234,16 @@ KERNELS = {
                     "deneva_tpu/storage/table.py:137"),
     "K19_tpcc_generate": ("deneva_tpu_torch/csrc/tpcc.cu",
                           "deneva_tpu/workloads/tpcc.py:470"),
+    "K14e_index_merge": ("deneva_tpu_torch/csrc/index.cu",
+                         "deneva_tpu/storage/index.py:264"),
+    "K14e_sorted_probe": ("deneva_tpu_torch/csrc/index.cu",
+                          "deneva_tpu/storage/index.py:168"),
+    "K20_pps_generate": ("deneva_tpu_torch/csrc/pps.cu",
+                         "deneva_tpu/workloads/pps.py:184"),
 }
+# kernels that no reference path launches: their launches come from the
+# oracle check that probes them, and the kernels line marks them
+OFF_PATH = ("K14e_sorted_probe",)
 
 
 def fail(msg: str):
@@ -337,10 +379,34 @@ PATH_LAUNCHES.update({
     "TPCC_MAAT": {**_TPCC_SWEEP, "K9b_precedence_levels": 1,
                   "K11a_maat_reach": 2, "K11b_maat_peel": 1},
 })
-# paths whose runs must abort, and paths that may (TPC-C's sweep backends
-# under escrow abort only on stock conflicts); the others never abort
+# tpcc_order_index: each executed pass merges its orders through K14e
+PATH_LAUNCHES.update({
+    "TPCC_CHAINED_IDX": {**PATH_LAUNCHES["TPCC_CHAINED"],
+                         "K14e_index_merge": 4},
+    "TPCC_SWEEP_IDX": {**_TPCC_SWEEP, "K14e_index_merge": 1},
+})
+# PPS: generation (K4a, K20); each executed pass adds PART_AMOUNT through
+# K14c twice (ORDERPRODUCT, UPDATEPART); the sweep path resolves the
+# PRODUCTS writers through K10
+_PPS_GEN = {"K4a_threefry_split": 1, "K20_pps_generate": 1}
+_PPS_SWEEP = {**_PPS_GEN, "K5K6_build_incidence": 1, "K7_overlap": 1,
+              "K8_first_fit": 1, "K10_last_writer": 1, "K14c_scatter_add": 2}
+PATH_LAUNCHES.update({
+    "PPS_CHAINED": {**_PPS_GEN, "K5K6_build_incidence": 1, "K7_overlap": 1,
+                    "K9a_wavefront_levels": 1, "K14c_scatter_add": 8},
+    "PPS_SWEEP": _PPS_SWEEP,
+    "PPS_TO": {**_PPS_SWEEP, "K12a_watermark_check": 1,
+               "K12b_commit_watermarks": 1},
+    "PPS_MAAT": {**_PPS_SWEEP, "K9b_precedence_levels": 1,
+                 "K11a_maat_reach": 2, "K11b_maat_peel": 1},
+    "PPS_NOCC": {**_PPS_GEN, "K10_last_writer": 1, "K14c_scatter_add": 2},
+})
+# paths whose runs must abort, and paths that may (TPC-C's and PPS's
+# sweep backends under escrow abort only on the rows they order); the
+# others never abort
 ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT")
-MAY_ABORT = ("TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT")
+MAY_ABORT = ("TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT", "PPS_SWEEP", "PPS_TO",
+             "PPS_MAAT")
 
 
 @contextlib.contextmanager
@@ -376,7 +442,15 @@ def plain_path(wl):
              (index.HashIndex, "lookup", index.HashIndex.lookup_plain),
              (table.DeviceTable, "scatter_add",
               table.DeviceTable.scatter_add_plain),
-             (table.DeviceTable, "append", table.DeviceTable.append_plain)]
+             (table.DeviceTable, "append", table.DeviceTable.append_plain),
+             (index.DynamicSortedIndex, "insert",
+              index.DynamicSortedIndex.insert_plain),
+             (index.SortedIndex, "lookup_count",
+              index.SortedIndex.lookup_count_plain),
+             (index.SortedIndex, "range_slots",
+              index.SortedIndex.range_slots_plain),
+             (index.SortedIndex, "range_between",
+              index.SortedIndex.range_between_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1813,9 +1887,36 @@ def tpcc_config(num_wh: int, alg: str = "TPU_BATCH", **kw):
 
 
 def tpcc_engine(dev, cfg):
+    """An engine of ``cfg``'s workload (TPC-C or PPS) on the card."""
     from deneva_tpu_torch.engine.step import Engine
-    from deneva_tpu_torch.workloads.tpcc import TPCCWorkload
-    return Engine(cfg, TPCCWorkload(cfg, device=dev))
+    from deneva_tpu_torch.workloads import get_workload
+    return Engine(cfg, get_workload(cfg, device=dev))
+
+
+def index_config(num_wh: int, alg: str = "TPU_BATCH", **kw):
+    """``tpcc_order_index``'s index-on cell (``deneva_tpu/harness/
+    experiments.py:304-325``): ``tpcc_config`` with the dynamic ORDER
+    index and ``insert_table_cap=2^20`` (an ORDER-LINE ring of 15 x 2^20
+    rows, an 8 MB index)."""
+    return tpcc_config(num_wh, alg, tpcc_order_index=True,
+                       insert_table_cap=1 << 20, **kw)
+
+
+def pps_config(alg: str = "TPU_BATCH", **kw):
+    """``pps_scaling`` (``deneva_tpu/harness/experiments.py:135-142``; the
+    reference's ``scripts/experiments.py:51-59``): ``paper_base``
+    (``epoch_batch=2048`` over ``max_txn_in_flight=10000``, 8192 buckets,
+    dual hashing) with ``max_accesses=32`` and Deneva's PPS defaults
+    (``config.h:230-242``): 10,000 parts, 1,000 products, 1,000
+    suppliers, 10 parts per product, the mix GETPARTBYPRODUCT 0.34,
+    ORDERPRODUCT 0.33, UPDATEPRODUCTPART 0.33.  Nothing is cut."""
+    from deneva_tpu_torch.config import Config
+    args = ["--workload=PPS", f"--cc_alg={alg}", "--max_accesses=32",
+            f"--epoch_batch={SKEW_BATCH}", f"--max_txn_in_flight={SKEW_POOL}",
+            f"--conflict_buckets={BUCKETS}", "--conflict_exact=true",
+            "--seed=7"]
+    args += [f"--{k}={v}" for k, v in kw.items()]
+    return Config.from_args(args)
 
 
 def table_clone(tab, cols=None):
@@ -2020,10 +2121,11 @@ def k14d_case(dev, state, calls, rec, card) -> None:
           f"capacity={cap} columns={k}", flush=True)
 
 
-def tpcc_epochs_equal(dev, cfg, n: int, label: str):
-    """``n`` TPC-C epochs through the kernels equal ``n`` through the
-    plain versions: every table's rows [0, capacity), its padded rows and
-    cursor, the pool, cc state, rng and counters."""
+def tpcc_epochs_equal(dev, cfg, n: int, label: str, tag: str = "tpcc"):
+    """``n`` TPC-C (or PPS) epochs through the kernels equal ``n`` through
+    the plain versions: every table's rows [0, capacity), its padded rows
+    and cursor, the ORDER index's arrays and count, the pool, cc state,
+    rng and counters."""
     from deneva_tpu_torch.convert import state_leaves
     t = time.monotonic()
     ek, ep = tpcc_engine(dev, cfg), tpcc_engine(dev, cfg)
@@ -2036,8 +2138,10 @@ def tpcc_epochs_equal(dev, cfg, n: int, label: str):
     lk, lp = state_leaves(sk), state_leaves(sp)
     for path, x in lk.items():
         y = lp[path]
-        if path.startswith("db/") and x.ndim:
-            cap = sk.db[path.split("/")[1]].capacity
+        tab = sk.db.get(path.split("/")[1]) if path.startswith("db/") \
+            else None
+        if hasattr(tab, "capacity") and x.ndim:
+            cap = tab.capacity
             same = torch.equal(x[:cap], y[:cap]) \
                 and torch.equal(x[cap + 1:], y[cap + 1:])
         else:
@@ -2045,7 +2149,7 @@ def tpcc_epochs_equal(dev, cfg, n: int, label: str):
         if not same:
             fail(f"{label}: leaf {path} differs between kernel and plain "
                  "epochs")
-    print(f"[tpcc-epochs] {label}: {n} kernel epochs == {n} plain epochs "
+    print(f"[{tag}-epochs] {label}: {n} kernel epochs == {n} plain epochs "
           f"({len(lk)} leaves; commits "
           f"{int(sk.stats['total_txn_commit_cnt'])}, aborts "
           f"{int(sk.stats['total_txn_abort_cnt'])}, defers "
@@ -2280,6 +2384,296 @@ def phase_tpcc_epochs(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def capture_inserts(eng, state):
+    """One kernel epoch, keeping the arguments of every ORDER index
+    insert (new keys, slots, mask), cloned."""
+    from deneva_tpu_torch.storage.index import DynamicSortedIndex
+    calls = []
+    real = DynamicSortedIndex.insert
+
+    def ins(idx, keys, slots, mask):
+        calls.append((keys.clone(), slots.clone(), mask.clone()))
+        return real(idx, keys, slots, mask)
+    DynamicSortedIndex.insert = ins
+    try:
+        state = eng.step(state)
+    finally:
+        DynamicSortedIndex.insert = real
+    torch.cuda.synchronize()
+    return state, calls
+
+
+def same_index(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("keys", "slots", "cnt"))
+
+
+def phase_slice6_kernels(dev, rec: dict, card: str) -> None:
+    """K20 on one ``pps_scaling`` epoch's generation (and with key spans
+    above 2^16); K14e merge on a real 64-warehouse NewOrder insert into
+    an index of capacity 2^20 pre-filled to about 2^19 entries, on a call
+    that crosses the capacity and on an all-masked call; K14e probes on
+    the merged index: each exact against its plain version."""
+    from deneva_tpu_torch.ops import prng
+    from deneva_tpu_torch.storage.index import BIG, DynamicSortedIndex
+    from deneva_tpu_torch.workloads.pps import PPSQuery, PPSWorkload
+    # K20
+    cfg = pps_config()
+    wl = PPSWorkload(cfg, device=dev)
+    b = cfg.epoch_batch
+    key = prng.split(prng.key_from_seed(41, dev))[1]
+    q, qp = wl.generate(key, b), wl.generate_plain(key, b)
+    err = 0
+    for f in PPSQuery.__dataclass_fields__:
+        x, y = getattr(q, f), getattr(qp, f)
+        if not torch.equal(x, y):
+            fail(f"K20: field {f} differs from plain")
+        err = max(err, max_abs(x, y))
+    rec["K20_pps_generate"].update(
+        max_abs_err=err, ms=cuda_ms(lambda: wl.generate(key, b)),
+        plain_ms=cuda_ms(lambda: wl.generate_plain(key, b), iters=3),
+        library_ms=None)
+    # per txn one uniform and three randint (two hashes each), eight
+    # compares; in the key and the mix, out four words per txn
+    bound(rec["K20_pps_generate"], 16 + 32 + 16 * b,
+          (7 * THREEFRY_OPS + 8) * b)
+    wide = PPSWorkload(pps_config(pps_parts_cnt=100003,
+                                  pps_products_cnt=65537), device=dev)
+    qw, qwp = wide.generate(key, b), wide.generate_plain(key, b)
+    for f in PPSQuery.__dataclass_fields__:
+        if not torch.equal(getattr(qw, f), getattr(qwp, f)):
+            fail(f"K20 (spans above 2^16): field {f} differs from plain")
+    print(f"[K20] B={b}: types {torch.bincount(q.txn_type, minlength=8).tolist()}"
+          f"; spans above 2^16 exact too", flush=True)
+
+    # K14e merge on a real 64-warehouse epoch's level-0 NewOrder insert
+    tcfg = index_config(64)
+    eng = tpcc_engine(dev, tcfg)
+    st = eng.run(eng.init_state(), 2)
+    st, calls = capture_inserts(eng, st)
+    if len(calls) != tcfg.exec_subrounds:
+        fail(f"K14e: {len(calls)} inserts in a chained epoch")
+    nk, ns, nm = calls[0]
+    cap, nd = tcfg.insert_table_cap, eng.workload.n_districts
+    per = cap // 2 // nd         # orders per district already indexed
+    dk = np.repeat(np.arange(nd, dtype=np.int64), per)
+    oid = 3001 + np.tile(np.arange(per, dtype=np.int64), nd)
+    live = len(dk)
+    idx = DynamicSortedIndex.build(
+        (dk * (1 << 21) + oid).astype(np.int32),
+        np.arange(live, dtype=np.int32), miss_slot=cap, cap=cap, device=dev)
+    # the epoch's orders, as they arrive once every district holds `per`
+    kk = torch.where(nm, nk + per, nk)
+    got, want = idx.insert(kk, ns, nm), idx.insert_plain(kk, ns, nm)
+    if not same_index(got, want):
+        fail("K14e merge differs from plain on the 64-wh insert")
+    n_in = int(nm.sum())
+    allk = torch.cat([idx.keys, torch.where(nm, kk, BIG)])
+    alls = torch.cat([idx.slots, ns])
+
+    def library():
+        return alls[torch.sort(allk, stable=True).indices[:cap]]
+    r = {"max_abs_err": max(max_abs(got.keys, want.keys),
+                            max_abs(got.slots, want.slots)),
+         "ms": cuda_ms(lambda: idx.insert(kk, ns, nm)),
+         "plain_ms": cuda_ms(lambda: idx.insert_plain(kk, ns, nm), iters=5),
+         "library_ms": cuda_ms(library, iters=5)}
+    m = nm.numel()
+    # the live keys and slots read and written once, the inserts' key,
+    # slot and mask read; a merge compares once per output entry
+    bound(r, 16 * cap + 9 * m + 8, cap + m)
+    rec["K14e_index_merge"].update(r)
+    none = torch.zeros_like(nm)
+    empty = idx.insert(kk, ns, none)
+    if not same_index(empty, idx.insert_plain(kk, ns, none)):
+        fail("K14e merge differs from plain on an all-masked call")
+    empty_ms = cuda_ms(lambda: idx.insert(kk, ns, none))
+    # a call that crosses the capacity: the index topped up with keys
+    # above every district's, so that half the epoch's orders fit
+    n_fill = cap - n_in // 2
+    full = DynamicSortedIndex.build(
+        np.concatenate([dk * (1 << 21) + oid,
+                        (nd << 21) + np.arange(n_fill - live)]
+                       ).astype(np.int32),
+        np.arange(n_fill, dtype=np.int32), miss_slot=cap, cap=cap,
+        device=dev)
+    over, over_p = full.insert(kk, ns, nm), full.insert_plain(kk, ns, nm)
+    if not same_index(over, over_p) or not bool(over.overflowed()):
+        fail("K14e merge differs from plain (or did not overflow) on the "
+             "call that crosses the capacity")
+    print(f"[K14e] merge: {m} lanes, {n_in} orders into {live} of {cap} "
+          f"entries; crossing the capacity at {int(full.cnt)} + {n_in} "
+          f"-> cnt {int(over.cnt)}, exact; an all-masked call "
+          f"{empty_ms:.4f} ms (card {card})", flush=True)
+
+    # K14e probes on the merged 2^20 index: the count of each lane's key
+    # (the epoch's orders and the keys lanes held before), and a window
+    # of 128 entries up to 10 orders past each key
+    view = got._view()
+    cnt_k, cnt_p = view.lookup_count(kk), view.lookup_count_plain(kk)
+    lo, hi = kk - 100, kk + 10
+    rk = view.range_between(lo, hi, 128)
+    rp = view.range_between_plain(lo, hi, 128)
+    sk_, sp_ = view.range_slots(lo, 128), view.range_slots_plain(lo, 128)
+    if not (torch.equal(cnt_k, cnt_p) and all(
+            torch.equal(a, c) for a, c in zip(rk + sk_, rp + sp_))):
+        fail("K14e probes differ from plain on the 2^20 index")
+    if int(cnt_k[nm].min()) != 1:
+        fail("K14e probes: an inserted order is not found once")
+
+    def lib_count():
+        return (torch.searchsorted(view.keys, kk, side="right")
+                - torch.searchsorted(view.keys, kk))
+    r = {"max_abs_err": max(max_abs(cnt_k, cnt_p), max_abs(rk[0], rp[0])),
+         "ms": cuda_ms(lambda: view.lookup_count(kk)),
+         "plain_ms": cuda_ms(lambda: view.lookup_count_plain(kk)),
+         "library_ms": cuda_ms(lib_count)}
+    # a query in, a count out, the two bounding keys read; two binary
+    # searches of log2(cap) steps
+    bound(r, 16 * m, 2 * 20 * m)
+    rec["K14e_sorted_probe"].update(r)
+    print(f"[K14e] probes: {m} counts {r['ms']:.4f} ms; {m} windows of "
+          f"128 (range_between) {cuda_ms(lambda: view.range_between(lo, hi, 128)):.4f} ms, "
+          f"plain {cuda_ms(lambda: view.range_between_plain(lo, hi, 128)):.4f}; "
+          f"{int(rk[1].sum())} entries in the windows (card {card})",
+          flush=True)
+    for nm_ in ("K20_pps_generate", "K14e_index_merge", "K14e_sorted_probe"):
+        print_kernel(nm_, rec[nm_], card)
+    del eng, st, idx, got, want, full, over, over_p, empty
+    torch.cuda.empty_cache()
+
+
+def order_index_oracle(state, wl) -> dict:
+    """``tests/test_tpcc.py:87-117`` at scale, through the K14e probes:
+    every ORDER ring row is found at its slot by its key, exactly once;
+    each district's range walk holds exactly its orders, in ascending
+    o_id from 3001 to ``D_NEXT_O_ID - 1``.  Returns the probes'
+    launches."""
+    from deneva_tpu_torch.storage.index import K14E_PROBE
+    db = state.db
+    idx, order = db["ORDER_IDX"], db["ORDER"]
+    n_ord = int(order.row_cnt)
+    if not 0 < n_ord <= idx.cap or bool(idx.overflowed()) \
+            or int(idx.cnt) != n_ord:
+        fail(f"order index oracle: {n_ord} orders, cnt {int(idx.cnt)}")
+    o_w, o_d, o_id = (order.columns[c][:n_ord]
+                      for c in ("O_W_ID", "O_D_ID", "O_ID"))
+    keys = wl.order_index_key(o_w, o_d, o_id)
+    before = K14E_PROBE.launches
+    slot = idx.lookup(keys)
+    if not torch.equal(slot, torch.arange(n_ord, dtype=torch.int32,
+                                          device=slot.device)):
+        fail("order index oracle: an ORDER row is not found at its slot")
+    if int(idx.lookup_count(keys).max()) != 1:
+        fail("order index oracle: a key is indexed twice")
+    nd = wl.n_districts
+    nxt = db["DISTRICT"].columns["D_NEXT_O_ID"][:nd]
+    width = -(-int((nxt - 3001).max()) // 32) * 32 + 32
+    ds = torch.arange(nd, dtype=torch.int32, device=slot.device)
+    walk, ok = idx.range_between(ds * (1 << 21), ds * (1 << 21) + (1 << 21)
+                                 - 1, width)
+    launches = K14E_PROBE.launches - before
+    got = torch.where(ok, o_id[walk.clamp(0, n_ord - 1).long()], 0)
+    want = torch.arange(width, device=ds.device)[None, :] + 3001
+    want_ok = want < nxt[:, None]
+    dist = torch.where(ok, (o_w * 10 + o_d)[walk.clamp(0, n_ord - 1).long()],
+                       -1)
+    if not (torch.equal(ok, want_ok) and torch.equal(
+            torch.where(ok, got, 0), torch.where(want_ok, want, 0).to(
+                got.dtype)) and bool((dist[ok] == ds[:, None].expand_as(
+                    dist)[ok]).all())):
+        fail("order index oracle: a district's walk is not its dense, "
+             "ascending orders")
+    return {"orders": n_ord, "districts": nd, "walk_width": width,
+            "probe_launches": launches}
+
+
+def pps_oracle_epoch(eng, state) -> tuple:
+    """One PPS kernel epoch against numpy: PART_AMOUNT moves by exactly
+    -1 on each used part of every committed ORDERPRODUCT and +100 on the
+    part of every committed UPDATEPART (``np.add.at``), and each
+    product's PRODUCT_PART is the part of its last committed
+    UPDATEPRODUCTPART in serial order (``verdict.order``), or unchanged."""
+    from deneva_tpu_torch.workloads import pps
+    wl, cfg = eng.workload, eng.cfg
+    n_pt, n_pr = cfg.pps_parts_cnt, cfg.pps_products_cnt
+    amt0 = state.db["PARTS"].columns["PART_AMOUNT"][:n_pt].cpu().numpy(
+        ).copy()
+    part0 = state.db["PRODUCTS"].columns["PRODUCT_PART"][:n_pr].cpu(
+        ).numpy().copy()
+    uses = state.db["USES"].columns["PART_KEY"].cpu().numpy()
+    calls = []
+    real = wl.execute
+
+    def execute(db, q, mask, order, stats, fwd_rank=None, level_exec=False):
+        calls.append((q, mask.clone(), order.clone()))
+        return real(db, q, mask, order, stats, fwd_rank, level_exec)
+    wl.execute = execute
+    try:
+        state = eng.step(state)
+    finally:
+        del wl.execute
+    torch.cuda.synchronize()
+    q = {f: getattr(calls[0][0], f).cpu().numpy()
+         for f in pps.PPSQuery.__dataclass_fields__}
+    order = calls[0][2].cpu().numpy()
+    commit = np.zeros(len(order), bool)
+    for _, m, _ in calls:
+        commit |= m.cpu().numpy()
+    t = q["txn_type"]
+    amt = amt0.astype(np.int64)
+    per = cfg.pps_parts_per
+    op = np.nonzero(commit & (t == pps.ORDERPRODUCT))[0]
+    up = np.nonzero(commit & (t == pps.UPDATEPART))[0]
+    for i in op:
+        np.add.at(amt, uses[q["product_key"][i] * per
+                            + np.arange(per)], -1)
+    np.add.at(amt, q["part_key"][up], 100)
+    part = part0.copy()
+    pw = np.nonzero(commit & (t == pps.UPDATEPRODUCTPART))[0]
+    for i in sorted(pw, key=lambda i: order[i]):
+        part[q["product_key"][i]] = q["part_key"][i]
+    got_amt = state.db["PARTS"].columns["PART_AMOUNT"][:n_pt].cpu().numpy()
+    got_part = state.db["PRODUCTS"].columns["PRODUCT_PART"][:n_pr].cpu(
+        ).numpy()
+    if not np.array_equal(got_amt.astype(np.int64), amt):
+        fail("pps oracle: PART_AMOUNT differs from the serial adds")
+    if int(got_amt.astype(np.int64).sum() - amt0.astype(np.int64).sum()) \
+            != -per * len(op) + 100 * len(up):
+        fail("pps oracle: PART_AMOUNT's total moved by the wrong amount")
+    if not np.array_equal(got_part, part):
+        fail("pps oracle: PRODUCT_PART is not the last committed writer's")
+    return state, {"commits": int(commit.sum()), "orderproduct": len(op),
+                   "updatepart": len(up), "updateproductpart": len(pw),
+                   "products_rewritten": int((part != part0).sum()),
+                   "passes": len(calls)}
+
+
+def phase_slice6_epochs(dev, card: str) -> int:
+    """3 kernel epochs equal 3 plain epochs for PPS under TPU_BATCH,
+    CALVIN, NO_WAIT, OCC, MVCC and MAAT at ``pps_scaling``, and for TPC-C
+    at 64 warehouses under TPU_BATCH with the ORDER index on; a PPS
+    numpy oracle epoch; the ORDER index oracle after 20 more epochs.
+    Returns the K14e probes' launches in that oracle."""
+    for alg in ("TPU_BATCH", "CALVIN", "NO_WAIT", "OCC", "MVCC", "MAAT"):
+        eng, st = tpcc_epochs_equal(dev, pps_config(alg), 3, f"PPS {alg}",
+                                    tag="pps")
+        if alg == "TPU_BATCH":
+            st, info = pps_oracle_epoch(eng, st)
+            print(f"[pps-oracle] TPU_BATCH epoch 4: {info}", flush=True)
+        del eng, st
+        torch.cuda.empty_cache()
+    eng, st = tpcc_epochs_equal(dev, index_config(64), 3,
+                                "TPU_BATCH 64wh order index")
+    st = eng.run(st, 20)
+    info = order_index_oracle(st, eng.workload)
+    print(f"[order-index-oracle] TPU_BATCH 64wh after 23 epochs: {info} "
+          f"(card {card})", flush=True)
+    del eng, st
+    torch.cuda.empty_cache()
+    return info["probe_launches"]
+
+
 def phase_simulate(dev, cfg, path: str, label: str, card: str
                    ) -> tuple[dict, dict]:
     """``run_simulation`` with every launch count zeroed just before it;
@@ -2383,7 +2777,7 @@ def phase_profile(dev, cfg, mode: str) -> None:
     print(f"[profile] {mode}: host {host / n * 1e3:.4f} ms/epoch, wall "
           f"{wall / n * 1e3:.4f} ms/epoch ({n} epochs, no profiler)",
           flush=True)
-    if mode.startswith("TPCC"):
+    if mode.startswith(("TPCC", "PPS")):
         st = host_hot_spots(eng, st, mode)
     m = 50
     with profile(activities=[ProfilerActivity.CPU,
@@ -2412,7 +2806,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
             "wavefront_kernel",
             "precedence_kernel", "reach_kernel", "peel_kernel",
             "lookup_kernel", "sort_rows", "scatter_add_", "append_kernel",
-            "tpcc_generate")
+            "tpcc_generate", "merge_rank", "merge_place", "probe_kernel",
+            "pps_generate")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -2426,6 +2821,38 @@ def phase_profile(dev, cfg, mode: str) -> None:
               f"{k[:90]}", flush=True)
 
 
+def order_index_window(dev, card: str) -> None:
+    """``--order-index-window``: the 64-warehouse TPU_BATCH cell of
+    ``tpcc_order_index`` at ``paper_base``'s real windows (10 s + 30 s),
+    to see whether its 2^20-entry index overflows inside them; prints
+    the epochs run when the driver refuses the run, and raises on."""
+    from deneva_tpu_torch.engine import step
+    from deneva_tpu_torch.engine.driver import run_simulation
+    cfg = index_config(64, warmup_secs=10.0, done_secs=30.0)
+    ran = [0, 0]
+    real = step.Engine.run
+
+    def run(self, state, n):
+        state = real(self, state, n)
+        ran[0] += n
+        ran[1] = n
+        return state
+    step.Engine.run = run
+    t = time.monotonic()
+    try:
+        st = run_simulation(cfg, device=dev)
+    except RuntimeError as e:
+        print(f"[order-index-window] refused after {ran[0]} epochs (last "
+              f"chunk {ran[1]}) and {time.monotonic() - t:.1f} s, index "
+              f"capacity {cfg.insert_table_cap} (card {card}): {e}",
+              flush=True)
+        raise
+    finally:
+        step.Engine.run = real
+    print(f"[order-index-window] no overflow: {st.epochs_run} epochs in "
+          f"{time.monotonic() - t:.1f} s (card {card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2437,6 +2864,10 @@ def main() -> int:
     t0 = time.monotonic()
     info = phase_device()
     phase_build()
+    if "--order-index-window" in sys.argv:
+        order_index_window(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     rec = {nm: {} for nm in ("K1_sort_lanes", "K2_plan_scans",
                              "K3_forward_execute[fingerprint]",
                              "K3_forward_execute[full_row]",
@@ -2450,7 +2881,8 @@ def main() -> int:
                              "K11a_maat_reach", "K11b_maat_peel",
                              "K14b_sorted_lookup", "K14a_hash_lookup",
                              "K14c_scatter_add", "K14d_append",
-                             "K19_tpcc_generate")}
+                             "K19_tpcc_generate", "K14e_index_merge",
+                             "K14e_sorted_probe", "K20_pps_generate")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
@@ -2459,6 +2891,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_tpcc_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
+    phase_slice6_kernels(dev, rec, info["card"])
     for full in (False, True):
         phase_epochs(dev, full)
         torch.cuda.empty_cache()
@@ -2473,6 +2906,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_tpcc_epochs(dev, info["card"])
     torch.cuda.empty_cache()
+    probe_launches = phase_slice6_epochs(dev, info["card"])
     launches: dict[str, int] = {}
     tput = {}
     win = {"warmup_secs": 1.0, "done_secs": 3.0}
@@ -2495,6 +2929,37 @@ def main() -> int:
               tpcc_config(4, "NO_WAIT", **win)),
              ("TPCC_SWEEP", "OCC tpcc 4wh", tpcc_config(4, "OCC", **win)),
              ("TPCC_TO", "MVCC tpcc 4wh", tpcc_config(4, "MVCC", **win))]
+    # tpcc_escrow's other algorithms and its escrow-off cells
+    runs += [("TPCC_TO", "TIMESTAMP tpcc 4wh",
+              tpcc_config(4, "TIMESTAMP", **win)),
+             ("TPCC_SWEEP", "WAIT_DIE tpcc 4wh",
+              tpcc_config(4, "WAIT_DIE", **win)),
+             ("TPCC_MAAT", "MAAT tpcc 4wh", tpcc_config(4, "MAAT", **win))]
+    runs += [(path, f"{alg} tpcc 4wh escrow off",
+              tpcc_config(4, alg, escrow_sweep=False, **win))
+             for path, alg in (("TPCC_SWEEP", "NO_WAIT"),
+                               ("TPCC_SWEEP", "OCC"), ("TPCC_TO", "MVCC"))]
+    # tpcc_order_index: TPU_BATCH and CALVIN at 4, 16 and 64 warehouses,
+    # the index off and on (the off cells not run above)
+    for wh in (4, 16, 64):
+        for alg in ("TPU_BATCH", "CALVIN"):
+            if wh == 16 or (wh == 64 and alg == "CALVIN"):
+                runs.append(("TPCC_CHAINED", f"{alg} tpcc {wh}wh",
+                             tpcc_config(wh, alg, **win)))
+            runs.append(("TPCC_CHAINED_IDX", f"{alg} tpcc {wh}wh order index",
+                         index_config(wh, alg, **win)))
+    # pps_scaling (all eight algorithms) and escrow_ablation's PPS cells
+    pps_paths = {"TPU_BATCH": "PPS_CHAINED", "CALVIN": "PPS_CHAINED",
+                 "NO_WAIT": "PPS_SWEEP", "WAIT_DIE": "PPS_SWEEP",
+                 "OCC": "PPS_SWEEP", "TIMESTAMP": "PPS_TO", "MVCC": "PPS_TO",
+                 "MAAT": "PPS_MAAT"}
+    runs += [(path, f"{alg} pps", pps_config(alg, **win))
+             for alg, path in pps_paths.items()]
+    runs += [("PPS_CHAINED", f"{alg} pps escrow_ablation escrow "
+              f"{'on' if esc else 'off'}",
+              pps_config(alg, epoch_batch=1024, exec_subrounds=4,
+                         escrow_order_free=esc, **win))
+             for alg in ("TPU_BATCH", "CALVIN") for esc in (True, False)]
     for path, label, cfg in runs:
         mode = "full_row" if cfg.sim_full_row else "fingerprint"
         counts, fields = phase_simulate(dev, cfg, path, f"{path} {label}",
@@ -2525,11 +2990,20 @@ def main() -> int:
                            ("modes SIMPLE", modes_config("SIMPLE")),
                            ("IDX_BTREE fingerprint", btree_config()),
                            ("TPCC TPU_BATCH 64wh", tpcc_config(64)),
-                           ("TPCC NO_WAIT 4wh", tpcc_config(4, "NO_WAIT"))):
+                           ("TPCC NO_WAIT 4wh", tpcc_config(4, "NO_WAIT")),
+                           ("TPCC TPU_BATCH 64wh order index",
+                            index_config(64)),
+                           ("PPS TPU_BATCH", pps_config()),
+                           ("PPS OCC", pps_config("OCC"))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []
     for nm, v in rec.items():
+        row = {}
+        if nm in OFF_PATH:
+            # no reference path probes it: the launches of its oracle
+            row["path"] = False
+            launches[nm] = probe_launches
         if launches[nm] == 0:
             fail(f"{nm} was never launched on the main path")
         src, repl = KERNELS[nm.split("[")[0]]
@@ -2538,7 +3012,7 @@ def main() -> int:
                     "max_abs_err": v["max_abs_err"], "ms": v["ms"],
                     "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
                     "bound_by": v["bound_by"],
-                    "library_ms": v["library_ms"]})
+                    "library_ms": v["library_ms"], **row})
     print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

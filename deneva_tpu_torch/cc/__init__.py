@@ -5,9 +5,8 @@ algorithm, with the reference's flags.  The port registers:
 
 * TPU_BATCH and CALVIN — on YCSB the forwarding executor
   (``forward=True``): the sort is the validation; under ``mode=SIMPLE``
-  and ``QRY_ONLY`` the wavefront levels of `validate_calvin` (CALVIN's
-  chained executor, for workloads whose writes read, comes with
-  ROADMAP.md item 15);
+  and ``QRY_ONLY``, and on TPC-C and PPS (whose writes read, run by the
+  chained executor), the wavefront levels of `validate_calvin`;
 * OCC — Kung-Robinson validation through the incidence sweep;
 * NO_WAIT, WAIT_DIE — 2PL through the same sweep, at four isolation
   levels;

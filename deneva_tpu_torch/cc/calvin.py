@@ -9,9 +9,9 @@ to the next epoch.  Nothing aborts.
 On YCSB, whose writes are blind, the engine takes the forwarding
 executor instead under ``mode=NORMAL`` and never calls this function;
 it validates under ``mode=SIMPLE`` and ``QRY_ONLY``, where the engine
-then executes nothing (``deneva_tpu/engine/step.py:245-365``).  The
-chained executor for workloads whose writes read comes with ROADMAP.md
-queue 1, item 15.
+then executes nothing (``deneva_tpu/engine/step.py:245-365``).  TPC-C
+and PPS, whose writes read, run the chained executor over these levels
+(`engine.step._run_levels`).
 """
 
 from __future__ import annotations

@@ -5,12 +5,13 @@ fields the ported slice reads or guards.  Every field keeps the
 reference's name, type and default, so one ``--flag=value`` list drives
 both packages.
 
-The port runs YCSB and TPC-C (Payment + NewOrder) on one partition and
-one device, over a full or a partial pool.  YCSB takes zipfian or HOT
-keys, ``key_order``, any ``txn_write_perc`` and either index;
+The port runs YCSB, TPC-C (Payment + NewOrder, with or without the
+dynamic ORDER index of ``tpcc_order_index``) and PPS on one partition
+and one device, over a full or a partial pool.  YCSB takes zipfian or
+HOT keys, ``key_order``, any ``txn_write_perc`` and either index;
 ``CC_ALG=TPU_BATCH`` and ``CALVIN`` run it through the single-pass
-forwarding executor, and TPC-C, whose writes read, through the chained
-executor.  ``OCC``, ``NO_WAIT`` and ``WAIT_DIE`` (at all four isolation
+forwarding executor, and TPC-C and PPS, whose writes read, through the
+chained executor.  ``OCC``, ``NO_WAIT`` and ``WAIT_DIE`` (at all four isolation
 levels), ``TIMESTAMP``, ``MVCC`` and ``MAAT`` run both through the sweep
 path; ``NOCC`` (or ``mode=NOCC``) is the oracle; ``mode=SIMPLE`` and
 ``QRY_ONLY`` (validation, no execution) apply under any of them.  A
@@ -109,6 +110,21 @@ class Config:
     insert_table_cap: int = 1 << 17  # ring capacity of HISTORY/ORDER/... tables
     #                                  (ORDER-LINE gets cap*max_items_per_txn)
 
+    # ---- PPS (reference config.h:226-242) ----
+    pps_table_size: int = 100000
+    pps_parts_cnt: int = 10000       # MAX_PPS_PART_KEY
+    pps_products_cnt: int = 1000     # MAX_PPS_PRODUCT_KEY
+    pps_suppliers_cnt: int = 1000    # MAX_PPS_SUPPLIER_KEY
+    pps_parts_per: int = 10          # MAX_PPS_PART_PER_PRODUCT
+    perc_getparts: float = 0.0
+    perc_getproducts: float = 0.0
+    perc_getsuppliers: float = 0.0
+    perc_getpartbyproduct: float = 0.34
+    perc_getpartbysupplier: float = 0.0
+    perc_orderproduct: float = 0.33
+    perc_updateproductpart: float = 0.33
+    perc_updatepart: float = 0.0
+
     # ---- client / pool ----
     max_txn_in_flight: int = 10000
     backoff: bool = True
@@ -199,6 +215,21 @@ class Config:
                    "order_index_key packs district * 2^21 + o_id into "
                    "int32: needs num_wh <= 102 and insert_table_cap + "
                    "3001 < 2^21")
+        if self.workload == WorkloadKind.PPS:
+            mix = (self.perc_getparts + self.perc_getproducts
+                   + self.perc_getsuppliers + self.perc_getpartbyproduct
+                   + self.perc_getpartbysupplier + self.perc_orderproduct
+                   + self.perc_updateproductpart + self.perc_updatepart)
+            _check(abs(mix - 1.0) < 1e-6, "PPS txn mix must sum to 1")
+            _check(self.max_accesses >= 1 + 2 * self.pps_parts_per,
+                   "PPS max_accesses must cover anchor + mapping + parts "
+                   f"(>= {1 + 2 * self.pps_parts_per})")
+            # PARTS / PRODUCTS / SUPPLIERS stripe by key % part_cnt
+            # (deneva_tpu/workloads/pps.py:108-112)
+            for nm in ("pps_parts_cnt", "pps_products_cnt",
+                       "pps_suppliers_cnt"):
+                _check(getattr(self, nm) % max(self.part_cnt, 1) == 0,
+                       f"{nm} must divide evenly over part_cnt")
         _check(self.isolation_level in (
             "SERIALIZABLE", "READ_COMMITTED", "READ_UNCOMMITTED", "NOLOCK"),
             f"bad isolation_level {self.isolation_level!r}")
@@ -244,10 +275,6 @@ class Config:
 
 # (predicate, what, ROADMAP item) for every setting outside the slices
 _NOT_PORTED = (
-    (lambda c: c.workload not in (WorkloadKind.YCSB, WorkloadKind.TPCC),
-     "workload other than YCSB and TPCC (PPS)", "item 15b: PPS"),
-    (lambda c: c.tpcc_order_index,
-     "tpcc_order_index", "item 15a: K14e DynamicSortedIndex"),
     (lambda c: c.cc_alg == CCAlg.DGCC,
      "cc_alg=DGCC", "item 16: depgraph + dgcc"),
     (lambda c: c.part_cnt > 1,

@@ -11,12 +11,15 @@ dtypes, for leaf-by-leaf comparison:
     cc_state/<field>, pool/queries/<field>, pool/<field>, rng, epoch,
     stats/<counter>
 
-``db/<ring>/wts`` is MVCC's per-row `VersionRing`; ``cc_state`` holds the
+``db/<ring>/wts`` is MVCC's per-row `VersionRing`, ``db/ORDER_IDX/{keys,
+slots,cnt}`` TPC-C's `DynamicSortedIndex` under ``tpcc_order_index``;
+``cc_state`` holds the
 T/O watermarks (``rts``, ``wts``) and MVCC's boundary ring (``his``,
 ``pos``), absent for stateless backends (OCC, 2PL, MAAT, CALVIN,
 TPU_BATCH and NOCC carry ``()``).
 
-The pool's queries are the workload's: ``YCSBQuery`` or ``TPCCQuery``,
+The pool's queries are the workload's: ``YCSBQuery``, ``TPCCQuery`` or
+``PPSQuery``,
 chosen by ``cfg.workload``, with every field of the reference's query
 carried under its name.  Ring tables (TPC-C's HISTORY, ORDER, NEW-ORDER,
 ORDER-LINE) keep their free-running ``row_cnt``.
@@ -41,7 +44,8 @@ import torch
 from deneva_tpu_torch.cc.timestamp import MVCCState, TOState
 from deneva_tpu_torch.engine.pool import PoolState
 from deneva_tpu_torch.engine.step import EngineState
-from deneva_tpu_torch.storage.index import DenseIndex, SortedIndex
+from deneva_tpu_torch.storage.index import (DenseIndex, DynamicSortedIndex,
+                                            SortedIndex)
 from deneva_tpu_torch.storage.table import (DeviceTable, VersionRing,
                                             to_numpy_column)
 
@@ -49,12 +53,22 @@ POOL_FIELDS = ("ts", "seq", "abort_cnt", "defer_cnt", "ready_epoch",
                "entry_epoch", "occupied", "next_seq")
 QUERY_FIELDS = ("keys", "is_write")      # YCSBQuery's
 CC_FIELDS = ("rts", "wts", "his", "pos")
+INDEX_FIELDS = ("keys", "slots", "cnt")   # a DynamicSortedIndex's leaves
+
+
+def _is_index(entry) -> bool:
+    """A db entry that is a `DynamicSortedIndex` (of either package)."""
+    return hasattr(entry, "cnt") and hasattr(entry, "slots")
 
 
 def _db_and_cc(db, cc_state, leaf) -> dict:
     """The ``db/`` and ``cc_state/`` paths of either package's state."""
     out = {}
     for name, tab in db.items():
+        if _is_index(tab):
+            for f in INDEX_FIELDS:
+                out[f"db/{name}/{f}"] = leaf(getattr(tab, f))
+            continue
         if not hasattr(tab, "columns"):          # a VersionRing
             out[f"db/{name}/wts"] = leaf(tab.wts)
             continue
@@ -132,6 +146,11 @@ def from_reference_state(tree, cfg, device) -> EngineState:
     device = torch.device(device)
     db = {}
     for name, tab in tree.db.items():
+        if _is_index(tab):
+            db[name] = DynamicSortedIndex(
+                **{f: _t(getattr(tab, f), device) for f in INDEX_FIELDS},
+                cap=int(tab.cap), miss_slot=int(tab.miss_slot))
+            continue
         if not hasattr(tab, "columns"):
             db[name] = VersionRing(wts=_t(tab.wts, device),
                                    depth=int(tab.depth))
@@ -175,6 +194,9 @@ def _query_class(cfg):
     if cfg.workload == WorkloadKind.TPCC:
         from deneva_tpu_torch.workloads.tpcc import TPCCQuery
         return TPCCQuery
+    if cfg.workload == WorkloadKind.PPS:
+        from deneva_tpu_torch.workloads.pps import PPSQuery
+        return PPSQuery
     from deneva_tpu_torch.workloads.ycsb import YCSBQuery
     return YCSBQuery
 

@@ -2,9 +2,11 @@
 
 The port of ``deneva_tpu/engine/driver.py``.  The unit of progress is a
 chunk of epochs enqueued on the device; after each chunk one small
-device->host copy (commit count, ``next_seq`` and the latency histogram
-in one tensor) is the pacing barrier, so the host never runs more than a
-chunk ahead.  Chunks are sized to ``chunk_target_secs`` of work.  The
+device->host copy (commit count, ``next_seq``, the latency histogram and
+the overflow bit of every capacity-bounded index, in one tensor) is the
+pacing barrier, so the host never runs more than a chunk ahead.  A run
+whose index overflowed is refused at the first such chunk, and once more
+at the end.  Chunks are sized to ``chunk_target_secs`` of work.  The
 measured window's counter deltas become the reference-compatible
 ``[summary]`` line; latency buckets (in epochs) are scaled to seconds by
 the pace of the chunk that produced them.
@@ -30,15 +32,38 @@ def _counters(state: EngineState) -> dict:
             for k, v in state.stats.items()}
 
 
-def _sync(state: EngineState) -> tuple[int, int, np.ndarray]:
+def _indexes(state: EngineState) -> dict:
+    """The db entries with a capacity that can overflow (TPC-C's
+    ``ORDER_IDX``)."""
+    return {name: t for name, t in state.db.items()
+            if hasattr(t, "overflowed")}
+
+
+def _sync(state: EngineState) -> tuple[int, int, np.ndarray, bool]:
     """One device->host copy as the pacing barrier: returns (commit_cnt,
-    next_seq, latency_hist)."""
+    next_seq, latency_hist, index_overflowed).  The overflow bits ride
+    this copy rather than pay a second one per chunk
+    (``deneva_tpu/engine/driver.py:33-55``)."""
     st = state.stats
+    nh = st["latency_hist"].numel()
     flat = torch.cat([st["total_txn_commit_cnt"].reshape(1),
                       state.pool.next_seq.reshape(1).to(torch.int64),
-                      st["latency_hist"].reshape(-1)]).cpu().numpy()
-    hist = flat[2:].astype(np.uint32).reshape(st["latency_hist"].shape)
-    return int(flat[0]), int(flat[1]), hist
+                      st["latency_hist"].reshape(-1)]
+                     + [t.overflowed().reshape(1).to(torch.int64)
+                        for t in _indexes(state).values()]).cpu().numpy()
+    hist = flat[2:2 + nh].astype(np.uint32).reshape(
+        st["latency_hist"].shape)
+    return int(flat[0]), int(flat[1]), hist, bool(flat[2 + nh:].any())
+
+
+def _guard_overflow(ovf: bool) -> None:
+    # past overflow, probes may return slots of ring-overwritten rows:
+    # refuse at the first overflowed chunk
+    if ovf:
+        raise RuntimeError(
+            "a capacity-bounded index overflowed during the run "
+            "(stale lookups possible); raise its capacity "
+            "(insert_table_cap) or shorten the run")
 
 
 def run_simulation(cfg: Config, device=None, chunk: int = 50,
@@ -80,8 +105,9 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
     last_t = [time.monotonic()]
 
     def _after_chunk(state):
-        _, head, hist = _sync(state)
+        _, head, hist, ovf = _sync(state)
         _guard_seq(head)
+        _guard_overflow(ovf)
         now = time.monotonic()
         chunk_log.append((chunk, now - last_t[0], hist))
         epochs_total[0] += chunk
@@ -165,6 +191,13 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
         if d.sum() > 0:
             st.arr(name).extend_weighted(np.arange(len(d)), d)
     st.set("abort_rate", float(aborts) / max(float(commits + aborts), 1.0))
+    # the backstop of the per-chunk guard
+    for name, t in _indexes(state).items():
+        if bool(t.overflowed()):
+            raise RuntimeError(
+                f"index {name!r} overflowed its capacity during the run "
+                "(stale lookups possible); raise its capacity "
+                "(insert_table_cap) or shorten the run")
     st.epochs_run = int(state.epoch)
     if not quiet:
         print(st.summary_line())

@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
-           "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu")
+           "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu",
+           "pps.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
            "bits.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -211,7 +212,7 @@ def all_kernels() -> dict[str, Kernel]:
     from deneva_tpu_torch.cc import maat, timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.storage import index, table
-    from deneva_tpu_torch.workloads import tpcc, ycsb
+    from deneva_tpu_torch.workloads import pps, tpcc, ycsb
     return {"K1_sort_lanes": forward.K1_SORT,
             "K2_plan_scans": forward.K2_SCAN,
             "K3_forward_execute": ycsb.K3_EXEC,
@@ -233,4 +234,7 @@ def all_kernels() -> dict[str, Kernel]:
             "K14b_sorted_lookup": index.K14B_LOOKUP,
             "K14c_scatter_add": table.K14C_SCATTER_ADD,
             "K14d_append": table.K14D_APPEND,
-            "K19_tpcc_generate": tpcc.K19_GEN}
+            "K14e_index_merge": index.K14E_MERGE,
+            "K14e_sorted_probe": index.K14E_PROBE,
+            "K19_tpcc_generate": tpcc.K19_GEN,
+            "K20_pps_generate": pps.K20_GEN}

@@ -21,8 +21,20 @@ and TPC-C's secondary index:
   key not found within ``max_probe`` cells misses, as the reference's
   fixed-depth loop gives.  TPC-C's CUSTOMER_LAST index is one.
 
-`SortedIndex`'s count and range scans and `DynamicSortedIndex` have no
-caller but ``tpcc_order_index`` (ROADMAP.md queue 1, item 15a).
+and ``tpcc_order_index``'s dynamic ORDER index:
+
+* `DynamicSortedIndex` — a BIG-padded sorted array of static capacity
+  that takes an epoch's inserts in one merge (``deneva_tpu/storage/
+  index.py:217``).  ``insert`` runs as kernel **K14e merge**
+  (``csrc/index.cu``), replacing ``:264``: the few new entries are
+  ranked stably by key, then every live and every new entry finds its
+  output position with one binary search in the other array, which is
+  the stable sort of (live ++ new) the reference computes, cut to the
+  capacity.  The count is advanced on the device.  Probes go through a
+  `SortedIndex` view with ``n = cap``: ``lookup`` is K14b, and
+  ``lookup_count``, ``range_slots`` and ``range_between``
+  (``:168,193,202``) are kernel **K14e probes**: the lower bound (and
+  for the count an upper bound), then a fixed-width window.
 """
 
 from __future__ import annotations
@@ -45,6 +57,18 @@ K14A_LOOKUP = kernels.Kernel("dt_hash_lookup", [
 K14B_LOOKUP = kernels.Kernel("dt_sorted_lookup", [
     kernels.P, kernels.P, kernels.I32, kernels.P, kernels.I64, kernels.I32,
     kernels.P, kernels.P])
+
+K14E_MERGE = kernels.Kernel("dt_index_merge", [
+    kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P,
+    kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
+    kernels.P, kernels.P, kernels.P])
+
+K14E_PROBE = kernels.Kernel("dt_sorted_probe", [
+    kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P, kernels.I64,
+    kernels.I32, kernels.I32, kernels.I32, kernels.P, kernels.P, kernels.P,
+    kernels.P])
+_PROBE_COUNT, _PROBE_RANGE, _PROBE_BETWEEN = 0, 1, 2
+BIG = 2**31 - 1           # the padding key of a DynamicSortedIndex
 
 
 @dataclass
@@ -220,3 +244,207 @@ class SortedIndex:
                            self.n, kernels.ptr(q), q.numel(), self.miss_slot,
                            kernels.ptr(out), kernels.stream(q))
         return out
+
+    # -- count and range scans (``deneva_tpu/storage/index.py:168-215``)
+    def lookup_count_plain(self, q: torch.Tensor) -> torch.Tensor:
+        """Plain K14e probe: the number of entries with key == q."""
+        q = q.to(torch.int32).contiguous()
+        lo = self._lower(q)
+        hi = torch.searchsorted(self.keys, q, side="right").to(torch.int32)
+        return hi - lo
+
+    def _window(self, q_lo: torch.Tensor, width: int):
+        """(clipped positions, slots, in-bounds mask) of the ``width``
+        entries with key >= q_lo."""
+        start = self._lower(q_lo)
+        pos = start[..., None] + torch.arange(width, dtype=torch.int32,
+                                              device=start.device)
+        ok = pos < self.n
+        pos = torch.clamp(pos, 0, self.n - 1).long()
+        slots = torch.where(ok, self.slots[pos],
+                            torch.full_like(start[..., None],
+                                            self.miss_slot))
+        return pos, slots, ok
+
+    def _empty_window(self, q_lo: torch.Tensor, width: int):
+        shape = tuple(q_lo.shape) + (width,)
+        return (torch.full(shape, self.miss_slot, dtype=torch.int32,
+                           device=q_lo.device),
+                torch.zeros(shape, dtype=torch.bool, device=q_lo.device))
+
+    def range_slots_plain(self, q_lo: torch.Tensor, width: int):
+        """Plain K14e probe: (slots[..., width], valid[..., width]) of the
+        ``width`` entries with key >= q_lo (the B+-tree leaf walk);
+        entries past the end are miss_slot and invalid."""
+        if self.n == 0:
+            return self._empty_window(q_lo, width)
+        _, slots, ok = self._window(q_lo, width)
+        return slots, ok
+
+    def range_between_plain(self, q_lo: torch.Tensor, q_hi: torch.Tensor,
+                            width: int):
+        """Plain K14e probe: the window of keys in [q_lo, q_hi], capped
+        at ``width``."""
+        if self.n == 0:
+            return self._empty_window(q_lo, width)
+        pos, slots, ok = self._window(q_lo, width)
+        inside = ok & (self.keys[pos] <= q_hi.to(torch.int32)[..., None])
+        return torch.where(inside, slots,
+                           torch.full_like(slots, self.miss_slot)), inside
+
+    def _probe(self, mode: int, q_lo, q_hi=None, width: int = 0):
+        dev = self.keys.device
+        kernels.check("keys", self.keys, torch.int32, (self.n,), dev)
+        kernels.check("slots", self.slots, torch.int32, (self.n,), dev)
+        kernels.check("q", q_lo, torch.int32, device=dev)
+        if q_hi is not None:
+            kernels.check("q_hi", q_hi, torch.int32, tuple(q_lo.shape), dev)
+        if width < 0:
+            raise ValueError("width must be >= 0")
+        # the count, or the window's slots and valid flags (the other
+        # outputs are empty: the kernel writes only its mode's)
+        win = (0,) if mode == _PROBE_COUNT else (*q_lo.shape, width)
+        count = torch.empty(q_lo.shape if mode == _PROBE_COUNT else (0,),
+                            dtype=torch.int32, device=dev)
+        slots = torch.empty(win, dtype=torch.int32, device=dev)
+        valid = torch.empty(win, dtype=torch.bool, device=dev)
+        K14E_PROBE.launch(kernels.ptr(self.keys), kernels.ptr(self.slots),
+                          self.n, kernels.ptr(q_lo),
+                          None if q_hi is None else kernels.ptr(q_hi),
+                          q_lo.numel(), width, mode, self.miss_slot,
+                          kernels.ptr(count), kernels.ptr(slots),
+                          kernels.ptr(valid), kernels.stream(q_lo))
+        return count if mode == _PROBE_COUNT else (slots, valid)
+
+    def lookup_count(self, q: torch.Tensor) -> torch.Tensor:
+        """K14e probe on a CUDA query tensor of any shape."""
+        if kernels.on_cpu(q, self.keys):
+            return self.lookup_count_plain(q)
+        return self._probe(_PROBE_COUNT, q)
+
+    def range_slots(self, q_lo: torch.Tensor, width: int):
+        """K14e probe: ``range_slots_plain`` on the card."""
+        if kernels.on_cpu(q_lo, self.keys):
+            return self.range_slots_plain(q_lo, width)
+        return self._probe(_PROBE_RANGE, q_lo, width=width)
+
+    def range_between(self, q_lo: torch.Tensor, q_hi: torch.Tensor,
+                      width: int):
+        """K14e probe: ``range_between_plain`` on the card."""
+        if kernels.on_cpu(q_lo, q_hi, self.keys):
+            return self.range_between_plain(q_lo, q_hi, width)
+        return self._probe(_PROBE_BETWEEN, q_lo, q_hi, width)
+
+
+@dataclass
+class DynamicSortedIndex:
+    """Ordered key -> slot index that takes batched inserts (port of
+    ``deneva_tpu/storage/index.py:217``; the reference's latched B+-tree
+    insert, `storage/index_btree.cpp:252-420`): a sorted array of static
+    capacity padded with ``BIG`` keys.  An epoch's inserts merge in one
+    call; entries past ``cap`` (the largest keys) drop, and ``cnt``
+    counts every entry ever inserted, so ``cnt > cap`` marks an overflow
+    the driver must surface (`overflowed`).  Duplicate keys are allowed;
+    within a key, earlier entries come first."""
+
+    keys: torch.Tensor      # int32[cap] ascending; BIG = free tail
+    slots: torch.Tensor     # int32[cap]
+    cnt: torch.Tensor       # int32 scalar: live entries (pre-clip total)
+    cap: int
+    miss_slot: int
+
+    @classmethod
+    def build(cls, keys, slots, miss_slot: int, cap: int, device=None
+              ) -> "DynamicSortedIndex":
+        """``deneva_tpu/storage/index.py:247``: the entries sorted stably
+        by key (numpy), padded to ``cap``."""
+        keys = np.asarray(keys, np.int32)
+        slots = np.asarray(slots, np.int32)
+        if keys.ndim != 1 or keys.shape != slots.shape:
+            raise ValueError("DynamicSortedIndex.build takes two equal 1-d "
+                             "arrays")
+        if len(keys) > cap:
+            raise ValueError("initial entries exceed capacity")
+        if not (keys < BIG).all():
+            raise ValueError("int32 max is the padding sentinel")
+        order = np.argsort(keys, kind="stable")
+        k = np.full(cap, BIG, np.int32)
+        s = np.full(cap, miss_slot, np.int32)
+        k[:len(keys)] = keys[order]
+        s[:len(keys)] = slots[order]
+        return cls(keys=torch.from_numpy(k).to(device),
+                   slots=torch.from_numpy(s).to(device),
+                   cnt=torch.tensor(len(keys), dtype=torch.int32,
+                                    device=device),
+                   cap=int(cap), miss_slot=int(miss_slot))
+
+    def insert_plain(self, new_keys: torch.Tensor, new_slots: torch.Tensor,
+                     mask: torch.Tensor) -> "DynamicSortedIndex":
+        """Plain K14e merge, op for op from ``:264``: one stable sort of
+        (live ++ new) by key, masked lanes carrying BIG, cut to ``cap``."""
+        nk = torch.where(mask, new_keys.to(torch.int32),
+                         torch.full_like(new_keys, BIG, dtype=torch.int32))
+        ns = new_slots.to(torch.int32)
+        allk = torch.cat([self.keys, nk.reshape(-1)])
+        alls = torch.cat([self.slots, ns.reshape(-1)])
+        order = torch.sort(allk, stable=True).indices[:self.cap]
+        return DynamicSortedIndex(
+            keys=allk[order], slots=alls[order],
+            cnt=self.cnt + mask.sum(dtype=torch.int32),
+            cap=self.cap, miss_slot=self.miss_slot)
+
+    def insert(self, new_keys: torch.Tensor, new_slots: torch.Tensor,
+               mask: torch.Tensor) -> "DynamicSortedIndex":
+        """K14e merge: a new index holding the ``mask``-ed entries merged
+        in, written into fresh buffers (this index is left as it was);
+        the count advances on the device, with no host sync."""
+        if kernels.on_cpu(new_keys, new_slots, mask, self.keys):
+            return self.insert_plain(new_keys, new_slots, mask)
+        dev = self.keys.device
+        m = new_keys.numel()
+        kernels.check("keys", self.keys, torch.int32, (self.cap,), dev)
+        kernels.check("slots", self.slots, torch.int32, (self.cap,), dev)
+        kernels.check("cnt", self.cnt, torch.int32, (), dev)
+        nk, ns, nm = (t.reshape(-1) for t in (new_keys, new_slots, mask))
+        kernels.check("new_keys", nk, torch.int32, (m,), dev)
+        kernels.check("new_slots", ns, torch.int32, (m,), dev)
+        kernels.check("mask", nm, torch.bool, (m,), dev)
+        sk = torch.empty(m, dtype=torch.int32, device=dev)
+        ss = torch.empty(m, dtype=torch.int32, device=dev)
+        pop = torch.empty(1, dtype=torch.int32, device=dev)
+        out_k = torch.empty_like(self.keys)
+        out_s = torch.empty_like(self.slots)
+        out_c = torch.empty_like(self.cnt)
+        K14E_MERGE.launch(kernels.ptr(self.keys), kernels.ptr(self.slots),
+                          self.cap, kernels.ptr(self.cnt), kernels.ptr(nk),
+                          kernels.ptr(ns), kernels.ptr(nm), m,
+                          kernels.ptr(sk), kernels.ptr(ss), kernels.ptr(pop),
+                          kernels.ptr(out_k), kernels.ptr(out_s),
+                          kernels.ptr(out_c), kernels.stream(nk))
+        return DynamicSortedIndex(keys=out_k, slots=out_s, cnt=out_c,
+                                  cap=self.cap, miss_slot=self.miss_slot)
+
+    def overflowed(self) -> torch.Tensor:
+        """bool scalar: more entries were inserted than ``cap`` holds.
+        Past that, lookups may return slots of ring rows overwritten
+        since, so the driver refuses the run (``:280``)."""
+        return self.cnt > self.cap
+
+    # probes: a SortedIndex over the padded arrays with n = cap; the BIG
+    # padding sorts above every real key, so its bound checks cover it
+    def _view(self) -> SortedIndex:
+        return SortedIndex(keys=self.keys, slots=self.slots, n=self.cap,
+                           miss_slot=self.miss_slot)
+
+    def lookup(self, q: torch.Tensor) -> torch.Tensor:
+        return self._view().lookup(q)
+
+    def lookup_count(self, q: torch.Tensor) -> torch.Tensor:
+        return self._view().lookup_count(q)
+
+    def range_slots(self, q_lo: torch.Tensor, width: int):
+        return self._view().range_slots(q_lo, width)
+
+    def range_between(self, q_lo: torch.Tensor, q_hi: torch.Tensor,
+                      width: int):
+        return self._view().range_between(q_lo, q_hi, width)

@@ -1,7 +1,7 @@
-"""Benchmarks (reference `benchmarks/`).  The port carries YCSB and TPC-C;
-PPS comes with ROADMAP.md queue 1, item 15b."""
+"""Benchmarks (reference `benchmarks/`): YCSB, TPC-C and PPS."""
 
 from deneva_tpu_torch.workloads.base import DB, Workload  # noqa: F401
+from deneva_tpu_torch.workloads.pps import PPSWorkload  # noqa: F401
 from deneva_tpu_torch.workloads.tpcc import TPCCWorkload  # noqa: F401
 from deneva_tpu_torch.workloads.ycsb import YCSBWorkload  # noqa: F401
 
@@ -14,6 +14,6 @@ def get_workload(cfg, device=None):
         return YCSBWorkload(cfg, device=device)
     if cfg.workload == WorkloadKind.TPCC:
         return TPCCWorkload(cfg, device=device)
-    raise NotImplementedError(
-        f"workload {cfg.workload} is not ported to deneva_tpu_torch yet "
-        "(ROADMAP.md queue 1, item 15b: PPS)")
+    if cfg.workload == WorkloadKind.PPS:
+        return PPSWorkload(cfg, device=device)
+    raise ValueError(f"no workload for {cfg.workload}")

@@ -26,7 +26,10 @@ keys flattened to dense int32 slots.  An epoch is four functions:
   NewOrders in serialization order: three stable sorts and a cummax of
   glue), apply the stock quantity rule through the last writer (K10, or
   every valid lane in a chained level) and append ORDER, NEW-ORDER,
-  ORDER-LINE and HISTORY rows through K14d (`DeviceTable.append`).
+  ORDER-LINE and HISTORY rows through K14d (`DeviceTable.append`).  With
+  ``tpcc_order_index`` each pass merges its new orders into the dynamic
+  ORDER index (``db["ORDER_IDX"]``, keyed district-major by
+  ``order_index_key``) through K14e (`DynamicSortedIndex.insert`).
 
 Tables are written in place, so ``D_NEXT_O_ID`` and ``S_QUANTITY`` are
 gathered before they are scattered, in the reference's program order.
@@ -46,7 +49,7 @@ from deneva_tpu_torch.config import Config
 from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.ops.hashing import mul32, u32
 from deneva_tpu_torch.storage.catalog import parse_schema
-from deneva_tpu_torch.storage.index import HashIndex
+from deneva_tpu_torch.storage.index import DynamicSortedIndex, HashIndex
 from deneva_tpu_torch.storage.table import DeviceTable, fill_columns
 from deneva_tpu_torch.workloads.base import partition_slot
 
@@ -278,6 +281,13 @@ class TPCCWorkload:
     def cust_key(self, w, d, c):
         return self.dist_key(w, d) * self.cust_per_dist + c
 
+    def order_index_key(self, w, d, o_id):
+        """The dynamic ORDER index's key (``tpcc.py:282``), district-major
+        so one district's orders are a contiguous ascending o_id run; the
+        ``tpcc_order_index`` config check keeps it inside int32."""
+        return (self.dist_key(w, d) * (1 << 21)).to(torch.int32) \
+            + o_id.to(torch.int32)
+
     def stock_key(self, w, i):
         return w * self.max_items + i
 
@@ -388,6 +398,14 @@ class TPCCWorkload:
                     v = (mul32(ids, 2654435761)
                          + (0x9E3779B9 * (j + 1) & MASK32)) & MASK32
                     db[t].columns[cn][:n] = v.to(torch.int32)
+        if cfg.tpcc_order_index:
+            # the dynamic ordered ORDER index (``tpcc.py:457-466``; the
+            # reference's index_btree over inserted orders): empty, one
+            # entry per committed NewOrder, merged each executed pass
+            db["ORDER_IDX"] = DynamicSortedIndex.build(
+                np.zeros(0, np.int32), np.zeros(0, np.int32),
+                miss_slot=db["ORDER"].capacity, cap=cfg.insert_table_cap,
+                device=dev)
         return db
 
     def empty_query(self, n: int, device) -> TPCCQuery:
@@ -674,7 +692,11 @@ class TPCCWorkload:
                      "O_ALL_LOCAL": all_local.to(torch.int32)}
         if self.full_schema:
             order_row["O_CARRIER_ID"] = torch.zeros_like(q.w_id)
-        db["ORDER"].append(order_row, m_ins)
+        _, oslots = db["ORDER"].append(order_row, m_ins)
+        if "ORDER_IDX" in db:
+            # the epoch's (or the level's) orders merge into the index
+            db["ORDER_IDX"] = db["ORDER_IDX"].insert(
+                self.order_index_key(q.w_id, q.d_id, o_id), oslots, m_ins)
         db["NEW-ORDER"].append(
             {"NO_O_ID": o_id, "NO_D_ID": q.d_id, "NO_W_ID": q.w_id}, m_ins)
         ol_m = (q.item_valid & m_ins[:, None]).reshape(-1)

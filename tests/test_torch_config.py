@@ -34,9 +34,8 @@ def test_from_args_parses_like_reference():
 
 
 RAISING = [
-    ("--cc_alg=DGCC", 16), ("--workload=PPS", "15b"),
-    ("--workload=TPCC --max_accesses=18 --tpcc_order_index=true", "15a"),
-    ("--part_cnt=2", 18), ("--device_parts=2", 19), ("--elastic=true", 18),
+    ("--cc_alg=DGCC", 16), ("--part_cnt=2", 18), ("--device_parts=2", 19),
+    ("--elastic=true", 18),
     ("--audit=true", 16), ("--metrics=true", 16), ("--ctrl=true", 16),
     ("--repair=true", 16),
     ("--sim_full_row=true --tup_size=10", 11),
@@ -69,7 +68,9 @@ ADMITTED = [
                         "--exec_subrounds=2"],
     ["--skew_method=HOT", "--data_perc=100", "--access_perc=0.9"],
     ["--key_order=true"], ["--txn_write_perc=0.5"],
-    ["--index_struct=IDX_BTREE"], ["--sim_full_row=true", "--tup_size=8"]]
+    ["--index_struct=IDX_BTREE"], ["--sim_full_row=true", "--tup_size=8"],
+    ["--workload=PPS", "--max_accesses=32"],
+    ["--workload=TPCC", "--max_accesses=18", "--tpcc_order_index=true"]]
 
 
 @pytest.mark.parametrize("flags", ADMITTED)

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: each kernel alone, and whole epochs of the forwarding, OCC,
 NOCC, NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and MAAT paths, of SIMPLE and
-QRY_ONLY, of HOT keys, of the ordered index, and of TPC-C (the chained
+QRY_ONLY, of HOT keys, of the ordered index, of TPC-C (the chained
 executor and the sweep backends, with K19, K14a, K14c and K14d alone at
-small and at path shapes).  Marked ``cuda``;
+small and at path shapes; with the dynamic ORDER index, K14e merge and
+probes alone) and of PPS (K20 alone, default and > 2^16 spans).
+Marked ``cuda``;
 without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -663,7 +665,11 @@ def test_append_matches_plain(dev, ring, cap, n, start):
     ("TPCC_SWEEP", ["--cc_alg=NO_WAIT"]),
     ("TPCC_SWEEP", ["--cc_alg=OCC", "--escrow_sweep=false"]),
     ("TPCC_TO", ["--cc_alg=MVCC"]),
-    ("TPCC_MAAT", ["--cc_alg=MAAT"])])
+    ("TPCC_MAAT", ["--cc_alg=MAAT"]),
+    ("TPCC_CHAINED_IDX", ["--cc_alg=TPU_BATCH", "--num_wh=1",
+                          "--tpcc_order_index=true"]),
+    ("TPCC_SWEEP_IDX", ["--cc_alg=OCC", "--tpcc_order_index=true",
+                        "--insert_table_cap=256"])])
 def test_tpcc_epochs_through_kernels_match_plain_epochs(dev, path, flags):
     from deneva_tpu_torch.convert import state_leaves
     from deneva_tpu_torch.engine.step import Engine
@@ -680,11 +686,131 @@ def test_tpcc_epochs_through_kernels_match_plain_epochs(dev, path, flags):
         assert kern.launches == before[nm] + want, nm
     with plain_path(wp):
         sp = ep.run(sp, 4)
+    _same_leaves(sk, sp)
+
+
+def _same_leaves(sk, sp):
+    """Every leaf; a table's rows [0, capacity) and its padded rows (the
+    trash row takes masked writes in an unspecified order), an index's
+    arrays whole."""
+    from deneva_tpu_torch.convert import state_leaves
     lk, lp = state_leaves(sk), state_leaves(sp)
     for p, t in lk.items():
-        if p.startswith("db/") and t.ndim >= 1:
-            cap = sk.db[p.split("/")[1]].capacity
+        tab = sk.db.get(p.split("/")[1]) if p.startswith("db/") else None
+        if hasattr(tab, "capacity") and t.ndim >= 1:
+            cap = tab.capacity
             assert torch.equal(t[:cap], lp[p][:cap]), p
             assert torch.equal(t[cap + 1:], lp[p][cap + 1:]), p
         else:
             assert torch.equal(t, lp[p]), p
+
+
+def _index(dev, cap, live, seed):
+    """A DynamicSortedIndex of capacity ``cap`` holding ``live`` entries
+    with duplicate keys."""
+    from deneva_tpu_torch.storage.index import DynamicSortedIndex
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, 4 * max(live, 1), (live,), generator=g,
+                         dtype=torch.int32)
+    slots = torch.randint(0, 2**30, (live,), generator=g, dtype=torch.int32)
+    return DynamicSortedIndex.build(keys.numpy(), slots.numpy(),
+                                    miss_slot=cap, cap=cap, device=dev)
+
+
+@pytest.mark.parametrize("cap,live,m,p", [
+    (1, 0, 1, 1.0), (64, 10, 0, 0.5), (64, 10, 7, 0.0), (1000, 300, 255, 0.6),
+    (5000, 4000, 2048, 0.5), (300, 200, 900, 0.9), (4096, 4000, 513, 0.7),
+    (1 << 20, 1 << 19, 2048, 0.5)])
+def test_index_merge_matches_plain(dev, cap, live, m, p):
+    idx = _index(dev, cap, live, seed=cap + m)
+    g = torch.Generator().manual_seed(m)
+    nk = torch.randint(0, 4 * max(live, 1), (m,), generator=g,
+                       dtype=torch.int32).to(dev)
+    ns = torch.randint(0, 2**30, (m,), generator=g, dtype=torch.int32).to(dev)
+    mask = (torch.rand(m, generator=g) < p).to(dev)
+    before = [t.clone() for t in (idx.keys, idx.slots, idx.cnt)]
+    got, want = idx.insert(nk, ns, mask), idx.insert_plain(nk, ns, mask)
+    for f in ("keys", "slots", "cnt"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    # the live index is read, never written
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, (idx.keys, idx.slots, idx.cnt)))
+    assert bool(got.overflowed()) == (live + int(mask.sum()) > cap)
+
+
+@pytest.mark.parametrize("n,live,m,width", [
+    (0, 0, 10, 4), (64, 10, 100, 3), (1 << 20, 1 << 19, 4096, 64),
+    (1000, 1000, 777, 0)])
+def test_sorted_probes_match_plain(dev, n, live, m, width):
+    from deneva_tpu_torch.storage.index import SortedIndex
+    view = _index(dev, max(n, 1), min(live, max(n, 1)), seed=n)._view()
+    if n == 0:
+        view = SortedIndex(keys=view.keys[:0], slots=view.slots[:0], n=0,
+                           miss_slot=-5)
+    g = torch.Generator().manual_seed(m)
+    q = torch.randint(-2, 4 * max(live, 1) + 3, (m,), generator=g,
+                      dtype=torch.int32).to(dev)
+    hi = q + torch.randint(0, 9, (m,), generator=g,
+                           dtype=torch.int32).to(dev)
+    assert torch.equal(view.lookup_count(q), view.lookup_count_plain(q))
+    for a, b in zip(view.range_slots(q, width),
+                    view.range_slots_plain(q, width)):
+        assert torch.equal(a, b)
+    for a, b in zip(view.range_between(q, hi, width),
+                    view.range_between_plain(q, hi, width)):
+        assert torch.equal(a, b)
+
+
+PPS_SMALL = ["--workload=PPS", "--pps_parts_cnt=500", "--pps_products_cnt=100",
+             "--pps_suppliers_cnt=100", "--pps_parts_per=4",
+             "--max_accesses=16", "--epoch_batch=64",
+             "--conflict_buckets=1024", "--max_txn_in_flight=256"]
+MIX8 = [f"--perc_{t}=0.125" for t in (
+    "getparts", "getproducts", "getsuppliers", "getpartbyproduct",
+    "getpartbysupplier", "orderproduct", "updateproductpart", "updatepart")]
+
+
+@pytest.mark.parametrize("args,n", [
+    (["--workload=PPS", "--max_accesses=32"], 1),
+    (["--workload=PPS", "--max_accesses=32"], 1024),
+    (PPS_SMALL + MIX8, 777),
+    (["--workload=PPS", "--max_accesses=32", "--pps_parts_cnt=100003",
+      "--pps_products_cnt=65537", "--pps_suppliers_cnt=3"], 5000)])
+def test_pps_generate_matches_plain(dev, args, n):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.workloads.pps import PPSQuery, PPSWorkload
+    wl = PPSWorkload(Config.from_args(args), device=dev)
+    for seed in (1, 2):
+        key = prng.key_from_seed(seed, dev)
+        q, qp = wl.generate(key, n), wl.generate_plain(key, n)
+        for f in PPSQuery.__dataclass_fields__:
+            assert torch.equal(getattr(q, f), getattr(qp, f)), f
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("PPS_CHAINED", ["--cc_alg=TPU_BATCH"]),
+    ("PPS_CHAINED", ["--cc_alg=CALVIN", "--escrow_order_free=false"] + MIX8),
+    ("PPS_SWEEP", ["--cc_alg=OCC"] + MIX8),
+    ("PPS_SWEEP", ["--cc_alg=NO_WAIT"]),
+    ("PPS_TO", ["--cc_alg=MVCC"] + MIX8),
+    ("PPS_MAAT", ["--cc_alg=MAAT"]),
+    ("PPS_NOCC", ["--cc_alg=NOCC"] + MIX8)])
+def test_pps_epochs_through_kernels_match_plain_epochs(dev, path, flags):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    from deneva_tpu_torch.workloads.pps import PPSWorkload
+    cfg = Config.from_args(PPS_SMALL + flags)
+    wk, wp = PPSWorkload(cfg, device=dev), PPSWorkload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    for nm, kern in all_kernels().items():
+        want = 4 * PATH_LAUNCHES[path].get(nm, 0)
+        assert kern.launches == before[nm] + want, nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    _same_leaves(sk, sp)
+    assert int(sk.stats["total_txn_commit_cnt"]) > 0
