@@ -50,7 +50,16 @@ paths drive it:
   1,000 products, 1,000 suppliers, 10 parts per product, the default
   mix) under all eight algorithms, and ``escrow_ablation``'s PPS cells:
   generation K4a and K20, the PART_AMOUNT escrow adds K14c, the PRODUCTS
-  writers' K10 on the sweep path.
+  writers' K10 on the sweep path;
+* transaction repair — ``repair_ablation``'s YCSB half (``paper_base``
+  at theta 0.9 with 90% writes) under all six sweep backends with
+  ``repair_rounds=2`` (OCC and MAAT also off and at 0 and 1; K13a once a
+  sub-round, each sub-round re-running the backend's kernels and K10),
+  and its TPC-C half at 4 warehouses, escrow off, under OCC;
+* DGCC — ``dgcc_contention``'s cells (the same base at theta 0, 0.6,
+  0.9 and 0.99, and at 30% writes) and TPC-C at 4 warehouses: the lane
+  sort K15a, its census K15b and the wave relaxation K16, then 32
+  chained passes through K10.
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -90,6 +99,12 @@ Phases (any error or mismatch exits non-zero and prints no result):
                real 64-warehouse NewOrder insert into an index of 2^20
                entries holding 2^19, on an all-masked call and on a call
                across the capacity; K14e's probes on the merged index.
+               K13a on both sub-rounds of a real OCC repair epoch at
+               ``repair_ablation`` (B = 2,048, 10 accesses, K = 8,192,
+               two families; the two bf16 ``torch.matmul`` the
+               yardstick); K15a, K15b and K16 on the lanes of real
+               ``dgcc_contention`` epochs at theta 0.6, 0.9 and 0.99
+               (40,960 doubled lanes; ``torch.sort`` K15a's yardstick).
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -121,7 +136,17 @@ Phases (any error or mismatch exits non-zero and prints no result):
                warehouses with the ORDER index: 3 kernel epochs equal 3
                plain epochs, then after 20 more the index oracle (every
                ORDER row at its slot, each district's walk dense and
-               ascending) through the K14e probes.
+               ascending) through the K14e probes.  Repair: 3 kernel
+               epochs equal 3 plain epochs under the six sweep backends
+               at ``repair_ablation`` (rounds 2) and under OCC at TPC-C 4
+               wh; one OCC repair epoch against numpy (the main round's
+               winners, then each sub-round's salvages, serially by
+               rank: same table and read checksum; salvaged + fallback
+               = losers, aborts = fallback).  DGCC: 3 kernel epochs equal
+               3 plain epochs at theta 0.9 and at TPC-C 4 wh; one epoch
+               against serial execution in rank order; one repair and
+               one DGCC epoch under torch's sync debug mode set to raise
+               (no host sync); the cost of an empty DGCC pass.
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
                both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
                WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
@@ -132,6 +157,8 @@ Phases (any error or mismatch exits non-zero and prints no result):
                too), ``tpcc_order_index``'s cells, PPS under all eight
                algorithms and ``escrow_ablation``'s four PPS cells (none
                may overflow its index, the chained ones never abort);
+               ``repair_ablation``'s cells (salvages at rounds >= 1, none
+               at 0) and ``dgcc_contention``'s (no abort, a wave past 0);
                the ``[summary]``
                numbers and committed txn/s, the TPU_BATCH / OCC ratio
                (``bench.py``'s ``vs_baseline``); with counts zeroed just
@@ -148,8 +175,9 @@ Phases (any error or mismatch exits non-zero and prints no result):
 forwarding mode and of OCC, NO_WAIT, MVCC, MAAT (``ycsb_skew`` and
 ``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode, of TPC-C
 (TPU_BATCH at 64 warehouses with the ORDER index off and on, NO_WAIT
-at 4) and of PPS (TPU_BATCH, OCC): host and wall time per epoch, device
-time by kernel and the device's idle share; for TPC-C and PPS also the
+at 4), of PPS (TPU_BATCH, OCC), of OCC with repair (rounds 2) and of
+DGCC at theta 0.9: host and wall time per epoch, device time by kernel
+and the device's idle share; for TPC-C, PPS, repair and DGCC also the
 host syncs in one epoch and the host's hot spots (cProfile).
 
 ``--order-index-window`` runs only the 64-warehouse TPU_BATCH cell of
@@ -240,6 +268,14 @@ KERNELS = {
                           "deneva_tpu/storage/index.py:168"),
     "K20_pps_generate": ("deneva_tpu_torch/csrc/pps.cu",
                          "deneva_tpu/workloads/pps.py:184"),
+    "K13a_repair_frontier": ("deneva_tpu_torch/csrc/frontier.cu",
+                             "deneva_tpu/cc/base.py:193"),
+    "K15a_lane_sort": ("deneva_tpu_torch/csrc/depgraph.cu",
+                       "deneva_tpu/cc/depgraph.py:54"),
+    "K15b_seg_scans": ("deneva_tpu_torch/csrc/depgraph.cu",
+                       "deneva_tpu/cc/depgraph.py:63"),
+    "K16_dgcc_relax": ("deneva_tpu_torch/csrc/depgraph.cu",
+                       "deneva_tpu/cc/dgcc.py:77"),
 }
 # kernels that no reference path launches: their launches come from the
 # oracle check that probes them, and the kernels line marks them
@@ -401,12 +437,43 @@ PATH_LAUNCHES.update({
                  "K11a_maat_reach": 2, "K11b_maat_peel": 1},
     "PPS_NOCC": {**_PPS_GEN, "K10_last_writer": 1, "K14c_scatter_add": 2},
 })
+# transaction repair: each of R sub-rounds takes one K13a, re-runs the
+# backend's validate and re-executes its winners (every kernel of the
+# path but generation and the incidence, which are built once)
+_ONCE = ("K4a_threefry_split", "K4b_ycsb_generate", "K5K6_build_incidence",
+         "K19_tpcc_generate", "K14a_hash_lookup")
+
+
+def _with_repair(path: dict, rounds: int) -> dict:
+    out = {k: v if k in _ONCE else v * (1 + rounds) for k, v in path.items()}
+    if rounds:
+        out["K13a_repair_frontier"] = rounds
+    return out
+
+
+REPAIR_BASES = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT",
+                "TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT", "TPCC_SWEEP_IDX")
+PATH_LAUNCHES.update({f"{p}+R{r}": _with_repair(PATH_LAUNCHES[p], r)
+                      for p in REPAIR_BASES for r in (0, 1, 2)})
+# DGCC: the lane sort, its census and the relaxation once; the chained
+# executor runs dgcc_levels = 32 passes, each resolving its writers
+# through K10 (and on TPC-C adding through K14c and appending through
+# K14d as every executed pass does)
+DGCC_PASSES = 32
+_DGCC = {"K15a_lane_sort": 1, "K15b_seg_scans": 1, "K16_dgcc_relax": 1}
+PATH_LAUNCHES.update({
+    "DGCC": {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1, **_DGCC,
+             "K10_last_writer": DGCC_PASSES},
+    "TPCC_DGCC": {**_TPCC_GEN, **_DGCC, "K10_last_writer": DGCC_PASSES,
+                  "K14c_scatter_add": 5 * DGCC_PASSES,
+                  "K14d_append": 4 * DGCC_PASSES},
+})
 # paths whose runs must abort, and paths that may (TPC-C's and PPS's
-# sweep backends under escrow abort only on the rows they order); the
-# others never abort
+# sweep backends under escrow abort only on the rows they order; repair
+# salvages some or all losers); the others never abort
 ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT")
 MAY_ABORT = ("TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT", "PPS_SWEEP", "PPS_TO",
-             "PPS_MAAT")
+             "PPS_MAAT") + tuple(p for p in PATH_LAUNCHES if "+R" in p)
 
 
 @contextlib.contextmanager
@@ -415,7 +482,7 @@ def plain_path(wl):
     comparison side of phase 4 and of tests/test_torch_cuda.py; the
     package itself has no such switch).  A kernel added to the main path
     is swapped here."""
-    from deneva_tpu_torch.cc import maat, timestamp
+    from deneva_tpu_torch.cc import base, depgraph, dgcc, maat, timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.storage import index, table
     from deneva_tpu_torch.workloads import ycsb
@@ -450,7 +517,13 @@ def plain_path(wl):
              (index.SortedIndex, "range_slots",
               index.SortedIndex.range_slots_plain),
              (index.SortedIndex, "range_between",
-              index.SortedIndex.range_between_plain)]
+              index.SortedIndex.range_between_plain),
+             (base, "committed_write_frontier",
+              base.committed_write_frontier_plain),
+             (depgraph, "lane_sort",
+              lambda k, p, t, n: depgraph.lane_sort_plain(k, p, t)),
+             (depgraph, "census", depgraph.census_plain),
+             (dgcc, "relax", dgcc.relax_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -2674,6 +2747,381 @@ def phase_slice6_epochs(dev, card: str) -> int:
     return info["probe_launches"]
 
 
+# -- transaction repair and DGCC (slice 7) ------------------------------------
+
+SWEEP6 = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT")
+
+
+def repair_config(alg: str = "OCC", rounds: int | None = 2, **kw):
+    """``repair_ablation``'s YCSB half (``experiments.py:217-264``):
+    ``paper_base`` with theta 0.9, 10% reads, 90% writes — 2^24 rows, 10
+    requests (``max_accesses=16``), ``epoch_batch=2048`` over a pool of
+    10,000, 8192 buckets, dual hashing; repair off when ``rounds`` is
+    None, else on at ``repair_rounds=rounds``."""
+    if rounds is not None:
+        kw.update(repair=True, repair_rounds=rounds)
+    return skew_config(False, alg, read_perc=0.1, write_perc=0.9, **kw)
+
+
+def dgcc_config(theta: float = 0.9, write: float = 0.9, **kw):
+    """``dgcc_contention``'s DGCC cells (``experiments.py:267-301``): the
+    ``repair_ablation`` base at ``zipf_theta=theta`` and ``write_perc=
+    write``, ``dgcc_levels=32``."""
+    return skew_config(False, "DGCC", zipf_theta=theta,
+                       read_perc=round(1.0 - write, 6), write_perc=write,
+                       **kw)
+
+
+@contextlib.contextmanager
+def grab_calls(mod, name: str, calls: list):
+    """Record the arguments of every call of ``mod.name`` (and run it)."""
+    real = getattr(mod, name)
+
+    def grab(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+    setattr(mod, name, grab)
+    try:
+        yield real
+    finally:
+        setattr(mod, name, real)
+
+
+def phase_slice7_kernels(dev, rec: dict, card: str) -> None:
+    """K13a on the inputs of a real OCC repair epoch at ``repair_ablation``'s
+    YCSB shape (both sub-rounds checked, the first timed); K15a, K15b and
+    K16 on the lanes of real ``dgcc_contention`` epochs at theta 0.6, 0.9
+    and 0.99 (theta 0.9 timed into the kernels line).  Each exact against
+    its plain version."""
+    from deneva_tpu_torch.cc import base, depgraph, dgcc
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    cfg = repair_config("OCC", 2)
+    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    st = eng.run(eng.init_state(), 10)
+    calls: list = []
+    with grab_calls(base, "committed_write_frontier", calls) as k13a:
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    for i, (c, bt, inc, committed, losers) in enumerate(calls):
+        got = k13a(c, bt, inc, committed, losers)
+        want = base.committed_write_frontier_plain(c, bt, inc, committed,
+                                                   losers)
+        if not torch.equal(got, want):
+            fail(f"K13a: sub-round {i + 1} differs from the plain version")
+    if len(calls) != 2:
+        fail(f"K13a: {len(calls)} frontier calls in a 2-round repair epoch")
+    c, bt, inc, committed, losers = calls[0]
+    got = k13a(c, bt, inc, committed, losers)
+    b, a = bt.keys.shape
+    k = inc.w1.shape[1]
+    fams = 1 if inc.w2 is None else 2
+    n_com = int(committed.sum())
+    c16 = committed.to(torch.bfloat16)[None, :]
+
+    def lib():
+        for w in (inc.w1, inc.w2)[:fams]:
+            torch.matmul(c16, w)
+    r = {"max_abs_err": max_abs(got, base.committed_write_frontier_plain(
+             c, bt, inc, committed, losers)),
+         "ms": cuda_ms(lambda: k13a(c, bt, inc, committed, losers)),
+         "plain_ms": cuda_ms(lambda: base.committed_write_frontier_plain(
+             c, bt, inc, committed, losers)),
+         "library_ms": cuda_ms(lib)}
+    # the result depends on the committed rows of each write view only;
+    # the lanes' bucket, table id and key (4 B) and valid / read flags
+    # (1 B), committed and losers in; the frontier out
+    bound(r, fams * n_com * k * 2 + b * a * 14 + 2 * b + b * a,
+          fams * n_com * k)
+    rec["K13a_repair_frontier"].update(r)
+    print(f"[K13a] OCC repair_ablation epoch 11, sub-round 1: B={b} A={a} "
+          f"K={k} families={fams} committed={n_com} "
+          f"losers={int(losers.sum())} frontier lanes={int(got.sum())}; "
+          f"sub-round 2 committed={int(calls[1][3].sum())}", flush=True)
+    print_kernel("K13a_repair_frontier", r, card)
+    del eng, st, calls
+    torch.cuda.empty_cache()
+    for theta in (0.6, 0.9, 0.99):
+        cfg = dgcc_config(theta)
+        eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+        st = eng.run(eng.init_state(), 10)
+        calls = []
+        with grab_calls(depgraph, "lane_sort", calls) as k15a:
+            st = eng.step(st)
+        torch.cuda.synchronize()
+        keys, pos, tid, n_txn = calls[0]
+        srt = k15a(keys, pos, tid, n_txn)
+        srt_p = depgraph.lane_sort_plain(keys, pos, tid)
+        cen = depgraph.census(*srt)
+        cen_p = depgraph.census_plain(*srt)
+        sk, sp, sid = srt
+        sw, live = (sp & 1) == 1, sk != depgraph.LANE_PAD
+        rel = dgcc.relax(cen[0], sid, sw, live, n_txn, cfg.dgcc_levels)
+        rel_p = dgcc.relax_plain(cen[0], sid, sw, live, n_txn,
+                                 cfg.dgcc_levels)
+        for nm, x, y in (("K15a", srt, srt_p), ("K15b", cen, cen_p),
+                         ("K16", rel, rel_p)):
+            if not all(torch.equal(u, v) for u, v in zip(x, y)):
+                fail(f"K15/K16 theta {theta}: {nm} differs from plain")
+        n = keys.numel()
+        n_live = int(live.sum())
+        iters = int(rel[2])
+        packed = keys * (1 << 31) + pos.to(torch.int64)
+        rows = {
+            "K15a_lane_sort": (
+                lambda: k15a(keys, pos, tid, n_txn),
+                lambda: depgraph.lane_sort_plain(keys, pos, tid),
+                lambda: torch.sort(packed), 32 * n, n),
+            "K15b_seg_scans": (
+                lambda: depgraph.census(sk, sp, sid),
+                lambda: depgraph.census_plain(sk, sp, sid), None,
+                25 * n + 4, 10 * n),
+            "K16_dgcc_relax": (
+                lambda: dgcc.relax(cen[0], sid, sw, live, n_txn,
+                                   cfg.dgcc_levels),
+                lambda: dgcc.relax_plain(cen[0], sid, sw, live, n_txn,
+                                         cfg.dgcc_levels), None,
+                7 * n + 4 * n_txn + 5, 2 * 12 * iters * n_live)}
+        line = []
+        for nm, (fn, plain, lib, nbytes, ops) in rows.items():
+            r = {"max_abs_err": 0, "ms": cuda_ms(fn),
+                 "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                 "library_ms": None if lib is None else cuda_ms(lib)}
+            bound(r, nbytes, ops)
+            line.append(f"{nm} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
+                        f", bound {r['bound_ms']:.6f})")
+            if theta == 0.9:
+                rec[nm].update(r)
+        print(f"[K15/K16] dgcc_contention theta {theta} epoch 11: lanes={n} "
+              f"live={n_live} txns={n_txn} edges={int(cen[3])} "
+              f"wave_max={int(rel[0][rel[0] < cfg.dgcc_levels].max())} "
+              f"deferred={int((rel[0] >= cfg.dgcc_levels).sum())} "
+              f"relax_rounds={iters}: " + "; ".join(line)
+              + f" (card {card})", flush=True)
+        del eng, st, calls
+        torch.cuda.empty_cache()
+    for nm in ("K15a_lane_sort", "K15b_seg_scans", "K16_dgcc_relax"):
+        print_kernel(nm, rec[nm], card)
+
+
+def serial_apply(f0: np.ndarray, groups, keys, isw, version):
+    """Numpy serial execution in fingerprint mode: txn by txn (``groups``
+    in order), the read lanes' current values into the checksum, then
+    each write lane stores fingerprint(key, version of the txn)."""
+    t = f0.copy()
+    cks = 0
+    for idx in groups:
+        for i in idx:
+            rk = keys[i][~isw[i]]
+            cks += int(t[rk].astype(np.uint64).sum())
+            wk = keys[i][isw[i]]
+            t[wk] = np_fingerprint(wk, np.full(wk.shape, version[i]))
+    return t, cks & MASK32
+
+
+def _by_rank(mask, rank):
+    idx = np.nonzero(mask)[0]
+    return idx[np.argsort(rank[idx], kind="stable")]
+
+
+def repair_oracle_epoch(eng, state, dev) -> dict:
+    """One OCC repair epoch against numpy: executing its committed txns
+    serially — the main round's winners by rank, then round 1's
+    salvages by rank, then round 2's — gives the same table and read
+    checksum; salvaged + fallback equal the main round's losers, and
+    aborts equal the fallbacks."""
+    from deneva_tpu_torch.engine import step as step_mod
+    from deneva_tpu_torch.workloads.ycsb import TABLE
+    calls: list = []
+    out: list = []
+    real = step_mod.run_repair
+
+    def grab(*a, **k):
+        calls.append(a)
+        res = real(*a, **k)
+        out.append(res)
+        return res
+    keys_ = ("read_checksum", "total_txn_commit_cnt", "total_txn_abort_cnt",
+             "rep_salvaged_cnt", "rep_fallback_cnt", "rep_frontier_cnt")
+    start = state.db[TABLE].columns["F0"].cpu().numpy().view(
+        np.uint32).copy()
+    pre = {k: int(state.stats[k]) for k in keys_}
+    step_mod.run_repair = grab
+    try:
+        state = eng.step(state)
+    finally:
+        step_mod.run_repair = real
+    torch.cuda.synchronize()
+    bt, verdict, exec_commit = calls[0][5], calls[0][7], calls[0][10]
+    salvaged, rounds = out[0][3].cpu().numpy(), out[0][4].cpu().numpy()
+    act = bt.active.cpu().numpy()
+    keys = bt.keys.cpu().numpy().astype(np.int64)
+    isw = bt.is_write.cpu().numpy()
+    rank = bt.rank.cpu().numpy()
+    main = exec_commit.cpu().numpy() & act
+    losers = verdict.abort.cpu().numpy() & act
+    groups = [_by_rank(main, rank)] + [
+        _by_rank(rounds == r, rank) for r in range(1, eng.cfg.repair_rounds
+                                                    + 1)]
+    table, cks = serial_apply(start, groups, keys, isw, rank)
+    cap = eng.workload.n_rows
+    got = state.db[TABLE].columns["F0"].cpu().numpy().view(np.uint32)
+    if not np.array_equal(got[:cap], table[:cap]):
+        fail("repair oracle: table differs from the serial execution")
+    d = {k: (int(state.stats[k]) - pre[k]) & MASK32 for k in keys_}
+    if d["read_checksum"] != cks:
+        fail(f"repair oracle: checksum {d['read_checksum']} != serial {cks}")
+    if d["total_txn_commit_cnt"] != int(main.sum() + salvaged.sum())             or d["rep_salvaged_cnt"] != int(salvaged.sum())             or d["rep_salvaged_cnt"] + d["rep_fallback_cnt"]             != int(losers.sum())             or d["total_txn_abort_cnt"] != d["rep_fallback_cnt"]:
+        fail(f"repair oracle: counters {d} (main {int(main.sum())}, losers "
+             f"{int(losers.sum())})")
+    return {"main": int(main.sum()), "losers": int(losers.sum()),
+            **{f"round{r}": int((rounds == r).sum())
+               for r in range(1, eng.cfg.repair_rounds + 1)},
+            "fallback": d["rep_fallback_cnt"],
+            "frontier_lanes": d["rep_frontier_cnt"]}
+
+
+def dgcc_oracle_epoch(eng, state, dev) -> dict:
+    """One DGCC epoch against numpy: its committed txns executed serially
+    in rank order give the same table and read checksum (the waves are
+    a serialization of rank order); nothing aborts."""
+    import dataclasses
+
+    from deneva_tpu_torch.workloads.ycsb import TABLE
+    be = eng.backend
+    seen = {}
+
+    def capture(cfg_, cc_state, batch, inc, stats=None):
+        v, st = be.validate(cfg_, cc_state, batch, inc, stats=stats)
+        seen["batch"], seen["verdict"] = batch, v
+        return v, st
+    keys_ = ("read_checksum", "total_txn_commit_cnt", "total_txn_abort_cnt",
+             "defer_cnt")
+    start = state.db[TABLE].columns["F0"].cpu().numpy().view(
+        np.uint32).copy()
+    pre = {k: int(state.stats[k]) for k in keys_}
+    eng.backend = dataclasses.replace(be, validate=capture)
+    try:
+        state = eng.step(state)
+    finally:
+        eng.backend = be
+    torch.cuda.synchronize()
+    bt, v = seen["batch"], seen["verdict"]
+    act = bt.active.cpu().numpy()
+    rank = bt.rank.cpu().numpy()
+    commit = v.commit.cpu().numpy() & act
+    level = v.level.cpu().numpy()
+    table, cks = serial_apply(start, [_by_rank(commit, rank)],
+                              bt.keys.cpu().numpy().astype(np.int64),
+                              bt.is_write.cpu().numpy(), rank)
+    cap = eng.workload.n_rows
+    got = state.db[TABLE].columns["F0"].cpu().numpy().view(np.uint32)
+    if not np.array_equal(got[:cap], table[:cap]):
+        fail("DGCC oracle: table differs from serial execution in rank "
+             "order")
+    d = {k: (int(state.stats[k]) - pre[k]) & MASK32 for k in keys_}
+    if d["read_checksum"] != cks or d["total_txn_abort_cnt"] != 0             or d["total_txn_commit_cnt"] != int(commit.sum()):
+        fail(f"DGCC oracle: counters {d}, serial checksum {cks}")
+    return {"commits": int(commit.sum()), "defers": d["defer_cnt"],
+            "waves": int(level[commit].max()) + 1}
+
+
+def sync_free_epoch(eng, state, label: str):
+    """One epoch with torch's sync debug mode raising on any operation
+    that waits for the device: the epoch must not sync the host."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = eng.step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[no-sync] {label}: one epoch with no host sync", flush=True)
+    return state
+
+
+def phase_slice7_epochs(dev, card: str) -> None:
+    """3 kernel epochs equal 3 plain epochs for repair (rounds 2) under
+    the six sweep backends at ``repair_ablation``'s YCSB shape, for OCC
+    repair at TPC-C 4 wh (escrow off), and for DGCC at YCSB theta 0.9 and
+    TPC-C 4 wh; the repair and DGCC numpy oracle epochs; the cost of an
+    empty DGCC pass."""
+    for alg in SWEEP6:
+        eng, st = epochs_equal(dev, repair_config(alg, 2), 3,
+                               f"{alg} repair_ablation rounds 2")
+        if alg == "OCC":
+            st = sync_free_epoch(eng, st, "OCC repair rounds 2")
+            info = repair_oracle_epoch(eng, st, dev)
+            print(f"[repair-oracle] OCC rounds 2 epoch 5: {info} (card "
+                  f"{card})", flush=True)
+        del eng, st
+        torch.cuda.empty_cache()
+    tpcc_epochs_equal(dev, tpcc_config(4, "OCC", escrow_sweep=False,
+                                       repair=True, repair_rounds=2), 3,
+                      "OCC 4wh escrow off repair rounds 2")
+    torch.cuda.empty_cache()
+    eng, st = epochs_equal(dev, dgcc_config(0.9), 3, "DGCC theta 0.9")
+    st = sync_free_epoch(eng, st, "DGCC theta 0.9")
+    info = dgcc_oracle_epoch(eng, st, dev)
+    print(f"[dgcc-oracle] theta 0.9 epoch 5: {info} (card {card})",
+          flush=True)
+    # an empty DGCC pass (a wave above the epoch's deepest): the masked
+    # executor with the last-writer tournament, device and host time
+    from deneva_tpu_torch.engine.step import init_device_stats
+    from deneva_tpu_torch.ops import prng
+    wl = eng.workload
+    q = wl.generate(prng.split(prng.key_from_seed(31, dev))[1],
+                    eng.cfg.epoch_batch)
+    order = torch.arange(1, q.keys.shape[0] + 1, dtype=torch.int32,
+                         device=dev)
+    none = torch.zeros(q.keys.shape[0], dtype=torch.bool, device=dev)
+    stats = init_device_stats(1, 1, dev)
+
+    def empty_pass():
+        wl.execute(st.db, q, none, order, stats, level_exec=False)
+    dev_ms = cuda_ms(empty_pass)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        empty_pass()
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+    torch.cuda.synchronize()
+    print(f"[dgcc-pass] an empty YCSB DGCC pass at B={eng.cfg.epoch_batch}: "
+          f"device {dev_ms:.4f} ms, host {host_ms:.4f} ms; x{DGCC_PASSES} "
+          f"passes per epoch (card {card})", flush=True)
+    del eng, st
+    torch.cuda.empty_cache()
+    tpcc_epochs_equal(dev, tpcc_config(4, "DGCC"), 3, "DGCC 4wh")
+    torch.cuda.empty_cache()
+
+
+def slice7_checks(cfg, path: str, label: str, fields: dict, card: str):
+    """The reference's anti-inert checks on a repair or DGCC run:
+    salvages at rounds >= 1 and none at rounds 0; DGCC never aborts and
+    chains past wave 0.  Prints commits per epoch beside txn/s."""
+    extra = ""
+    if cfg.repair:
+        salv = fields["rep_salvaged_cnt"]
+        if (salv > 0) != (cfg.repair_rounds > 0):
+            fail(f"simulate {label}: rep_salvaged_cnt {salv} at rounds "
+                 f"{cfg.repair_rounds}")
+        extra = (f" salvaged={salv} fallback={fields['rep_fallback_cnt']} "
+                 f"frontier={fields['rep_frontier_cnt']}")
+    if "DGCC" in path:
+        if fields["total_txn_abort_cnt"] != 0 or fields["dgcc_wave_max"] <= 1:
+            fail(f"simulate {label}: aborts "
+                 f"{fields['total_txn_abort_cnt']}, wave_max "
+                 f"{fields['dgcc_wave_max']}")
+        extra = (f" waves={fields['dgcc_wave_cnt']} wave_max="
+                 f"{fields['dgcc_wave_max']} fallback="
+                 f"{fields['dgcc_fallback_cnt']} edges="
+                 f"{fields['dgcc_edge_cnt']}")
+    print(f"[slice7] {label}: {fields['tput']:.1f} txn/s, "
+          f"{fields['total_txn_commit_cnt'] / max(fields['epoch_cnt'], 1):.2f}"
+          f" commits/epoch, abort_rate {fields['abort_rate']}{extra} "
+          f"(card {card})", flush=True)
+
+
 def phase_simulate(dev, cfg, path: str, label: str, card: str
                    ) -> tuple[dict, dict]:
     """``run_simulation`` with every launch count zeroed just before it;
@@ -2777,7 +3225,7 @@ def phase_profile(dev, cfg, mode: str) -> None:
     print(f"[profile] {mode}: host {host / n * 1e3:.4f} ms/epoch, wall "
           f"{wall / n * 1e3:.4f} ms/epoch ({n} epochs, no profiler)",
           flush=True)
-    if mode.startswith(("TPCC", "PPS")):
+    if mode.startswith(("TPCC", "PPS", "OCC repair", "DGCC")):
         st = host_hot_spots(eng, st, mode)
     m = 50
     with profile(activities=[ProfilerActivity.CPU,
@@ -2807,7 +3255,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
             "precedence_kernel", "reach_kernel", "peel_kernel",
             "lookup_kernel", "sort_rows", "scatter_add_", "append_kernel",
             "tpcc_generate", "merge_rank", "merge_place", "probe_kernel",
-            "pps_generate")
+            "pps_generate", "wrote_kernel", "lanes_kernel", "lane_pack",
+            "lane_unpack", "census_", "relax_kernel")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -2882,7 +3331,9 @@ def main() -> int:
                              "K14b_sorted_lookup", "K14a_hash_lookup",
                              "K14c_scatter_add", "K14d_append",
                              "K19_tpcc_generate", "K14e_index_merge",
-                             "K14e_sorted_probe", "K20_pps_generate")}
+                             "K14e_sorted_probe", "K20_pps_generate",
+                             "K13a_repair_frontier", "K15a_lane_sort",
+                             "K15b_seg_scans", "K16_dgcc_relax")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
@@ -2892,6 +3343,8 @@ def main() -> int:
     phase_tpcc_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
     phase_slice6_kernels(dev, rec, info["card"])
+    torch.cuda.empty_cache()
+    phase_slice7_kernels(dev, rec, info["card"])
     for full in (False, True):
         phase_epochs(dev, full)
         torch.cuda.empty_cache()
@@ -2907,6 +3360,7 @@ def main() -> int:
     phase_tpcc_epochs(dev, info["card"])
     torch.cuda.empty_cache()
     probe_launches = phase_slice6_epochs(dev, info["card"])
+    phase_slice7_epochs(dev, info["card"])
     launches: dict[str, int] = {}
     tput = {}
     win = {"warmup_secs": 1.0, "done_secs": 3.0}
@@ -2960,11 +3414,34 @@ def main() -> int:
               pps_config(alg, epoch_batch=1024, exec_subrounds=4,
                          escrow_order_free=esc, **win))
              for alg in ("TPU_BATCH", "CALVIN") for esc in (True, False)]
+    # repair_ablation: YCSB under OCC and MAAT with repair off (whose
+    # launches are the rounds-0 path's) and at rounds 0, 1, 2, NO_WAIT
+    # and TIMESTAMP at rounds 2; TPC-C 4 wh escrow off under OCC at
+    # rounds 2 (its repair-off cell is "OCC tpcc 4wh escrow off" above)
+    for alg in ("OCC", "MAAT"):
+        runs.append((f"{alg}+R0", f"{alg} repair_ablation repair off",
+                     repair_config(alg, None, **win)))
+        runs += [(f"{alg}+R{r}", f"{alg} repair_ablation rounds {r}",
+                  repair_config(alg, r, **win)) for r in (0, 1, 2)]
+    runs += [(f"{alg}+R2", f"{alg} repair_ablation rounds 2",
+              repair_config(alg, 2, **win)) for alg in ("NO_WAIT", "TIMESTAMP")]
+    runs.append(("TPCC_SWEEP+R2", "OCC tpcc 4wh escrow off repair rounds 2",
+                 tpcc_config(4, "OCC", escrow_sweep=False, repair=True,
+                             repair_rounds=2, **win)))
+    # dgcc_contention's DGCC cells: theta 0, 0.6, 0.9, 0.99 at 90% writes
+    # and 30% writes at theta 0.9; DGCC at TPC-C 4 wh
+    runs += [("DGCC", f"DGCC dgcc_contention theta {t} writes 0.9",
+              dgcc_config(t, **win)) for t in (0.0, 0.6, 0.9, 0.99)]
+    runs += [("DGCC", "DGCC dgcc_contention theta 0.9 writes 0.3",
+              dgcc_config(0.9, 0.3, **win)),
+             ("TPCC_DGCC", "DGCC tpcc 4wh", tpcc_config(4, "DGCC", **win))]
     for path, label, cfg in runs:
         mode = "full_row" if cfg.sim_full_row else "fingerprint"
         counts, fields = phase_simulate(dev, cfg, path, f"{path} {label}",
                                         info["card"])
         tput[(path, label)] = fields["tput"]
+        if "+R" in path or "DGCC" in path:
+            slice7_checks(cfg, path, label, fields, info["card"])
         for nm, c in counts.items():
             key = nm
             if nm == "K3_forward_execute":
@@ -2994,12 +3471,14 @@ def main() -> int:
                            ("TPCC TPU_BATCH 64wh order index",
                             index_config(64)),
                            ("PPS TPU_BATCH", pps_config()),
-                           ("PPS OCC", pps_config("OCC"))):
+                           ("PPS OCC", pps_config("OCC")),
+                           ("OCC repair rounds 2", repair_config("OCC", 2)),
+                           ("DGCC theta 0.9", dgcc_config(0.9))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []
     for nm, v in rec.items():
-        row = {}
+        row = {"path": True}
         if nm in OFF_PATH:
             # no reference path probes it: the launches of its oracle
             row["path"] = False

@@ -14,9 +14,13 @@ algorithm, with the reference's flags.  The port registers:
   later-reader sweep;
 * MAAT — reader-before-writer precedence: the mutual-pair sweep, the
   level gate, and the closure and peel where the gate is set;
+* DGCC — the dependency-graph wavefront: the lane sort (K15a), its
+  census (K15b) and the wave relaxation (K16) assign each txn a wave,
+  which the chained executor runs (no incidence views);
 * NOCC — the oracle that commits every active txn.
 
-DGCC comes with ROADMAP.md queue 1, item 16.
+The six sweep backends carry a ``repair_rule``, the invalidated-read
+frontier of transaction repair (`engine.repair`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from deneva_tpu_torch.cc import calvin as _calvin
+from deneva_tpu_torch.cc import dgcc as _dgcc
 from deneva_tpu_torch.cc import maat as _maat
 from deneva_tpu_torch.cc import occ as _occ
 from deneva_tpu_torch.cc import timestamp as _ts
@@ -101,13 +106,12 @@ _REGISTRY: dict[CCAlg, CCBackend] = {
                                chained=True, forward=True,
                                exempt_order_free=True,
                                views=_calvin.views),
+    # the exact-key lane graph needs no hashed incidence; the waves run
+    # through the chained executor with the last-writer tournament
+    CCAlg.DGCC: CCBackend(CCAlg.DGCC, _dgcc.validate_dgcc, chained=True,
+                          exempt_order_free=True),
 }
 
 
 def get_backend(alg: CCAlg | str) -> CCBackend:
-    alg = CCAlg(alg)
-    if alg not in _REGISTRY:
-        raise NotImplementedError(
-            f"cc_alg={alg.value} is not ported to deneva_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 16)")
-    return _REGISTRY[alg]
+    return _REGISTRY[CCAlg(alg)]

@@ -23,8 +23,8 @@ result when it is all false, so the epoch never waits on the host and
 its launch counts do not depend on the data.  The plain versions branch
 in Python.
 
-Cross-epoch state is unnecessary (``()``).  The repair frontier raises
-until ROADMAP.md item 16.
+Cross-epoch state is unnecessary (``()``).  The repair frontier is the
+generic one (K13a, ``cc/base.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from deneva_tpu_torch import kernels
+from deneva_tpu_torch.cc import base
 from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
                                       get_overlap)
 from deneva_tpu_torch.ops import conflict
@@ -51,10 +52,11 @@ def views(cfg) -> tuple[str, ...]:
 
 
 def repair_frontier(cfg, state, batch, inc, committed, losers):
-    """MAAT's transaction-repair rule (``deneva_tpu/cc/maat.py:101``)."""
-    raise NotImplementedError(
-        "transaction repair is not ported to deneva_tpu_torch yet "
-        "(ROADMAP.md queue 1, item 16: planes)")
+    """MAAT's transaction-repair rule (``deneva_tpu/cc/maat.py:107``):
+    re-reading the keys on a loser's P-edges into the committed set
+    re-opens its range, so the frontier is the generic one (K13a)."""
+    return base.committed_write_frontier(cfg, batch, inc, committed,
+                                         losers)
 
 
 def must_precede(cfg, inc: Incidence, b: int) -> torch.Tensor:

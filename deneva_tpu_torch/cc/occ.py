@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from deneva_tpu_torch.cc import base
 from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
                                       get_overlap)
 from deneva_tpu_torch.ops import conflict
@@ -24,10 +25,11 @@ def views(cfg) -> tuple[str, ...]:
 
 
 def repair_frontier(cfg, state, batch, inc, committed, losers):
-    """OCC's transaction-repair rule (``deneva_tpu/cc/occ.py:43``)."""
-    raise NotImplementedError(
-        "transaction repair is not ported to deneva_tpu_torch yet "
-        "(ROADMAP.md queue 1, item 16: planes)")
+    """OCC's transaction-repair rule (``deneva_tpu/cc/occ.py:43``): the
+    loser's ordered reads of a bucket a committed txn wrote (K13a).  The
+    repair sub-round then re-runs `validate_occ` on the losers."""
+    return base.committed_write_frontier(cfg, batch, inc, committed,
+                                         losers)
 
 
 def validate_occ(cfg, state, batch: AccessBatch, inc: Incidence):

@@ -34,7 +34,7 @@ its plain version written op for op from the reference:
   it updates the state in place, as the port writes its tables.
 
 The later-reader sweep reuses K7 (overlap) and K8 (first fit).  The
-repair frontiers raise until ROADMAP.md item 16.
+repair frontiers add the stale-read lanes to the generic one (K13a).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import torch
 
 from deneva_tpu_torch import kernels
+from deneva_tpu_torch.cc import base
 from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
                                       get_overlap)
 from deneva_tpu_torch.ops import conflict
@@ -221,14 +222,27 @@ def _watermark_check(cfg, state, batch: AccessBatch, mvcc: bool):
     return wm_abort, ro
 
 
+def _repair_frontier(cfg, state, batch: AccessBatch, inc: Incidence,
+                     committed: torch.Tensor, losers: torch.Tensor,
+                     mvcc: bool) -> torch.Tensor:
+    """T/O's transaction-repair rule (``deneva_tpu/cc/timestamp.py:226``):
+    this epoch's committed overwrites of the loser's ordered reads (K13a)
+    and the cross-epoch stale-read lanes that made it abort, read from
+    the watermarks as the previous round left them."""
+    front = base.committed_write_frontier(cfg, batch, inc, committed,
+                                          losers)
+    stale = _stale_read_lanes(cfg, state, batch, mvcc) & losers[:, None]
+    return front | stale
+
+
 def repair_frontier_timestamp(cfg, state, batch, inc, committed, losers):
-    """T/O's transaction-repair rule (``deneva_tpu/cc/timestamp.py:226``)."""
-    raise NotImplementedError(
-        "transaction repair is not ported to deneva_tpu_torch yet "
-        "(ROADMAP.md queue 1, item 16: planes)")
+    return _repair_frontier(cfg, state, batch, inc, committed, losers,
+                            mvcc=False)
 
 
-repair_frontier_mvcc = repair_frontier_timestamp
+def repair_frontier_mvcc(cfg, state, batch, inc, committed, losers):
+    return _repair_frontier(cfg, state, batch, inc, committed, losers,
+                            mvcc=True)
 
 
 def _rw_later_reader_conflicts(cfg, batch: AccessBatch, inc: Incidence):

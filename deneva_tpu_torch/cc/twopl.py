@@ -21,13 +21,14 @@ The conflicts come from K7 (`ops.conflict.overlap`) and the sweep is K8
 (`ops.conflict.first_fit`), which applies ``earlier_edges`` itself.
 Where a level ORs two conflict matrices before the one K8 launch, that
 is exact: ``earlier_edges(a) | earlier_edges(b) == earlier_edges(a | b)``.
-The repair frontier raises until ROADMAP.md item 16.
+The repair frontier is the generic one (K13a, ``cc/base.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from deneva_tpu_torch.cc import base
 from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
                                       get_overlap)
 from deneva_tpu_torch.cc.nocc import validate_nocc
@@ -45,10 +46,11 @@ def views(cfg) -> tuple[str, ...]:
 
 
 def repair_frontier(cfg, state, batch, inc, committed, losers):
-    """2PL's transaction-repair rule (``deneva_tpu/cc/twopl.py:68``)."""
-    raise NotImplementedError(
-        "transaction repair is not ported to deneva_tpu_torch yet "
-        "(ROADMAP.md queue 1, item 16: planes)")
+    """2PL's transaction-repair rule (``deneva_tpu/cc/twopl.py:68``): the
+    generic frontier (K13a) at every isolation level — the level changes
+    which requests conflict, not which read values went stale."""
+    return base.committed_write_frontier(cfg, batch, inc, committed,
+                                         losers)
 
 
 def _lock_conflicts(cfg, batch: AccessBatch, inc: Incidence):

@@ -14,9 +14,11 @@ forwarding executor, and TPC-C and PPS, whose writes read, through the
 chained executor.  ``OCC``, ``NO_WAIT`` and ``WAIT_DIE`` (at all four isolation
 levels), ``TIMESTAMP``, ``MVCC`` and ``MAAT`` run both through the sweep
 path; ``NOCC`` (or ``mode=NOCC``) is the oracle; ``mode=SIMPLE`` and
-``QRY_ONLY`` (validation, no execution) apply under any of them.  A
-flag that
-would leave those slices raises in :meth:`Config.validate` and names
+``QRY_ONLY`` (validation, no execution) apply under any of them.
+``repair`` (with ``repair_rounds``) salvages the six sweep backends'
+losers within the epoch, and ``DGCC`` (with ``dgcc_levels``) runs the
+dependency-graph wavefront through the chained executor, both on YCSB
+and TPC-C.  A flag that would leave those slices raises in :meth:`Config.validate` and names
 the ROADMAP.md item that brings it; a flag the port does not know at
 all raises in :meth:`Config.from_args`.  Nothing is silently ignored.
 """
@@ -149,9 +151,17 @@ class Config:
     #                                 index (index_btree insert analogue;
     #                                 one merge sort per epoch)
     exec_subrounds: int = 4        # chained-execution levels per epoch (CALVIN/TPU_BATCH)
+    dgcc_levels: int = 32          # DGCC wave budget: relaxation-round cap
+    #                                and max wavefront depth per epoch;
+    #                                deeper closures defer (cc/dgcc.py)
     mvcc_his_len: int = 4          # in-state version history depth (HIS_RECYCLE_LEN analogue)
     escrow_order_free: bool = True  # honor workload order_free declarations
     escrow_sweep: bool = True      # ... in the sweep backends too
+    repair: bool = False           # transaction repair (engine/repair.py):
+    #                                losers of a sweep backend re-validate
+    #                                and re-execute as in-epoch sub-rounds
+    repair_rounds: int = 2         # repair sub-rounds per epoch; 0 arms
+    #                                the machinery and salvages nothing
 
     # ---- storage ----
     index_struct: str = "IDX_HASH"
@@ -162,7 +172,6 @@ class Config:
     audit: bool = False
     ctrl: bool = False
     ctrl_dgcc: bool = False
-    repair: bool = False
     checkpoint_path: str = ""
     resume: bool = False
 
@@ -235,6 +244,40 @@ class Config:
             f"bad isolation_level {self.isolation_level!r}")
         _check(self.index_struct in ("IDX_HASH", "IDX_BTREE"),
                f"bad index_struct {self.index_struct!r}")
+        # transaction repair and DGCC (deneva_tpu/config.py:1401-1439; the
+        # cluster-only checks on node_cnt and dist_protocol have no field
+        # here: the port runs one node)
+        _check(self.repair_rounds >= 0 and self.repair_rounds <= 8,
+               "repair_rounds must be in [0, 8] (each round is a fused "
+               "re-validation + re-execution pass inside the epoch jit)")
+        if self.repair:
+            _check(self.cc_alg in (CCAlg.NO_WAIT, CCAlg.WAIT_DIE,
+                                   CCAlg.OCC, CCAlg.TIMESTAMP, CCAlg.MVCC,
+                                   CCAlg.MAAT),
+                   "repair applies to the six sweep backends only "
+                   "(CALVIN/TPU_BATCH never abort and DGCC defers its "
+                   "over-deep closures — there is nothing to salvage; "
+                   "NOCC has no conflicts)")
+            _check(self.mode == Mode.NORMAL,
+                   "repair re-executes committed state; degraded modes "
+                   "(SIMPLE/NOCC/QRY_ONLY) have no abort path to salvage")
+            _check(self.device_parts == 1,
+                   "repair sub-rounds do not compose with multi-chip "
+                   "execution yet (the frontier matvec and the chained "
+                   "re-execution are single-device)")
+            _check(self.workload in (WorkloadKind.YCSB, WorkloadKind.TPCC),
+                   "repair re-execution closures are wired for YCSB and "
+                   "TPCC (workloads declare re_execute); PPS keeps "
+                   "retry-only semantics")
+        _check(1 <= self.dgcc_levels <= 256,
+               "dgcc_levels must be in [1, 256] (wave budget per epoch; "
+               "each relaxation round is two segmented scans inside the "
+               "epoch jit)")
+        if self.cc_alg == CCAlg.DGCC:
+            _check(self.workload in (WorkloadKind.YCSB, WorkloadKind.TPCC),
+                   "DGCC's wave re-execution closures are wired for YCSB "
+                   "and TPCC (workloads declare chained execution; PPS "
+                   "keeps the sweep backends)")
         # the slice the port runs so far
         for cond, what, item in _NOT_PORTED:
             if cond(self):
@@ -275,15 +318,15 @@ class Config:
 
 # (predicate, what, ROADMAP item) for every setting outside the slices
 _NOT_PORTED = (
-    (lambda c: c.cc_alg == CCAlg.DGCC,
-     "cc_alg=DGCC", "item 16: depgraph + dgcc"),
     (lambda c: c.part_cnt > 1,
      "part_cnt > 1", "item 18: cluster runtime"),
     (lambda c: c.device_parts > 1,
      "device_parts > 1", "item 19: mesh + workloads/mc"),
     (lambda c: c.elastic, "elastic", "item 18: cluster runtime"),
-    (lambda c: c.metrics or c.audit or c.ctrl or c.ctrl_dgcc or c.repair,
-     "metrics/audit/ctrl/ctrl_dgcc/repair", "item 16: planes"),
+    (lambda c: c.metrics or c.audit,
+     "metrics/audit", "item 16c: metrics bus + audit plane"),
+    (lambda c: c.ctrl or c.ctrl_dgcc,
+     "ctrl/ctrl_dgcc", "item 16d: control plane + router"),
     (lambda c: bool(c.checkpoint_path) or c.resume,
      "checkpoint_path/resume", "item 17: checkpoint"),
     (lambda c: c.sim_full_row and c.tup_size % 4 != 0,

@@ -28,27 +28,12 @@
 // L[G[i]-1] for fwd and, at each key's tail t, marks win[L[t]].
 //   Bound: bytes (read the words, write the plan); ~5 passes over N.
 #include "common.cuh"
+#include "radix.cuh"
 
 namespace {
 
-constexpr int kRadixBits = 8;
-constexpr int kRadix = 1 << kRadixBits;
-constexpr int kSortThreads = 256;
-constexpr int kSortTile = 2048;              // lanes per block
-constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kScanThreads = 1024;           // one lane per thread
-static_assert(kSortThreads == kRadix, "scatter scans one digit per thread");
 constexpr uint32_t kBigKey = 0x7FFFFFFFu;
-
-struct AddOp {
-  __device__ uint32_t operator()(uint32_t a, uint32_t b) const {
-    return a + b;
-  }
-};
-
-__device__ __forceinline__ uint32_t digit_of(uint64_t w, int shift) {
-  return static_cast<uint32_t>(w >> shift) & (kRadix - 1);
-}
 
 __global__ void pack_kernel(const int32_t* __restrict__ k,
                             const int32_t* __restrict__ r,
@@ -59,87 +44,6 @@ __global__ void pack_kernel(const int32_t* __restrict__ k,
   out[i] = (static_cast<uint64_t>(static_cast<uint32_t>(k[i])) << 32) |
            (static_cast<uint64_t>(static_cast<uint32_t>(r[i])) << 1) |
            static_cast<uint64_t>(w[i] != 0);
-}
-
-// counts[d * nblk + b] = lanes of tile b with digit d
-__global__ void radix_hist_kernel(const uint64_t* __restrict__ in, int n,
-                                  int shift, uint32_t* __restrict__ counts) {
-  __shared__ uint32_t h[kRadix];
-  for (int i = threadIdx.x; i < kRadix; i += blockDim.x) h[i] = 0;
-  __syncthreads();
-  const int base = blockIdx.x * kSortTile;
-  const int lane = threadIdx.x & 31;
-  for (int off = threadIdx.x; off < kSortTile; off += blockDim.x) {
-    const int idx = base + off;
-    const bool valid = idx < n;
-    const uint32_t d = valid ? digit_of(in[idx], shift) : 0xFFFFu;
-    const uint32_t peers = __match_any_sync(0xffffffffu, d);
-    if (valid && lane == __ffs(peers) - 1) atomicAdd(&h[d], __popc(peers));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRadix; i += blockDim.x)
-    counts[i * gridDim.x + blockIdx.x] = h[i];
-}
-
-// Row d of counts (digit d over all tiles) to its exclusive prefix, in
-// place; totals[d] = the row's sum.  One block per digit.
-__global__ void radix_rowscan_kernel(uint32_t* __restrict__ counts, int nblk,
-                                     uint32_t* __restrict__ totals) {
-  uint32_t* row = counts + static_cast<size_t>(blockIdx.x) * nblk;
-  uint32_t carry = 0;
-  for (int base = 0; base < nblk; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const uint32_t v = i < nblk ? row[i] : 0u;
-    uint32_t total;
-    const uint32_t incl = dt_block_incl_scan(v, AddOp(), 0u, total);
-    if (i < nblk) row[i] = carry + incl - v;
-    carry += total;
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
-}
-
-// Stable scatter of tile b's lanes: digit d's lanes start at the sum of
-// all smaller digits' totals plus row d's prefix at b.  blockDim.x must be
-// kRadix (one digit per thread for the digit-base scan).
-__global__ void radix_scatter_kernel(const uint64_t* __restrict__ in,
-                                     uint64_t* __restrict__ out, int n,
-                                     int shift,
-                                     const uint32_t* __restrict__ offsets,
-                                     const uint32_t* __restrict__ totals) {
-  __shared__ uint32_t base_off[kRadix];
-  __shared__ uint32_t warp_cnt[kSortWarps][kRadix];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  {
-    const uint32_t t = totals[threadIdx.x];
-    uint32_t unused;
-    const uint32_t incl = dt_block_incl_scan(t, AddOp(), 0u, unused);
-    base_off[threadIdx.x] =
-        incl - t + offsets[threadIdx.x * gridDim.x + blockIdx.x];
-  }
-  const int tile0 = blockIdx.x * kSortTile;
-  for (int c = 0; c < kSortTile; c += kSortThreads) {
-    for (int i = threadIdx.x; i < kSortWarps * kRadix; i += blockDim.x)
-      (&warp_cnt[0][0])[i] = 0u;
-    __syncthreads();
-    const int idx = tile0 + c + threadIdx.x;
-    const bool valid = idx < n;
-    const uint64_t v = valid ? in[idx] : 0ull;
-    const uint32_t d = valid ? digit_of(v, shift) : 0xFFFFu;
-    const uint32_t peers = __match_any_sync(0xffffffffu, d);
-    const uint32_t below = __popc(peers & ((1u << lane) - 1u));
-    if (valid && lane == __ffs(peers) - 1) warp_cnt[warp][d] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      uint32_t pos = base_off[d] + below;
-      for (int w = 0; w < warp; ++w) pos += warp_cnt[w][d];
-      out[pos] = v;
-    }
-    __syncthreads();
-    uint32_t t = 0;
-    for (int w = 0; w < kSortWarps; ++w) t += warp_cnt[w][threadIdx.x];
-    base_off[threadIdx.x] += t;
-    __syncthreads();
-  }
 }
 
 __device__ __forceinline__ uint32_t key_of(uint64_t w) {
@@ -279,21 +183,9 @@ DT_EXPORT int dt_sort_lanes(const int32_t* k, const int32_t* r,
                             const uint8_t* w, int n, uint64_t* out,
                             uint64_t* tmp, uint32_t* counts, void* stream) {
   cudaStream_t s = dt_stream(stream);
-  const int nblk = (n + kSortTile - 1) / kSortTile;
   pack_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(k, r, w, n, out);
-  uint64_t* src = out;
-  uint64_t* dst = tmp;
-  uint32_t* totals = counts + kRadix * nblk;
-  for (int shift = 0; shift < 64; shift += kRadixBits) {
-    radix_hist_kernel<<<nblk, kSortThreads, 0, s>>>(src, n, shift, counts);
-    radix_rowscan_kernel<<<kRadix, 1024, 0, s>>>(counts, nblk, totals);
-    radix_scatter_kernel<<<nblk, kSortThreads, 0, s>>>(src, dst, n, shift,
-                                                       counts, totals);
-    uint64_t* t = src;
-    src = dst;
-    dst = t;
-  }
   // 8 passes: the sorted words are back in `out`
+  dt_radix::sort_bits(out, tmp, n, 0, 64, counts, s);
   return dt_status();
 }
 

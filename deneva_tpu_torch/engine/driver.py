@@ -8,8 +8,10 @@ pacing barrier, so the host never runs more than a chunk ahead.  A run
 whose index overflowed is refused at the first such chunk, and once more
 at the end.  Chunks are sized to ``chunk_target_secs`` of work.  The
 measured window's counter deltas become the reference-compatible
-``[summary]`` line; latency buckets (in epochs) are scaled to seconds by
-the pace of the chunk that produced them.
+``[summary]`` line (with the ``rep_*`` fields under ``repair`` and the
+``dgcc_*`` fields and one ``[dgcc]`` line under DGCC); latency buckets
+(in epochs) are scaled to seconds by the pace of the chunk that produced
+them.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import numpy as np
 import torch
 
 from deneva_tpu_torch import kernels
-from deneva_tpu_torch.config import Config
+from deneva_tpu_torch.config import CCAlg, Config
 from deneva_tpu_torch.engine.step import Engine, EngineState
-from deneva_tpu_torch.stats import Stats, make_prog_line
+from deneva_tpu_torch.stats import Stats, make_prog_line, tagged_line
 from deneva_tpu_torch.workloads import get_workload
 
 
@@ -164,6 +166,28 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
               "total_txn_abort_cnt", "unique_txn_abort_cnt", "defer_cnt",
               "write_cnt"):
         st.set(k, float(after[k] - before[k]))
+    if cfg.repair:
+        # salvaged commits, invalidated read lanes and retry-queue
+        # fallbacks; only when armed, so every other line is unchanged
+        for k in ("rep_salvaged_cnt", "rep_frontier_cnt",
+                  "rep_fallback_cnt"):
+            st.set(k, float(after[k] - before[k]))
+    if cfg.cc_alg == CCAlg.DGCC:
+        # waves over the window, the deepest epoch of the whole run (a
+        # running max), deferred closures and the dependency edges
+        for k in ("dgcc_wave_cnt", "dgcc_fallback_cnt", "dgcc_edge_cnt"):
+            st.set(k, float(after[k] - before[k]))
+        st.set("dgcc_wave_max", float(after["dgcc_wave_max"]))
+        if not quiet:
+            print(tagged_line("dgcc", {
+                "node": 0,
+                "waves": int(after["dgcc_wave_cnt"]
+                             - before["dgcc_wave_cnt"]),
+                "wave_max": int(after["dgcc_wave_max"]),
+                "fallback": int(after["dgcc_fallback_cnt"]
+                                - before["dgcc_fallback_cnt"]),
+                "edges": int(after["dgcc_edge_cnt"]
+                             - before["dgcc_edge_cnt"])}), flush=True)
     for i, nm in enumerate(wl.txn_type_names):
         for fam in ("commit", "abort"):
             key = f"{fam}_by_type"

@@ -17,13 +17,16 @@ partial one:
          (K8); T/O checks (K12a) and records (K12b) its watermarks,
          carried across epochs in ``cc_state``; MAAT adds the level gate
          (K9b), closure and peel (K11a, K11b); CALVIN / TPU_BATCH the
-         wavefront levels (K9a); then the defer budget;
+         wavefront levels (K9a); DGCC the lane sort (K15a), its census
+         (K15b) and the wave relaxation (K16); then the defer budget;
        - NOCC (``cc_alg`` or ``mode``): everything commits
     5. execute: the forwarding plan (K3); TPU_BATCH / CALVIN on a
-       workload whose writes read (TPC-C) through the chained executor,
-       one masked pass per level; or the masked arm with the last-writer
-       resolution (K10) and, under MVCC, the version ring (K12c reads,
-       K12d pushes); nothing under SIMPLE and QRY_ONLY
+       workload whose writes read (TPC-C), and DGCC, through the chained
+       executor, one masked pass per level; or the masked arm with the
+       last-writer resolution (K10) and, under MVCC, the version ring
+       (K12c reads, K12d pushes); nothing under SIMPLE and QRY_ONLY
+    5b. with ``repair``: the sweep's losers re-validate and re-execute
+       in ``repair_rounds`` sub-rounds (`engine.repair`, K13a)
     6. update the pool and the device counters (plain PyTorch)
 
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
@@ -43,8 +46,9 @@ import torch
 from deneva_tpu_torch import kernels
 from deneva_tpu_torch.cc import (AccessBatch, build_conflict_incidence,
                                  gate_order_free, get_backend)
-from deneva_tpu_torch.config import Config, Mode
+from deneva_tpu_torch.config import CCAlg, Config, Mode
 from deneva_tpu_torch.engine.pool import PoolState, TxnPool
+from deneva_tpu_torch.engine.repair import run_repair
 from deneva_tpu_torch.ops import forward_verdict, forwarding_applies, prng
 
 LAT_BUCKETS = 64
@@ -83,8 +87,9 @@ def init_device_stats(n_txn_types: int = 1, n_parts: int = 1,
     stats["latency_hist"] = z(n_txn_types, LAT_BUCKETS)
     stats["retry_hist"] = z(RETRY_BUCKETS)
     stats["wait_hist"] = z(RETRY_BUCKETS)
-    # the repair / audit / DGCC planes' counters: not ported, they stay 0;
-    # kept so the state maps onto the reference's leaf for leaf
+    # transaction repair's and DGCC's counters, and the audit plane's
+    # (not ported: they stay 0), kept so the state maps onto the
+    # reference's leaf for leaf
     for k in ("rep_salvaged_cnt", "rep_frontier_cnt", "rep_fallback_cnt",
               "audit_edge_cnt", "audit_drop_cnt", "audit_wit_cnt",
               "dgcc_wave_cnt", "dgcc_wave_max", "dgcc_fallback_cnt",
@@ -100,19 +105,24 @@ def _acc(stats: dict, key: str, delta) -> None:
 
 
 def _run_levels(cfg, wl, db, queries, exec_commit, verdict, stats,
-                level_exec: bool = True):
+                level_exec: bool = True, n_levels: int | None = None):
     """Chained sub-round execution (``deneva_tpu/engine/step.py:141``):
     level-l txns run after every write of levels < l, each pass gathering
     from the tables the previous passes wrote.
 
     The reference's ``lax.while_loop`` runs ``max committed level + 1``
     passes; learning that depth here would sync the host, so the port
-    runs all ``exec_subrounds`` passes (the levels ``validate_calvin``
-    can give).  A pass above the deepest level has an empty mask, and an
-    empty pass writes no table row and adds 0 to every counter, so the
-    result is the reference's.  ``level_exec`` lets the executor take
-    every valid stock lane of a level as its final writer (no K10)."""
-    for lvl in range(cfg.exec_subrounds):
+    runs every level the backend can give: ``exec_subrounds`` for
+    ``validate_calvin``, ``n_levels = dgcc_levels`` for DGCC (its waves go
+    up to ``dgcc_levels - 1``; stopping at ``exec_subrounds`` would count
+    the deeper waves as commits and drop their writes: ROADMAP.md watch
+    item 24).  A pass above the deepest level has an empty
+    mask, and an empty pass writes no table row and adds 0 to every
+    counter, so the result is the reference's.  ``level_exec`` lets the
+    executor take every valid write lane of a level as its final writer
+    (no K10); DGCC's waves carry several writers of a key and pass
+    False."""
+    for lvl in range(cfg.exec_subrounds if n_levels is None else n_levels):
         m = exec_commit & (verdict.level == lvl)
         db = wl.execute(db, queries, m, verdict.order, stats,
                         level_exec=level_exec)
@@ -188,6 +198,7 @@ class Engine:
         # 4. validate
         forwarding = forwarding_applies(be, wl) and cfg.mode == Mode.NORMAL
         fwd = None
+        inc = None
         forced = forced_sentinel_mask(batch) if cfg.ycsb_abort_mode else None
         if cfg.mode == Mode.NOCC:
             verdict, cc_state = get_backend("NOCC").validate(
@@ -202,7 +213,14 @@ class Engine:
             cc_state = state.cc_state
         else:
             inc = build_conflict_incidence(cfg, be, batch, batch.order_free)
-            verdict, cc_state = be.validate(cfg, state.cc_state, batch, inc)
+            if be.alg == CCAlg.DGCC:
+                # DGCC's [dgcc] counters come from inside the wave
+                # assignment, where the lane graph is in hand
+                verdict, cc_state = be.validate(cfg, state.cc_state, batch,
+                                                inc, stats=stats)
+            else:
+                verdict, cc_state = be.validate(cfg, state.cc_state, batch,
+                                                inc)
         # defer budget: a txn deferred past defer_rounds_max force-restarts
         # (deterministic chained backends are exempt)
         if not be.chained and cfg.defer_rounds_max > 0:
@@ -227,10 +245,27 @@ class Engine:
             db = wl.execute(db, queries, None, verdict.order, stats,
                             fwd_rank=fwd)
         elif be.chained and cfg.mode == Mode.NORMAL:
-            db, stats = _run_levels(cfg, wl, db, queries, exec_commit,
-                                    verdict, stats)
+            dgcc = be.alg == CCAlg.DGCC
+            db, stats = _run_levels(
+                cfg, wl, db, queries, exec_commit, verdict, stats,
+                level_exec=not dgcc,
+                n_levels=cfg.dgcc_levels if dgcc else None)
         elif cfg.mode in (Mode.NORMAL, Mode.NOCC):
             db = wl.execute(db, queries, exec_commit, verdict.order, stats)
+
+        # 5b. transaction repair (default off): the sweep's losers
+        # re-validate and re-execute as sub-rounds against the post-winner
+        # tables; salvaged txns commit and release their slot before the
+        # pool update and the counters below see them.  ts_base is the
+        # pool's reserved restamp space, above every stamp of the epoch.
+        if cfg.repair and cfg.mode == Mode.NORMAL and not forwarding \
+                and be.repair_rule is not None:
+            db, cc_state, verdict, salvaged, _rounds = run_repair(
+                cfg, wl, be, db, queries, batch, inc, verdict, cc_state,
+                stats, exec_commit, forced,
+                ts_base=pool.next_seq - self.pool.b)
+            exec_commit = exec_commit | salvaged
+            release = release | salvaged
 
         # 6. update pool + counters (forced txns release like commits)
         pre_abort_cnt = sel(pool.abort_cnt)

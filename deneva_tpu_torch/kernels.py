@@ -32,9 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
            "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu",
-           "pps.cu")
+           "pps.cu", "frontier.cu", "depgraph.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
-           "bits.cuh")
+           "bits.cuh", "radix.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -209,7 +209,7 @@ def on_cpu(*ts: torch.Tensor) -> bool:
 def all_kernels() -> dict[str, Kernel]:
     """Every kernel of the main path, by name (imports the modules that
     own them)."""
-    from deneva_tpu_torch.cc import maat, timestamp
+    from deneva_tpu_torch.cc import base, depgraph, dgcc, maat, timestamp
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.storage import index, table
     from deneva_tpu_torch.workloads import pps, tpcc, ycsb
@@ -237,4 +237,8 @@ def all_kernels() -> dict[str, Kernel]:
             "K14e_index_merge": index.K14E_MERGE,
             "K14e_sorted_probe": index.K14E_PROBE,
             "K19_tpcc_generate": tpcc.K19_GEN,
-            "K20_pps_generate": pps.K20_GEN}
+            "K20_pps_generate": pps.K20_GEN,
+            "K13a_repair_frontier": base.K13A_FRONTIER,
+            "K15a_lane_sort": depgraph.K15A_SORT,
+            "K15b_seg_scans": depgraph.K15B_SCANS,
+            "K16_dgcc_relax": dgcc.K16_RELAX}

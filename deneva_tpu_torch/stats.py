@@ -237,6 +237,12 @@ def tagged_line(tag: str, fields: dict) -> str:
     return f"[{tag}] {body}"
 
 
+def repair_line(node: int, fields: dict) -> str:
+    """Per-node ``[repair]`` summary line (``deneva_tpu/engine/repair.py:199``,
+    parsed by ``harness.parse.parse_repair``)."""
+    return tagged_line("repair", {"node": node, **fields})
+
+
 def make_prog_line(runtime: float, counters: dict,
                    extra: dict[str, float] | None = None) -> str:
     """Shared [prog] emitter for the in-process driver and cluster servers:

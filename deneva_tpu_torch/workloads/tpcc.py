@@ -563,6 +563,14 @@ class TPCCWorkload:
                     is_write=is_write, valid=valid, order_free=order_free,
                     owner=owner)      # wh % 1: one partition
 
+    def re_execute(self, db, q: TPCCQuery, mask: torch.Tensor,
+                   order: torch.Tensor, stats: dict):
+        """Transaction repair's re-execution (``tpcc.py:654``): `execute` of
+        the salvaged rows (K10 resolves the stock writers; under
+        ``tpcc_order_index`` one more K14e merge).  Escrow deltas
+        recompute from the query row and add once."""
+        return self.execute(db, q, mask, order, stats)
+
     # -- execution ------------------------------------------------------
     def execute(self, db, q: TPCCQuery, mask: torch.Tensor,
                 order: torch.Tensor, stats: dict, fwd_rank=None,

@@ -364,6 +364,14 @@ class YCSBWorkload:
     def _local_slots(self, db, keys: torch.Tensor) -> torch.Tensor:
         return self.index.lookup(keys)
 
+    def re_execute(self, db, q: YCSBQuery, mask: torch.Tensor,
+                   order: torch.Tensor, stats: dict):
+        """Transaction repair's re-execution (``ycsb.py:491``): `execute` of
+        the salvaged rows against the current tables.  Lanes outside the
+        frontier re-read values nothing overwrote, so the full re-gather
+        is the masked re-read."""
+        return self.execute(db, q, mask, order, stats)
+
     # -- execution (ycsb_txn.cpp:177-209 collapsed to one batch) -------
     def execute(self, db, q: YCSBQuery, mask, order: torch.Tensor,
                 stats: dict, fwd_rank=None, level_exec: bool = False):

@@ -34,10 +34,10 @@ def test_from_args_parses_like_reference():
 
 
 RAISING = [
-    ("--cc_alg=DGCC", 16), ("--part_cnt=2", 18), ("--device_parts=2", 19),
+    ("--part_cnt=2", 18), ("--device_parts=2", 19),
     ("--elastic=true", 18),
-    ("--audit=true", 16), ("--metrics=true", 16), ("--ctrl=true", 16),
-    ("--repair=true", 16),
+    ("--audit=true", "16c"), ("--metrics=true", "16c"),
+    ("--ctrl=true", "16d"), ("--ctrl_dgcc=true", "16d"),
     ("--sim_full_row=true --tup_size=10", 11),
     ("--checkpoint_path=/dev/null", 17), ("--node_cnt=2", None),
     ("--fault_drop_prob=0.1", None)]
@@ -70,7 +70,13 @@ ADMITTED = [
     ["--key_order=true"], ["--txn_write_perc=0.5"],
     ["--index_struct=IDX_BTREE"], ["--sim_full_row=true", "--tup_size=8"],
     ["--workload=PPS", "--max_accesses=32"],
-    ["--workload=TPCC", "--max_accesses=18", "--tpcc_order_index=true"]]
+    ["--workload=TPCC", "--max_accesses=18", "--tpcc_order_index=true"],
+    ["--cc_alg=DGCC"], ["--repair=true"],
+    ["--repair=true", "--repair_rounds=0", "--cc_alg=MAAT"],
+    ["--cc_alg=DGCC", "--dgcc_levels=1", "--workload=TPCC",
+     "--max_accesses=18"],
+    ["--repair=true", "--repair_rounds=8", "--cc_alg=NO_WAIT",
+     "--isolation_level=NOLOCK"]]
 
 
 @pytest.mark.parametrize("flags", ADMITTED)
@@ -107,14 +113,55 @@ def test_new_fields_and_the_isolation_check():
 
 @pytest.mark.parametrize("alg,item", [("DGCC", 16)])
 def test_maat_and_dgcc_still_raise(alg, item):
-    """DGCC still raises, in the config and the registry; MAAT is ported
-    (``test_slice4_backends_are_registered``)."""
+    """DGCC, once refused as ROADMAP.md ``item`` 16, is ported: it raises
+    only where the reference raises, with its message, and the registry
+    holds it as a chained backend without incidence views; MAAT is
+    ported too (``test_slice4_backends_are_registered``)."""
     from deneva_tpu_torch.cc import get_backend
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, item {item}:"):
-        Config.from_args(SWEEP + [f"--cc_alg={alg}"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_backend(alg)
+    bad = SWEEP + [f"--cc_alg={alg}", "--workload=PPS", "--max_accesses=32"]
+    for cls in (Config, JConfig):
+        with pytest.raises(ValueError, match="wired for YCSB and TPCC"):
+            cls.from_args(bad)
+    assert Config.from_args(SWEEP + [f"--cc_alg={alg}"]).dgcc_levels == 32
+    be = get_backend(alg)
+    assert be.chained and not be.forward and be.exempt_order_free
+    assert be.views(Config()) == () and be.repair_rule is None
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--repair_rounds=9"], "repair_rounds must be in"),
+    (["--repair_rounds=-1"], "repair_rounds must be in"),
+    (["--dgcc_levels=0"], "dgcc_levels must be in"),
+    (["--dgcc_levels=257"], "dgcc_levels must be in"),
+    (["--repair=true", "--workload=PPS", "--max_accesses=32"],
+     "PPS keeps retry-only"),
+    (["--repair=true", "--cc_alg=CALVIN"], "six sweep backends"),
+    (["--repair=true", "--cc_alg=TPU_BATCH"], "six sweep backends"),
+    (["--repair=true", "--cc_alg=DGCC"], "six sweep backends"),
+    (["--repair=true", "--mode=SIMPLE"], "degraded modes"),
+    (["--cc_alg=DGCC", "--workload=PPS", "--max_accesses=32"],
+     "DGCC's wave re-execution"),
+    (["--repair=true", "--device_parts=2"], "multi-chip")])
+def test_repair_and_dgcc_reference_checks_apply(flags, match):
+    """The reference's repair and DGCC checks, with its messages."""
+    msgs = []
+    for cls in (Config, JConfig):
+        with pytest.raises(ValueError, match=match) as e:
+            cls.from_args(SWEEP + flags)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_repair_and_dgcc_fields_share_the_reference_defaults():
+    for f in ("repair", "repair_rounds", "dgcc_levels"):
+        assert getattr(Config(), f) == getattr(JConfig(), f), f
+    args = SWEEP + ["--repair=true", "--repair_rounds=1"]
+    assert Config.from_args(args).repair_rounds == 1
+    for wl in (["--workload=YCSB"], ["--workload=TPCC", "--max_accesses=18"]):
+        for alg in ("OCC", "DGCC"):
+            extra = ["--repair=true", "--repair_rounds=2"] \
+                if alg == "OCC" else []
+            Config.from_args(SWEEP + wl + [f"--cc_alg={alg}"] + extra)
 
 
 def test_slice4_backends_are_registered():

@@ -4,8 +4,10 @@ NOCC, NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and MAAT paths, of SIMPLE and
 QRY_ONLY, of HOT keys, of the ordered index, of TPC-C (the chained
 executor and the sweep backends, with K19, K14a, K14c and K14d alone at
 small and at path shapes; with the dynamic ORDER index, K14e merge and
-probes alone) and of PPS (K20 alone, default and > 2^16 spans).
-Marked ``cuda``;
+probes alone), of PPS (K20 alone, default and > 2^16 spans), and of
+transaction repair and DGCC (K13a, K15a, K15b and K16 alone; repair
+epochs under the six sweep backends and TPC-C, DGCC epochs on YCSB and
+TPC-C).  Marked ``cuda``;
 without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -814,3 +816,157 @@ def test_pps_epochs_through_kernels_match_plain_epochs(dev, path, flags):
         sp = ep.run(sp, 4)
     _same_leaves(sk, sp)
     assert int(sk.stats["total_txn_commit_cnt"]) > 0
+
+
+# -- transaction repair and DGCC: K13a, K15a, K15b, K16 ---------------------
+
+def _rand_batch(b, a, n_keys, dev, seed, order_free=False):
+    from deneva_tpu_torch.cc import AccessBatch
+    g = torch.Generator().manual_seed(seed)
+    arr = dict(table_ids=torch.randint(0, 2, (b, a), generator=g,
+                                       dtype=torch.int32),
+               keys=torch.randint(0, n_keys, (b, a), generator=g,
+                                  dtype=torch.int32),
+               is_read=torch.rand(b, a, generator=g) < 0.6,
+               is_write=torch.rand(b, a, generator=g) < 0.5,
+               valid=torch.rand(b, a, generator=g) < 0.9,
+               ts=(torch.randperm(b, generator=g) + 1).to(torch.int32),
+               rank=torch.randperm(b, generator=g).to(torch.int32),
+               active=torch.rand(b, generator=g) < 0.9)
+    arr["order_free"] = (torch.rand(b, a, generator=g) < 0.2) \
+        if order_free else None
+    return AccessBatch(**{k: None if v is None else v.to(dev)
+                          for k, v in arr.items()})
+
+
+@pytest.mark.parametrize("b,a,k,exact,order_free", [
+    (2048, 10, 8192, True, False), (2048, 10, 8192, False, True),
+    (100, 7, 64, True, True), (64, 8, 1024, True, False)])
+@pytest.mark.parametrize("committed_kind", ["random", "empty", "full"])
+def test_repair_frontier_matches_plain(dev, b, a, k, exact, order_free,
+                                       committed_kind):
+    from deneva_tpu_torch.cc import base, build_incidence
+    batch = _rand_batch(b, a, 4 * b, dev, b + k, order_free)
+    inc = build_incidence(batch, k, exact, order_free=batch.order_free,
+                          views=("w",))
+    g = torch.Generator().manual_seed(k)
+    committed = {"random": torch.rand(b, generator=g) < 0.3,
+                 "empty": torch.zeros(b, dtype=torch.bool),
+                 "full": torch.ones(b, dtype=torch.bool)}[committed_kind]
+    losers = torch.rand(b, generator=g) < 0.5
+    committed, losers = committed.to(dev), losers.to(dev)
+    got = base.committed_write_frontier(None, batch, inc, committed, losers)
+    want = base.committed_write_frontier_plain(None, batch, inc, committed,
+                                               losers)
+    assert torch.equal(got, want)
+    assert bool(got.any()) == (committed_kind != "empty")
+
+
+@pytest.mark.parametrize("b,a,n_keys,order_free", [
+    (2048, 10, 1 << 24, False), (2048, 10, 200, True), (16, 4, 5, False),
+    (4096, 16, 3000, False), (300, 3, 1, True)])
+def test_lane_sort_and_census_match_plain(dev, b, a, n_keys, order_free):
+    from deneva_tpu_torch.cc import depgraph, dgcc
+    batch = _rand_batch(b, a, n_keys, dev, b + a, order_free)
+    lanes = dgcc.lanes(batch)
+    got = depgraph.lane_sort(*lanes, b)
+    want = depgraph.lane_sort_plain(*lanes)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for x, y in zip(depgraph.census(*got), depgraph.census_plain(*want)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,a,n_keys,levels", [
+    (2048, 10, 1 << 24, 32), (2048, 10, 64, 32), (2048, 10, 8, 4),
+    (16, 4, 3, 1), (4096, 16, 500, 256), (200, 6, 2, 32)])
+def test_dgcc_relax_matches_plain(dev, b, a, n_keys, levels, monkeypatch):
+    from types import SimpleNamespace
+
+    from deneva_tpu_torch.cc import depgraph, dgcc
+    batch = _rand_batch(b, a, n_keys, dev, b + levels)
+    sk, sp, sid = depgraph.lane_sort_plain(*dgcc.lanes(batch))
+    head, *_ = depgraph.census_plain(sk, sp, sid)
+    sw, live = (sp & 1) == 1, sk != depgraph.LANE_PAD
+    for x, y in zip(dgcc.relax(head, sid, sw, live, b, levels),
+                    dgcc.relax_plain(head, sid, sw, live, b, levels)):
+        assert torch.equal(x, y)
+    cfg = SimpleNamespace(dgcc_levels=levels)
+    out = dgcc.dgcc_levels(cfg, batch)
+    monkeypatch.setattr(depgraph, "lane_sort",
+                        lambda k, p, t, n: depgraph.lane_sort_plain(k, p, t))
+    monkeypatch.setattr(depgraph, "census", depgraph.census_plain)
+    monkeypatch.setattr(dgcc, "relax", dgcc.relax_plain)
+    outp = dgcc.dgcc_levels(cfg, batch)
+    for x, y in zip(out, outp):
+        assert torch.equal(x, y)
+
+
+REPAIR_YCSB = ["--epoch_batch=2048", "--max_txn_in_flight=8192",
+               "--synth_table_size=65536", "--zipf_theta=0.9",
+               "--read_perc=0.1", "--write_perc=0.9",
+               "--conflict_buckets=8192", "--field_per_tuple=2",
+               "--watermark_buckets=4096"]
+
+
+@pytest.mark.parametrize("path,flags", [
+    (f"{alg}+R{r}", [f"--cc_alg={alg}", "--repair=true",
+                     f"--repair_rounds={r}"])
+    for alg, r in (("OCC", 2), ("OCC", 0), ("NO_WAIT", 1), ("WAIT_DIE", 2),
+                   ("TIMESTAMP", 2), ("MVCC", 2), ("MAAT", 2))] + [
+    ("DGCC", ["--cc_alg=DGCC"]),
+    ("DGCC", ["--cc_alg=DGCC", "--zipf_theta=0.99", "--sim_full_row=true"])])
+def test_repair_and_dgcc_epochs_through_kernels_match_plain(dev, path,
+                                                            flags):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    cfg = Config.from_args(REPAIR_YCSB + flags)
+    wk = ycsb.YCSBWorkload(cfg, device=dev)
+    wp = ycsb.YCSBWorkload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    for nm, kern in all_kernels().items():
+        want = 4 * PATH_LAUNCHES[path].get(nm, 0)
+        assert kern.launches == before[nm] + want, nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    _same_leaves(sk, sp)
+    st = {k: int(v.sum()) for k, v in sk.stats.items()}
+    if path.startswith("DGCC"):
+        assert st["total_txn_abort_cnt"] == 0 and st["dgcc_wave_max"] > 1
+    elif path.endswith("R0"):
+        assert st["rep_salvaged_cnt"] == 0
+    else:
+        assert st["total_txn_abort_cnt"] == st["rep_fallback_cnt"]
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("TPCC_SWEEP+R2", ["--cc_alg=OCC", "--escrow_sweep=false",
+                       "--repair=true", "--repair_rounds=2"]),
+    ("TPCC_TO+R2", ["--cc_alg=TIMESTAMP", "--escrow_sweep=false",
+                    "--repair=true", "--repair_rounds=2"]),
+    ("TPCC_SWEEP_IDX+R1", ["--cc_alg=NO_WAIT", "--escrow_sweep=false",
+                           "--repair=true", "--repair_rounds=1",
+                           "--tpcc_order_index=true"]),
+    ("TPCC_DGCC", ["--cc_alg=DGCC"])])
+def test_tpcc_repair_and_dgcc_epochs_through_kernels_match_plain(dev, path,
+                                                                 flags):
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    cfg, wk = _tpcc(dev, TPCC_SMALL + flags)
+    _, wp = _tpcc(dev, TPCC_SMALL + flags)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    for nm, kern in all_kernels().items():
+        want = 4 * PATH_LAUNCHES[path].get(nm, 0)
+        assert kern.launches == before[nm] + want, nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    _same_leaves(sk, sp)
