@@ -59,7 +59,15 @@ paths drive it:
 * DGCC — ``dgcc_contention``'s cells (the same base at theta 0, 0.6,
   0.9 and 0.99, and at 30% writes) and TPC-C at 4 warehouses: the lane
   sort K15a, its census K15b and the wave relaxation K16, then 32
-  chained passes through K10.
+  chained passes through K10;
+* the metrics and audit planes — ``--metrics=true`` (the conflict
+  density K13b) and ``--audit=true`` with the reference's 2^16 audit
+  buckets and 4,096-edge cap (K17's lane build, K15a at the audit's
+  positions, K15c's scans and compaction, K17's stamp pass): OCC, MVCC
+  and CALVIN at ``ycsb_skew``, TPU_BATCH at TPC-C 4 warehouses, DGCC at
+  theta 0.9 and OCC at ``repair_ablation`` rounds 2, at
+  ``audit_cadence`` 1 (OCC and CALVIN also at the default 8), OCC with
+  ``audit_mutate``, and the metrics alone on the forwarding main path.
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -105,6 +113,14 @@ Phases (any error or mismatch exits non-zero and prints no result):
                yardstick); K15a, K15b and K16 on the lanes of real
                ``dgcc_contention`` epochs at theta 0.6, 0.9 and 0.99
                (40,960 doubled lanes; ``torch.sort`` K15a's yardstick).
+               K13b on a metered OCC ``ycsb_skew`` epoch and on the
+               forwarding batch of 65,536 (``torch.bincount`` + gathers
+               the yardstick); K17, K15a, K15c-scan and K15c-compact on
+               one audited epoch of each slice-8 configuration
+               (``argsort``, ``torch.sort``, ``cumsum`` + ``index_copy_``
+               and two ``scatter_reduce_`` the yardsticks), and K15a's
+               wide mode on an audited DGCC epoch at ``epoch_batch =
+               16384``.
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -146,7 +162,20 @@ Phases (any error or mismatch exits non-zero and prints no result):
                3 plain epochs at theta 0.9 and at TPC-C 4 wh; one epoch
                against serial execution in rank order; one repair and
                one DGCC epoch under torch's sync debug mode set to raise
-               (no host sync); the cost of an empty DGCC pass.
+               (no host sync); the cost of an empty DGCC pass.  Slice 8:
+               3 kernel epochs equal 3 plain epochs (stamp tables
+               included) for each audited configuration at cadence 1,
+               OCC at cadence 8 (epoch 0 audited, 1-2 skipped) and OCC
+               with ``audit_mutate``; a numpy oracle (serial per exact
+               key) of one audited epoch per visibility rule — level 0,
+               forwarding, chained levels and waves, repair rounds,
+               MVCC's rings — for the edge multiset, ``cnt``, ``rdig``,
+               ``vdig`` and every stamp; armed and off epochs leave the
+               same rows; three sync-free armed epochs (two skipped, one
+               audited); the mutation's excess witnesses only in its
+               window's epochs; OCC's density over 12 epochs at theta
+               0.6 / 0.9 / 0.99 ranked like its aborts (B = 2,048, 2^16
+               buckets over 2^16 rows, the reference test's sizing).
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
                both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
                WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
@@ -159,6 +188,11 @@ Phases (any error or mismatch exits non-zero and prints no result):
                may overflow its index, the chained ones never abort);
                ``repair_ablation``'s cells (salvages at rounds >= 1, none
                at 0) and ``dgcc_contention``'s (no abort, a wave past 0);
+               the slice-8 cells (density > 0, audit edges > 0 where
+               reads forward or chain, the mutated OCC run's witnesses
+               above the clean run's; OCC's density per validated txn
+               at theta 0.6 / 0.9 / 0.99 and the armed txn/s beside the
+               off runs' written down);
                the ``[summary]``
                numbers and committed txn/s, the TPU_BATCH / OCC ratio
                (``bench.py``'s ``vs_baseline``); with counts zeroed just
@@ -176,9 +210,14 @@ forwarding mode and of OCC, NO_WAIT, MVCC, MAAT (``ycsb_skew`` and
 ``ycsb_hot``), SIMPLE and IDX_BTREE in fingerprint mode, of TPC-C
 (TPU_BATCH at 64 warehouses with the ORDER index off and on, NO_WAIT
 at 4), of PPS (TPU_BATCH, OCC), of OCC with repair (rounds 2) and of
-DGCC at theta 0.9: host and wall time per epoch, device time by kernel
-and the device's idle share; for TPC-C, PPS, repair and DGCC also the
-host syncs in one epoch and the host's hot spots (cProfile).
+DGCC at theta 0.9 and of the audited OCC ``ycsb_skew`` cell (cadence
+1): host and wall time per epoch, device time by kernel and the
+device's idle share; for TPC-C, PPS, repair, DGCC and the audited cell
+also the host syncs in one epoch and the host's hot spots (cProfile).
+
+``--audit-overhead`` runs only the armed-against-off comparison of OCC
+and CALVIN at ``ycsb_skew``: host milliseconds per epoch off, with the
+metrics alone, and audited at cadence 8 and 1, in turns in one process.
 
 ``--order-index-window`` runs only the 64-warehouse TPU_BATCH cell of
 ``tpcc_order_index`` at ``paper_base``'s 10 s + 30 s windows and reports
@@ -276,6 +315,14 @@ KERNELS = {
                        "deneva_tpu/cc/depgraph.py:63"),
     "K16_dgcc_relax": ("deneva_tpu_torch/csrc/depgraph.cu",
                        "deneva_tpu/cc/dgcc.py:77"),
+    "K13b_conflict_density": ("deneva_tpu_torch/csrc/audit.cu",
+                              "deneva_tpu/cc/base.py:228"),
+    "K15c_audit_scans": ("deneva_tpu_torch/csrc/audit.cu",
+                         "deneva_tpu/cc/depgraph.py:81"),
+    "K15c_compact_edges": ("deneva_tpu_torch/csrc/audit.cu",
+                           "deneva_tpu/cc/depgraph.py:115"),
+    "K17_audit_observe": ("deneva_tpu_torch/csrc/audit.cu",
+                          "deneva_tpu/cc/base.py:414"),
 }
 # kernels that no reference path launches: their launches come from the
 # oracle check that probes them, and the kernels line marks them
@@ -468,12 +515,46 @@ PATH_LAUNCHES.update({
                   "K14c_scatter_add": 5 * DGCC_PASSES,
                   "K14d_append": 4 * DGCC_PASSES},
 })
+# the metrics plane: K13b once an epoch; the audit plane: K17's lane
+# build, K15a's sort (wide positions), K15c's scans and compaction and
+# K17's stamp pass once an epoch, on the cadence or off it (each reads the
+# device gate); audit_mutate adds K13a's launch on the write lanes
+_METRICS = {"K13b_conflict_density": 1}
+_AUDIT = {"K17_audit_observe[lanes]": 1, "K15a_lane_sort": 1,
+          "K15c_audit_scans": 1, "K15c_compact_edges": 1,
+          "K17_audit_observe[stamps]": 1}
+
+
+def _armed(path: str, metrics: bool = True, audit: bool = True,
+           mutate: bool = False) -> dict:
+    out = dict(PATH_LAUNCHES[path])
+    for on, extra in ((metrics, _METRICS), (audit, _AUDIT),
+                      (mutate, {"K13a_repair_frontier": 1})):
+        if on:
+            for k, v in extra.items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+PATH_LAUNCHES.update({
+    "OCC+A": _armed("OCC"), "OCC+A+M": _armed("OCC", mutate=True),
+    "CALVIN+A": _armed("CALVIN"), "MVCC+A": _armed("MVCC"),
+    "DGCC+A": _armed("DGCC"), "OCC+R2+A": _armed("OCC+R2"),
+    "TPCC_CHAINED+A": _armed("TPCC_CHAINED"),
+    "TPCC_DGCC+A": _armed("TPCC_DGCC"),
+    "TPU_BATCH+D": _armed("TPU_BATCH", audit=False),
+    "OCC+D": _armed("OCC", audit=False),
+    "TPCC_SWEEP+A": _armed("TPCC_SWEEP"),
+    "TIMESTAMP+A": _armed("TIMESTAMP"),
+})
 # paths whose runs must abort, and paths that may (TPC-C's and PPS's
 # sweep backends under escrow abort only on the rows they order; repair
 # salvages some or all losers); the others never abort
-ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT")
+ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT",
+            "OCC+A", "OCC+A+M", "MVCC+A", "OCC+D", "TIMESTAMP+A")
 MAY_ABORT = ("TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT", "PPS_SWEEP", "PPS_TO",
-             "PPS_MAAT") + tuple(p for p in PATH_LAUNCHES if "+R" in p)
+             "PPS_MAAT", "TPCC_SWEEP+A") \
+    + tuple(p for p in PATH_LAUNCHES if "+R" in p)
 
 
 @contextlib.contextmanager
@@ -521,9 +602,14 @@ def plain_path(wl):
              (base, "committed_write_frontier",
               base.committed_write_frontier_plain),
              (depgraph, "lane_sort",
-              lambda k, p, t, n: depgraph.lane_sort_plain(k, p, t)),
+              lambda k, p, t, n, **kw: depgraph.lane_sort_plain(k, p, t)),
              (depgraph, "census", depgraph.census_plain),
-             (dgcc, "relax", dgcc.relax_plain)]
+             (dgcc, "relax", dgcc.relax_plain),
+             (base, "conflict_density", base.conflict_density_plain),
+             (base, "audit_lanes", base.audit_lanes_plain),
+             (base, "audit_stamps", base.audit_stamps_plain),
+             (depgraph, "audit_scans", depgraph.audit_scans_plain),
+             (depgraph, "compact_edges", depgraph.compact_edges_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -3225,7 +3311,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
     print(f"[profile] {mode}: host {host / n * 1e3:.4f} ms/epoch, wall "
           f"{wall / n * 1e3:.4f} ms/epoch ({n} epochs, no profiler)",
           flush=True)
-    if mode.startswith(("TPCC", "PPS", "OCC repair", "DGCC")):
+    if mode.startswith(("TPCC", "PPS", "OCC repair", "DGCC",
+                        "OCC ycsb_skew audited")):
         st = host_hot_spots(eng, st, mode)
     m = 50
     with profile(activities=[ProfilerActivity.CPU,
@@ -3256,7 +3343,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
             "lookup_kernel", "sort_rows", "scatter_add_", "append_kernel",
             "tpcc_generate", "merge_rank", "merge_place", "probe_kernel",
             "pps_generate", "wrote_kernel", "lanes_kernel", "lane_pack",
-            "lane_unpack", "census_", "relax_kernel")
+            "lane_unpack", "census_", "relax_kernel", "density_",
+            "rank_kernel", "compact_", "observe_")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -3302,6 +3390,669 @@ def order_index_window(dev, card: str) -> None:
           f"{time.monotonic() - t:.1f} s (card {card})", flush=True)
 
 
+# -- slice 8: the metrics and audit planes -----------------------------------
+
+ARMED = {"audit": True, "metrics": True}
+AUDIT_PIECES = (("base", "audit_lanes"), ("depgraph", "lane_sort"),
+                ("depgraph", "audit_scans"), ("depgraph", "compact_edges"),
+                ("base", "audit_stamps"))
+
+
+def audited(cfg_fn, *a, cadence: int = 1, **kw):
+    """``cfg_fn``'s configuration with the audit (``audit_cadence``, the
+    reference's 2^16 buckets and 4,096-edge cap) and the metrics armed."""
+    return cfg_fn(*a, audit=True, metrics=True, audit_cadence=cadence, **kw)
+
+
+def slice8_cells(cadence: int = 1) -> dict:
+    """The audited configurations at full width: OCC, MVCC and CALVIN at
+    ``ycsb_skew`` (theta 0.9), TPU_BATCH at TPC-C 4 wh, DGCC at theta 0.9
+    (32 levels) and OCC at ``repair_ablation`` rounds 2."""
+    return {"OCC ycsb_skew": ("OCC+A", audited(skew_config, False, "OCC",
+                                                cadence=cadence)),
+            "CALVIN ycsb_skew": ("CALVIN+A", audited(
+                skew_config, False, "CALVIN", cadence=cadence)),
+            "TPU_BATCH tpcc 4wh": ("TPCC_CHAINED+A", audited(
+                tpcc_config, 4, cadence=cadence)),
+            "DGCC theta 0.9": ("DGCC+A", audited(dgcc_config, 0.9,
+                                                  cadence=cadence)),
+            "OCC repair rounds 2": ("OCC+R2+A", audited(
+                repair_config, "OCC", 2, cadence=cadence)),
+            "MVCC ycsb_skew": ("MVCC+A", audited(skew_config, False, "MVCC",
+                                                  cadence=cadence))}
+
+
+def make_engine(dev, cfg):
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads import get_workload
+    return Engine(cfg, get_workload(cfg, device=dev))
+
+
+def _clone_args(a):
+    """The arguments with each dict of tensors (a stamp table) cloned."""
+    return tuple({f: t.clone() for f, t in x.items()}
+                 if isinstance(x, dict) else x for x in a)
+
+
+@contextlib.contextmanager
+def grab_pieces(specs, calls: dict):
+    """Record (args, kwargs) of every call of each ``(module, name)`` and
+    run it; a stamp table argument is cloned first (K17 updates it in
+    place)."""
+    saved = []
+    for mod, name in specs:
+        real = getattr(mod, name)
+
+        def grab(*a, _real=real, _name=name, **k):
+            calls.setdefault(_name, []).append((_clone_args(a), k))
+            return _real(*a, **k)
+        saved.append((mod, name, real))
+        setattr(mod, name, grab)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def _equal_out(x, y) -> bool:
+    if isinstance(x, dict):
+        return all(torch.equal(x[f], y[f]) for f in x)
+    if isinstance(x, (tuple, list)):
+        return all(_equal_out(u, v) for u, v in zip(x, y))
+    return torch.equal(x, y)
+
+
+def phase_slice8_kernels(dev, rec: dict, card: str) -> None:
+    """K13b on a metered OCC ``ycsb_skew`` epoch and on the forwarding main
+    path's 65,536-txn batch; K17 (both launches), K15a, K15c-scan and
+    K15c-compact on the inputs of one audited epoch of every slice-8
+    configuration, and K15a in its wide mode on an audited DGCC epoch at
+    ``epoch_batch=16384`` (the reference's bound).  Each exact against
+    its plain version; the OCC epoch's times (and the forwarding batch's
+    for K13b) go into the kernels line."""
+    from deneva_tpu_torch.cc import base, depgraph
+    from deneva_tpu_torch.ops.hashing import bucket_hash, combine_key
+    mods = {"base": base, "depgraph": depgraph}
+    # K13b
+    for label, cfg in (("OCC ycsb_skew", skew_config(False, "OCC",
+                                                     metrics=True)),
+                       ("forwarding 65,536", config(False, metrics=True))):
+        eng = make_engine(dev, cfg)
+        st = eng.run(eng.init_state(), 5)
+        calls: dict = {}
+        with grab_pieces(((base, "conflict_density"),), calls):
+            st = eng.step(st)
+        torch.cuda.synchronize()
+        (c, bt, owner, arm), _ = calls["conflict_density"][0]
+        got = base.conflict_density(c, bt, owner, arm)
+        want = base.conflict_density_plain(c, bt, owner, arm)
+        if not torch.equal(got, want):
+            fail(f"K13b {label}: differs from the plain version")
+        b, a = bt.keys.shape
+        k = c.conflict_buckets
+        bk = bucket_hash(combine_key(bt.table_ids, bt.keys), k).reshape(
+            -1).long()
+        v = bt.valid.reshape(-1) & bt.active[:, None].expand(b, a).reshape(-1)
+        w = v & bt.is_write.reshape(-1)
+
+        def lib():
+            wc = torch.bincount(bk, weights=w.float(), minlength=k)
+            uc = torch.bincount(bk, weights=v.float(), minlength=k)
+            return wc[bk], uc[bk]
+        r = {"max_abs_err": max_abs(got, want),
+             "ms": cuda_ms(lambda: base.conflict_density(c, bt, owner, arm)),
+             "plain_ms": cuda_ms(lambda: base.conflict_density_plain(
+                 c, bt, owner, arm), iters=3, warmup=1),
+             "library_ms": cuda_ms(lib)}
+        # lanes: table id, key and owner (4 B), valid, read and write
+        # flags (1 B); the txn flags; P counts out; the own-row walk's
+        # compares
+        bound(r, b * a * 15 + b + 4 * got.numel(), 2 * b * a * a)
+        print(f"[K13b] {label}: B={b} A={a} K={k} contending lanes "
+              f"{int(got.sum())} of {int(v.sum())}; {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, bincount + gathers {r['library_ms']:.4f}"
+              f", bound {r['bound_ms']:.6f}) (card {card})", flush=True)
+        if label.startswith("forwarding"):
+            rec["K13b_conflict_density"].update(r)
+        del eng, st, calls
+        torch.cuda.empty_cache()
+    print_kernel("K13b_conflict_density", rec["K13b_conflict_density"], card)
+    # K17, K15a, K15c on real audited epochs
+    specs = [(mods[m], n) for m, n in AUDIT_PIECES]
+    for label, (_path, cfg) in slice8_cells().items():
+        eng = make_engine(dev, cfg)
+        st = eng.run(eng.init_state(), 10)
+        calls = {}
+        with grab_pieces(specs, calls):
+            st = eng.step(st)
+        torch.cuda.synchronize()
+        kern = {"audit_lanes": base.audit_lanes,
+                "lane_sort": depgraph.lane_sort,
+                "audit_scans": depgraph.audit_scans,
+                "compact_edges": depgraph.compact_edges,
+                "audit_stamps": base.audit_stamps}
+        plain = {"audit_lanes": base.audit_lanes_plain,
+                 "lane_sort": lambda k, p, t, n, **kw:
+                 depgraph.lane_sort_plain(k, p, t),
+                 "audit_scans": depgraph.audit_scans_plain,
+                 "compact_edges": depgraph.compact_edges_plain,
+                 "audit_stamps": base.audit_stamps_plain}
+        outs = {}
+        for nm in kern:
+            a, k = calls[nm][0]
+            x = kern[nm](*_clone_args(a), **k)
+            y = plain[nm](*_clone_args(a), **k)
+            if nm == "audit_lanes":
+                # dead lanes: the kernel writes position 0, which no
+                # output reads
+                live = x[0] != depgraph.LANE_PAD
+                same = torch.equal(x[0], y[0]) and torch.equal(x[2], y[2]) \
+                    and torch.equal(x[1][live], y[1][live])
+            else:
+                same = _equal_out(x, y)
+            if not same:
+                fail(f"slice 8 {label}: {nm} differs from the plain version")
+            outs[nm] = x
+        bt, committed, order, lvl, ovis = calls["audit_lanes"][0][0][:5]
+        b, a = bt.keys.shape
+        n2 = 2 * b * a
+        flags, e2, sbk, obs = outs["audit_scans"]
+        edges, ebkt, cnt, dropped, wit = outs["compact_edges"]
+        kept = min(int(cnt), eng.cfg.audit_edges_max)
+        stamps = calls["audit_stamps"][0][0][0]
+        kb = eng.cfg.audit_buckets
+        ring = "vts" in stamps
+        h = stamps["vts"].shape[1] if ring else 0
+        sk, sp, sid = outs["lane_sort"]
+        keys2, pos2, tid2 = calls["lane_sort"][0][0][:3]
+        epoch = calls["audit_stamps"][0][0][7]
+        new_st = base.audit_stamps_plain(stamps, sk, sp, sid, sbk, obs,
+                                         bt.ts, epoch)[0]
+        n_upd = int((new_st["epoch"] == epoch).sum())
+        n_obs = int(obs.sum())
+        st_t = {f: t.clone() for f, t in stamps.items()}
+        okey = torch.where(committed, order, 2**31 - 1)
+        slot = torch.cumsum(flags.to(torch.int32), 0) - 1
+        tgt = torch.where(flags, torch.clamp(slot, max=eng.cfg.audit_edges_max),
+                          eng.cfg.audit_edges_max).long()
+        exp = torch.full((eng.cfg.audit_edges_max + 1,), -1,
+                         dtype=torch.int32, device=dev)
+        wl = ((sp & 1) == 1) & (sk != depgraph.LANE_PAD)
+        sbl = sbk.long()
+        wv = torch.where(wl, sp + 1, 0)
+        top0 = torch.zeros(kb, dtype=torch.int32, device=dev)
+        wid0 = torch.zeros_like(top0)
+        sid1 = torch.where(wl, sid + 1, 0)
+        n_lanes = int((sk != depgraph.LANE_PAD).sum())
+        rows = {
+            "K17_audit_observe[lanes]": (
+                lambda: base.audit_lanes(bt, committed, order, lvl, ovis),
+                lambda: base.audit_lanes_plain(bt, committed, order, lvl,
+                                               ovis),
+                lambda: torch.argsort(okey, stable=True),
+                b * a * 12 + b * 9 + n2 * 16, b * b),
+            "K15a_lane_sort": (
+                lambda: depgraph.lane_sort(keys2, pos2, tid2, b,
+                                           **calls["lane_sort"][0][1]),
+                lambda: depgraph.lane_sort_plain(keys2, pos2, tid2),
+                lambda: torch.sort(keys2 * (1 << 31) + pos2.to(torch.int64)),
+                32 * n2, n2),
+            "K15c_audit_scans": (
+                lambda: depgraph.audit_scans(sk, sp, sid, kb),
+                lambda: depgraph.audit_scans_plain(sk, sp, sid, kb), None,
+                n2 * 16 + 2 * n2 * 5 + n2 * 5, 10 * n2),
+            "K15c_compact_edges": (
+                lambda: depgraph.compact_edges(flags, e2, sbk, lvl,
+                                               eng.cfg.audit_edges_max),
+                lambda: depgraph.compact_edges_plain(
+                    flags, e2, sbk, lvl, eng.cfg.audit_edges_max),
+                lambda: (torch.cumsum(flags, 0),
+                         exp.index_copy_(0, tgt, e2)),
+                2 * n2 + kept * 16 + eng.cfg.audit_edges_max * 8 + 12,
+                2 * n2),
+            # the lanes (key 8 B; position, id, bucket 4 B; observation
+            # 1 B), the stamps read whole for vdig and written where a
+            # bucket updates, the rings read at the observed buckets and
+            # written where they update, the two digests
+            "K17_audit_observe[stamps]": (
+                lambda: base.audit_stamps(st_t, sk, sp, sid, sbk, obs,
+                                          bt.ts, epoch),
+                lambda: base.audit_stamps_plain(stamps, sk, sp, sid, sbk,
+                                                obs, bt.ts, epoch),
+                lambda: (top0.scatter_reduce_(0, sbl, wv, "amax"),
+                         wid0.scatter_reduce_(0, sbl, sid1, "amax")),
+                n2 * 21 + b * 4 + kb * 8 + n_upd * 8
+                + (n_obs * h * 12 + n_upd * 16 if ring else 0) + 8,
+                n2 + kb)}
+        line = []
+        for nm, (fn, pl, lib, nbytes, ops) in rows.items():
+            r = {"max_abs_err": 0, "ms": cuda_ms(fn),
+                 "plain_ms": cuda_ms(pl, iters=3, warmup=1),
+                 "library_ms": None if lib is None else cuda_ms(lib)}
+            bound(r, nbytes, ops)
+            line.append(f"{nm} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                        f"library {r['library_ms']}, bound "
+                        f"{r['bound_ms']:.6f})")
+            if label == "OCC ycsb_skew" and nm != "K15a_lane_sort":
+                rec[nm].update(r)
+        print(f"[slice8-kernels] {label} epoch 11: B={b} A={a} lanes={n2} "
+              f"live={n_lanes} pos_max={int(pos2.max())} observed={n_obs} "
+              f"buckets_stamped={n_upd} edges={int(cnt)} "
+              f"dropped={int(dropped)} witnesses={int(wit)} rings={ring}: "
+              + "; ".join(line) + f" (card {card})", flush=True)
+        del eng, st, calls, outs
+        torch.cuda.empty_cache()
+    for nm in ("K17_audit_observe[lanes]", "K15c_audit_scans",
+               "K15c_compact_edges", "K17_audit_observe[stamps]"):
+        print_kernel(nm, rec[nm], card)
+    k15a_wide(dev, card)
+
+
+def k15a_wide(dev, card: str, batch: int = 16384) -> None:
+    """K15a's wide mode on an audited DGCC epoch at the reference's bound
+    of ``epoch_batch`` (16,384): 32 levels of positions take 21 bits and
+    the txn ids 14, past the packed word's 32."""
+    from deneva_tpu_torch.cc import depgraph
+    cfg = audited(dgcc_config, 0.9).replace(epoch_batch=batch,
+                                             max_txn_in_flight=4 * batch)
+    eng = make_engine(dev, cfg)
+    st = eng.run(eng.init_state(), 2)
+    calls = {}
+    with grab_pieces(((depgraph, "lane_sort"),), calls):
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    (keys2, pos2, tid2, nt), kw = calls["lane_sort"][1]   # the audit's
+    got = depgraph.lane_sort(keys2, pos2, tid2, nt, **kw)
+    if not _equal_out(got, depgraph.lane_sort_plain(keys2, pos2, tid2)):
+        fail("K15a wide: differs from the plain version")
+    pb = (kw["pos_bound"] - 1).bit_length()
+    tb = (nt - 1).bit_length()
+    if pb + tb <= 32:
+        fail(f"K15a wide: {pb} + {tb} bits fit the packed word")
+    ms = cuda_ms(lambda: depgraph.lane_sort(keys2, pos2, tid2, nt, **kw))
+    print(f"[K15a-wide] audited DGCC epoch at B={batch}: {keys2.numel()} lanes, "
+          f"pos {pb} + tid {tb} bits > 32: wide sort exact, {ms:.4f} ms "
+          f"(card {card})", flush=True)
+    del eng, st, calls
+    torch.cuda.empty_cache()
+
+
+# -- the numpy audit oracle ----------------------------------------------------
+
+def np_ident(tables, keys):
+    """combine_key in numpy (uint32)."""
+    with np.errstate(over="ignore"):
+        return (np.asarray(keys).astype(np.uint32) * np.uint32(2654435761)) \
+            ^ (np.asarray(tables).astype(np.uint32) * np.uint32(0x9E3779B9))
+
+
+def np_hash(ident, k):
+    """bucket_hash(ident, k, family=0) in numpy."""
+    with np.errstate(over="ignore"):
+        h = np.asarray(ident).astype(np.uint32) ^ np.uint32(2654435761)
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h *= np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    return (h & np.uint32(k - 1)).astype(np.int64)
+
+
+def audit_oracle(bt, committed, order, lvl, order_vis, stamps, epoch, cfg):
+    """One audited epoch serially per exact key, in numpy: each key's
+    committed lanes by visibility position; a read's wr source is the
+    latest writer before it and its rw target the first writer after it,
+    a write's ww source the latest writer before it (self edges dropped);
+    reads with no writer before them digest the pre-epoch stamps (under
+    MVCC the newest ring boundary <= their ts); each audit bucket's new
+    stamp is its latest writer.  Returns (edge multiset, rdig, new
+    stamps, vdig)."""
+    from collections import Counter
+    t = {f: getattr(bt, f).cpu().numpy() for f in
+         ("table_ids", "keys", "is_read", "is_write", "valid", "ts")}
+    of = None if bt.order_free is None else bt.order_free.cpu().numpy()
+    com, order, lvl = (x.cpu().numpy() for x in (committed, order, lvl))
+    st = {f: v.cpu().numpy().copy() for f, v in stamps.items()}
+    b, a = t["keys"].shape
+    okey = np.where(com, order.astype(np.int64), 2**31 - 1)
+    opos = np.empty(b, np.int64)
+    opos[np.lexsort((np.arange(b), okey))] = np.arange(b)
+    band = lvl.astype(np.int64) * (b + 2)
+    wpos = (band + 1 + opos) * 2 + 1
+    rpos = (band + 1 + opos) * 2 if order_vis else band * 2
+    cm = t["valid"] & com[:, None]
+    if of is not None:
+        cm &= ~of
+    ident = np_ident(t["table_ids"], t["keys"])
+    groups: dict = {}
+    for i, s in zip(*np.nonzero(cm)):
+        key = int(ident[i, s])
+        if key == 0xFFFFFFFF:                  # the dead sentinel
+            continue
+        g = groups.setdefault(key, [])
+        if t["is_read"][i, s]:
+            g.append((int(rpos[i]), 0, int(i)))
+        if t["is_write"][i, s]:
+            g.append((int(wpos[i]), 1, int(i)))
+    kb = cfg.audit_buckets
+    edges = Counter()
+    m = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+    rdig = 0
+    last = {}                                  # bucket -> (pos, writer)
+    for key, lanes in groups.items():
+        lanes.sort(key=lambda x: x[0])
+        bk = int(np_hash(key, kb))
+        prev = [-1] * len(lanes)
+        w = -1
+        for j, (_p, isw, tid) in enumerate(lanes):
+            prev[j] = w
+            if isw:
+                w = tid
+        nxt = -1
+        for j in range(len(lanes) - 1, -1, -1):
+            pos, isw, tid = lanes[j]
+            if not isw and nxt >= 0 and nxt != tid:
+                edges[(2, tid, nxt)] += 1
+            if prev[j] >= 0 and prev[j] != tid:
+                edges[(0 if isw else 1, prev[j], tid)] += 1
+            if isw:
+                nxt = tid
+                if pos > last.get(bk, (-1, -1))[0]:
+                    last[bk] = (pos, tid)
+            elif prev[j] < 0:
+                if "vts" in st:
+                    ring = st["vts"][bk]
+                    ok = (ring >= 0) & (ring <= t["ts"][tid])
+                    sel = int(np.argmax(np.where(ok, ring, -1))) \
+                        if ok.any() else -1
+                    oe = int(st["vepoch"][bk, sel]) if sel >= 0 else -1
+                    ow = int(st["vwriter"][bk, sel]) if sel >= 0 else -1
+                else:
+                    oe, ow = int(st["epoch"][bk]), int(st["writer"][bk])
+                rdig += ((tid * m[0]) ^ (bk * m[1]) ^ ((oe & MASK32) * m[2])
+                         ^ ((ow & MASK32) * m[3])) & MASK32
+    for bk, (_p, wtid) in last.items():
+        st["epoch"][bk] = epoch
+        st["writer"][bk] = wtid
+        if "vts" in st:
+            h = st["vts"].shape[1]
+            s = st["vpos"][bk] % h
+            st["vts"][bk, s] = t["ts"][wtid]
+            st["vepoch"][bk, s] = epoch
+            st["vwriter"][bk, s] = wtid
+            st["vpos"][bk] += 1
+    with np.errstate(over="ignore"):
+        vdig = int(((st["epoch"].astype(np.uint32) * np.uint32(m[0]))
+                    ^ (st["writer"].astype(np.uint32) * np.uint32(m[1])))
+                   .astype(np.uint64).sum()) & MASK32
+    return edges, rdig & MASK32, st, vdig
+
+
+def audit_oracle_epoch(eng, state, label: str, card: str):
+    """One kernel epoch of an audited engine against `audit_oracle`: the
+    exported edges (a multiset; when the cap dropped some, a sub-multiset
+    of the cap's size), ``cnt``, ``rdig``, ``vdig`` and every stamp."""
+    from collections import Counter
+
+    from deneva_tpu_torch.cc import depgraph
+    from deneva_tpu_torch.engine import step as step_mod
+    seen = {}
+    real = step_mod.audit_observe
+
+    def grab(cfg, batch, committed, order, lvl, order_vis, stamps, epoch,
+             n_levels):
+        seen["args"] = (batch, committed, order, lvl, order_vis,
+                        {f: v.clone() for f, v in stamps.items()},
+                        int(epoch))
+        out = real(cfg, batch, committed, order, lvl, order_vis, stamps,
+                   epoch, n_levels)
+        seen["out"] = out
+        return out
+    step_mod.audit_observe = grab
+    try:
+        state = eng.step(state)
+    finally:
+        step_mod.audit_observe = real
+    torch.cuda.synchronize()
+    bt, com, order, lvl, ovis, pre, epoch = seen["args"]
+    stamps, edges, _ebkt, cnt, dropped, vdig, rdig, _wit = seen["out"]
+    want, w_rdig, w_st, w_vdig = audit_oracle(bt, com, order, lvl, ovis, pre,
+                                              epoch, eng.cfg)
+    n = int(cnt)
+    if n != sum(want.values()) or int(rdig) != w_rdig \
+            or int(vdig) != w_vdig:
+        fail(f"audit oracle {label}: cnt {n} rdig {int(rdig)} vdig "
+             f"{int(vdig)} != {sum(want.values())} {w_rdig} {w_vdig}")
+    kept = edges[edges >= 0]
+    have = Counter((int(depgraph.edge_kind(e)), int(depgraph.edge_src(e)),
+                    int(depgraph.edge_dst(e))) for e in kept.cpu())
+    if int(dropped) == 0 and have != want:
+        fail(f"audit oracle {label}: the edge multisets differ")
+    if int(dropped) and (have - want or len(kept) != eng.cfg.audit_edges_max):
+        fail(f"audit oracle {label}: the capped edges are no sub-multiset")
+    for f, v in w_st.items():
+        if not np.array_equal(stamps[f].cpu().numpy(), v):
+            fail(f"audit oracle {label}: stamp table {f} differs")
+    kinds = Counter(k for k, _s, _d in want.elements())
+    print(f"[audit-oracle] {label} epoch {epoch}: {n} edges (ww "
+          f"{kinds[0]}, wr {kinds[1]}, rw {kinds[2]}), dropped "
+          f"{int(dropped)}, {int((lvl > 0).sum())} txns above level 0, "
+          f"rdig {int(rdig)}, vdig {int(vdig)}, "
+          f"{int((w_st['epoch'] == epoch).sum())} buckets stamped (card "
+          f"{card})", flush=True)
+    return state
+
+
+def phase_slice8_epochs(dev, card: str) -> None:
+    """Kernel epochs equal plain epochs for every slice-8 configuration at
+    cadence 1, and OCC at cadence 8 (epoch 0 audited, 1-2 skipped) and
+    with ``audit_mutate``; the numpy audit oracle on one epoch per
+    visibility rule; armed and off OCC epochs leave equal rows; two
+    sync-free armed epochs (one skipped, one audited); the mutation's
+    excess witnesses sit in its window's epochs."""
+    cells = slice8_cells()
+    runs = [(f"{lb} audited", cfg) for lb, (_p, cfg) in cells.items()]
+    runs += [("OCC ycsb_skew audited cadence 8",
+              audited(skew_config, False, "OCC", cadence=8)),
+             ("OCC ycsb_skew audit_mutate", audited(
+                 skew_config, False, "OCC",
+                 audit_mutate="occ-read-skip:1:2"))]
+    oracle = {"OCC ycsb_skew audited": "level 0",
+              "CALVIN ycsb_skew audited": "forwarding",
+              "TPU_BATCH tpcc 4wh audited": "chained levels",
+              "DGCC theta 0.9 audited": "chained waves",
+              "OCC repair rounds 2 audited": "repair rounds",
+              "MVCC ycsb_skew audited": "MVCC rings"}
+    for label, cfg in runs:
+        if cfg.workload.value == "TPCC":
+            eng, st = tpcc_epochs_equal(dev, cfg, 3, label, tag="slice8")
+        else:
+            eng, st = epochs_equal(dev, cfg, 3, label)
+        if label in oracle:
+            st = audit_oracle_epoch(eng, st, f"{label} ({oracle[label]})",
+                                    card)
+        if label == "OCC ycsb_skew audited cadence 8":
+            st = eng.run(st, 3)                       # to epoch 6
+            st = sync_free_epoch(eng, st, "OCC audited, epoch 6 (skipped)")
+            st = sync_free_epoch(eng, st, "OCC audited, epoch 7 (skipped)")
+            st = sync_free_epoch(eng, st, "OCC audited, epoch 8 (audited)")
+        del eng, st
+        torch.cuda.empty_cache()
+    # observation only: armed and off epochs leave the same rows
+    from deneva_tpu_torch.convert import state_leaves
+    states = []
+    for armed in (False, True):
+        eng = make_engine(dev, skew_config(False, "OCC", audit=armed,
+                                           metrics=armed, audit_cadence=1))
+        states.append(state_leaves(eng.run(eng.init_state(), 4)))
+    off, on = states
+    cap = ROWS
+    for path, x in off.items():
+        if path.startswith(("stats/audit_", "stats/conflict_density")):
+            continue
+        y = on[path]
+        if path.startswith("db/") and x.ndim and x.shape[0] > cap:
+            # the trash row takes the losers' writes in an unspecified
+            # order (ROADMAP.md watch item 7)
+            same = torch.equal(x[:cap], y[:cap]) \
+                and torch.equal(x[cap + 1:], y[cap + 1:])
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            fail(f"observation only: leaf {path} differs armed vs off")
+    print(f"[slice8-epochs] OCC ycsb_skew: 4 armed epochs leave every row, "
+          f"pool and verdict counter of the off run ({len(off)} leaves; "
+          f"edges {int(on['stats/audit_edge_cnt'])}, density "
+          f"{int(on['stats/conflict_density'].sum())})", flush=True)
+    del states, off, on
+    torch.cuda.empty_cache()
+    # the mutation's window: from each state of the mutated trajectory,
+    # one clean and one mutated epoch; their witness counts part exactly
+    # on the window's epochs
+    start, count = 3, 2
+    cfg_m = audited(skew_config, False, "OCC",
+                    audit_mutate=f"occ-read-skip:{start}:{count}")
+    eng_m = make_engine(dev, cfg_m)
+    eng_c = make_engine(dev, audited(skew_config, False, "OCC"))
+    st = eng_m.init_state()
+    extra = []
+    for e in range(start + count + 2):
+        sc = eng_c.step(copy.deepcopy(st))
+        sm = eng_m.step(st)
+        d = int(sm.stats["audit_wit_cnt"]) - int(sc.stats["audit_wit_cnt"])
+        extra.append(d)
+        inside = start <= e < start + count
+        if (d > 0) != inside or d < 0:
+            fail(f"audit_mutate: epoch {e} excess witnesses {d}")
+        st = sm
+    print(f"[slice8-mutate] OCC ycsb_skew occ-read-skip:{start}:{count}: "
+          f"excess witnesses per epoch {extra} (window epochs only) (card "
+          f"{card})", flush=True)
+    del eng_m, eng_c, st, sc, sm
+    torch.cuda.empty_cache()
+    density_rank(dev, card)
+
+
+def density_rank(dev, card: str) -> None:
+    """``tests/test_metricsbus.py::test_density_ranks_order_like_abort_
+    rates`` on the card at the paper's batch: OCC, 2,048 txns of 4
+    accesses at 90% writes, 12 epochs from the load, at theta 0.6, 0.9
+    and 0.99; the density summed over the epochs must rank like the
+    aborts.  The reference's rule for that test sizes the bucket space to
+    the table (2^16 buckets over 2^16 rows): with fewer buckets than rows
+    hash-collision mass saturates the signal."""
+    from deneva_tpu_torch.config import Config
+    dens, aborts = [], []
+    for t in (0.6, 0.9, 0.99):
+        cfg = Config(cc_alg="OCC", epoch_batch=SKEW_BATCH,
+                     max_txn_in_flight=2 * SKEW_BATCH,
+                     conflict_buckets=1 << 16, synth_table_size=1 << 16,
+                     req_per_query=4, max_accesses=4, zipf_theta=t,
+                     write_perc=0.9, read_perc=0.1, metrics=True,
+                     seed=7).validate()
+        eng = make_engine(dev, cfg)
+        st = eng.run(eng.init_state(), 12)
+        dens.append(int(st.stats["conflict_density"].sum()))
+        aborts.append(int(st.stats["total_txn_abort_cnt"]))
+        del eng, st
+    if np.argsort(dens).tolist() != np.argsort(aborts).tolist() \
+            or dens[0] >= dens[2]:
+        fail(f"density {dens} ranks unlike aborts {aborts}")
+    print(f"[slice8-density] OCC B={SKEW_BATCH} K=2^16 over 2^16 rows, 12 "
+          f"epochs at theta 0.6 / 0.9 / 0.99: density {dens}, aborts "
+          f"{aborts} (same rank) (card {card})", flush=True)
+    torch.cuda.empty_cache()
+
+
+def slice8_checks(cfg, path: str, label: str, fields: dict, card: str):
+    """The anti-inert checks of an armed run: density above zero; the
+    audit counts edges where the visibility rule forwards or chains, and
+    none is dropped at the reference's cap."""
+    extra = ""
+    if cfg.metrics:
+        if fields["mb_density_total"] <= 0:
+            fail(f"simulate {label}: mb_density_total "
+                 f"{fields['mb_density_total']}")
+        extra += (f" density {fields['mb_density_total']:.0f} "
+                  f"({fields['mb_density_total'] / max(fields['epoch_cnt'], 1):.1f}"
+                  f" per epoch)")
+    if cfg.audit:
+        if path.startswith(("CALVIN", "DGCC", "TPCC_CHAINED")) \
+                and fields["audit_edge_cnt"] <= 0:
+            fail(f"simulate {label}: audit_edge_cnt 0")
+        extra += (f" edges {fields['audit_edge_cnt']:.0f} dropped "
+                  f"{fields['audit_drop_cnt']:.0f} witnesses "
+                  f"{fields['audit_wit_cnt']:.0f}")
+    print(f"[slice8] {label}: {fields['tput']:.1f} txn/s, abort_rate "
+          f"{fields['abort_rate']}{extra} (card {card})", flush=True)
+
+
+def audit_overhead(dev, card: str, n: int = 300) -> None:
+    """``--audit-overhead``: host milliseconds per epoch (wall, the epochs
+    enqueued back to back and one synchronize at the end) of OCC and
+    CALVIN at ``ycsb_skew`` off, with the metrics alone, and armed at
+    ``audit_cadence`` 8 and 1, in turns (off, metrics, 8, 1, 1, 8,
+    metrics, off) in one process on one card, each after 30 warm-up
+    epochs from a fresh load."""
+    order = ("off", "metrics", "cadence 8", "cadence 1")
+    for alg in ("OCC", "CALVIN"):
+        cfgs = {"off": skew_config(False, alg),
+                "metrics": skew_config(False, alg, metrics=True),
+                "cadence 8": audited(skew_config, False, alg, cadence=8),
+                "cadence 1": audited(skew_config, False, alg)}
+        ms = {k: [] for k in order}
+        for label in order + order[::-1]:
+            eng = make_engine(dev, cfgs[label])
+            st = eng.run(eng.init_state(), 30)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st = eng.run(st, n)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t) / n * 1e3)
+            del eng, st
+            torch.cuda.empty_cache()
+        print(f"[audit-overhead] {alg} ycsb_skew ms/epoch over {n} epochs, "
+              f"two turns each: " + "; ".join(
+                  f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
+              + f" (card {card})", flush=True)
+
+
+def slice8_summary(fields: dict, card: str) -> None:
+    """The slice-8 checks across runs: the mutated OCC run names more
+    witnesses than the clean one; OCC's density per validated txn at
+    theta 0.6, 0.9, 0.99 and the txn/s of the armed runs beside the off
+    runs are written down, not gated."""
+    clean = fields["OCC+A OCC ycsb_skew audited cadence 1"]["audit_wit_cnt"]
+    bad = fields["OCC+A+M OCC ycsb_skew audited cadence 1 audit_mutate"][
+        "audit_wit_cnt"]
+    if bad <= clean:
+        fail(f"audit_mutate: {bad} witnesses, clean run {clean}")
+    dens, rates = [], []
+    for t in (0.6, 0.9, 0.99):
+        f = fields[f"OCC+D OCC ycsb_skew theta {t} metrics"]
+        decided = f["total_txn_commit_cnt"] + f["total_txn_abort_cnt"] \
+            + f["defer_cnt"]
+        dens.append(f["mb_density_total"] / max(decided, 1))
+        rates.append(f["abort_rate"])
+    # not gated: 8,192 buckets over 2^24 rows saturate the bucket-space
+    # signal (the reference sizes K >= rows for its ranking test; the
+    # gated ranking runs in `density_rank`)
+    print(f"[slice8] OCC ycsb_skew theta 0.6 / 0.9 / 0.99 (K = 8,192, "
+          f"2^24 rows): density per validated txn "
+          f"{[round(d, 3) for d in dens]}, abort rate {rates}; "
+          f"audit_mutate witnesses {bad:.0f} against {clean:.0f} clean "
+          f"(card {card})", flush=True)
+    for alg, off in (("OCC", "OCC OCC ycsb_skew"),
+                     ("CALVIN", "CALVIN fingerprint")):
+        c8 = fields[f"{alg}+A {alg} ycsb_skew audited cadence 8"]["tput"]
+        c1 = fields[f"{alg}+A {alg} ycsb_skew audited cadence 1"]["tput"]
+        print(f"[slice8-overhead] {alg} ycsb_skew txn/s: off "
+              f"{fields[off]['tput']:.1f}, "
+              f"audit+metrics cadence 8 {c8:.1f}, cadence 1 {c1:.1f} (card "
+              f"{card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3315,6 +4066,10 @@ def main() -> int:
     phase_build()
     if "--order-index-window" in sys.argv:
         order_index_window(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
+    if "--audit-overhead" in sys.argv:
+        audit_overhead(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
         return 0
     rec = {nm: {} for nm in ("K1_sort_lanes", "K2_plan_scans",
@@ -3333,7 +4088,11 @@ def main() -> int:
                              "K19_tpcc_generate", "K14e_index_merge",
                              "K14e_sorted_probe", "K20_pps_generate",
                              "K13a_repair_frontier", "K15a_lane_sort",
-                             "K15b_seg_scans", "K16_dgcc_relax")}
+                             "K15b_seg_scans", "K16_dgcc_relax",
+                             "K13b_conflict_density", "K15c_audit_scans",
+                             "K15c_compact_edges",
+                             "K17_audit_observe[lanes]",
+                             "K17_audit_observe[stamps]")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
@@ -3345,6 +4104,9 @@ def main() -> int:
     phase_slice6_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
     phase_slice7_kernels(dev, rec, info["card"])
+    torch.cuda.empty_cache()
+    phase_slice8_kernels(dev, rec, info["card"])
+    torch.cuda.empty_cache()
     for full in (False, True):
         phase_epochs(dev, full)
         torch.cuda.empty_cache()
@@ -3361,8 +4123,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_launches = phase_slice6_epochs(dev, info["card"])
     phase_slice7_epochs(dev, info["card"])
+    phase_slice8_epochs(dev, info["card"])
     launches: dict[str, int] = {}
     tput = {}
+    fields_of: dict[str, dict] = {}
     win = {"warmup_secs": 1.0, "done_secs": 3.0}
     runs = [("TPU_BATCH", "fingerprint", config(False, **win)),
             ("TPU_BATCH", "full_row", config(True, **win)),
@@ -3435,13 +4199,35 @@ def main() -> int:
     runs += [("DGCC", "DGCC dgcc_contention theta 0.9 writes 0.3",
               dgcc_config(0.9, 0.3, **win)),
              ("TPCC_DGCC", "DGCC tpcc 4wh", tpcc_config(4, "DGCC", **win))]
+    # slice 8: the audited cells at cadence 1 (OCC and CALVIN also at the
+    # default 8, beside their off runs), OCC with the mutation over the
+    # whole run, and the metrics plane alone on the forwarding main path
+    # and on OCC at three skews
+    runs.append(("OCC", "OCC ycsb_skew", skew_config(False, "OCC", **win)))
+    for lb, (path, cfg) in slice8_cells().items():
+        runs.append((path, f"{lb} audited cadence 1",
+                     cfg.replace(warmup_secs=1.0, done_secs=3.0)))
+    for alg, path in (("OCC", "OCC+A"), ("CALVIN", "CALVIN+A")):
+        runs.append((path, f"{alg} ycsb_skew audited cadence 8",
+                     audited(skew_config, False, alg, cadence=8, **win)))
+    runs.append(("OCC+A+M", "OCC ycsb_skew audited cadence 1 audit_mutate",
+                 audited(skew_config, False, "OCC",
+                         audit_mutate="occ-read-skip:0:1000000000", **win)))
+    runs.append(("TPU_BATCH+D", "TPU_BATCH forwarding 65,536 metrics",
+                 config(False, metrics=True, **win)))
+    runs += [("OCC+D", f"OCC ycsb_skew theta {t} metrics",
+              skew_config(False, "OCC", zipf_theta=t, metrics=True, **win))
+             for t in (0.6, 0.9, 0.99)]
     for path, label, cfg in runs:
         mode = "full_row" if cfg.sim_full_row else "fingerprint"
         counts, fields = phase_simulate(dev, cfg, path, f"{path} {label}",
                                         info["card"])
         tput[(path, label)] = fields["tput"]
-        if "+R" in path or "DGCC" in path:
+        if ("+R" in path or "DGCC" in path) and not cfg.audit:
             slice7_checks(cfg, path, label, fields, info["card"])
+        if cfg.metrics or cfg.audit:
+            slice8_checks(cfg, path, label, fields, info["card"])
+        fields_of[f"{path} {label}"] = fields
         for nm, c in counts.items():
             key = nm
             if nm == "K3_forward_execute":
@@ -3455,6 +4241,7 @@ def main() -> int:
           f" ({tput[('TPU_BATCH', 'fingerprint')]:.1f} / "
           f"{tput[('OCC', 'fingerprint')]:.1f}; NOCC "
           f"{tput[('NOCC', 'fingerprint')]:.1f})", flush=True)
+    slice8_summary(fields_of, info["card"])
     if "--profile" in sys.argv:
         for label, cfg in (("fingerprint", config(False)),
                            ("full_row", config(True)),
@@ -3473,7 +4260,9 @@ def main() -> int:
                            ("PPS TPU_BATCH", pps_config()),
                            ("PPS OCC", pps_config("OCC")),
                            ("OCC repair rounds 2", repair_config("OCC", 2)),
-                           ("DGCC theta 0.9", dgcc_config(0.9))):
+                           ("DGCC theta 0.9", dgcc_config(0.9)),
+                           ("OCC ycsb_skew audited cadence 1",
+                            audited(skew_config, False, "OCC"))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []

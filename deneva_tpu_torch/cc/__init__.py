@@ -20,7 +20,10 @@ algorithm, with the reference's flags.  The port registers:
 * NOCC — the oracle that commits every active txn.
 
 The six sweep backends carry a ``repair_rule``, the invalidated-read
-frontier of transaction repair (`engine.repair`).
+frontier of transaction repair (`engine.repair`).  The metrics plane's
+`conflict_density` and the audit plane's `audit_init`, `audit_observe`
+and `audit_mutate_verdict` (`cc.base`) are exported here, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -34,9 +37,14 @@ from deneva_tpu_torch.cc import maat as _maat
 from deneva_tpu_torch.cc import occ as _occ
 from deneva_tpu_torch.cc import timestamp as _ts
 from deneva_tpu_torch.cc import twopl as _twopl
-from deneva_tpu_torch.cc.base import (AccessBatch, Incidence,  # noqa: F401
-                                      Verdict, build_conflict_incidence,
-                                      build_incidence, gate_order_free)
+from deneva_tpu_torch.cc.base import (AUDIT_KEY, AUDIT_RW,  # noqa: F401
+                                      AUDIT_WR, AUDIT_WW, AccessBatch,
+                                      Incidence, Verdict, audit_init,
+                                      audit_levels, audit_mutate_verdict,
+                                      audit_observe,
+                                      build_conflict_incidence,
+                                      build_incidence, conflict_density,
+                                      gate_order_free)
 from deneva_tpu_torch.cc.nocc import validate_nocc
 from deneva_tpu_torch.cc.occ import validate_occ
 from deneva_tpu_torch.config import CCAlg

@@ -18,9 +18,13 @@ path; ``NOCC`` (or ``mode=NOCC``) is the oracle; ``mode=SIMPLE`` and
 ``repair`` (with ``repair_rounds``) salvages the six sweep backends'
 losers within the epoch, and ``DGCC`` (with ``dgcc_levels``) runs the
 dependency-graph wavefront through the chained executor, both on YCSB
-and TPC-C.  A flag that would leave those slices raises in :meth:`Config.validate` and names
-the ROADMAP.md item that brings it; a flag the port does not know at
-all raises in :meth:`Config.from_args`.  Nothing is silently ignored.
+and TPC-C.  ``metrics`` adds the per-partition conflict density to the
+device counters, and ``audit`` (YCSB and TPC-C) the isolation audit
+plane's per-epoch dependency observations and stamp tables, with the
+seeded ``audit_mutate`` fault under OCC.  A flag that would leave
+those slices raises in :meth:`Config.validate` and names the ROADMAP.md
+item that brings it; a flag the port does not know at all raises in
+:meth:`Config.from_args`.  Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -166,10 +170,25 @@ class Config:
     # ---- storage ----
     index_struct: str = "IDX_HASH"
 
+    # ---- metrics and audit planes (the single-node engine's halves) ----
+    metrics: bool = False          # per-partition conflict density into
+    #                                the device counters (cc/base.
+    #                                conflict_density, K13b)
+    metrics_cadence: int = 1       # epochs between the cluster bus's
+    #                                frames (validated; one node has no bus)
+    audit: bool = False            # per-epoch dependency observations of
+    #                                the committed set and the audit stamp
+    #                                tables (cc/base.audit_observe)
+    audit_cadence: int = 8         # epochs between audited epochs
+    audit_edges_max: int = 4096    # per-epoch exported-edge cap; overflow
+    #                                counts as audit_drop_cnt
+    audit_buckets: int = 1 << 16   # hashed width of the audit stamp tables
+    audit_mutate: str = ""         # seeded fault "occ-read-skip:START
+    #                                [:COUNT]": OCC's read check dropped on
+    #                                epochs [START, START + COUNT)
+
     # ---- planes the port does not carry yet (validate rejects them) ----
     elastic: bool = False
-    metrics: bool = False
-    audit: bool = False
     ctrl: bool = False
     ctrl_dgcc: bool = False
     checkpoint_path: str = ""
@@ -179,6 +198,28 @@ class Config:
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw).validate()
+
+    def audit_mutate_spec(self) -> tuple[str, int, int] | None:
+        """Parse audit_mutate 'KIND:START[:COUNT]' into (kind, start,
+        count); None when unset.  COUNT defaults to 1
+        (``deneva_tpu/config.py:979``)."""
+        if not self.audit_mutate:
+            return None
+        parts = self.audit_mutate.split(":")
+        if len(parts) not in (2, 3) or parts[0] != "occ-read-skip":
+            raise ValueError(
+                f"config: audit_mutate {self.audit_mutate!r} must be "
+                "'occ-read-skip:START_EPOCH[:COUNT]'")
+        try:
+            start = int(parts[1])
+            count = int(parts[2]) if len(parts) == 3 else 1
+        except ValueError:
+            raise ValueError(
+                f"config: audit_mutate {self.audit_mutate!r}: START/"
+                "COUNT must be integers")
+        _check(start >= 0 and count >= 1,
+               "audit_mutate needs START >= 0 and COUNT >= 1")
+        return parts[0], start, count
 
     def validate(self) -> "Config":
         # the reference's own checks on these fields
@@ -269,6 +310,46 @@ class Config:
                    "repair re-execution closures are wired for YCSB and "
                    "TPCC (workloads declare re_execute); PPS keeps "
                    "retry-only semantics")
+        # metrics and audit (deneva_tpu/config.py:1341-1400; the
+        # cluster-only checks on node_cnt and dist_protocol have no field
+        # here: the port runs one node)
+        _check(self.metrics_cadence >= 1,
+               "metrics_cadence must be >= 1 (1 frames every epoch)")
+        if self.metrics:
+            _check(self.device_parts == 1,
+                   "the metrics bus's conflict-density fold does not "
+                   "compose with multi-chip execution yet (sharded "
+                   "tables have no single bucket space to fold)")
+        _check(self.audit_cadence >= 1,
+               "audit_cadence must be >= 1 (1 exports every epoch)")
+        _check(self.audit_edges_max >= 64,
+               "audit_edges_max must be >= 64")
+        _check(self.audit_buckets >= 1024
+               and (self.audit_buckets & (self.audit_buckets - 1)) == 0,
+               "audit_buckets must be a power of two >= 1024")
+        if self.audit:
+            _check(self.mode == Mode.NORMAL,
+                   "audit certifies executed state; degraded modes "
+                   "(SIMPLE/NOCC/QRY_ONLY) execute nothing to certify")
+            _check(self.device_parts == 1,
+                   "audit observations do not compose with multi-chip "
+                   "execution yet (the edge derivation is single-device)")
+            _check(self.workload in (WorkloadKind.YCSB, WorkloadKind.TPCC),
+                   "audit is wired for YCSB and TPCC (the workload load "
+                   "path installs the audit stamp tables)")
+            _check(self.epoch_batch <= 16384,
+                   "audit needs epoch_batch <= 16384: exported edges "
+                   "pack (kind, src, dst) merged-batch ranks into 14-bit "
+                   "fields of one int32")
+        else:
+            _check(not self.audit_mutate,
+                   "audit_mutate needs --audit=true (the certifier must "
+                   "be armed to catch the mutation)")
+        if self.audit_mutate:
+            self.audit_mutate_spec()    # raises on a malformed spec
+            _check(self.cc_alg == CCAlg.OCC,
+                   "audit_mutate 'occ-read-skip' weakens OCC's "
+                   "read-set-vs-winner-write-set check; set cc_alg=OCC")
         _check(1 <= self.dgcc_levels <= 256,
                "dgcc_levels must be in [1, 256] (wave budget per epoch; "
                "each relaxation round is two segmented scans inside the "
@@ -323,8 +404,6 @@ _NOT_PORTED = (
     (lambda c: c.device_parts > 1,
      "device_parts > 1", "item 19: mesh + workloads/mc"),
     (lambda c: c.elastic, "elastic", "item 18: cluster runtime"),
-    (lambda c: c.metrics or c.audit,
-     "metrics/audit", "item 16c: metrics bus + audit plane"),
     (lambda c: c.ctrl or c.ctrl_dgcc,
      "ctrl/ctrl_dgcc", "item 16d: control plane + router"),
     (lambda c: bool(c.checkpoint_path) or c.resume,

@@ -12,7 +12,9 @@ dtypes, for leaf-by-leaf comparison:
     stats/<counter>
 
 ``db/<ring>/wts`` is MVCC's per-row `VersionRing`, ``db/ORDER_IDX/{keys,
-slots,cnt}`` TPC-C's `DynamicSortedIndex` under ``tpcc_order_index``;
+slots,cnt}`` TPC-C's `DynamicSortedIndex` under ``tpcc_order_index``,
+``db/__audit__/{epoch,writer}`` (and under MVCC ``vts``, ``vepoch``,
+``vwriter``, ``vpos``) the audit stamp tables under ``audit``;
 ``cc_state`` holds the
 T/O watermarks (``rts``, ``wts``) and MVCC's boundary ring (``his``,
 ``pos``), absent for stateless backends (OCC, 2PL, MAAT, CALVIN,
@@ -41,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from deneva_tpu_torch.cc.base import AUDIT_KEY
 from deneva_tpu_torch.cc.timestamp import MVCCState, TOState
 from deneva_tpu_torch.engine.pool import PoolState
 from deneva_tpu_torch.engine.step import EngineState
@@ -65,6 +68,10 @@ def _db_and_cc(db, cc_state, leaf) -> dict:
     """The ``db/`` and ``cc_state/`` paths of either package's state."""
     out = {}
     for name, tab in db.items():
+        if name == AUDIT_KEY:                     # the audit stamp tables
+            for f, arr in tab.items():
+                out[f"db/{name}/{f}"] = leaf(arr)
+            continue
         if _is_index(tab):
             for f in INDEX_FIELDS:
                 out[f"db/{name}/{f}"] = leaf(getattr(tab, f))
@@ -141,11 +148,15 @@ def _t(a, device, wide: bool = False) -> torch.Tensor:
 
 def from_reference_state(tree, cfg, device) -> EngineState:
     """The port's `EngineState` from the reference's host state: table
-    columns, ``row_cnt``, MVCC's version ring, the T/O state, every pool
-    field, the raw rng key, ``epoch`` and every stats leaf."""
+    columns, ``row_cnt``, MVCC's version ring, the ORDER index, the audit
+    stamp tables, the T/O state, every pool field, the raw rng key,
+    ``epoch`` and every stats leaf."""
     device = torch.device(device)
     db = {}
     for name, tab in tree.db.items():
+        if name == AUDIT_KEY:
+            db[name] = {f: _t(arr, device) for f, arr in tab.items()}
+            continue
         if _is_index(tab):
             db[name] = DynamicSortedIndex(
                 **{f: _t(getattr(tab, f), device) for f in INDEX_FIELDS},

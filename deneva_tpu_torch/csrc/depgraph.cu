@@ -4,14 +4,19 @@
 // lax.sort of the epoch's doubled lanes by (combined key as UNSIGNED 32
 // bits, position) carrying the owning txn id.  Each lane packs into one
 // word  key << (P + T) | pos << T | tid  (pos < 2^P, tid < 2^T, P + T <=
-// 32), and the LSD radix sort of radix.cuh orders its bits [T, P + T +
-// 32): (key, pos) ties are one txn's duplicate lanes with one tid, so the
-// order is fully defined.  The key is the combined key as an unsigned
+// 32), and the stable LSD radix sort of radix.cuh orders its bits [T, P +
+// T + 32): (key, pos) ties keep their lane order, the order of the plain
+// version's stable sort (DGCC's ties are one txn's duplicate lanes; the
+// audit's are level-visibility reads of one key by several txns).  Where
+// P + T > 32 (the audit at B = 16,384 with many levels) the wide mode
+// sorts  key << 32 | pos  by its bits [0, P) and [32, 64) with the tid as
+// the scatter's payload.  The key is the combined key as an unsigned
 // word, so LANE_PAD = 0xFFFFFFFF sorts last (a signed compare would put
-// it first and break every segment).
+// it first and break every segment).  An optional device flag `due`
+// makes every launch return at once (the audit's cadence gate).
 //   Bound: bytes.  One read of the three lane arrays and one write of the
 //   three sorted ones; each radix pass reads the words twice and writes
-//   them once (6 passes at B = 2048).
+//   them once (6 passes at B = 2048 for DGCC, 7 for the audit).
 //
 // K15b replaces :63 segment_bounds, :70 prev_writer (both scans) and the
 // edge census of cc/dgcc.py:111-122: the segment heads from adjacent
@@ -54,30 +59,48 @@ struct SumOp {
 
 // -- K15a -----------------------------------------------------------------
 
+// wide: word = key << 32 | pos, payload = tid; else the packed word.
 __global__ void lane_pack_kernel(const int64_t* __restrict__ keys,
                                  const int32_t* __restrict__ pos,
                                  const int32_t* __restrict__ tid, int n,
-                                 int pos_bits, int tid_bits,
-                                 uint64_t* __restrict__ out) {
+                                 int pos_bits, int tid_bits, int wide,
+                                 const uint8_t* __restrict__ due,
+                                 uint64_t* __restrict__ out,
+                                 int32_t* __restrict__ pay) {
+  if (due != nullptr && !*due) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = (static_cast<uint64_t>(static_cast<uint32_t>(keys[i]))
-            << (pos_bits + tid_bits)) |
-           (static_cast<uint64_t>(static_cast<uint32_t>(pos[i])) << tid_bits) |
-           static_cast<uint64_t>(static_cast<uint32_t>(tid[i]));
+  const uint64_t k = static_cast<uint32_t>(keys[i]);
+  const uint64_t p = static_cast<uint32_t>(pos[i]);
+  if (wide) {
+    out[i] = k << 32 | p;
+    pay[i] = tid[i];
+  } else {
+    out[i] = (k << (pos_bits + tid_bits)) | (p << tid_bits) |
+             static_cast<uint64_t>(static_cast<uint32_t>(tid[i]));
+  }
 }
 
-__global__ void lane_unpack_kernel(const uint64_t* __restrict__ words, int n,
-                                   int pos_bits, int tid_bits,
+__global__ void lane_unpack_kernel(const uint64_t* __restrict__ words,
+                                   const int32_t* __restrict__ pay, int n,
+                                   int pos_bits, int tid_bits, int wide,
+                                   const uint8_t* __restrict__ due,
                                    int64_t* __restrict__ sk,
                                    int32_t* __restrict__ sp,
                                    int32_t* __restrict__ sid) {
+  if (due != nullptr && !*due) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint64_t w = words[i];
-  sk[i] = static_cast<int64_t>(w >> (pos_bits + tid_bits));
-  sp[i] = static_cast<int32_t>((w >> tid_bits) & ((1ull << pos_bits) - 1));
-  sid[i] = static_cast<int32_t>(w & ((1ull << tid_bits) - 1));
+  if (wide) {
+    sk[i] = static_cast<int64_t>(w >> 32);
+    sp[i] = static_cast<int32_t>(w & 0xFFFFFFFFull);
+    sid[i] = pay[i];
+  } else {
+    sk[i] = static_cast<int64_t>(w >> (pos_bits + tid_bits));
+    sp[i] = static_cast<int32_t>((w >> tid_bits) & ((1ull << pos_bits) - 1));
+    sid[i] = static_cast<int32_t>(w & ((1ull << tid_bits) - 1));
+  }
 }
 
 // -- K15b -----------------------------------------------------------------
@@ -281,23 +304,35 @@ __global__ void __launch_bounds__(kRelaxThreads)
 
 }  // namespace
 
-// K15a: sort n lanes (keys int64 in [0, 2^32), pos < 2^pos_bits, tid <
-// 2^tid_bits, pos_bits + tid_bits <= 32) by (key, pos); `words` and `tmp`
-// are n-word scratch, `counts` kRadix * (ceil(n / kSortTile) + 1) uint32.
+// K15a: sort n lanes (keys int64 in [0, 2^32), pos < 2^pos_bits <= 2^31,
+// tid < 2^tid_bits) by (key, pos), ties in lane order.  Packed when
+// pos_bits + tid_bits <= 32, else `wide` (pay / pay_tmp: n int32 each);
+// `words` and `tmp` are n-word scratch, `counts` kRadix * (ceil(n /
+// kSortTile) + 1) uint32; `due` may be null.
 DT_EXPORT int dt_lane_sort(const int64_t* keys, const int32_t* pos,
                            const int32_t* tid, int n, int pos_bits,
-                           int tid_bits, uint64_t* words, uint64_t* tmp,
-                           uint32_t* counts, int64_t* sk, int32_t* sp,
-                           int32_t* sid, void* stream) {
-  if (pos_bits < 1 || tid_bits < 1 || pos_bits + tid_bits > 32) return 1;
+                           int tid_bits, int wide, const uint8_t* due,
+                           uint64_t* words, uint64_t* tmp, int32_t* pay,
+                           int32_t* pay_tmp, uint32_t* counts, int64_t* sk,
+                           int32_t* sp, int32_t* sid, void* stream) {
+  if (pos_bits < 1 || pos_bits > 31 || tid_bits < 1) return 1;
+  if (!wide && pos_bits + tid_bits > 32) return 1;
   cudaStream_t s = dt_stream(stream);
-  lane_pack_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(keys, pos, tid, n,
-                                                     pos_bits, tid_bits,
-                                                     words);
-  const uint64_t* sorted = dt_radix::sort_bits(
-      words, tmp, n, tid_bits, pos_bits + tid_bits + 32, counts, s);
-  lane_unpack_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(sorted, n, pos_bits,
-                                                       tid_bits, sk, sp, sid);
+  lane_pack_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(
+      keys, pos, tid, n, pos_bits, tid_bits, wide, due, words, pay);
+  uint64_t* a = words;
+  uint64_t* b = tmp;
+  int32_t* pa = wide ? pay : nullptr;
+  int32_t* pb = wide ? pay_tmp : nullptr;
+  if (wide) {
+    dt_radix::sort_pairs_bits(a, b, pa, pb, n, 0, pos_bits, counts, s, due);
+    dt_radix::sort_pairs_bits(a, b, pa, pb, n, 32, 64, counts, s, due);
+  } else {
+    dt_radix::sort_pairs_bits(a, b, pa, pb, n, tid_bits,
+                              pos_bits + tid_bits + 32, counts, s, due);
+  }
+  lane_unpack_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(
+      a, pa, n, pos_bits, tid_bits, wide, due, sk, sp, sid);
   return dt_status();
 }
 

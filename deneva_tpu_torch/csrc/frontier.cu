@@ -4,7 +4,10 @@
 // family the bf16 matvec committed[1, B] x w[B, K] with f32 accumulation,
 // compared > 0, gathered at each lane's bucket (family 1's bucket hashed
 // from the lane's key), ANDed across families and masked to the losers'
-// valid, non-order_free read lanes.  Out: bool[B, A].
+// valid, non-order_free read lanes.  Out: bool[B, A].  The lane mask
+// (`is_read`) is the caller's selector: cc/base.py:548
+// audit_mutate_verdict takes the same launch over the write lanes of every
+// txn (all rows as `losers`).
 //
 // The incidence views hold access counts (>= 0), so a column's sum over
 // the committed rows is positive exactly when one committed row holds a

@@ -2,7 +2,10 @@
 // (depgraph.cu): 8-bit digits; per pass a per-tile histogram with
 // warp-aggregated shared atomics, a parallel scan of each digit's row of
 // tile counts, and a stable scatter that ranks lanes with
-// __match_any_sync, so no pass serializes on a hot digit.
+// __match_any_sync, so no pass serializes on a hot digit.  An optional
+// int32 payload rides the scatter (K15a's wide mode), and an optional
+// device flag `due` makes every pass return at once when it is 0 (the
+// audit's cadence gate).
 #pragma once
 
 #include "common.cuh"
@@ -31,7 +34,9 @@ static __device__ __forceinline__ uint32_t digit_of(uint64_t w, int shift) {
 // counts[d * nblk + b] = lanes of tile b with digit d
 static __global__ void radix_hist_kernel(const uint64_t* __restrict__ in,
                                          int n, int shift,
-                                         uint32_t* __restrict__ counts) {
+                                         uint32_t* __restrict__ counts,
+                                         const uint8_t* __restrict__ due) {
+  if (due != nullptr && !*due) return;
   __shared__ uint32_t h[kRadix];
   for (int i = threadIdx.x; i < kRadix; i += blockDim.x) h[i] = 0;
   __syncthreads();
@@ -53,7 +58,9 @@ static __global__ void radix_hist_kernel(const uint64_t* __restrict__ in,
 // place; totals[d] = the row's sum.  One block per digit.
 static __global__ void radix_rowscan_kernel(uint32_t* __restrict__ counts,
                                             int nblk,
-                                            uint32_t* __restrict__ totals) {
+                                            uint32_t* __restrict__ totals,
+                                            const uint8_t* __restrict__ due) {
+  if (due != nullptr && !*due) return;
   uint32_t* row = counts + static_cast<size_t>(blockIdx.x) * nblk;
   uint32_t carry = 0;
   for (int base = 0; base < nblk; base += blockDim.x) {
@@ -74,7 +81,11 @@ static __global__ void radix_scatter_kernel(const uint64_t* __restrict__ in,
                                             uint64_t* __restrict__ out, int n,
                                             int shift,
                                             const uint32_t* __restrict__ offsets,
-                                            const uint32_t* __restrict__ totals) {
+                                            const uint32_t* __restrict__ totals,
+                                            const int32_t* __restrict__ pin,
+                                            int32_t* __restrict__ pout,
+                                            const uint8_t* __restrict__ due) {
+  if (due != nullptr && !*due) return;
   __shared__ uint32_t base_off[kRadix];
   __shared__ uint32_t warp_cnt[kSortWarps][kRadix];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -102,6 +113,7 @@ static __global__ void radix_scatter_kernel(const uint64_t* __restrict__ in,
       uint32_t pos = base_off[d] + below;
       for (int w = 0; w < warp; ++w) pos += warp_cnt[w][d];
       out[pos] = v;
+      if (pout != nullptr) pout[pos] = pin[idx];
     }
     __syncthreads();
     uint32_t t = 0;
@@ -111,22 +123,37 @@ static __global__ void radix_scatter_kernel(const uint64_t* __restrict__ in,
   }
 }
 
-// Sort the n words of `a` by their bits [lo, hi), 8 bits a pass, with `b`
-// as the second buffer; `counts` holds kRadix * (ceil(n / kSortTile) + 1)
-// uint32.  Returns the buffer that holds the sorted words.
-static inline uint64_t* sort_bits(uint64_t* a, uint64_t* b, int n, int lo,
-                                  int hi, uint32_t* counts, cudaStream_t s) {
+// Sort the n words of `a` (with the payload `pa`, when not null) by their
+// bits [lo, hi), 8 bits a pass, with `b` (`pb`) as the second buffer;
+// `counts` holds kRadix * (ceil(n / kSortTile) + 1) uint32.  On return `a`
+// and `pa` name the buffers that hold the sorted words and payload.
+static inline void sort_pairs_bits(uint64_t*& a, uint64_t*& b, int32_t*& pa,
+                                   int32_t*& pb, int n, int lo, int hi,
+                                   uint32_t* counts, cudaStream_t s,
+                                   const uint8_t* due = nullptr) {
   const int nblk = (n + kSortTile - 1) / kSortTile;
   uint32_t* totals = counts + kRadix * nblk;
   for (int shift = lo; shift < hi; shift += kRadixBits) {
-    radix_hist_kernel<<<nblk, kSortThreads, 0, s>>>(a, n, shift, counts);
-    radix_rowscan_kernel<<<kRadix, 1024, 0, s>>>(counts, nblk, totals);
-    radix_scatter_kernel<<<nblk, kSortThreads, 0, s>>>(a, b, n, shift,
-                                                       counts, totals);
+    radix_hist_kernel<<<nblk, kSortThreads, 0, s>>>(a, n, shift, counts, due);
+    radix_rowscan_kernel<<<kRadix, 1024, 0, s>>>(counts, nblk, totals, due);
+    radix_scatter_kernel<<<nblk, kSortThreads, 0, s>>>(
+        a, b, n, shift, counts, totals, pa, pb, due);
     uint64_t* t = a;
     a = b;
     b = t;
+    int32_t* tp = pa;
+    pa = pb;
+    pb = tp;
   }
+}
+
+// The words alone; returns the buffer that holds the sorted words.
+static inline uint64_t* sort_bits(uint64_t* a, uint64_t* b, int n, int lo,
+                                  int hi, uint32_t* counts, cudaStream_t s,
+                                  const uint8_t* due = nullptr) {
+  int32_t* pa = nullptr;
+  int32_t* pb = nullptr;
+  sort_pairs_bits(a, b, pa, pb, n, lo, hi, counts, s, due);
   return a;
 }
 

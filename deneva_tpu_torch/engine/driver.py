@@ -8,10 +8,11 @@ pacing barrier, so the host never runs more than a chunk ahead.  A run
 whose index overflowed is refused at the first such chunk, and once more
 at the end.  Chunks are sized to ``chunk_target_secs`` of work.  The
 measured window's counter deltas become the reference-compatible
-``[summary]`` line (with the ``rep_*`` fields under ``repair`` and the
-``dgcc_*`` fields and one ``[dgcc]`` line under DGCC); latency buckets
-(in epochs) are scaled to seconds by the pace of the chunk that produced
-them.
+``[summary]`` line (with the ``rep_*`` fields under ``repair``, the
+``mb_density_*`` fields under ``metrics``, the ``audit_*`` fields under
+``audit``, and the ``dgcc_*`` fields and one ``[dgcc]`` line under DGCC);
+latency buckets (in epochs) are scaled to seconds by the pace of the
+chunk that produced them.
 """
 
 from __future__ import annotations
@@ -171,6 +172,18 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
         # fallbacks; only when armed, so every other line is unchanged
         for k in ("rep_salvaged_cnt", "rep_frontier_cnt",
                   "rep_fallback_cnt"):
+            st.set(k, float(after[k] - before[k]))
+    if cfg.metrics:
+        # per-partition conflict density over the measured window
+        dens = (after["conflict_density"]
+                - before["conflict_density"]).astype(np.float64)
+        for i, d in enumerate(dens):
+            st.set(f"mb_density_p{i}", float(d))
+        st.set("mb_density_total", float(dens.sum()))
+    if cfg.audit:
+        # dependency edge lanes among committed txns, export-cap
+        # overflows and claim-violating edges over the measured window
+        for k in ("audit_edge_cnt", "audit_drop_cnt", "audit_wit_cnt"):
             st.set(k, float(after[k] - before[k]))
     if cfg.cc_alg == CCAlg.DGCC:
         # waves over the window, the deepest epoch of the whole run (a

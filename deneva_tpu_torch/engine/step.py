@@ -27,7 +27,13 @@ partial one:
        (K12c reads, K12d pushes); nothing under SIMPLE and QRY_ONLY
     5b. with ``repair``: the sweep's losers re-validate and re-execute
        in ``repair_rounds`` sub-rounds (`engine.repair`, K13a)
+    5c. with ``audit``: the committed set's dependency observations and
+       the audit stamp tables (`cc.audit_observe`: K17, K15a, K15c)
     6. update the pool and the device counters (plain PyTorch)
+
+Between 4 and 5, ``audit_mutate`` flips the window's clean OCC losers
+(K13a's launch on the write lanes) and ``metrics`` adds the epoch's
+per-partition conflict density (K13b) to its counter.
 
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
 Python loop that enqueues epochs on the device without a host sync.
@@ -44,8 +50,11 @@ from typing import Any
 import torch
 
 from deneva_tpu_torch import kernels
-from deneva_tpu_torch.cc import (AccessBatch, build_conflict_incidence,
-                                 gate_order_free, get_backend)
+from deneva_tpu_torch.cc import (AUDIT_KEY, AccessBatch, audit_levels,
+                                 audit_mutate_verdict, audit_observe,
+                                 build_conflict_incidence, gate_order_free,
+                                 get_backend)
+from deneva_tpu_torch.cc import base as cc_base
 from deneva_tpu_torch.config import CCAlg, Config, Mode
 from deneva_tpu_torch.engine.pool import PoolState, TxnPool
 from deneva_tpu_torch.engine.repair import run_repair
@@ -87,9 +96,8 @@ def init_device_stats(n_txn_types: int = 1, n_parts: int = 1,
     stats["latency_hist"] = z(n_txn_types, LAT_BUCKETS)
     stats["retry_hist"] = z(RETRY_BUCKETS)
     stats["wait_hist"] = z(RETRY_BUCKETS)
-    # transaction repair's and DGCC's counters, and the audit plane's
-    # (not ported: they stay 0), kept so the state maps onto the
-    # reference's leaf for leaf
+    # transaction repair's, the audit plane's and DGCC's counters: they
+    # stay 0 unless their plane is armed
     for k in ("rep_salvaged_cnt", "rep_frontier_cnt", "rep_fallback_cnt",
               "audit_edge_cnt", "audit_drop_cnt", "audit_wit_cnt",
               "dgcc_wave_cnt", "dgcc_wave_max", "dgcc_fallback_cnt",
@@ -221,6 +229,20 @@ class Engine:
             else:
                 verdict, cc_state = be.validate(cfg, state.cc_state, batch,
                                                 inc)
+            if cfg.audit_mutate:
+                # the seeded edge-derivation fault: flipped losers execute
+                # like any commit, a real violation the audit must see
+                verdict = audit_mutate_verdict(cfg, batch, inc, verdict,
+                                               state.epoch)
+        if cfg.metrics:
+            # the per-partition conflict density, folded by the plan's
+            # owner map; the reference reads it off its incidence where
+            # it built one, which gives the same integers as the scatter
+            # arm but for the touch rule
+            ref_inc = not (forwarding or cfg.mode == Mode.NOCC
+                           or be.alg in (CCAlg.NOCC, CCAlg.DGCC))
+            _acc(stats, "conflict_density", cc_base.conflict_density(
+                cfg, batch, planned["owner"], ref_inc))
         # defer budget: a txn deferred past defer_rounds_max force-restarts
         # (deterministic chained backends are exempt)
         if not be.chained and cfg.defer_rounds_max > 0:
@@ -260,12 +282,37 @@ class Engine:
         # pool's reserved restamp space, above every stamp of the epoch.
         if cfg.repair and cfg.mode == Mode.NORMAL and not forwarding \
                 and be.repair_rule is not None:
-            db, cc_state, verdict, salvaged, _rounds = run_repair(
+            db, cc_state, verdict, salvaged, srounds = run_repair(
                 cfg, wl, be, db, queries, batch, inc, verdict, cc_state,
                 stats, exec_commit, forced,
                 ts_base=pool.next_seq - self.pool.b)
             exec_commit = exec_commit | salvaged
             release = release | salvaged
+        else:
+            srounds = None
+
+        # 5c. isolation audit (default off): an observation of the final
+        # committed set, never an input to a verdict or a table write
+        if cfg.audit and cfg.mode == Mode.NORMAL:
+            if forwarding:
+                lvl = torch.zeros_like(verdict.level)
+            elif be.chained:
+                lvl = verdict.level
+            else:
+                lvl = srounds if srounds is not None \
+                    else torch.zeros_like(verdict.level)
+            aud, _e, _bk, cnt, drop, _vd, _rd, wit = audit_observe(
+                cfg, batch, exec_commit & active, verdict.order, lvl,
+                forwarding, db[AUDIT_KEY], state.epoch,
+                audit_levels(cfg, be, forwarding))
+            db = dict(db)
+            db[AUDIT_KEY] = aud
+            _acc(stats, "audit_edge_cnt", cnt)
+            _acc(stats, "audit_drop_cnt", drop)
+            if not forwarding and not be.chained:
+                # edges between two level-0 commits of a sweep backend,
+                # whose claim is a conflict-free committed set
+                _acc(stats, "audit_wit_cnt", wit)
 
         # 6. update pool + counters (forced txns release like commits)
         pre_abort_cnt = sel(pool.abort_cnt)

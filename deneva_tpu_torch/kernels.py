@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
            "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu",
-           "pps.cu", "frontier.cu", "depgraph.cu")
+           "pps.cu", "frontier.cu", "depgraph.cu", "audit.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
            "bits.cuh", "radix.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -241,4 +241,9 @@ def all_kernels() -> dict[str, Kernel]:
             "K13a_repair_frontier": base.K13A_FRONTIER,
             "K15a_lane_sort": depgraph.K15A_SORT,
             "K15b_seg_scans": depgraph.K15B_SCANS,
-            "K16_dgcc_relax": dgcc.K16_RELAX}
+            "K16_dgcc_relax": dgcc.K16_RELAX,
+            "K13b_conflict_density": base.K13B_DENSITY,
+            "K15c_audit_scans": depgraph.K15C_SCAN,
+            "K15c_compact_edges": depgraph.K15C_COMPACT,
+            "K17_audit_observe[lanes]": base.K17_LANES,
+            "K17_audit_observe[stamps]": base.K17_OBSERVE}

@@ -406,6 +406,10 @@ class TPCCWorkload:
                 np.zeros(0, np.int32), np.zeros(0, np.int32),
                 miss_slot=db["ORDER"].capacity, cap=cfg.insert_table_cap,
                 device=dev)
+        if cfg.audit:
+            # the isolation audit's stamp tables (cc/base.audit_observe)
+            from deneva_tpu_torch.cc.base import AUDIT_KEY, audit_init
+            db[AUDIT_KEY] = audit_init(cfg, dev)
         return db
 
     def empty_query(self, n: int, device) -> TPCCQuery:

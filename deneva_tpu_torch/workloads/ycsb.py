@@ -312,6 +312,11 @@ class YCSBWorkload:
             db[VER_TABLE] = VersionRing.create(
                 tab.columns["F0"].shape[0], self.cfg.mvcc_his_len,
                 self.device)
+        if self.cfg.audit:
+            # the isolation audit's stamp tables ride the db, installed by
+            # the loader as in the reference (cc/base.audit_observe)
+            from deneva_tpu_torch.cc.base import AUDIT_KEY, audit_init
+            db[AUDIT_KEY] = audit_init(self.cfg, self.device)
         return db
 
     # -- query generation (ycsb_query.cpp:303-376) ---------------------

@@ -36,7 +36,6 @@ def test_from_args_parses_like_reference():
 RAISING = [
     ("--part_cnt=2", 18), ("--device_parts=2", 19),
     ("--elastic=true", 18),
-    ("--audit=true", "16c"), ("--metrics=true", "16c"),
     ("--ctrl=true", "16d"), ("--ctrl_dgcc=true", "16d"),
     ("--sim_full_row=true --tup_size=10", 11),
     ("--checkpoint_path=/dev/null", 17), ("--node_cnt=2", None),
@@ -76,7 +75,18 @@ ADMITTED = [
     ["--cc_alg=DGCC", "--dgcc_levels=1", "--workload=TPCC",
      "--max_accesses=18"],
     ["--repair=true", "--repair_rounds=8", "--cc_alg=NO_WAIT",
-     "--isolation_level=NOLOCK"]]
+     "--isolation_level=NOLOCK"],
+    ["--audit=true"], ["--metrics=true"],
+    ["--audit=true", "--audit_cadence=1", "--metrics=true",
+     "--metrics_cadence=4"],
+    ["--audit=true", "--cc_alg=MVCC", "--audit_buckets=1024",
+     "--audit_edges_max=64"],
+    ["--audit=true", "--audit_mutate=occ-read-skip:48:8"],
+    ["--audit=true", "--cc_alg=DGCC", "--workload=TPCC",
+     "--max_accesses=18", "--epoch_batch=16384"],
+    ["--metrics=true", "--workload=PPS", "--max_accesses=32"],
+    ["--metrics=true", "--cc_alg=TPU_BATCH", "--epoch_batch=65536",
+     "--max_txn_in_flight=65536"]]
 
 
 @pytest.mark.parametrize("flags", ADMITTED)
@@ -230,3 +240,46 @@ def test_tpcc_simulation_prints_the_per_type_families(capsys):
     assert f["tpcc_payment_commit_cnt"] > 0
     assert f["tpcc_new_order_commit_cnt"] > 0
     assert f["total_txn_abort_cnt"] == 0
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--audit=true", "--workload=PPS", "--max_accesses=32"],
+     "wired for YCSB and TPCC"),
+    (["--audit=true", "--epoch_batch=32768", "--max_txn_in_flight=32768"],
+     "epoch_batch <= 16384"),
+    (["--audit_mutate=occ-read-skip:4"], "needs --audit=true"),
+    (["--audit=true", "--cc_alg=CALVIN", "--audit_mutate=occ-read-skip:4"],
+     "set cc_alg=OCC"),
+    (["--audit=true", "--audit_mutate=occ-read-skip"], "must be"),
+    (["--audit=true", "--audit_mutate=occ-read-skip:x"],
+     "must be integers"),
+    (["--audit=true", "--audit_mutate=occ-read-skip:3:0"],
+     "COUNT >= 1"),
+    (["--audit=true", "--audit_mutate=lost-write:3"], "must be"),
+    (["--audit_cadence=0"], "audit_cadence must be >= 1"),
+    (["--metrics_cadence=0"], "metrics_cadence must be >= 1"),
+    (["--audit_edges_max=63"], "audit_edges_max must be >= 64"),
+    (["--audit_buckets=512"], "power of two >= 1024"),
+    (["--audit_buckets=3000"], "power of two >= 1024"),
+    (["--audit=true", "--mode=SIMPLE"], "degraded modes"),
+    (["--audit=true", "--device_parts=2"], "multi-chip"),
+    (["--metrics=true", "--device_parts=2"], "multi-chip")])
+def test_metrics_and_audit_reference_checks_apply(flags, match):
+    """The reference's metrics and audit checks, with its messages."""
+    msgs = []
+    for cls in (Config, JConfig):
+        with pytest.raises(ValueError, match=match) as e:
+            cls.from_args(SWEEP + flags)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_audit_mutate_spec_parses_like_reference():
+    for spec in ("occ-read-skip:48:8", "occ-read-skip:0", ""):
+        args = SWEEP + (["--audit=true", f"--audit_mutate={spec}"]
+                        if spec else [])
+        assert Config.from_args(args).audit_mutate_spec() \
+            == JConfig.from_args(args).audit_mutate_spec()
+    assert Config.from_args(SWEEP + [
+        "--audit=true", "--audit_mutate=occ-read-skip:48:8"
+    ]).audit_mutate_spec() == ("occ-read-skip", 48, 8)

@@ -7,7 +7,10 @@ small and at path shapes; with the dynamic ORDER index, K14e merge and
 probes alone), of PPS (K20 alone, default and > 2^16 spans), and of
 transaction repair and DGCC (K13a, K15a, K15b and K16 alone; repair
 epochs under the six sweep backends and TPC-C, DGCC epochs on YCSB and
-TPC-C).  Marked ``cuda``;
+TPC-C), and of the metrics and audit planes (K13b, K15a at wide
+positions, K15c and K17 alone and as ``audit_observe``; armed epochs of
+OCC, OCC with ``audit_mutate`` and with repair, CALVIN, MVCC, TIMESTAMP
+off and on the cadence, DGCC, and TPC-C).  Marked ``cuda``;
 without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -970,3 +973,176 @@ def test_tpcc_repair_and_dgcc_epochs_through_kernels_match_plain(dev, path,
     with plain_path(wp):
         sp = ep.run(sp, 4)
     _same_leaves(sk, sp)
+
+
+# -- the metrics and audit planes (K13b, K15a wide, K15c, K17) -----------------
+
+@pytest.mark.parametrize("b,a,k,p,n_keys", [
+    (2048, 10, 8192, 1, 1 << 24), (2048, 16, 8192, 2, 300),
+    (65536, 10, 8192, 1, 1 << 24), (64, 4, 1024, 2, 5), (33, 3, 64, 3, 7)])
+@pytest.mark.parametrize("from_incidence", [False, True])
+def test_conflict_density_matches_plain(dev, b, a, k, p, n_keys,
+                                        from_incidence):
+    from types import SimpleNamespace
+
+    from deneva_tpu_torch.cc import base
+    batch = _rand_batch(b, a, n_keys, dev, b + k + p)
+    g = torch.Generator().manual_seed(p)
+    owner = torch.randint(0, p + 1, (b, a), generator=g,
+                          dtype=torch.int32).to(dev)
+    cfg = SimpleNamespace(part_cnt=p, conflict_buckets=k)
+    got = base.conflict_density(cfg, batch, owner, from_incidence)
+    want = base.conflict_density_plain(cfg, batch, owner, from_incidence)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+def _audit_lanes(b, a, n_keys, levels, dev, seed, order_vis=False):
+    """A random batch's doubled audit lanes (plain build) with committed
+    txns on ``levels`` bands."""
+    from deneva_tpu_torch.cc import base
+    batch = _rand_batch(b, a, n_keys, dev, seed, order_free=True)
+    g = torch.Generator().manual_seed(seed)
+    committed = (torch.rand(b, generator=g) < 0.7).to(dev) & batch.active
+    lvl = torch.where(committed, torch.randint(
+        0, levels, (b,), generator=g, dtype=torch.int32).to(dev), 0)
+    order = torch.randint(0, b, (b,), generator=g,
+                          dtype=torch.int32).to(dev)
+    return batch, committed, order, lvl, base.audit_lanes_plain(
+        batch, committed, order, lvl, order_vis)
+
+
+@pytest.mark.parametrize("b,a,n_keys,levels", [
+    (2048, 10, 1 << 24, 1), (2048, 10, 300, 32), (16384, 4, 5000, 32),
+    (16384, 2, 100, 256), (7, 3, 2, 4)])
+def test_lane_sort_wide_positions_match_plain(dev, b, a, n_keys, levels):
+    from deneva_tpu_torch.cc import depgraph
+    *_, lanes = _audit_lanes(b, a, n_keys, levels, dev, b + levels)
+    bound = 2 * levels * (b + 2)
+    got = depgraph.lane_sort(*lanes, b, pos_bound=bound)
+    for x, y in zip(got, depgraph.lane_sort_plain(*lanes)):
+        assert torch.equal(x, y)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    depgraph.lane_sort(*lanes, b, pos_bound=bound, due=off)   # returns
+
+
+@pytest.mark.parametrize("b,a,n_keys,levels,cap,order_vis", [
+    (2048, 10, 1 << 24, 1, 4096, False), (2048, 10, 64, 1, 4096, True),
+    (2048, 16, 500, 32, 4096, False), (512, 8, 40, 4, 64, False),
+    (16384, 4, 3000, 1, 4096, True), (9, 2, 2, 2, 64, False)])
+def test_audit_scans_and_compaction_match_plain(dev, b, a, n_keys, levels,
+                                                cap, order_vis):
+    from deneva_tpu_torch.cc import depgraph
+    _, _, _, lvl, lanes = _audit_lanes(b, a, n_keys, levels, dev, b + cap,
+                                       order_vis)
+    srt = depgraph.lane_sort_plain(*lanes)
+    got = depgraph.audit_scans(*srt, 1 << 16)
+    want = depgraph.audit_scans_plain(*srt, 1 << 16)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for due in (None, True, False):
+        d = None if due is None else torch.tensor(due, device=dev)
+        got = depgraph.compact_edges(*want[:3], lvl, cap, d)
+        exp = depgraph.compact_edges_plain(*want[:3], lvl, cap, d)
+        for x, y in zip(got, exp):
+            assert torch.equal(x, y)
+    assert int(got[2]) == 0 and int(exp[2]) == 0     # the last: due False
+
+
+@pytest.mark.parametrize("b,a,n_keys,levels,mvcc,order_vis", [
+    (2048, 10, 1 << 24, 1, False, False), (2048, 10, 200, 1, True, False),
+    (2048, 16, 100, 4, False, False), (2048, 10, 50, 1, False, True),
+    (16384, 4, 2000, 32, True, False), (9, 2, 3, 2, True, True)])
+def test_audit_observe_matches_plain(dev, b, a, n_keys, levels, mvcc,
+                                     order_vis, monkeypatch):
+    import dataclasses
+    from types import SimpleNamespace
+
+    from deneva_tpu_torch.cc import base, depgraph
+    cfg = SimpleNamespace(audit_buckets=1 << 16, audit_edges_max=4096,
+                          audit_cadence=4, mvcc_his_len=4,
+                          cc_alg="MVCC" if mvcc else "OCC")
+    batch, committed, order, lvl, _ = _audit_lanes(b, a, n_keys, levels, dev,
+                                                   b + levels, order_vis)
+    st_k = base.audit_init(cfg, dev)
+    st_p = copy.deepcopy(st_k)
+    outs = []
+    for e in range(6):
+        ep = torch.tensor(e, dtype=torch.int32, device=dev)
+        bt = dataclasses.replace(batch, ts=batch.ts + 3 * e)
+        ok = base.audit_observe(cfg, bt, committed, order, lvl, order_vis,
+                                st_k, ep, levels)
+        with monkeypatch.context() as m:
+            for mod, nm in ((base, "audit_lanes"), (base, "audit_stamps"),
+                            (depgraph, "audit_scans"),
+                            (depgraph, "compact_edges")):
+                m.setattr(mod, nm, getattr(mod, nm + "_plain"))
+            m.setattr(depgraph, "lane_sort",
+                      lambda k, p, t, n, **kw: depgraph.lane_sort_plain(
+                          k, p, t))
+            op = base.audit_observe(cfg, bt, committed, order, lvl,
+                                    order_vis, st_p, ep, levels)
+        st_k, st_p = ok[0], op[0]
+        for f in st_k:
+            assert torch.equal(st_k[f], st_p[f]), (e, f)
+        for x, y in zip(ok[1:], op[1:]):
+            assert torch.equal(x, y), e
+        outs.append(int(ok[3]))
+    assert outs[0] > 0 and outs[1] == 0 and outs[4] > 0
+
+
+AUDIT_YCSB = REPAIR_YCSB + ["--audit=true", "--metrics=true"]
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("OCC+A", ["--cc_alg=OCC", "--audit_cadence=1"]),
+    ("OCC+A", ["--cc_alg=OCC", "--audit_cadence=2"]),
+    ("OCC+A+M", ["--cc_alg=OCC", "--audit_cadence=1",
+                 "--audit_mutate=occ-read-skip:1:2"]),
+    ("CALVIN+A", ["--cc_alg=CALVIN", "--audit_cadence=1",
+                  "--max_txn_in_flight=2048"]),
+    ("MVCC+A", ["--cc_alg=MVCC", "--audit_cadence=1"]),
+    ("DGCC+A", ["--cc_alg=DGCC", "--audit_cadence=1"]),
+    ("OCC+R2+A", ["--cc_alg=OCC", "--audit_cadence=1", "--repair=true"]),
+    ("TIMESTAMP+A", ["--cc_alg=TIMESTAMP", "--audit_cadence=3"])])
+def test_audited_epochs_through_kernels_match_plain(dev, path, flags):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    cfg = Config.from_args(AUDIT_YCSB + flags)
+    wk = ycsb.YCSBWorkload(cfg, device=dev)
+    wp = ycsb.YCSBWorkload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = ek.run(sk, 4)
+    for nm, kern in all_kernels().items():
+        want = 4 * PATH_LAUNCHES[path].get(nm, 0)
+        assert kern.launches == before[nm] + want, nm
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    _same_leaves(sk, sp)
+    st = {k: int(v.sum()) for k, v in sk.stats.items()}
+    assert st["conflict_density"] > 0
+    if path in ("CALVIN+A", "DGCC+A", "MVCC+A"):
+        assert st["audit_edge_cnt"] > 0
+
+
+@pytest.mark.parametrize("path,flags", [
+    ("TPCC_CHAINED+A", ["--cc_alg=TPU_BATCH"]),
+    ("TPCC_DGCC+A", ["--cc_alg=DGCC"]),
+    ("TPCC_SWEEP+A", ["--cc_alg=OCC", "--escrow_sweep=false"])])
+def test_tpcc_audited_epochs_through_kernels_match_plain(dev, path, flags):
+    from deneva_tpu_torch.engine.step import Engine
+    args = TPCC_SMALL + flags + ["--audit=true", "--metrics=true",
+                                 "--audit_cadence=1"]
+    cfg, wk = _tpcc(dev, args)
+    _, wp = _tpcc(dev, args)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    sk = ek.run(sk, 4)
+    with plain_path(wp):
+        sp = ep.run(sp, 4)
+    _same_leaves(sk, sp)
+    assert int(sk.stats["audit_edge_cnt"]) > 0

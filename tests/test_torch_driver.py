@@ -62,7 +62,8 @@ def test_port_imports_neither_jax_nor_reference():
             "deneva_tpu_torch.storage.table", "deneva_tpu_torch.storage.index",
             "deneva_tpu_torch.workloads.pps", "deneva_tpu_torch.workloads.tpcc",
             "deneva_tpu_torch.cc.depgraph", "deneva_tpu_torch.cc.dgcc",
-            "deneva_tpu_torch.engine.repair", "chip_smoke"]
+            "deneva_tpu_torch.engine.repair", "deneva_tpu_torch.cc.base",
+            "deneva_tpu_torch.engine.step", "chip_smoke"]
     code = ("import sys; " + "; ".join(f"import {m}" for m in mods) +
             "; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'deneva_tpu' or "
