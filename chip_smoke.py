@@ -67,7 +67,13 @@ paths drive it:
   and CALVIN at ``ycsb_skew``, TPU_BATCH at TPC-C 4 warehouses, DGCC at
   theta 0.9 and OCC at ``repair_ablation`` rounds 2, at
   ``audit_cadence`` 1 (OCC and CALVIN also at the default 8), OCC with
-  ``audit_mutate``, and the metrics alone on the forwarding main path.
+  ``audit_mutate``, and the metrics alone on the forwarding main path;
+* the mesh (``device_parts``) — the forwarding main path at 2^27 rows
+  (the paper's 2^24 per node, 8 nodes) over 1, 2, 4 and 8 shards, all
+  on the one card: the sharded plan's capacity rule K18a and owner
+  blocks K18b, then K1-K3 per shard; ``mesh_scaling``'s cells; TPC-C
+  at 64 warehouses and PPS over 8 shards through each shard's executor.
+  The shards share one card, so no number here is a multi-GPU one.
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -120,7 +126,10 @@ Phases (any error or mismatch exits non-zero and prints no result):
                (``argsort``, ``torch.sort``, ``cumsum`` + ``index_copy_``
                and two ``scatter_reduce_`` the yardsticks), and K15a's
                wide mode on an audited DGCC epoch at ``epoch_batch =
-               16384``.
+               16384``.  K18a and K18b on each shard's call of a real
+               epoch of the main path at 2^27 rows over 8 shards (a
+               stable ``torch.sort`` of the slice's packed (owner, ts)
+               words the yardstick).
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -176,7 +185,19 @@ Phases (any error or mismatch exits non-zero and prints no result):
                window's epochs; OCC's density over 12 epochs at theta
                0.6 / 0.9 / 0.99 ranked like its aborts (B = 2,048, 2^16
                buckets over 2^16 rows, the reference test's sizing).
-5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s): TPU_BATCH in
+               The mesh: the main path at 2^27 rows over 1, 2, 4 and 8
+               shards on the card, 3 kernel epochs equal 3 plain epochs
+               and every counter and every data row (mapped back from
+               the owner-major layout) equals 1 shard's; one epoch of
+               the replicated plan (``mc_plan_capacity=0``) equals 1
+               shard's; a tight ``mc_plan_capacity=0.25`` at 4,096 rows
+               defers with no abort and no lost txn; ``mesh_scaling``'s
+               cells at 2, 4 and 8 shards, TPC-C at 64 warehouses
+               (TPU_BATCH, NO_WAIT; with the money and O_ID audit) and
+               PPS (TPU_BATCH, MAAT) at 8 equal 1 shard's.
+5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s for TPU_BATCH
+               in both modes, OCC and NOCC and the mesh's main path;
+               0.5 s + 1.5 s for the rest): TPU_BATCH in
                both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
                WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
                ``ycsb_skew`` point, MAAT at ``ycsb_hot``, TPU_BATCH under
@@ -192,7 +213,11 @@ Phases (any error or mismatch exits non-zero and prints no result):
                reads forward or chain, the mutated OCC run's witnesses
                above the clean run's; OCC's density per validated txn
                at theta 0.6 / 0.9 / 0.99 and the armed txn/s beside the
-               off runs' written down);
+               off runs' written down); the mesh: the main path at
+               2^27 rows as 1 shard and as 8 shards sharing the card
+               (``[mesh-simulate]``), ``mesh_scaling``'s eight cells at
+               their own windows, TPC-C at 64 warehouses (TPU_BATCH,
+               NO_WAIT) and PPS (TPU_BATCH, MAAT) over 8 shards;
                the ``[summary]``
                numbers and committed txn/s, the TPU_BATCH / OCC ratio
                (``bench.py``'s ``vs_baseline``); with counts zeroed just
@@ -323,6 +348,10 @@ KERNELS = {
                            "deneva_tpu/cc/depgraph.py:115"),
     "K17_audit_observe": ("deneva_tpu_torch/csrc/audit.cu",
                           "deneva_tpu/cc/base.py:414"),
+    "K18a_mc_defer": ("deneva_tpu_torch/csrc/mc.cu",
+                      "deneva_tpu/ops/forward.py:109"),
+    "K18b_mc_pack": ("deneva_tpu_torch/csrc/mc.cu",
+                     "deneva_tpu/workloads/ycsb.py:413"),
 }
 # kernels that no reference path launches: their launches come from the
 # oracle check that probes them, and the kernels line marks them
@@ -547,13 +576,45 @@ PATH_LAUNCHES.update({
     "TPCC_SWEEP+A": _armed("TPCC_SWEEP"),
     "TIMESTAMP+A": _armed("TIMESTAMP"),
 })
+# the mesh (device_parts = d on one card): the sharded plan launches K18a
+# and K18b once per source shard and K1-K3 once per shard; the replicated
+# plan (pair_cap = 0) only K1-K3 per shard.  The generic path runs each
+# shard's executor: every per-pass kernel d times.
+
+
+def mesh_launches(path: str, d: int) -> dict:
+    out = {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
+           "K1_sort_lanes": d, "K2_plan_scans": d, "K3_forward_execute": d}
+    if path == "MESH":
+        out.update({"K18a_mc_defer": d, "K18b_mc_pack": d})
+    return out
+
+
+def _per_shard(path: str, d: int) -> dict:
+    once = ("K4a_threefry_split", "K19_tpcc_generate", "K14a_hash_lookup",
+            "K20_pps_generate", "K5K6_build_incidence", "K7_overlap",
+            "K8_first_fit", "K9a_wavefront_levels", "K9b_precedence_levels",
+            "K11a_maat_reach", "K11b_maat_peel")
+    return {k: v if k in once else v * d
+            for k, v in PATH_LAUNCHES[path].items()}
+
+
+for _d in (2, 4, 8):
+    PATH_LAUNCHES[f"MESH{_d}"] = mesh_launches("MESH", _d)
+    PATH_LAUNCHES[f"MESH_REPL{_d}"] = mesh_launches("MESH_REPL", _d)
+PATH_LAUNCHES.update({
+    "TPCC_CHAINED@8": _per_shard("TPCC_CHAINED", 8),
+    "TPCC_SWEEP@8": _per_shard("TPCC_SWEEP", 8),
+    "PPS_CHAINED@8": _per_shard("PPS_CHAINED", 8),
+    "PPS_MAAT@8": _per_shard("PPS_MAAT", 8)})
+
 # paths whose runs must abort, and paths that may (TPC-C's and PPS's
 # sweep backends under escrow abort only on the rows they order; repair
 # salvages some or all losers); the others never abort
 ABORTING = ("OCC", "NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC", "MAAT",
             "OCC+A", "OCC+A+M", "MVCC+A", "OCC+D", "TIMESTAMP+A")
 MAY_ABORT = ("TPCC_SWEEP", "TPCC_TO", "TPCC_MAAT", "PPS_SWEEP", "PPS_TO",
-             "PPS_MAAT", "TPCC_SWEEP+A") \
+             "PPS_MAAT", "TPCC_SWEEP+A", "TPCC_SWEEP@8", "PPS_MAAT@8") \
     + tuple(p for p in PATH_LAUNCHES if "+R" in p)
 
 
@@ -609,7 +670,11 @@ def plain_path(wl):
              (base, "audit_lanes", base.audit_lanes_plain),
              (base, "audit_stamps", base.audit_stamps_plain),
              (depgraph, "audit_scans", depgraph.audit_scans_plain),
-             (depgraph, "compact_edges", depgraph.compact_edges_plain)]
+             (depgraph, "compact_edges", depgraph.compact_edges_plain),
+             (forward, "mc_slice_defer", forward.mc_slice_defer_plain),
+             (forward, "mc_pack_blocks",
+              lambda k, v, ts, r, w, dfr, order, d, cap:
+              forward.mc_pack_blocks_plain(k, v, ts, r, w, dfr, d, cap))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -2100,10 +2165,10 @@ def capture_writes(eng, state):
                       {c: v.clone() for c, v in updates.items()}))
         return real_add(tab, slots, updates, mask)
 
-    def app(tab, rows, mask):
+    def app(tab, rows, mask, anchor=None):
         calls.append(("append", tab.name, None, mask.clone(),
                       {c: v.clone() for c, v in rows.items()}))
-        return real_app(tab, rows, mask)
+        return real_app(tab, rows, mask, anchor)
     DeviceTable.scatter_add, DeviceTable.append = add, app
     try:
         state = eng.step(state)
@@ -3219,7 +3284,11 @@ def phase_simulate(dev, cfg, path: str, label: str, card: str
     ks = kernels.all_kernels()
     for k in ks.values():
         k.launches = 0
-    st = run_simulation(cfg, device=dev)
+    with contextlib.ExitStack() as ctx:
+        if cfg.device_parts > 1:
+            from deneva_tpu_torch.parallel import use_mesh
+            ctx.enter_context(use_mesh(mesh_of(dev, cfg.device_parts)))
+        st = run_simulation(cfg, device=dev)
     counts = {nm: k.launches for nm, k in ks.items()}
     fields = parse_summary(st.summary_line())
     commits = fields["total_txn_commit_cnt"]
@@ -3241,7 +3310,7 @@ def phase_simulate(dev, cfg, path: str, label: str, card: str
     return counts, fields
 
 
-def host_hot_spots(eng, st, mode: str, n: int = 20):
+def host_hot_spots(run, st, mode: str, n: int = 20):
     """The host's side of an epoch (``--profile``, TPC-C cells): how many
     times one epoch synchronizes with the device (torch's sync debug
     mode), and the port's functions that take the most host time over
@@ -3257,7 +3326,7 @@ def host_hot_spots(eng, st, mode: str, n: int = 20):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                st = eng.run(st, 1)
+                st = run(st, 1)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     finally:
@@ -3266,7 +3335,7 @@ def host_hot_spots(eng, st, mode: str, n: int = 20):
     prof = cProfile.Profile()
     t = time.perf_counter()
     prof.enable()
-    st = eng.run(st, n)
+    st = run(st, n)
     prof.disable()
     host = (time.perf_counter() - t) / n
     torch.cuda.synchronize()
@@ -3297,14 +3366,12 @@ def phase_profile(dev, cfg, mode: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deneva_tpu_torch.engine.step import Engine
-    from deneva_tpu_torch.workloads import get_workload
-    eng = Engine(cfg, get_workload(cfg, device=dev))
-    st = eng.run(eng.init_state(), 20)
+    _, run, st = mesh_engine(dev, cfg)
+    st = run(st, 20)
     torch.cuda.synchronize()
     n = 200
     t = time.perf_counter()
-    st = eng.run(st, n)
+    st = run(st, n)
     host = time.perf_counter() - t
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -3312,13 +3379,13 @@ def phase_profile(dev, cfg, mode: str) -> None:
           f"{wall / n * 1e3:.4f} ms/epoch ({n} epochs, no profiler)",
           flush=True)
     if mode.startswith(("TPCC", "PPS", "OCC repair", "DGCC",
-                        "OCC ycsb_skew audited")):
-        st = host_hot_spots(eng, st, mode)
+                        "OCC ycsb_skew audited", "mesh")):
+        st = host_hot_spots(run, st, mode)
     m = 50
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        st = eng.run(st, m)
+        st = run(st, m)
         torch.cuda.synchronize()
         window = time.perf_counter() - t
     by_name: dict[str, list] = {}
@@ -3344,7 +3411,8 @@ def phase_profile(dev, cfg, mode: str) -> None:
             "tpcc_generate", "merge_rank", "merge_place", "probe_kernel",
             "pps_generate", "wrote_kernel", "lanes_kernel", "lane_pack",
             "lane_unpack", "census_", "relax_kernel", "density_",
-            "rank_kernel", "compact_", "observe_")
+            "rank_kernel", "compact_", "observe_", "order_kernel",
+            "count_kernel", "defer_kernel", "place_kernel", "fill_kernel")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -4053,6 +4121,346 @@ def slice8_summary(fields: dict, card: str) -> None:
               f"{card})", flush=True)
 
 
+# -- slice 9: the mesh (device_parts > 1) on one card ----------------------
+
+MESH_ROWS = 1 << 27             # the main path's 2^24 rows per node x 8
+
+
+def mesh_of(dev, d: int):
+    """A mesh of ``d`` shards, every one on this card."""
+    from deneva_tpu_torch.parallel import make_mesh
+    return make_mesh(d, devices=[dev] * d)
+
+
+def mesh_config(d: int, **kw):
+    """The forwarding main path (TPU_BATCH, full pool of 65,536, 10
+    requests, theta 0.9, fingerprint rows) at 2^27 rows over ``d``
+    shards: the paper's 2^24 rows per node, 8 nodes."""
+    return config(False, synth_table_size=MESH_ROWS, device_parts=d, **kw)
+
+
+def mesh_scaling_config(d: int, alg: str, **kw):
+    """``mesh_scaling`` (``deneva_tpu/harness/experiments.py:459-487``):
+    2^14 rows, 4 requests, ``epoch_batch=128`` over a pool of 1,024, 512
+    buckets, theta 0.6, windows 0.5 s + 2 s, at ``device_parts=d``."""
+    from deneva_tpu_torch.config import Config
+    args = ["--synth_table_size=16384", "--req_per_query=4",
+            "--max_accesses=4", "--epoch_batch=128",
+            "--conflict_buckets=512", "--max_txn_in_flight=1024",
+            "--zipf_theta=0.6", "--warmup_secs=0.5", "--done_secs=2.0",
+            f"--device_parts={d}", f"--cc_alg={alg}", "--seed=7"]
+    args += [f"--{k}={v}" for k, v in kw.items()]
+    return Config.from_args(args)
+
+
+def mesh_engine(dev, cfg):
+    """(engine, run, placed initial state) of ``cfg`` over its mesh."""
+    from deneva_tpu_torch.parallel import make_sharded_run
+    eng = make_engine(dev, cfg)
+    state = eng.init_state()
+    if cfg.device_parts == 1:
+        return eng, eng.run, state
+    place, run = make_sharded_run(eng, mesh_of(dev, cfg.device_parts))
+    return eng, run, place(state)
+
+
+def filled_rows(tab, v: torch.Tensor) -> torch.Tensor:
+    """A ring table's filled rows of column ``v``, block after block in
+    cursor order; fails where a cursor wrapped."""
+    if tab.mc_parts == 1:
+        cnt, lb, cap = [int(tab.row_cnt)], 0, tab.capacity
+    else:
+        lb, cap, _ = tab.mc_block_rows()
+        cnt = tab.row_cnt.tolist()
+    if max(cnt) >= cap:
+        fail(f"{tab.name}: a ring cursor wrapped")
+    return torch.cat([v[d * lb:d * lb + c] for d, c in enumerate(cnt)])
+
+
+def global_rows(tab, col: str) -> torch.Tensor:
+    """A column's data rows in one-device order: a stacked table's blocks
+    mapped back (`storage.table.mc_stacked_rows`); a ring table's filled
+    rows sorted (per-block cursors order them differently from one
+    cursor)."""
+    from deneva_tpu_torch.storage.table import mc_stacked_rows
+    v = tab.columns[col]
+    if tab.ring:
+        return torch.sort(filled_rows(tab, v)).values
+    if tab.mc_parts == 1:
+        return v[:tab.capacity]
+    return v[mc_stacked_rows(tab)]
+
+
+def same_as_one_device(base, state, label: str) -> int:
+    """Every counter and every table's data rows (mapped back from the
+    owner-major layout) of a mesh run equal the one-device run's."""
+    for k, v in base.stats.items():
+        if not torch.equal(v, state.stats[k]):
+            fail(f"{label}: counter {k} differs from device_parts=1 "
+                 f"({v.tolist()} vs {state.stats[k].tolist()})")
+    rows = 0
+    for name, t1 in base.db.items():
+        t8 = state.db[name]
+        for col in t1.columns:
+            a, b = global_rows(t1, col), global_rows(t8, col)
+            if not torch.equal(a, b):
+                fail(f"{label}: {name}/{col} rows differ from "
+                     "device_parts=1")
+            rows += a.shape[0]
+        if t1.ring and int(t1.row_cnt) != int(t8.row_cnt.sum()):
+            fail(f"{label}: {name} holds another row count")
+    return rows
+
+
+def differing_leaf(sk, sp) -> str | None:
+    """The first leaf of two states that differs, or None: every leaf
+    exactly but each table's trash row (each block's, in the owner-major
+    layout), which the masked scatter writes in an unspecified order."""
+    from deneva_tpu_torch.convert import state_leaves
+    lk, lp = state_leaves(sk), state_leaves(sp)
+    for path, x in lk.items():
+        y = lp[path]
+        tab = sk.db.get(path.split("/")[1]) if path.startswith("db/") \
+            else None
+        if not hasattr(tab, "capacity") or x.ndim == 0 \
+                or path.endswith("row_cnt"):
+            if not torch.equal(x, y):
+                return path
+            continue
+        keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        if tab.mc_parts > 1:
+            lb, _, trash = tab.mc_block_rows()
+            keep[trash::lb] = False
+        else:
+            keep[tab.capacity] = False
+        if not torch.equal(x[keep], y[keep]):
+            return path
+    return None
+
+
+def mesh_equal_epochs(dev, cfg, n: int, label: str):
+    """``n`` epochs of ``cfg`` through the kernels equal ``n`` through the
+    plain versions, every leaf but each block's trash row (the masked
+    scatter writes it in an unspecified order).  Returns the kernel state
+    and the kernels' launches in those epochs."""
+    from deneva_tpu_torch import kernels
+    t = time.monotonic()
+    eng_k, run_k, sk = mesh_engine(dev, cfg)
+    eng_p = make_engine(dev, cfg)
+    run_p = eng_p.run
+    if cfg.device_parts > 1:
+        from deneva_tpu_torch.parallel import make_sharded_run
+        run_p = make_sharded_run(eng_p, mesh_of(dev, cfg.device_parts))[1]
+    sp = copy.deepcopy(sk)
+    ks = kernels.all_kernels()
+    for k in ks.values():
+        k.launches = 0
+    sk = run_k(sk, n)
+    torch.cuda.synchronize()
+    counts = {nm: k.launches for nm, k in ks.items()}
+    with plain_path(eng_p.workload):
+        sp = run_p(sp, n)
+    torch.cuda.synchronize()
+    bad = differing_leaf(sk, sp)
+    if bad:
+        fail(f"{label}: leaf {bad} differs between kernel and plain epochs")
+    del sp
+    print(f"[mesh-epochs] {label}: {n} kernel epochs == {n} plain epochs "
+          f"in {time.monotonic() - t:.1f} s", flush=True)
+    return eng_k, run_k, sk, counts
+
+
+def phase_slice9_kernels(dev, rec: dict, card: str) -> None:
+    """K18a and K18b against their plain versions on each shard's call of
+    a real main-path epoch at D = 8 and 2^27 rows (after two epochs, so
+    the pool holds txns of several ages)."""
+    from deneva_tpu_torch.ops import forward
+    cfg = mesh_config(8)
+    eng, run, st = mesh_engine(dev, cfg)
+    st = run(st, 2)
+    ca, cb = [], []
+    with grab_calls(forward, "mc_slice_defer", ca), \
+            grab_calls(forward, "mc_pack_blocks", cb):
+        st = run(st, 1)
+    torch.cuda.synchronize()
+    if len(ca) != 8 or len(cb) != 8:
+        fail(f"K18: {len(ca)} / {len(cb)} calls in one D = 8 epoch")
+    n_dfr = []
+    for a, b in zip(ca, cb):
+        dfr, order = forward.mc_slice_defer(*a)
+        dfr_p, order_p = forward.mc_slice_defer_plain(*a)
+        if not (torch.equal(dfr, dfr_p) and torch.equal(order, order_p)):
+            fail("K18a differs from plain")
+        got = forward.mc_pack_blocks(*b)
+        want = forward.mc_pack_blocks_plain(*b[:6], *b[7:])
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail("K18b differs from plain")
+        n_dfr.append(int(dfr.sum()))
+    keys, valid, ts, d, cap = ca[0]
+    bd, a = keys.shape
+    b = cb[0]
+    lanes = bd * a
+    owner = torch.where(valid, keys.to(torch.int64) % d, d).reshape(-1)
+    word = (owner << 32) | ts[:, None].expand(bd, a).reshape(-1).to(
+        torch.int64)
+    lib = cuda_ms(lambda: torch.sort(word, stable=True))
+    rec["K18a_mc_defer"].update(
+        max_abs_err=0, ms=cuda_ms(lambda: forward.mc_slice_defer(*ca[0])),
+        plain_ms=cuda_ms(lambda: forward.mc_slice_defer_plain(*ca[0]),
+                         iters=5),
+        library_ms=lib)
+    # keys, valid and ts in; the defer flags and the order out; a count
+    # and an owner per lane, a compare and an add per txn and owner
+    bound(rec["K18a_mc_defer"], 5 * lanes + 4 * bd + bd + 4 * bd,
+          2 * lanes + 2 * bd * d)
+    rec["K18b_mc_pack"].update(
+        max_abs_err=0, ms=cuda_ms(lambda: forward.mc_pack_blocks(*b)),
+        plain_ms=cuda_ms(lambda: forward.mc_pack_blocks_plain(
+            *b[:6], *b[7:]), iters=5),
+        library_ms=lib)
+    # keys, valid, write flags, rank, flags and order in; D blocks of
+    # (key, rank, write) out
+    bound(rec["K18b_mc_pack"], 6 * lanes + 4 * bd + bd + 4 * bd
+          + 9 * d * cap, 3 * lanes + 2 * bd * d)
+    print(f"[K18] D=8 at 2^27 rows: slices of {bd} txns x {a} lanes, "
+          f"pair_cap {cap}, defers per shard {n_dfr}", flush=True)
+    for nm in ("K18a_mc_defer", "K18b_mc_pack"):
+        print_kernel(nm, rec[nm], card)
+    del eng, st, ca, cb
+    torch.cuda.empty_cache()
+
+
+def phase_slice9_epochs(dev, card: str) -> None:
+    """The mesh on one card: the main path at 2^27 rows over D = 1, 2, 4
+    and 8 shards (kernel epochs equal plain epochs; every counter and
+    every data row equal D = 1's); the tight-capacity defers and the
+    replicated-plan branch; ``mesh_scaling``'s cells, TPC-C at 64
+    warehouses and PPS at D = 8 against D = 1."""
+    from deneva_tpu_torch.ops import mc_pair_cap
+    from deneva_tpu_torch.parallel import a2a_bytes_per_epoch
+    n = 3
+    base = None
+    for d in (1, 2, 4, 8):
+        cfg = mesh_config(d)
+        _, _, st, counts = mesh_equal_epochs(dev, cfg, n, f"D={d} 2^27")
+        s = {k: int(v.sum()) for k, v in st.stats.items()}
+        if s["total_txn_abort_cnt"] or s["defer_cnt"]:
+            fail(f"[mesh] D={d}: aborts {s['total_txn_abort_cnt']} defers "
+                 f"{s['defer_cnt']}: the identity with D=1 needs none")
+        want = PATH_LAUNCHES["TPU_BATCH"] if d == 1 else PATH_LAUNCHES[
+            f"MESH{d}" if mc_pair_cap(BATCH, REQ, d, cfg.mc_plan_capacity)
+            else f"MESH_REPL{d}"]
+        for nm, c in counts.items():
+            if c != n * want.get(nm, 0):
+                fail(f"[mesh] D={d}: {nm} launched {c} times in {n} epochs")
+        if d == 1:
+            base = st
+            rows = 0
+        else:
+            rows = same_as_one_device(base, st, f"[mesh] D={d}")
+        print(f"[mesh] D={d} ({d} shards on one card, {card}): pair_cap "
+              f"{mc_pair_cap(BATCH, REQ, d, cfg.mc_plan_capacity)}, K18a "
+              f"{counts['K18a_mc_defer']} K18b {counts['K18b_mc_pack']} "
+              f"K1 {counts['K1_sort_lanes']} launches, defer_cnt "
+              f"{s['defer_cnt']}, commits {s['total_txn_commit_cnt']}, "
+              f"a2a_bytes_per_epoch {a2a_bytes_per_epoch(cfg, BATCH)}; "
+              f"counters and {rows} data rows == D=1", flush=True)
+        del st
+        torch.cuda.empty_cache()
+    # the replicated-plan branch at D = 8: one epoch, no K18
+    cfg = mesh_config(8, mc_plan_capacity=0)
+    _, _, st, counts = mesh_equal_epochs(dev, cfg, 1, "D=8 2^27 "
+                                         "mc_plan_capacity=0")
+    if counts["K18a_mc_defer"] or counts["K1_sort_lanes"] != 8:
+        fail("[mesh] the replicated plan launched K18 or not K1 per shard")
+    first = make_engine(dev, mesh_config(1))
+    one = first.run(first.init_state(), 1)
+    same_as_one_device(one, st, "[mesh] D=8 replicated plan")
+    print(f"[mesh] D=8 mc_plan_capacity=0: 1 epoch == D=1's, K1 "
+          f"{counts['K1_sort_lanes']} K18a {counts['K18a_mc_defer']}",
+          flush=True)
+    del st, one, first, base
+    torch.cuda.empty_cache()
+    # tight capacity (tests/test_parallel.py:197-216): defers, no abort,
+    # every admitted txn committed or still in flight
+    cfg = config(False, epoch_batch=4096, max_txn_in_flight=4096,
+                 synth_table_size=4096, req_per_query=4, max_accesses=4,
+                 conflict_buckets=1024, device_parts=8,
+                 mc_plan_capacity=0.25)
+    _, run, st, counts = mesh_equal_epochs(dev, cfg, 3, "tight capacity")
+    st = run(st, 5)
+    s = {k: int(v.sum()) for k, v in st.stats.items()}
+    inflight = int(st.pool.occupied.sum())
+    if not (s["defer_cnt"] > 0 and s["total_txn_abort_cnt"] == 0
+            and s["total_txn_commit_cnt"] + inflight == s["admitted_cnt"]):
+        fail(f"[mesh] tight capacity: {s} in flight {inflight}")
+    print(f"[mesh-tight] D=8 mc_plan_capacity=0.25, 8 epochs: defer_cnt "
+          f"{s['defer_cnt']}, commits {s['total_txn_commit_cnt']}, aborts "
+          f"0, in flight {inflight}, admitted {s['admitted_cnt']}; K18a "
+          f"{counts['K18a_mc_defer']} launches in 3", flush=True)
+    del st
+    # the generic path: mesh_scaling's cells, TPC-C, PPS
+    for alg in ("TPU_BATCH", "CALVIN"):
+        eng = make_engine(dev, mesh_scaling_config(1, alg))
+        one = eng.run(eng.init_state(), 10)
+        for d in (2, 4, 8):
+            _, run, st = mesh_engine(dev, mesh_scaling_config(d, alg))
+            same_as_one_device(one, run(st, 10),
+                               f"[mesh] mesh_scaling {alg} D={d}")
+        print(f"[mesh] mesh_scaling {alg}: D=2/4/8 == D=1 over 10 epochs",
+              flush=True)
+    for label, cfg1 in (("TPC-C 64wh TPU_BATCH", tpcc_config(64)),
+                        ("TPC-C 64wh NO_WAIT", tpcc_config(64, "NO_WAIT")),
+                        ("PPS TPU_BATCH", pps_config()),
+                        ("PPS MAAT", pps_config("MAAT"))):
+        t = time.monotonic()
+        eng = make_engine(dev, cfg1)
+        st0 = eng.init_state()
+        sums = None
+        if cfg1.workload == "TPCC":
+            sums = [float(st0.db[nm].columns[c][:st0.db[nm].capacity]
+                          .double().sum())
+                    for nm, c in (("DISTRICT", "D_YTD"),
+                                  ("WAREHOUSE", "W_YTD"),
+                                  ("CUSTOMER", "C_BALANCE"))]
+        one = eng.run(st0, 3)
+        _, run, st = mesh_engine(dev, cfg1.replace(device_parts=8))
+        st = run(st, 3)
+        same_as_one_device(one, st, f"[mesh] {label} D=8")
+        info = ""
+        if sums is not None:
+            info = f"; invariants {tpcc_invariants(flat_state(st), *sums)}"
+        print(f"[mesh] {label}: D=8 == D=1 over 3 epochs (commits "
+              f"{int(st.stats['total_txn_commit_cnt'])}) in "
+              f"{time.monotonic() - t:.1f} s{info}", flush=True)
+        del one, st, st0, eng
+        torch.cuda.empty_cache()
+
+
+def flat_state(state):
+    """The state with each stacked table in one-device form (non-ring
+    tables mapped back, ring tables' blocks concatenated in cursor
+    order), for the TPC-C invariants."""
+    import types
+
+    from deneva_tpu_torch.storage.table import DeviceTable, mc_stacked_rows
+    db = {}
+    for name, tab in state.db.items():
+        if not isinstance(tab, DeviceTable) or tab.mc_parts == 1:
+            db[name] = tab
+            continue
+        if tab.ring:
+            cols = {c: filled_rows(tab, v) for c, v in tab.columns.items()}
+        else:
+            at = mc_stacked_rows(tab)
+            cols = {c: v[at] for c, v in tab.columns.items()}
+        db[name] = DeviceTable(columns=cols,
+                               row_cnt=tab.row_cnt.sum().to(torch.int32),
+                               name=tab.name, capacity=tab.capacity,
+                               full_row=tab.full_row, ring=tab.ring)
+    return types.SimpleNamespace(db=db)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4092,7 +4500,8 @@ def main() -> int:
                              "K13b_conflict_density", "K15c_audit_scans",
                              "K15c_compact_edges",
                              "K17_audit_observe[lanes]",
-                             "K17_audit_observe[stamps]")}
+                             "K17_audit_observe[stamps]",
+                             "K18a_mc_defer", "K18b_mc_pack")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
@@ -4107,6 +4516,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_slice8_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
+    phase_slice9_kernels(dev, rec, info["card"])
     for full in (False, True):
         phase_epochs(dev, full)
         torch.cuda.empty_cache()
@@ -4124,6 +4534,9 @@ def main() -> int:
     probe_launches = phase_slice6_epochs(dev, info["card"])
     phase_slice7_epochs(dev, info["card"])
     phase_slice8_epochs(dev, info["card"])
+    torch.cuda.empty_cache()
+    phase_slice9_epochs(dev, info["card"])
+    torch.cuda.empty_cache()
     launches: dict[str, int] = {}
     tput = {}
     fields_of: dict[str, dict] = {}
@@ -4218,6 +4631,36 @@ def main() -> int:
     runs += [("OCC+D", f"OCC ycsb_skew theta {t} metrics",
               skew_config(False, "OCC", zipf_theta=t, metrics=True, **win))
              for t in (0.6, 0.9, 0.99)]
+    # slice 9: the mesh on one card.  The main path at 2^27 rows as one
+    # shard and as 8 shards sharing the card; mesh_scaling's cells; TPC-C
+    # at 64 warehouses and PPS over 8 shards
+    from deneva_tpu_torch.ops import mc_pair_cap
+    runs += [("TPU_BATCH", "mesh 2^27 D=1", mesh_config(1, **win)),
+             ("MESH8", "mesh 2^27 D=8", mesh_config(8, **win))]
+    for d in (1, 2, 4, 8):
+        for alg in ("TPU_BATCH", "CALVIN"):
+            cfg = mesh_scaling_config(d, alg)
+            path = alg if d == 1 else (
+                "MESH" if mc_pair_cap(cfg.epoch_batch, cfg.req_per_query, d,
+                                      cfg.mc_plan_capacity)
+                else "MESH_REPL") + str(d)
+            runs.append((path, f"mesh_scaling {alg} D={d}", cfg))
+    runs += [("TPCC_CHAINED@8", "tpcc 64wh D=8",
+              tpcc_config(64, device_parts=8, **win)),
+             ("TPCC_SWEEP@8", "NO_WAIT tpcc 64wh D=8",
+              tpcc_config(64, "NO_WAIT", device_parts=8, **win)),
+             ("PPS_CHAINED@8", "pps D=8", pps_config(device_parts=8, **win)),
+             ("PPS_MAAT@8", "MAAT pps D=8",
+              pps_config("MAAT", device_parts=8, **win))]
+    # the earlier slices' cells run half-length windows (0.5 s + 1.5 s),
+    # which keeps the whole run near half its time limit; the main path,
+    # its OCC comparator and the mesh's timed runs keep 1 s + 3 s
+    keep = {("TPU_BATCH", "fingerprint"), ("TPU_BATCH", "full_row"),
+            ("OCC", "fingerprint"), ("NOCC", "fingerprint"),
+            ("TPU_BATCH", "mesh 2^27 D=1"), ("MESH8", "mesh 2^27 D=8")}
+    runs = [(p, lb, c if (p, lb) in keep or c.done_secs != 3.0
+             else c.replace(warmup_secs=0.5, done_secs=1.5))
+            for p, lb, c in runs]
     for path, label, cfg in runs:
         mode = "full_row" if cfg.sim_full_row else "fingerprint"
         counts, fields = phase_simulate(dev, cfg, path, f"{path} {label}",
@@ -4242,6 +4685,10 @@ def main() -> int:
           f"{tput[('OCC', 'fingerprint')]:.1f}; NOCC "
           f"{tput[('NOCC', 'fingerprint')]:.1f})", flush=True)
     slice8_summary(fields_of, info["card"])
+    print(f"[mesh-simulate] the main path at 2^27 rows on {info['card']}: "
+          f"D=1 {tput[('TPU_BATCH', 'mesh 2^27 D=1')]:.1f} committed "
+          f"txn/s; D=8 (8 shards sharing one card, not 8 cards) "
+          f"{tput[('MESH8', 'mesh 2^27 D=8')]:.1f}", flush=True)
     if "--profile" in sys.argv:
         for label, cfg in (("fingerprint", config(False)),
                            ("full_row", config(True)),
@@ -4262,7 +4709,9 @@ def main() -> int:
                            ("OCC repair rounds 2", repair_config("OCC", 2)),
                            ("DGCC theta 0.9", dgcc_config(0.9)),
                            ("OCC ycsb_skew audited cadence 1",
-                            audited(skew_config, False, "OCC"))):
+                            audited(skew_config, False, "OCC")),
+                           ("mesh 2^27 D=1", mesh_config(1)),
+                           ("mesh 2^27 D=8", mesh_config(8))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
     out = []

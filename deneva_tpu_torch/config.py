@@ -21,7 +21,12 @@ dependency-graph wavefront through the chained executor, both on YCSB
 and TPC-C.  ``metrics`` adds the per-partition conflict density to the
 device counters, and ``audit`` (YCSB and TPC-C) the isolation audit
 plane's per-epoch dependency observations and stamp tables, with the
-seeded ``audit_mutate`` fault under OCC.  A flag that would leave
+seeded ``audit_mutate`` fault under OCC.  ``device_parts > 1`` runs
+every workload and backend over a mesh of that many shards (tables
+owner-major, `parallel` and `workloads.mc`), with ``mc_plan_capacity``
+sizing the sharded forwarding plan; the reference's checks and its
+``device_parts == 1`` pins (metrics, audit, repair, the ORDER index,
+elastic, ctrl) raise as they do there.  A flag that would leave
 those slices raises in :meth:`Config.validate` and names the ROADMAP.md
 item that brings it; a flag the port does not know at all raises in
 :meth:`Config.from_args`.  Nothing is silently ignored.
@@ -75,7 +80,10 @@ class Config:
     # ---- topology ----
     node_id: int = 0
     part_cnt: int = 1              # keyspace partitions
-    device_parts: int = 1          # keyspace partitions across chips
+    device_parts: int = 1          # keyspace partitions across the devices
+    #                                of a mesh: tables owner-major, the
+    #                                executors run once per shard
+    #                                (parallel/, workloads/mc.py)
 
     # ---- workload ----
     workload: WorkloadKind = WorkloadKind.YCSB
@@ -151,6 +159,10 @@ class Config:
     defer_rounds_max: int = 8      # defer budget before forced abort
     sweep_rounds: int = 24         # serialization-sweep fixpoint iterations
     maat_peel_rounds: int = 16     # MAAT cycle-peel iterations per epoch
+    mc_plan_capacity: float = 2.0  # sharded plan under device_parts > 1:
+    #                                per-(slice, owner) block = factor *
+    #                                N/D^2 lanes (0 = every shard plans the
+    #                                full batch)
     tpcc_order_index: bool = False  # maintain the dynamic ordered ORDER
     #                                 index (index_btree insert analogue;
     #                                 one merge sort per epoch)
@@ -225,6 +237,36 @@ class Config:
         # the reference's own checks on these fields
         _check(self.part_cnt >= 1, "part_cnt must be >= 1")
         _check(self.device_parts >= 1, "device_parts must be >= 1")
+        if self.device_parts > 1:
+            # deneva_tpu/config.py:1036-1065, with its messages
+            _check(self.part_cnt == 1,
+                   "device_parts (multi-chip) and part_cnt (multi-process) "
+                   "partitioning do not compose yet")
+            if self.mc_plan_capacity > 0:
+                _check(self.max_accesses <= 128,
+                       "sharded multi-chip planning needs max_accesses "
+                       "<= 128: a txn's own lanes must fit one capacity "
+                       "block (the 128-lane tile floor of mc_pair_cap) "
+                       "or it could defer forever — raise "
+                       "mc_plan_capacity=0 to use the replicated plan")
+            # ownership anchors deal evenly over the mesh blocks
+            # (storage.table.to_mc_layout)
+            D = self.device_parts
+            if self.workload == WorkloadKind.YCSB:
+                _check(self.synth_table_size % D == 0,
+                       "synth_table_size must divide over device_parts")
+            elif self.workload == WorkloadKind.TPCC:
+                _check(self.num_wh % D == 0,
+                       "num_wh must divide over device_parts "
+                       "(warehouses are the ownership anchor)")
+                _check(self.insert_table_cap % D == 0,
+                       "insert_table_cap must divide over device_parts")
+            elif self.workload == WorkloadKind.PPS:
+                for nm, n in (("pps_parts_cnt", self.pps_parts_cnt),
+                              ("pps_products_cnt", self.pps_products_cnt),
+                              ("pps_suppliers_cnt", self.pps_suppliers_cnt)):
+                    _check(n % D == 0,
+                           f"{nm} must divide over device_parts")
         _check(self.epoch_batch > 0
                and (self.epoch_batch & (self.epoch_batch - 1)) == 0,
                "epoch_batch must be a power of two (tiling discipline)")
@@ -359,6 +401,18 @@ class Config:
                    "DGCC's wave re-execution closures are wired for YCSB "
                    "and TPCC (workloads declare chained execution; PPS "
                    "keeps the sweep backends)")
+        # the reference's device_parts == 1 pins of the planes the port
+        # refuses in _NOT_PORTED (deneva_tpu/config.py:1214,1472): the
+        # same messages, raised first, as the reference raises them
+        if self.elastic:
+            _check(self.device_parts == 1,
+                   "elastic (process-level) and device_parts (chip-level) "
+                   "repartitioning do not compose yet")
+        if self.ctrl:
+            _check(self.device_parts == 1,
+                   "the ctrl router's branched epoch program is "
+                   "single-device (multi-chip plans are built per-shard "
+                   "inside shard_map)")
         # the slice the port runs so far
         for cond, what, item in _NOT_PORTED:
             if cond(self):
@@ -401,8 +455,6 @@ class Config:
 _NOT_PORTED = (
     (lambda c: c.part_cnt > 1,
      "part_cnt > 1", "item 18: cluster runtime"),
-    (lambda c: c.device_parts > 1,
-     "device_parts > 1", "item 19: mesh + workloads/mc"),
     (lambda c: c.elastic, "elastic", "item 18: cluster runtime"),
     (lambda c: c.ctrl or c.ctrl_dgcc,
      "ctrl/ctrl_dgcc", "item 16d: control plane + router"),

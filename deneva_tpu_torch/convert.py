@@ -18,7 +18,10 @@ slots,cnt}`` TPC-C's `DynamicSortedIndex` under ``tpcc_order_index``,
 ``cc_state`` holds the
 T/O watermarks (``rts``, ``wts``) and MVCC's boundary ring (``his``,
 ``pos``), absent for stateless backends (OCC, 2PL, MAAT, CALVIN,
-TPU_BATCH and NOCC carry ``()``).
+TPU_BATCH and NOCC carry ``()``).  Under ``device_parts > 1`` a stacked
+table's columns are in the owner-major layout and its ``row_cnt`` holds
+one cursor per block, in both packages alike; `from_reference_state`
+carries ``mc_parts``, ``anchor_rows`` and ``mc_replicated``.
 
 The pool's queries are the workload's: ``YCSBQuery``, ``TPCCQuery`` or
 ``PPSQuery``,
@@ -174,7 +177,10 @@ def from_reference_state(tree, cfg, device) -> EngineState:
         db[name] = DeviceTable(
             columns=cols, row_cnt=_t(tab.row_cnt, device), name=tab.name,
             capacity=int(tab.capacity), full_row=bool(tab.full_row),
-            ref_dtypes=ref, ring=bool(getattr(tab, "ring", False)))
+            ref_dtypes=ref, ring=bool(getattr(tab, "ring", False)),
+            mc_parts=int(getattr(tab, "mc_parts", 1)),
+            anchor_rows=int(getattr(tab, "anchor_rows", 1)),
+            mc_replicated=bool(getattr(tab, "mc_replicated", False)))
     q = tree.pool.queries
     pool = PoolState(
         queries=_query_class(cfg)(**{f: _t(getattr(q, f), device)

@@ -73,12 +73,32 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
                    quiet: bool = False) -> Stats:
     """Warmup for ``warmup_secs``, measure for ``done_secs``; returns Stats.
     Runs on CUDA unless ``device`` names the CPU.  ``Stats.epochs_run``
-    holds every epoch the run executed, calibration chunks included."""
+    holds every epoch the run executed, calibration chunks included.
+
+    Under ``device_parts > 1`` the run takes the mesh of the enclosing
+    `parallel.use_mesh`, or else ``make_mesh(device_parts)`` (the first
+    ``device_parts`` CUDA devices); the state lives on the mesh's first
+    device, which ``device``, when given, must name."""
+    mesh = None
+    if cfg.device_parts > 1:
+        from deneva_tpu_torch.parallel import (current_mesh, make_mesh,
+                                               make_sharded_run)
+        mesh = current_mesh() or make_mesh(cfg.device_parts)
+        want = None if device is None else torch.device(device)
+        if want is not None and (want.type != mesh.device.type or (
+                want.index is not None and want != mesh.device)):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.device}")
+        device = mesh.device
     device = kernels.resolve_device(device)
     wl = get_workload(cfg, device=device)
     eng = Engine(cfg, wl, device=device)
     state = eng.init_state()
     run_n = eng.run
+    if mesh is not None:
+        # tables owner-major over the mesh, the shards' executors in turn
+        place, run_n = make_sharded_run(eng, mesh)
+        state = place(state)
 
     run_t0 = time.monotonic()
     prog_next = [run_t0 + cfg.prog_timer_secs]

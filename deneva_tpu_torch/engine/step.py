@@ -31,6 +31,13 @@ partial one:
        the audit stamp tables (`cc.audit_observe`: K17, K15a, K15c)
     6. update the pool and the device counters (plain PyTorch)
 
+Under ``device_parts > 1`` (inside `parallel.use_mesh`) step 5 runs over
+the mesh: the forwarding path plans per shard in ``execute_mc`` (K18a,
+K18b, then K1-K3 per shard), whose capacity defers give the verdict
+after the execute (`ops.forward.mc_defer_verdict`); every other path
+runs the workload's executor once per shard (`workloads.mc.mc_execute`)
+on the replicated verdict.
+
 Between 4 and 5, ``audit_mutate`` flips the window's clean OCC losers
 (K13a's launch on the write lanes) and ``metrics`` adds the epoch's
 per-partition conflict density (K13b) to its counter.
@@ -58,7 +65,9 @@ from deneva_tpu_torch.cc import base as cc_base
 from deneva_tpu_torch.config import CCAlg, Config, Mode
 from deneva_tpu_torch.engine.pool import PoolState, TxnPool
 from deneva_tpu_torch.engine.repair import run_repair
-from deneva_tpu_torch.ops import forward_verdict, forwarding_applies, prng
+from deneva_tpu_torch.ops import (forward_verdict, forwarding_applies,
+                                  mc_defer_verdict, prng)
+from deneva_tpu_torch.workloads.mc import mc_execute
 
 LAT_BUCKETS = 64
 RETRY_BUCKETS = 8
@@ -217,7 +226,12 @@ class Engine:
             # their never-applied writes are invisible to readers.
             fbatch = batch if forced is None else dataclasses.replace(
                 batch, active=batch.active & ~forced)
-            verdict, fwd = forward_verdict(fbatch)
+            if cfg.device_parts > 1:
+                # each shard plans inside execute_mc, which also decides
+                # the capacity defers: the verdict follows the execute
+                verdict = None
+            else:
+                verdict, fwd = forward_verdict(fbatch)
             cc_state = state.cc_state
         else:
             inc = build_conflict_incidence(cfg, be, batch, batch.order_free)
@@ -251,21 +265,37 @@ class Engine:
             verdict = dataclasses.replace(
                 verdict, abort=verdict.abort | stuck,
                 defer=verdict.defer & ~stuck)
-        # a forced txn completes-as-aborted only when the CC would not
-        # retry it anyway; released slots are commits + forced completions
-        if forced is None:
-            exec_commit = release = verdict.commit
-        else:
+        def finalize(verdict, forced):
+            # a forced txn completes-as-aborted only when the CC would not
+            # retry it anyway; released slots are commits + forced
+            # completions
+            if forced is None:
+                return None, verdict.commit, verdict.commit
             forced = forced & ~(verdict.abort | verdict.defer)
-            exec_commit = verdict.commit & ~forced
-            release = verdict.commit | forced
+            return forced, verdict.commit & ~forced, verdict.commit | forced
+
+        if verdict is not None:
+            forced, exec_commit, release = finalize(verdict, forced)
 
         # 5. execute (SIMPLE / QRY_ONLY ack without touching the tables,
         # reference config.h:276-281)
         db = state.db
-        if forwarding:
+        if forwarding and cfg.device_parts > 1:
+            db, dfr = wl.execute_mc(db, fbatch, stats)
+            verdict = mc_defer_verdict(fbatch, dfr)
+            forced, exec_commit, release = finalize(verdict, forced)
+        elif forwarding:
             db = wl.execute(db, queries, None, verdict.order, stats,
                             fwd_rank=fwd)
+        elif cfg.device_parts > 1 and cfg.mode in (Mode.NORMAL, Mode.NOCC):
+            # the generic path over the mesh: the replicated verdict, each
+            # shard's partition through the workload's own execute
+            dgcc = be.alg == CCAlg.DGCC
+            db = mc_execute(cfg, wl, db, queries, exec_commit,
+                            verdict.order, verdict.level, stats,
+                            chained=be.chained and cfg.mode == Mode.NORMAL,
+                            level_exec=not dgcc,
+                            n_levels=cfg.dgcc_levels if dgcc else None)
         elif be.chained and cfg.mode == Mode.NORMAL:
             dgcc = be.alg == CCAlg.DGCC
             db, stats = _run_levels(

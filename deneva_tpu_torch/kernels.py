@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
            "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu",
-           "pps.cu", "frontier.cu", "depgraph.cu", "audit.cu")
+           "pps.cu", "frontier.cu", "depgraph.cu", "audit.cu", "mc.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
            "bits.cuh", "radix.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -246,4 +246,6 @@ def all_kernels() -> dict[str, Kernel]:
             "K15c_audit_scans": depgraph.K15C_SCAN,
             "K15c_compact_edges": depgraph.K15C_COMPACT,
             "K17_audit_observe[lanes]": base.K17_LANES,
-            "K17_audit_observe[stamps]": base.K17_OBSERVE}
+            "K17_audit_observe[stamps]": base.K17_OBSERVE,
+            "K18a_mc_defer": forward.K18A_DEFER,
+            "K18b_mc_pack": forward.K18B_PACK}

@@ -9,5 +9,7 @@ from deneva_tpu_torch.ops.forward import (ForwardPlan,  # noqa: F401
                                           commit_all_verdict, forward_plan,
                                           forward_plan_flat, forward_verdict,
                                           forwarding_applies,
-                                          last_earlier_writer, seg_first)
+                                          last_earlier_writer,
+                                          mc_defer_verdict, mc_pair_cap,
+                                          mc_plan_defer, seg_first)
 from deneva_tpu_torch.ops.sampling import Zipfian  # noqa: F401

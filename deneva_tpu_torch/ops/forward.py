@@ -23,9 +23,35 @@ Two kernels carry it on the card:
   (key, rank) group and ``win`` the last write lane of each key: two
   global max-scans of lane indices and one gather pass.
 
+The sharded plan of a mesh (``device_parts > 1``, `workloads.ycsb.
+YCSBWorkload.execute_mc`) adds two kernels (``csrc/mc.cu``), run once
+per shard on its slice of ``bD = B / D`` whole txns:
+
+* **K18a** `mc_slice_defer` — replaces ``deneva_tpu/ops/forward.py:109``
+  `mc_plan_defer` as the shard-local pass of ``deneva_tpu/workloads/
+  ycsb.py:400-412``: the txns whose lanes overflow their (slice, owner =
+  key % D) block of ``pair_cap`` lanes, in (ts, txn) priority.  A txn's
+  lanes are contiguous and share its ts, so the reference's stable
+  (owner, ts) lane sort orders lanes by (owner, ts, txn, lane), and a
+  lane's position is ``prefix_o(t)`` (owner-o lanes of the txns before
+  t in (ts, txn) order) plus its rank among t's own owner-o lanes.  The
+  kernel ranks the ``bD`` txns by (ts, txn) by counting and scans the D
+  owner-count rows in that order (one block a row): t defers iff
+  ``prefix_o(t) + c[t][o] > pair_cap`` for some owner.  It also returns
+  that order.
+* **K18b** `mc_pack_blocks` — replaces ``deneva_tpu/workloads/ycsb.py:
+  413-441``: the same scan with deferred txns' counts zeroed gives each
+  surviving lane its slot in its owner's block, where it lands as (key,
+  rank, write), every block in (ts, lane) order; the slots past an
+  owner's lanes hold ``(INT32_MAX, 0, False)``.  (The reference's
+  clamped ``dynamic_slice`` leaves other owners' lanes there, which the
+  receiver masks to the sentinel key; only received lanes whose key the
+  receiver owns are defined.)
+
 The plain versions beside them follow the reference op for op (the
-Kogge-Stone scans included); the CPU tests hold them against
-``deneva_tpu``, and ``chip_smoke.py`` holds the kernels against them.
+Kogge-Stone scans and the stable sorts included); the CPU tests hold
+them against ``deneva_tpu``, and ``chip_smoke.py`` holds the kernels
+against them.
 """
 
 from __future__ import annotations
@@ -46,8 +72,17 @@ K2_SCAN = kernels.Kernel("dt_plan_scans", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.P, kernels.P, kernels.P, kernels.P])
 
+K18A_DEFER = kernels.Kernel("dt_mc_defer", [
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
+    kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P])
+K18B_PACK = kernels.Kernel("dt_mc_pack", [
+    kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
+    kernels.I32, kernels.I32, kernels.I32, kernels.I32, kernels.P,
+    kernels.P, kernels.P, kernels.P, kernels.P])
+
 SORT_TILE = 2048        # lanes per radix-sort block (csrc/forward.cu)
 SCAN_TILE = 1024        # lanes per scan block (csrc/forward.cu)
+MC_MAX_PARTS = 8        # the most shards K18a / K18b take (csrc/mc.cu)
 
 
 def forwarding_applies(backend, workload) -> bool:
@@ -77,6 +112,209 @@ class ForwardPlan:
     fwd: torch.Tensor
     win: torch.Tensor
     perm: torch.Tensor | None
+
+
+def mc_pair_cap(b: int, a: int, d_parts: int, factor: float) -> int:
+    """The sharded plan's lanes per (source slice, owner) block
+    (``deneva_tpu/ops/forward.py:88``): ``factor`` times the even share
+    N / D^2, rounded up to the 128-lane tile and at least one tile.  0
+    (every shard plans the whole batch) when the factor is 0, at one
+    shard, when slices would split txns, or when a block would hold the
+    whole slice."""
+    if factor <= 0 or d_parts <= 1 or b % d_parts:
+        return 0
+    import math
+    sl = (b // d_parts) * a
+    cap = (math.ceil(factor * sl / d_parts) + 127) // 128 * 128
+    cap = max(cap, 128)
+    return 0 if cap >= sl else cap
+
+
+def _lexsort2(major: torch.Tensor, minor: torch.Tensor) -> torch.Tensor:
+    """The permutation of a stable sort by (major, minor): ties keep
+    index order, as ``lax.sort(..., num_keys=2, is_stable=True)``."""
+    p = torch.sort(minor, stable=True).indices
+    return p[torch.sort(major[p], stable=True).indices]
+
+
+def mc_plan_defer_plain(keys: torch.Tensor, ts: torch.Tensor,
+                        valid: torch.Tensor, d_parts: int, pair_cap: int
+                        ) -> torch.Tensor:
+    """The capacity rule over the whole batch, op for op from
+    ``deneva_tpu/ops/forward.py:109``: bool[B], the txns with a lane past
+    ``pair_cap`` in its (N/D-lane source slice, owner) block under the
+    stable (slice, owner, ts) order."""
+    b, a = keys.shape
+    n = b * a
+    sl = n // d_parts
+    dev = keys.device
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    vf = valid.reshape(-1)
+    owner = torch.where(vf, keys.reshape(-1).to(torch.int64) % d_parts,
+                        d_parts)
+    seg = (lane // sl) * (d_parts + 1) + owner
+    tsl = ts[:, None].expand(b, a).reshape(-1)
+    perm = _lexsort2(seg, tsl)
+    sseg, stxn = seg[perm], (lane // a)[perm]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = sseg[1:] != sseg[:-1]
+    start = torch.cummax(torch.where(head, lane, 0), 0).values
+    over = (lane - start >= pair_cap) & (sseg % (d_parts + 1) != d_parts)
+    sov = over[torch.sort(stxn, stable=True).indices]
+    return sov.reshape(b, a).any(dim=1)
+
+
+def mc_plan_defer(keys: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
+                  d_parts: int, pair_cap: int) -> torch.Tensor:
+    """bool[B]: the spec of the capacity rule over the replicated batch.
+    On CUDA it is K18a over each of the D slices, which must hold whole
+    txns (``B % D == 0``)."""
+    if kernels.on_cpu(keys, ts, valid):
+        return mc_plan_defer_plain(keys, ts, valid, d_parts, pair_cap)
+    b = keys.shape[0]
+    if b % d_parts:
+        raise ValueError("K18a takes slices of whole txns: B % D != 0")
+    bd = b // d_parts
+    return torch.cat([mc_slice_defer(keys[s * bd:(s + 1) * bd],
+                                     valid[s * bd:(s + 1) * bd],
+                                     ts[s * bd:(s + 1) * bd], d_parts,
+                                     pair_cap)[0]
+                      for s in range(d_parts)])
+
+
+def mc_slice_defer_plain(keys: torch.Tensor, valid: torch.Tensor,
+                         ts: torch.Tensor, d_parts: int, pair_cap: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain K18a, op for op from ``deneva_tpu/workloads/ycsb.py:
+    400-412``: (bool[bD] defers, int32[bD] the txns in (ts, txn)
+    order)."""
+    bd, a = keys.shape
+    sl = bd * a
+    dev = keys.device
+    vs = valid.reshape(-1)
+    ks = torch.where(valid, keys, INT32_MAX).reshape(-1)
+    tss = ts[:, None].expand(bd, a).reshape(-1)
+    lane = torch.arange(sl, dtype=torch.int64, device=dev)
+    owner = torch.where(vs, ks.to(torch.int64) % d_parts, d_parts)
+    perm = _lexsort2(owner, tss)
+    so, stx = owner[perm], (lane // a)[perm]
+    head = torch.ones(sl, dtype=torch.bool, device=dev)
+    head[1:] = so[1:] != so[:-1]
+    start = torch.cummax(torch.where(head, lane, 0), 0).values
+    over = (lane - start >= pair_cap) & (so != d_parts)
+    sov = over[torch.sort(stx, stable=True).indices]
+    order = torch.sort(ts, stable=True).indices.to(torch.int32)
+    return sov.reshape(bd, a).any(dim=1), order
+
+
+def _mc_check(d_parts: int, pair_cap: int, a: int) -> None:
+    if not 1 < d_parts <= MC_MAX_PARTS:
+        raise ValueError(f"K18 takes 2 to {MC_MAX_PARTS} shards, got "
+                         f"{d_parts}")
+    if pair_cap < a:
+        raise ValueError(f"pair_cap {pair_cap} below one txn's {a} lanes")
+
+
+def mc_slice_defer(keys: torch.Tensor, valid: torch.Tensor,
+                   ts: torch.Tensor, d_parts: int, pair_cap: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K18a: keys int32[bD, A], valid bool[bD, A], ts int32[bD] ->
+    (bool[bD] the txns that defer, int32[bD] the txns in (ts, txn)
+    order, which K18b takes)."""
+    if kernels.on_cpu(keys, valid, ts):
+        return mc_slice_defer_plain(keys, valid, ts, d_parts, pair_cap)
+    bd, a = keys.shape
+    dev = keys.device
+    _mc_check(d_parts, pair_cap, a)
+    kernels.check("keys", keys, torch.int32, (bd, a), dev)
+    kernels.check("valid", valid, torch.bool, (bd, a), dev)
+    kernels.check("ts", ts, torch.int32, (bd,), dev)
+    dfr = torch.empty(bd, dtype=torch.bool, device=dev)
+    order = torch.empty(bd, dtype=torch.int32, device=dev)
+    cnt = torch.empty(d_parts * (bd + 1), dtype=torch.int32, device=dev)
+    rank = torch.empty(bd, dtype=torch.int32, device=dev)
+    K18A_DEFER.launch(kernels.ptr(keys), kernels.ptr(valid), kernels.ptr(ts),
+                      bd, a, d_parts, pair_cap, kernels.ptr(dfr),
+                      kernels.ptr(order), kernels.ptr(cnt), kernels.ptr(rank),
+                      kernels.stream(keys))
+    return dfr, order
+
+
+def mc_pack_blocks_plain(keys, valid, ts, rank, w, dfr, d_parts: int,
+                         pair_cap: int):
+    """Plain K18b, op for op from ``deneva_tpu/workloads/ycsb.py:413-441``
+    (the blocks cut at each owner's own lanes, the rest filled with
+    ``(INT32_MAX, 0, False)``): int32[D, cap] keys, int32[D, cap] ranks,
+    bool[D, cap] write flags."""
+    bd, a = keys.shape
+    sl = bd * a
+    dev = keys.device
+    dl = dfr[:, None].expand(bd, a).reshape(-1)
+    vs2 = valid.reshape(-1) & ~dl
+    ks2 = torch.where(vs2, keys.reshape(-1), INT32_MAX)
+    ws2 = w.reshape(-1) & ~dl
+    rs = rank[:, None].expand(bd, a).reshape(-1)
+    tss = ts[:, None].expand(bd, a).reshape(-1)
+    owner2 = torch.where(vs2, ks2.to(torch.int64) % d_parts, d_parts)
+    perm = _lexsort2(owner2, tss)
+    so, ck, cr, cw = owner2[perm], ks2[perm], rs[perm], ws2[perm]
+    cnt = torch.bincount(owner2, minlength=d_parts + 1)
+    starts = torch.cumsum(cnt, 0) - cnt
+    pos = torch.arange(sl, dtype=torch.int64, device=dev) - starts[so]
+    keep = (so < d_parts) & (pos < pair_cap)
+    at = so[keep] * pair_cap + pos[keep]
+    bk = torch.full((d_parts * pair_cap,), INT32_MAX, dtype=torch.int32,
+                    device=dev)
+    br = torch.zeros_like(bk)
+    bw = torch.zeros(d_parts * pair_cap, dtype=torch.bool, device=dev)
+    bk[at], br[at], bw[at] = ck[keep], cr[keep], cw[keep]
+    return (bk.reshape(d_parts, pair_cap), br.reshape(d_parts, pair_cap),
+            bw.reshape(d_parts, pair_cap))
+
+
+def mc_pack_blocks(keys: torch.Tensor, valid: torch.Tensor,
+                   ts: torch.Tensor, rank: torch.Tensor, w: torch.Tensor,
+                   dfr: torch.Tensor, order: torch.Tensor, d_parts: int,
+                   pair_cap: int):
+    """K18b: the slice's surviving lanes packed into one ``[pair_cap]``
+    block per owner.  ``w`` is the valid write lanes, ``dfr`` and
+    ``order`` K18a's outputs for the same slice (the kernel reads
+    ``order`` in place of ``ts``)."""
+    if kernels.on_cpu(keys, valid, ts, rank, w, dfr):
+        return mc_pack_blocks_plain(keys, valid, ts, rank, w, dfr, d_parts,
+                                    pair_cap)
+    bd, a = keys.shape
+    dev = keys.device
+    _mc_check(d_parts, pair_cap, a)
+    for name, t, dt, shape in (("keys", keys, torch.int32, (bd, a)),
+                               ("valid", valid, torch.bool, (bd, a)),
+                               ("rank", rank, torch.int32, (bd,)),
+                               ("w", w, torch.bool, (bd, a)),
+                               ("dfr", dfr, torch.bool, (bd,)),
+                               ("order", order, torch.int32, (bd,))):
+        kernels.check(name, t, dt, shape, dev)
+    bk = torch.empty((d_parts, pair_cap), dtype=torch.int32, device=dev)
+    br = torch.empty_like(bk)
+    bw = torch.empty((d_parts, pair_cap), dtype=torch.bool, device=dev)
+    cnt = torch.empty(d_parts * (bd + 1), dtype=torch.int32, device=dev)
+    K18B_PACK.launch(kernels.ptr(keys), kernels.ptr(valid),
+                     kernels.ptr(rank), kernels.ptr(w), kernels.ptr(dfr),
+                     kernels.ptr(order), bd, a, d_parts, pair_cap,
+                     kernels.ptr(bk), kernels.ptr(br), kernels.ptr(bw),
+                     kernels.ptr(cnt), kernels.stream(keys))
+    return bk, br, bw
+
+
+def mc_defer_verdict(batch, dfr: torch.Tensor):
+    """The forwarding verdict under a mesh (``deneva_tpu/ops/forward.py:
+    159``): everything active commits in rank order but the txns the
+    capacity rule deferred."""
+    from deneva_tpu_torch.cc.base import Verdict
+
+    z = torch.zeros_like(batch.active)
+    dfr = dfr & batch.active
+    return Verdict(commit=batch.active & ~dfr, abort=z, defer=dfr,
+                   order=batch.rank, level=torch.zeros_like(batch.rank))
 
 
 def commit_all_verdict(batch):

@@ -37,6 +37,13 @@ Masked and out-of-range lanes of both write nothing.  The reference
 steers them onto its trash row, whose value it leaves unspecified; the
 port leaves that row alone, so only rows ``[0, capacity)`` compare.
 
+A mesh (``device_parts = D > 1``) keeps its tables in the reference's
+owner-major layout (`to_mc_layout`): block ``d`` of every column holds
+the rows whose ownership anchor is d mod D, each block padded like a
+table of its own with its last row as trash, and ``row_cnt`` holds one
+cursor per block.  `DeviceTable.block` views one block as a table, so
+writes through it land in the stacked columns.
+
 MVCC's per-row `VersionRing` lives here too, with **K12d**
 `VersionRing.push` (``csrc/version.cu``), which replaces
 ``deneva_tpu/storage/table.py:257`` `push_rows`.  Its read side, K12c,
@@ -91,6 +98,13 @@ class DeviceTable:
     ring: bool = False     # append wraps (windowed retention for insert-only
     #                        tables: HISTORY/ORDER/ORDER-LINE keep the last
     #                        `capacity` rows instead of growing unboundedly)
+    # -- the owner-major layout of a mesh (to_mc_layout) --
+    mc_parts: int = 1      # >1: columns hold mc_parts owner-major blocks
+    #                        and row_cnt is int32[mc_parts]
+    anchor_rows: int = 1   # rows per ownership anchor: owner(slot) =
+    #                        (slot // anchor_rows) % mc_parts
+    mc_replicated: bool = False  # read-only table every shard reads whole
+    #                              (ITEM, USES, SUPPLIES)
 
     @classmethod
     def create(cls, schema: TableSchema, capacity: int, device,
@@ -105,6 +119,30 @@ class DeviceTable:
                    row_cnt=torch.zeros((), dtype=torch.int32, device=device),
                    name=schema.name, capacity=capacity, full_row=full_row,
                    ref_dtypes=ref, ring=ring)
+
+    def mc_block_rows(self) -> tuple[int, int, int]:
+        """(rows, data rows, trash row) of each block of an owner-major
+        table: a block's trash is its last padded row, a ring block's
+        the row after its ``capacity // mc_parts`` data rows."""
+        local, lb = mc_block_geometry(self.capacity, self.anchor_rows,
+                                      self.mc_parts)
+        if self.ring:
+            local = self.capacity // self.mc_parts
+            return lb, local, local
+        return lb, local, lb - 1
+
+    def block(self, d: int) -> "DeviceTable":
+        """Block ``d`` of an owner-major table as a table of its own:
+        every column a view of the block's rows and ``row_cnt`` a view of
+        its cursor, so its writes land in this table.  Its capacity is
+        its trash row (`mc_block_rows`)."""
+        lb, _, cap = self.mc_block_rows()
+        return DeviceTable(
+            columns={n: v[d * lb:(d + 1) * lb]
+                     for n, v in self.columns.items()},
+            row_cnt=self.row_cnt[d], name=self.name, capacity=cap,
+            full_row=self.full_row, ref_dtypes=self.ref_dtypes,
+            ring=self.ring)
 
     def gather(self, slots: torch.Tensor, cols: tuple[str, ...] | None = None
                ) -> dict[str, torch.Tensor]:
@@ -203,7 +241,8 @@ class DeviceTable:
                         ctypes.c_void_p), kernels.stream(slots))
         return self
 
-    def append_plain(self, rows: dict[str, torch.Tensor], mask: torch.Tensor
+    def append_plain(self, rows: dict[str, torch.Tensor], mask: torch.Tensor,
+                     anchor: torch.Tensor | None = None
                      ) -> tuple["DeviceTable", torch.Tensor]:
         """Plain K14d, op for op from ``deneva_tpu/storage/table.py:137``;
         writes rows and ``row_cnt`` in place.  Returns (table, slots),
@@ -229,11 +268,14 @@ class DeviceTable:
         self.row_cnt.copy_(new_cnt)
         return self, slots
 
-    def append(self, rows: dict[str, torch.Tensor], mask: torch.Tensor
+    def append(self, rows: dict[str, torch.Tensor], mask: torch.Tensor,
+               anchor: torch.Tensor | None = None
                ) -> tuple["DeviceTable", torch.Tensor]:
         """K14d: insert up to len(mask) rows at prefix-sum slots from
         ``row_cnt`` (`table_t::get_new_row` without the latch); returns
-        (table, slots)."""
+        (table, slots).  ``anchor``, each row's ownership anchor, is read
+        only by `workloads.mc.McTableView.append`; executors pass it
+        always, so one body serves both layouts."""
         if kernels.on_cpu(mask, self.row_cnt):
             return self.append_plain(rows, mask)
         n = mask.numel()
@@ -248,6 +290,74 @@ class DeviceTable:
                            _ptr_array(cols), _ptr_array(vals),
                            kernels.ptr(slots), kernels.stream(mask))
         return self, slots
+
+
+MC_CHUNK = 1 << 22      # rows `to_mc_layout` moves at a time
+
+
+def mc_block_geometry(capacity: int, anchor_rows: int, d_parts: int
+                      ) -> tuple[int, int]:
+    """(data rows per block, padded rows per block) of the owner-major
+    layout (``deneva_tpu/storage/table.py:283``): ``capacity //
+    anchor_rows`` anchors dealt round-robin over ``d_parts`` blocks, each
+    block padded like a table of its own, its last row its trash."""
+    r = anchor_rows
+    if capacity % r != 0:
+        raise ValueError(f"capacity {capacity} not a multiple of "
+                         f"anchor_rows {r}")
+    anchors = capacity // r
+    if anchors % d_parts != 0:
+        raise ValueError(f"{anchors} ownership anchors do not divide over "
+                         f"{d_parts} device partitions")
+    local_rows = (anchors // d_parts) * r
+    return local_rows, padded_rows(local_rows)
+
+
+def to_mc_layout(tab: DeviceTable, d_parts: int, anchor_rows: int = 1
+                 ) -> DeviceTable:
+    """The owner-major layout of a loaded table
+    (``deneva_tpu/storage/table.py:304``): block ``d`` (rows ``[d * lb,
+    (d + 1) * lb)`` of every column) holds the rows whose anchor is d mod
+    ``d_parts``, in anchor order, and its pad rows read the (zero) trash
+    row.  A ring table starts empty with one cursor per block;
+    ``row_cnt`` becomes int32[d_parts] either way.  It consumes ``tab``:
+    columns move over one at a time, in chunks, so the peak is one
+    column more."""
+    r = anchor_rows
+    local_rows, lb = mc_block_geometry(tab.capacity, r, d_parts)
+    dev = tab.row_cnt.device
+    cols = {}
+    for name in list(tab.columns):
+        v = tab.columns.pop(name)
+        out = torch.zeros((d_parts * lb, *v.shape[1:]), dtype=v.dtype,
+                          device=dev)
+        if not tab.ring:
+            for lo in range(0, d_parts * lb, MC_CHUNK):
+                pos = torch.arange(lo, min(lo + MC_CHUNK, d_parts * lb),
+                                   dtype=torch.int64, device=dev)
+                d, j = pos // lb, pos % lb
+                src = ((j // r) * d_parts + d) * r + j % r
+                src = torch.where(j < local_rows, src, tab.capacity)
+                out[lo:lo + pos.shape[0]] = v[src]
+        cols[name] = out
+    cnt = 0 if tab.ring else local_rows
+    return DeviceTable(
+        columns=cols, row_cnt=torch.full((d_parts,), cnt, dtype=torch.int32,
+                                         device=dev),
+        name=tab.name, capacity=tab.capacity, full_row=tab.full_row,
+        ref_dtypes=tab.ref_dtypes, ring=tab.ring, mc_parts=d_parts,
+        anchor_rows=r)
+
+
+def mc_stacked_rows(tab: DeviceTable) -> torch.Tensor:
+    """int64[capacity]: where global row g of a stacked (non-ring) table
+    lies in its owner-major columns, the inverse of `to_mc_layout`."""
+    r, d_parts = tab.anchor_rows, tab.mc_parts
+    lb = tab.mc_block_rows()[0]
+    g = torch.arange(tab.capacity, dtype=torch.int64,
+                     device=tab.row_cnt.device)
+    a = g // r
+    return (a % d_parts) * lb + (a // d_parts) * r + g % r
 
 
 def fill_columns(tab: DeviceTable, n: int, cols: dict) -> DeviceTable:

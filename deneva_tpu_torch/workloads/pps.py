@@ -30,7 +30,9 @@ part), UPDATEPRODUCTPART (the product's part field) and UPDATEPART
 
 UPDATE* txns write fields other txns read in the same epoch, so
 ``blind_writes`` is False: TPU_BATCH and CALVIN take the chained
-executor, as on TPC-C.
+executor, as on TPC-C.  Under ``device_parts > 1`` PARTS, PRODUCTS and
+SUPPLIERS are owner-major over the mesh and USES and SUPPLIES stay whole
+(`workloads.mc`).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from deneva_tpu_torch import kernels
 from deneva_tpu_torch.config import Config
 from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.storage.catalog import parse_schema
-from deneva_tpu_torch.storage.table import DeviceTable, fill_columns
+from deneva_tpu_torch.storage.table import (DeviceTable, fill_columns,
+                                            to_mc_layout)
 from deneva_tpu_torch.workloads.base import partition_owned, partition_slot
 
 MASK32 = 0xFFFFFFFF
@@ -164,6 +167,16 @@ class PPSWorkload:
              {"SUPPLIER_KEY": s // self.per,
               "PART_KEY": _map_part(s // self.per, s % self.per, 2,
                                     self.n_parts)})
+        d_parts = self.cfg.device_parts
+        if d_parts > 1:
+            # the owner-major layout of a mesh (``pps.py:172-179``): the
+            # anchor keys stripe over the shards; the read-only mapping
+            # tables stay whole for every shard, which keeps the recon
+            # plan local
+            for name in ("PARTS", "PRODUCTS", "SUPPLIERS"):
+                db[name] = to_mc_layout(db[name], d_parts)
+            for name in ("USES", "SUPPLIES"):
+                db[name].mc_replicated = True
         return db
 
     def empty_query(self, n: int, device) -> PPSQuery:

@@ -31,6 +31,11 @@ keys flattened to dense int32 slots.  An epoch is four functions:
   ORDER index (``db["ORDER_IDX"]``, keyed district-major by
   ``order_index_key``) through K14e (`DynamicSortedIndex.insert`).
 
+Under ``device_parts > 1`` the tables are owner-major over the mesh,
+anchored by warehouse (ITEM stays whole), and the ring appends pass
+``anchor=w_id`` so each row lands on its warehouse's block
+(`workloads.mc`).
+
 Tables are written in place, so ``D_NEXT_O_ID`` and ``S_QUANTITY`` are
 gathered before they are scattered, in the reference's program order.
 uint32 words (fingerprints, the loader's hashes, the read checksum's
@@ -50,7 +55,8 @@ from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.ops.hashing import mul32, u32
 from deneva_tpu_torch.storage.catalog import parse_schema
 from deneva_tpu_torch.storage.index import DynamicSortedIndex, HashIndex
-from deneva_tpu_torch.storage.table import DeviceTable, fill_columns
+from deneva_tpu_torch.storage.table import (DeviceTable, fill_columns,
+                                            to_mc_layout)
 from deneva_tpu_torch.workloads.base import partition_slot
 
 MASK32 = 0xFFFFFFFF
@@ -398,6 +404,20 @@ class TPCCWorkload:
                     v = (mul32(ids, 2654435761)
                          + (0x9E3779B9 * (j + 1) & MASK32)) & MASK32
                     db[t].columns[cn][:n] = v.to(torch.int32)
+        d_parts = cfg.device_parts
+        if d_parts > 1:
+            # the owner-major layout of a mesh (``tpcc.py:444-456``):
+            # warehouses are the ownership anchor (the reference's
+            # wh_to_part node partition), rows per warehouse the anchor's
+            # rows; ring tables keep one cursor per block; the read-only
+            # ITEM stays whole for every shard
+            db["ITEM"].mc_replicated = True
+            for name, anchor_rows in (
+                    ("WAREHOUSE", 1), ("DISTRICT", self.n_dist),
+                    ("CUSTOMER", self.n_dist * self.cust_per_dist),
+                    ("STOCK", self.max_items), ("HISTORY", 1),
+                    ("ORDER", 1), ("NEW-ORDER", 1), ("ORDER-LINE", 1)):
+                db[name] = to_mc_layout(db[name], d_parts, anchor_rows)
         if cfg.tpcc_order_index:
             # the dynamic ordered ORDER index (``tpcc.py:457-466``; the
             # reference's index_btree over inserted orders): empty, one
@@ -608,7 +628,7 @@ class TPCCWorkload:
             hist_row["H_DATE"] = torch.full_like(q.c_id, 2013)
             hist_row["H_DATA"] = mul32(u32(q.c_id), 0x9E3779B9).to(
                 torch.int32)
-        db["HISTORY"].append(hist_row, m)
+        db["HISTORY"].append(hist_row, m, anchor=q.w_id)
         # W_YTD + D_YTD + 3 customer cols + HISTORY row per payment
         _acc(stats, "write_cnt", m.sum() * 6)
 
@@ -704,13 +724,14 @@ class TPCCWorkload:
                      "O_ALL_LOCAL": all_local.to(torch.int32)}
         if self.full_schema:
             order_row["O_CARRIER_ID"] = torch.zeros_like(q.w_id)
-        _, oslots = db["ORDER"].append(order_row, m_ins)
+        _, oslots = db["ORDER"].append(order_row, m_ins, anchor=q.w_id)
         if "ORDER_IDX" in db:
             # the epoch's (or the level's) orders merge into the index
             db["ORDER_IDX"] = db["ORDER_IDX"].insert(
                 self.order_index_key(q.w_id, q.d_id, o_id), oslots, m_ins)
         db["NEW-ORDER"].append(
-            {"NO_O_ID": o_id, "NO_D_ID": q.d_id, "NO_W_ID": q.w_id}, m_ins)
+            {"NO_O_ID": o_id, "NO_D_ID": q.d_id, "NO_W_ID": q.w_id}, m_ins,
+            anchor=q.w_id)
         ol_m = (q.item_valid & m_ins[:, None]).reshape(-1)
 
         def bcast(x):
@@ -732,7 +753,7 @@ class TPCCWorkload:
                 torch.float32)
             ol_row["OL_DIST_INFO"] = mul32(u32(q.items.reshape(-1)),
                                            2654435761).to(torch.int32)
-        db["ORDER-LINE"].append(ol_row, ol_m)
+        db["ORDER-LINE"].append(ol_row, ol_m, anchor=bcast(q.w_id))
         _acc(stats, "write_cnt", iv.sum() + m.sum() * 2)
 
 

@@ -37,6 +37,14 @@ committed writes through K10 (`ops.scatter.last_writer`), under MVCC
 the winners' ring push (K12d, `storage.table.VersionRing.push`), and a
 masked scatter.
 
+Under ``device_parts > 1`` the table is owner-major over the mesh
+(block d holds the keys = d mod D) and MVCC keeps no version ring, as
+in the reference.  The forwarding path runs `execute_mc`: K18a and K18b
+(`ops.forward`) cut each source shard's slice into owner blocks, and
+each shard plans (K1, K2) and executes (K3) its own keys on its block;
+the other backends run `execute` per shard through
+`workloads.mc.McTableView`.
+
 Fingerprint columns are uint32 words held as int32 bit patterns; the
 value law is computed in int64 masked to 32 bits (`_mul32` keeps every
 product below 2^49, so no signed overflow occurs).
@@ -58,7 +66,8 @@ from deneva_tpu_torch.ops.hashing import u32 as _u32
 from deneva_tpu_torch.ops.sampling import HotSet, Zipfian
 from deneva_tpu_torch.storage.catalog import parse_schema
 from deneva_tpu_torch.storage.index import DenseIndex, SortedIndex
-from deneva_tpu_torch.storage.table import DeviceTable, VersionRing
+from deneva_tpu_torch.storage.table import (DeviceTable, VersionRing,
+                                            to_mc_layout)
 
 TABLE = "MAIN_TABLE"
 VER_TABLE = "MAIN_TABLE.F0.ver"   # MVCC per-row overwrite-ts ring
@@ -251,7 +260,7 @@ class YCSBWorkload:
         if self.n_parts != 1 or cfg.elastic:
             raise NotImplementedError(
                 "deneva_tpu_torch's YCSB runs one partition (ROADMAP.md "
-                "queue 1, items 18-19)")
+                "queue 1, item 18: cluster runtime)")
         self.n_local = self.n_rows
         self.index = DenseIndex(base=0, stride=1, size=self.n_rows,
                                 miss_slot=self.n_rows)
@@ -304,11 +313,17 @@ class YCSBWorkload:
                 # only F0 is touched by queries (ycsb_txn.cpp)
                 tab.columns["F0"][lo:hi] = \
                     _field_fingerprint(keys, 0).to(torch.int32)
+        if self.cfg.device_parts > 1:
+            # the owner-major layout of a mesh: block d holds the keys
+            # = d (mod D), the reference's strided node partition
+            # (ycsb_wl.cpp:70-74) across devices
+            tab = to_mc_layout(tab, self.cfg.device_parts)
         db = {TABLE: tab}
-        if self.cfg.cc_alg == CCAlg.MVCC:
+        if self.cfg.cc_alg == CCAlg.MVCC and self.cfg.device_parts == 1:
             # per-row overwrite-ts ring of F0 (row_mvcc.cpp:172-196), at
             # the full mvcc_his_len: a servable read may have H-1 newer
-            # overwrites and needs one more entry, its own version
+            # overwrites and needs one more entry, its own version.  A
+            # mesh keeps none (ycsb.py:248): its reads take the live row
             db[VER_TABLE] = VersionRing.create(
                 tab.columns["F0"].shape[0], self.cfg.mvcc_his_len,
                 self.device)
@@ -369,6 +384,78 @@ class YCSBWorkload:
     def _local_slots(self, db, keys: torch.Tensor) -> torch.Tensor:
         return self.index.lookup(keys)
 
+    # -- execution over a mesh (partition-parallel forwarding) ---------
+    def execute_mc(self, db, batch, stats: dict):
+        """The forwarding epoch over a mesh (``deneva_tpu/workloads/
+        ycsb.py:330``): every shard plans and executes only the keys it
+        owns, against its block of the owner-major F0.  Returns (db,
+        bool[B] the txns the capacity rule deferred).
+
+        With ``pair_cap = mc_pair_cap(...) > 0`` (the sharded plan) source
+        shard s takes the balanced slice of txns ``[s * bD, (s + 1) *
+        bD)``: K18a decides its defers and K18b packs its surviving lanes
+        into one block per owner; the ``all_to_all`` hands each shard its
+        ``[D, pair_cap]`` received lanes, which it masks to the keys it
+        owns and plans with K1 and K2.  With ``pair_cap = 0`` (the
+        replicated plan) every shard plans the whole batch restricted to
+        its keys and nothing defers.  Then K3 executes each shard's plan
+        on its block (slot ``key // D``; the block's last row is its
+        trash), and the read checksums and write counts ``psum``."""
+        from deneva_tpu_torch.ops.forward import (forward_plan,
+                                                  forward_plan_flat,
+                                                  mc_pack_blocks,
+                                                  mc_pair_cap,
+                                                  mc_slice_defer)
+        from deneva_tpu_torch.parallel.mesh import current_mesh
+
+        d_parts = self.cfg.device_parts
+        mesh = current_mesh()
+        if mesh is None or mesh.size != d_parts:
+            raise RuntimeError(f"execute_mc needs a use_mesh({d_parts}) "
+                               "context")
+        tab: DeviceTable = db[TABLE]
+        f0 = tab.columns["F0"]
+        lb, _, trash = tab.mc_block_rows()
+        valid = batch.valid & batch.active[:, None]
+        b, a = batch.keys.shape
+        pair_cap = mc_pair_cap(b, a, d_parts, self.cfg.mc_plan_capacity)
+        plans = []
+        if pair_cap:
+            bd = b // d_parts
+            w = batch.is_write & valid
+            blocks, dfrs = [], []
+            for s in range(d_parts):
+                rows = slice(s * bd, (s + 1) * bd)
+                k, v, ts = batch.keys[rows], valid[rows], batch.ts[rows]
+                dfr, order = mc_slice_defer(k, v, ts, d_parts, pair_cap)
+                blocks.append(mc_pack_blocks(
+                    k, v, ts, batch.rank[rows], w[rows], dfr, order,
+                    d_parts, pair_cap))
+                dfrs.append(dfr)
+            for me, (bk, br, bw) in enumerate(mesh.all_to_all(blocks)):
+                mine = (bk % d_parts == me) & (bk != INT32_MAX)
+                plans.append(forward_plan_flat(
+                    torch.where(mine, bk, INT32_MAX), br, bw & mine))
+            dfr = mesh.concat(dfrs)
+        else:
+            dfr = torch.zeros(b, dtype=torch.bool, device=mesh.device)
+            for me in range(d_parts):
+                owned = valid & (batch.keys % d_parts == me)
+                plans.append(forward_plan(batch.keys, batch.rank,
+                                          batch.is_write, owned))
+        cks, wcnt = [], []
+        for me, p in enumerate(plans):
+            blk = f0[me * lb:(me + 1) * lb]
+            slots = torch.where(p.keys != INT32_MAX, p.keys // d_parts,
+                                trash)
+            # slots ascend with the plan's sorted keys toward the trash
+            _, c, n = _forward_execute_f0(blk, p, slots, trash, mono=True)
+            cks.append(c)
+            wcnt.append(n)
+        stats["read_checksum"] = mesh.psum([stats["read_checksum"]] + cks)
+        stats["write_cnt"] = mesh.psum([stats["write_cnt"]] + wcnt)
+        return db, dfr
+
     def re_execute(self, db, q: YCSBQuery, mask: torch.Tensor,
                    order: torch.Tensor, stats: dict):
         """Transaction repair's re-execution (``ycsb.py:491``): `execute` of
@@ -385,6 +472,9 @@ class YCSBWorkload:
         (``deneva_tpu/workloads/ycsb.py:544-606``)."""
         tab: DeviceTable = db[TABLE]
         if fwd_rank is not None:
+            if self.cfg.device_parts > 1:
+                raise ValueError("device_parts > 1 forwards through "
+                                 "execute_mc under a mesh")
             if mask is not None:
                 raise ValueError("ForwardPlan embodies the commit set; "
                                  "pass mask=None")

@@ -34,7 +34,7 @@ def test_from_args_parses_like_reference():
 
 
 RAISING = [
-    ("--part_cnt=2", 18), ("--device_parts=2", 19),
+    ("--part_cnt=2", 18),
     ("--elastic=true", 18),
     ("--ctrl=true", "16d"), ("--ctrl_dgcc=true", "16d"),
     ("--sim_full_row=true --tup_size=10", 11),

@@ -28,7 +28,8 @@ import copy
 import pytest
 import torch
 
-from chip_smoke import PATH_LAUNCHES, plain_path
+from chip_smoke import (PATH_LAUNCHES, differing_leaf, mesh_launches,
+                        plain_path)
 from deneva_tpu_torch.cc import maat
 from deneva_tpu_torch.ops import conflict, forward, prng, scatter
 from deneva_tpu_torch.storage.index import SortedIndex
@@ -1146,3 +1147,133 @@ def test_tpcc_audited_epochs_through_kernels_match_plain(dev, path, flags):
         sp = ep.run(sp, 4)
     _same_leaves(sk, sp)
     assert int(sk.stats["audit_edge_cnt"]) > 0
+
+
+# -- slice 9: the mesh's K18a / K18b and mesh epochs ----------------------
+
+def _mc_slice(bd, a, d, n_keys, dev, seed, kind):
+    """One source slice: keys (skewed like zipf 0.9), valid lanes,
+    ts, rank, write lanes.  ``kind`` picks the edge: ``one_owner`` (every
+    key owned by shard 1), ``rep_ts`` (ts repeat across txns),
+    ``invalid`` (a third of the lanes and a tenth of the txns invalid)."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(bd, a, generator=g, dtype=torch.float64)
+    keys = (n_keys * u ** 4).to(torch.int32).clamp_max(n_keys - 1)
+    if kind == "one_owner":
+        keys = keys // d * d + 1
+    drop = 0.33 if kind == "invalid" else 0.05
+    valid = torch.rand(bd, a, generator=g) >= drop
+    if kind == "invalid":
+        valid[torch.rand(bd, generator=g) < 0.1] = False
+    hi = max(bd // 8, 2) if kind == "rep_ts" else 2**31 - 1
+    ts = torch.randint(1, hi, (bd,), generator=g, dtype=torch.int32)
+    rank = (torch.randperm(bd, generator=g) + 1).to(torch.int32)
+    w = valid & (torch.rand(bd, a, generator=g) < 0.5)
+    return [x.to(dev) for x in (keys, valid, ts, rank, w)]
+
+
+MC_CASES = [
+    (8192, 10, 8, 20480, "zipf"),      # the main path: B = 65,536, D = 8
+    (16384, 10, 4, 81920, "zipf"),     # the main path at D = 4
+    (512, 4, 8, 128, "zipf"),          # test_parallel's tight capacity
+    (1000, 10, 8, 10, "one_owner"),    # pair_cap = one txn's lanes
+    (777, 7, 3, 14, "rep_ts"),
+    (300, 16, 2, 64, "invalid"),
+    (40000, 3, 8, 6000, "rep_ts")]
+
+
+@pytest.mark.parametrize("bd,a,d,cap,kind", MC_CASES)
+def test_mc_defer_and_pack_match_plain(dev, bd, a, d, cap, kind):
+    k, v, ts, r, w = _mc_slice(bd, a, d, 1 << 20, dev, bd + a + d, kind)
+    dfr, order = forward.mc_slice_defer(k, v, ts, d, cap)
+    dfr_p, order_p = forward.mc_slice_defer_plain(k, v, ts, d, cap)
+    assert torch.equal(dfr, dfr_p) and torch.equal(order, order_p)
+    if kind == "one_owner":
+        assert int((~dfr).sum()) >= 1 and bool(dfr.any())
+    got = forward.mc_pack_blocks(k, v, ts, r, w, dfr, order, d, cap)
+    want = forward.mc_pack_blocks_plain(k, v, ts, r, w, dfr, d, cap)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    # the spec over D slices of whole txns is the kernel slice by slice
+    keys = torch.cat([k] * d)
+    valid = torch.cat([v] * d)
+    tss = torch.cat([ts] * d)
+    assert torch.equal(forward.mc_plan_defer(keys, tss, valid, d, cap),
+                       forward.mc_plan_defer_plain(keys, tss, valid, d, cap))
+
+
+def test_mc_kernels_refuse_what_they_do_not_take(dev):
+    k, v, ts, r, w = _mc_slice(64, 4, 8, 1000, dev, 0, "zipf")
+    with pytest.raises(ValueError, match="2 to 8 shards"):
+        forward.mc_slice_defer(k, v, ts, 9, 64)
+    with pytest.raises(ValueError, match="one txn's"):
+        forward.mc_slice_defer(k, v, ts, 8, 3)
+    with pytest.raises(TypeError):
+        forward.mc_slice_defer(k.to(torch.int64), v, ts, 8, 64)
+
+
+MESH_YCSB = ["--epoch_batch=4096", "--max_txn_in_flight=4096",
+             "--synth_table_size=8192", "--req_per_query=4",
+             "--max_accesses=4", "--conflict_buckets=1024"]
+
+
+@pytest.mark.parametrize("path,d,flags", [
+    ("MESH", 8, ["--zipf_theta=0.6"]),
+    ("MESH", 8, ["--zipf_theta=0.9", "--mc_plan_capacity=0.25",
+                 "--synth_table_size=4096"]),
+    ("MESH", 4, ["--zipf_theta=0.9"]),
+    ("MESH_REPL", 8, ["--zipf_theta=0.9", "--mc_plan_capacity=0"]),
+    ("MESH_REPL", 2, ["--zipf_theta=0.9", "--sim_full_row=true",
+                      "--tup_size=8", "--field_per_tuple=2"])])
+def test_mesh_epochs_through_kernels_match_plain(dev, path, d, flags):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    from deneva_tpu_torch.parallel import make_mesh, make_sharded_run
+    cfg = Config.from_args(MESH_YCSB + flags + [f"--device_parts={d}"])
+    wk = ycsb.YCSBWorkload(cfg, device=dev)
+    wp = ycsb.YCSBWorkload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    mesh = make_mesh(d, devices=[dev] * d)
+    place, run_k = make_sharded_run(ek, mesh)
+    _, run_p = make_sharded_run(ep, mesh)
+    sk = place(ek.init_state())
+    sp = copy.deepcopy(sk)
+    before = {nm: kern.launches for nm, kern in all_kernels().items()}
+    sk = run_k(sk, 4)
+    want = mesh_launches(path, d)
+    for nm, kern in all_kernels().items():
+        assert kern.launches == before[nm] + 4 * want.get(nm, 0), nm
+    with plain_path(wp):
+        sp = run_p(sp, 4)
+    assert differing_leaf(sk, sp) is None
+    st = {k: int(x.sum()) for k, x in sk.stats.items()}
+    assert st["total_txn_abort_cnt"] == 0
+    if "--mc_plan_capacity=0.25" in flags:
+        assert st["defer_cnt"] > 0
+
+
+@pytest.mark.parametrize("args,alg", [
+    (TPCC_SMALL, "TPU_BATCH"), (TPCC_SMALL, "NO_WAIT"),
+    (["--workload=PPS", "--pps_parts_cnt=400", "--pps_products_cnt=80",
+      "--pps_suppliers_cnt=80", "--pps_parts_per=4", "--max_accesses=9",
+      "--epoch_batch=64", "--conflict_buckets=1024",
+      "--max_txn_in_flight=256"], "MAAT")])
+def test_generic_mesh_epochs_through_kernels_match_plain(dev, args, alg):
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.parallel import make_mesh, make_sharded_run
+    from deneva_tpu_torch.workloads import get_workload
+    cfg = Config.from_args(args + [f"--cc_alg={alg}", "--device_parts=2"])
+    wk, wp = get_workload(cfg, device=dev), get_workload(cfg, device=dev)
+    ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+    mesh = make_mesh(2, devices=[dev] * 2)
+    place, run_k = make_sharded_run(ek, mesh)
+    _, run_p = make_sharded_run(ep, mesh)
+    sk = place(ek.init_state())
+    sp = copy.deepcopy(sk)
+    sk = run_k(sk, 4)
+    with plain_path(wp):
+        sp = run_p(sp, 4)
+    assert differing_leaf(sk, sp) is None
+    assert int(sk.stats["total_txn_commit_cnt"]) > 0
