@@ -83,7 +83,9 @@ Phases (any error or mismatch exits non-zero and prints no result):
 3. kernels   — each kernel against its plain PyTorch version on the card,
                exactly, at its path's shapes: K1-K4 at N = 655,360 lanes
                and 2^24 rows (K3 in both modes); K5+K6, K7, K8 at B =
-               1024 generated zipf-0.9 txns and K = 8192, K10 over the
+               1024 generated zipf-0.9 txns and K = 8192 (K7 also at the
+               sweep backends' B = 2048, both against two
+               ``torch.matmul``), K10 over the
                committed write lanes and once at N >= capacity.  Times by
                CUDA events, beside the plain version's, the bound and a
                one-call PyTorch yardstick where there is one.
@@ -124,9 +126,11 @@ Phases (any error or mismatch exits non-zero and prints no result):
                the yardstick); K17, K15a, K15c-scan and K15c-compact on
                one audited epoch of each slice-8 configuration
                (``argsort``, ``torch.sort``, ``cumsum`` + ``index_copy_``
-               and two ``scatter_reduce_`` the yardsticks), and K15a's
-               wide mode on an audited DGCC epoch at ``epoch_batch =
-               16384``.  K18a and K18b on each shard's call of a real
+               and two ``scatter_reduce_`` the yardsticks; K17's rank
+               launch alone, from a profile, against ``argsort``), and
+               K15a's wide mode on an audited DGCC epoch at
+               ``epoch_batch = 16384`` (``torch.sort`` the yardstick).
+               K18a and K18b on each shard's call of a real
                epoch of the main path at 2^27 rows over 8 shards (a
                stable ``torch.sort`` of the slice's packed (owner, ts)
                words the yardstick).
@@ -1032,6 +1036,38 @@ def lw_library(slots, order, mask, capacity):
     return win & mask
 
 
+def k7_case(ins, r: dict, card: str) -> torch.Tensor:
+    """K7 on one shape's two families against its plain version and the
+    two bf16 ``torch.matmul`` yardstick, all exact; times into ``r``."""
+    from deneva_tpu_torch.ops import conflict
+    uw = conflict.overlap(*ins)
+    uw_p = conflict.overlap_plain(*ins)
+    if not torch.equal(uw, uw_p):
+        fail("K7 overlap differs from plain")
+
+    def lib():
+        return (torch.matmul(ins[0], ins[1].T) > 0) \
+            & (torch.matmul(ins[2], ins[3].T) > 0)
+    if not torch.equal(lib(), uw):
+        fail("K7 overlap differs from torch.matmul")
+    b, k = ins[0].shape
+    # the product the data needs: per family, sum over buckets of
+    # (rows touching it) x (rows writing it) multiply-adds
+    need = sum(float((a.float().sum(0) * c.float().sum(0)).sum())
+               for a, c in ((ins[0], ins[1]), (ins[2], ins[3])))
+    r.update(max_abs_err=max_abs(uw, uw_p),
+             ms=cuda_ms(lambda: conflict.overlap(*ins)),
+             plain_ms=cuda_ms(lambda: conflict.overlap_plain(*ins)),
+             library_ms=cuda_ms(lib))
+    bound(r, 4 * b * k * 2 + b * b, 2 * need)
+    print(f"[K7] B={b} K={k}: conflict pairs {int(uw.sum())} of {b * b}; "
+          f"dense product {4 * b * b * k} ops, data needs {int(2 * need)}; "
+          f"{r['ms']:.4f} ms, two torch.matmul {r['library_ms']:.4f}, plain "
+          f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})"
+          f" (card {card})", flush=True)
+    return uw
+
+
 def phase_sweep_kernels(dev, rec: dict, card: str) -> None:
     """K5+K6, K7, K8 and K10 against their plain versions at the OCC
     comparator's shapes: B = 1024 txns of 10 zipf-0.9 requests, K = 8192,
@@ -1071,29 +1107,18 @@ def phase_sweep_kernels(dev, rec: dict, card: str) -> None:
     bound(rec["K5K6_build_incidence"], 11 * n + b + 4 * b * k * 2 + 4 * n,
           2 * 12 * n)
 
-    # K7: both families, and one torch.matmul per family as the yardstick
+    # K7 at this shape into the kernels line, and at the sweep backends'
     ins = (f1["u"], f1["w"], f2["u"], f2["w"])
-    uw = conflict.overlap(*ins)
-    uw_p = conflict.overlap_plain(*ins)
-    if not torch.equal(uw, uw_p):
-        fail("K7 overlap differs from plain")
-
-    def lib():
-        return (torch.matmul(ins[0], ins[1].T) > 0) \
-            & (torch.matmul(ins[2], ins[3].T) > 0)
-    if not torch.equal(lib(), uw):
-        fail("K7 overlap differs from torch.matmul")
-    # the product the data needs: per family, sum over buckets of
-    # (rows touching it) x (rows writing it) multiply-adds
-    need = sum(float((a.float().sum(0) * c.float().sum(0)).sum())
-               for a, c in ((ins[0], ins[1]), (ins[2], ins[3])))
-    rec["K7_overlap"].update(
-        max_abs_err=max_abs(uw, uw_p), ms=cuda_ms(lambda: conflict.overlap(
-            *ins)), plain_ms=cuda_ms(lambda: conflict.overlap_plain(*ins)),
-        library_ms=cuda_ms(lib))
-    bound(rec["K7_overlap"], 4 * b * k * 2 + b * b, 2 * need)
-    print(f"[K7] conflict pairs {int(uw.sum())} of {b * b}; dense product "
-          f"{4 * b * b * k} ops, data needs {int(2 * need)}", flush=True)
+    uw = k7_case(ins, rec["K7_overlap"], card)
+    wl2 = YCSBWorkload(skew_config(False, "OCC"), device=dev)
+    q2 = wl2.generate(prng.split(prng.key_from_seed(17, dev))[1], SKEW_BATCH)
+    (g1, g2), _ = conflict.hashed_incidence(
+        torch.zeros_like(q2.keys), q2.keys, ~q2.is_write, q2.is_write,
+        torch.ones_like(q2.is_write),
+        torch.ones(SKEW_BATCH, dtype=torch.bool, device=dev), None, k, 2,
+        ("u", "w"))
+    k7_case((g1["u"], g1["w"], g2["u"], g2["w"]), {}, card)
+    del wl2, q2, g1, g2
 
     # K8 on that conflict matrix, at the config's 24 rounds
     rounds = occ_config(False).sweep_rounds
@@ -3401,7 +3426,7 @@ def phase_profile(dev, cfg, mode: str) -> None:
     busy = sum(v[0] for v in by_name.values())
     ours = ("radix_", "pack_kernel", "scan_", "plan_kernel", "read_fp",
             "write_fp", "read_row", "write_row", "generate_kernel",
-            "threefry_split", "incidence_kernel", "overlap_kernel",
+            "threefry_split", "incidence_kernel", "overlap_",
             "pack_edges", "first_fit", "insert_kernel", "mark_kernel",
             "watermark_check", "commit_max", "commit_ring", "version_read",
             "version_push", "pack_rows", "pack_cols", "earlier_edges",
@@ -3704,6 +3729,10 @@ def phase_slice8_kernels(dev, rec: dict, card: str) -> None:
                         f"{r['bound_ms']:.6f})")
             if label == "OCC ycsb_skew" and nm != "K15a_lane_sort":
                 rec[nm].update(r)
+        if label == "OCC ycsb_skew":
+            k17_rank(lambda: base.audit_lanes(bt, committed, order, lvl,
+                                              ovis),
+                     lambda: torch.argsort(okey, stable=True), b, card)
         print(f"[slice8-kernels] {label} epoch 11: B={b} A={a} lanes={n2} "
               f"live={n_lanes} pos_max={int(pos2.max())} observed={n_obs} "
               f"buckets_stamped={n_upd} edges={int(cnt)} "
@@ -3715,6 +3744,34 @@ def phase_slice8_kernels(dev, rec: dict, card: str) -> None:
                "K15c_compact_edges", "K17_audit_observe[stamps]"):
         print_kernel(nm, rec[nm], card)
     k15a_wide(dev, card)
+
+
+def k17_rank(fn, lib, b: int, card: str, n: int = 20) -> None:
+    """K17's first launch holds two kernels: the counting rank of the
+    committed txns (what ``argsort`` computes) and the lane build.  A
+    profile of ``n`` calls gives the rank kernel's device time alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rank = lanes = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if "rank_kernel" in e.name:
+                rank += e.time_range.elapsed_us()
+            elif "audit_lanes_kernel" in e.name:
+                lanes += e.time_range.elapsed_us()
+    if rank == 0.0:
+        print("[K17-rank] no device events recorded (not measured)",
+              flush=True)
+        return
+    print(f"[K17-rank] B={b}: rank launch {rank / n / 1e3:.4f} ms, lane "
+          f"build {lanes / n / 1e3:.4f} ms (profiled device time), stable "
+          f"torch.argsort {cuda_ms(lib):.4f} ms (card {card})", flush=True)
 
 
 def k15a_wide(dev, card: str, batch: int = 16384) -> None:
@@ -3739,9 +3796,12 @@ def k15a_wide(dev, card: str, batch: int = 16384) -> None:
     if pb + tb <= 32:
         fail(f"K15a wide: {pb} + {tb} bits fit the packed word")
     ms = cuda_ms(lambda: depgraph.lane_sort(keys2, pos2, tid2, nt, **kw))
+    packed = keys2 * (1 << 31) + pos2.to(torch.int64)
+    lib = cuda_ms(lambda: torch.sort(packed))
     print(f"[K15a-wide] audited DGCC epoch at B={batch}: {keys2.numel()} lanes, "
-          f"pos {pb} + tid {tb} bits > 32: wide sort exact, {ms:.4f} ms "
-          f"(card {card})", flush=True)
+          f"pos {pb} + tid {tb} bits > 32: wide sort exact, {ms:.4f} ms, "
+          f"torch.sort of the packed word {lib:.4f} ms (card {card})",
+          flush=True)
     del eng, st, calls
     torch.cuda.empty_cache()
 

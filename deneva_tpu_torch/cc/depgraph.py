@@ -50,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from deneva_tpu_torch import kernels
-from deneva_tpu_torch.ops.forward import SORT_TILE, _seg_scan, _shift1
+from deneva_tpu_torch.ops.forward import _seg_scan, _shift1, sort_scratch
 from deneva_tpu_torch.ops.hashing import bucket_hash
 
 # key sentinel for dead lanes (uint32 max: sorts after every real key)
@@ -117,8 +117,7 @@ def lane_sort(keys: torch.Tensor, pos: torch.Tensor, tid: torch.Tensor,
     tmp = torch.empty_like(words)
     pay = torch.empty(n if wide else 0, dtype=torch.int32, device=dev)
     pay_tmp = torch.empty_like(pay)
-    counts = torch.empty(256 * (-(-n // SORT_TILE) + 1), dtype=torch.int32,
-                         device=dev)
+    counts = sort_scratch(n, dev)
     sk = torch.empty(n, dtype=torch.int64, device=dev)
     sp = torch.empty(n, dtype=torch.int32, device=dev)
     sid = torch.empty(n, dtype=torch.int32, device=dev)

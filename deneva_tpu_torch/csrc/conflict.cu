@@ -14,16 +14,32 @@
 //   needed.  Counts are small integers, exact in bf16 up to 256 (A <= 256).
 //
 // K7 dt_overlap replaces deneva_tpu/ops/conflict.py:63 overlap:
-// (A1 B1^T > 0) AND (A2 B2^T > 0) over bf16 count rows, f32 accumulation.
-//   Bound: the dense product's operations at the tensor-core rate, against
-//   reading four B x K bf16 inputs; the data needs far fewer operations
-//   (rows hold <= 10 non-zeros of K), a sparse redesign left to a later
-//   change.  mma.sync m16n8k16 bf16 tiles: a 64 x 64 output tile per block
-//   of four warps (32 x 32 each), 32-deep K steps through padded shared
-//   memory (row stride 40 bf16: the fragment loads hit 32 distinct
-//   banks).  The second family reuses the accumulators; its compare is
-//   ANDed into the first family's bits before the one bool store.  The
-//   result is exact whatever the summation order.
+// (A1 B1^T > 0) AND (A2 B2^T > 0) over bf16 count rows.
+//   Precondition: every caller passes K5+K6 count rows (non-negative
+//   integers <= 256), so (A B^T)[i, j] > 0 holds exactly when some bucket
+//   k has A[i, k] > 0 and B[j, k] > 0: nothing cancels, nothing
+//   underflows.  The kernel computes that bucket intersection.
+//   Bound: bytes — reading the four B x K bf16 inputs once and writing the
+//   bool matrix.  The dense product would be operations-bound (34 G at B
+//   = 1024, K = 8192) while the rows hold a handful of non-zeros each, so
+//   the tensor cores are not used.  Two launches:
+//   (1) bitmaps of the B side: bits[f][k][w] bit j says B_f[32w + j, k] >
+//       0.  A warp reads 32 rows of a 256-bucket chunk with 16-byte loads
+//       (lane l holds buckets 8l..8l+7 of each row) and sets the bits in
+//       registers; the eight warps of a block (eight consecutive words)
+//       stage their words through shared memory (row stride 9, each lane
+//       starting at another bucket: no bank conflicts) so each bucket's
+//       eight words leave as one 32-byte store.  Every word is written
+//       once: no atomics, no zeroing.  1 MB per family at N = 1024, 2 MB
+//       at 2048: it stays in L2.
+//   (2) rows of the A side: four warps split row i's buckets, stream
+//       A_f[i, :] once with 16-byte loads, find the positive buckets by
+//       ballot, and OR those buckets' bitmap rows (two words a lane: 2048
+//       columns; wider N runs in segments of 2048 on grid.y) into
+//       registers; shared memory ORs the four quarters, ANDs the
+//       families, and the bool row leaves in 4-byte stores.
+//   A bf16 count is positive when its bits are non-zero and its sign bit
+//   is clear.  A dense row (many buckets) loops longer and stays exact.
 //
 // K8 dt_first_fit replaces deneva_tpu/ops/conflict.py:78 earlier_edges
 // fused into :96 greedy_first_fit.  A first launch packs
@@ -109,107 +125,170 @@ __global__ void incidence_kernel(const int32_t* __restrict__ table_ids,
 
 // ---- K7 -------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 32, kPad = 8;
-constexpr int kRow = kBK + kPad;   // 40 bf16 = 80 bytes per smem row
+constexpr int kChunk = 256;        // buckets of one warp-wide 16-byte load
+constexpr int kBitsWarps = 8;      // words (32-row groups) per bitmap block
+constexpr int kSegWords = 64;      // output words a warp keeps (2 a lane)
+constexpr int kRowsPerBlock = 2;   // output rows per row block
+constexpr int kQuarters = 4;       // warps splitting one row's buckets
+constexpr int kInFlight = 8;       // 16-byte loads in flight per lane
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(128)
-overlap_kernel(const __nv_bfloat16* __restrict__ a1,
-               const __nv_bfloat16* __restrict__ b1,
-               const __nv_bfloat16* __restrict__ a2,
-               const __nv_bfloat16* __restrict__ b2, int M, int N, int K,
-               uint8_t* __restrict__ out) {
-  __shared__ __align__(16) __nv_bfloat16 sa[kBM * kRow];
-  __shared__ __align__(16) __nv_bfloat16 sb[kBN * kRow];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  uint32_t hit = 0xFFFFFFFFu;   // bit (mi*4 + ni)*4 + e per accumulator
-  const int fams = a2 != nullptr ? 2 : 1;
-  for (int fam = 0; fam < fams; ++fam) {
-    const __nv_bfloat16* A = fam ? a2 : a1;
-    const __nv_bfloat16* Bm = fam ? b2 : b1;
-    float acc[2][4][4];
+// bit e of the result: bf16 e of the 8 in v is > 0
+__device__ __forceinline__ uint32_t positive8(const uint4 v) {
+  const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+  uint32_t m = 0u;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-      // 64 rows x 32 bf16 = 256 chunks of 16 bytes per operand
-      for (int c = tid; c < 256; c += 128) {
-        const int r = c >> 2, kc = (c & 3) * 8, gk = k0 + kc;
-        uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-        if (row0 + r < M && gk < K)
-          va = *reinterpret_cast<const uint4*>(
-              A + static_cast<size_t>(row0 + r) * K + gk);
-        if (col0 + r < N && gk < K)
-          vb = *reinterpret_cast<const uint4*>(
-              Bm + static_cast<size_t>(col0 + r) * K + gk);
-        *reinterpret_cast<uint4*>(&sa[r * kRow + kc]) = va;
-        *reinterpret_cast<uint4*>(&sb[r * kRow + kc]) = vb;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const __nv_bfloat16* p = &sa[(wm * 32 + mi * 16 + g) * kRow + kk + 2 * t];
-          af[mi][0] = ld32(p);
-          af[mi][1] = ld32(p + 8 * kRow);
-          af[mi][2] = ld32(p + 8);
-          af[mi][3] = ld32(p + 8 * kRow + 8);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const __nv_bfloat16* p = &sb[(wn * 32 + ni * 8 + g) * kRow + kk + 2 * t];
-          bf[ni][0] = ld32(p);
-          bf[ni][1] = ld32(p + 8);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-      }
-      __syncthreads();
-    }
-    uint32_t h = 0u;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          h |= static_cast<uint32_t>(acc[mi][ni][e] > 0.f) << ((mi * 4 + ni) * 4 + e);
-    hit &= h;
+  for (int h = 0; h < 4; ++h) {
+    const uint32_t lo = x[h] & 0xFFFFu, hi = x[h] >> 16;
+    m |= static_cast<uint32_t>(lo != 0u && !(lo & 0x8000u)) << (2 * h);
+    m |= static_cast<uint32_t>(hi != 0u && !(hi & 0x8000u)) << (2 * h + 1);
   }
+  return m;
+}
+
+__device__ __forceinline__ uint32_t pick8(const uint32_t (&w)[8], int c) {
+  uint32_t v = w[0];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 1; i < 8; ++i) v = c == i ? w[i] : v;
+  return v;
+}
+
+// grid (ceil(K / 256), ceil(W / 8), families), 256 threads.
+__global__ void __launch_bounds__(kBitsWarps * 32)
+overlap_bits_kernel(const __nv_bfloat16* __restrict__ b1,
+                    const __nv_bfloat16* __restrict__ b2, int N, int K, int W,
+                    uint32_t* __restrict__ bits) {
+  __shared__ uint32_t s[kChunk * (kBitsWarps + 1)];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fam = blockIdx.z;
+  const __nv_bfloat16* Bm = fam ? b2 : b1;
+  const int k0 = blockIdx.x * kChunk, col = k0 + 8 * lane;
+  const int w = blockIdx.y * kBitsWarps + warp;
+  uint32_t wd[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  if (w < W && col < K) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int j0 = 0; j0 < 32; j0 += kInFlight) {
+      uint4 v[kInFlight];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int c = col0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
-        if (r < M && c < N)
-          out[static_cast<size_t>(r) * N + c] =
-              static_cast<uint8_t>((hit >> ((mi * 4 + ni) * 4 + e)) & 1u);
+      for (int u = 0; u < kInFlight; ++u) {
+        const int j = w * 32 + j0 + u;
+        v[u] = j < N ? *reinterpret_cast<const uint4*>(
+                           Bm + static_cast<size_t>(j) * K + col)
+                     : make_uint4(0u, 0u, 0u, 0u);
       }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const uint32_t m = positive8(v[u]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if ((m >> c) & 1u) wd[c] |= 1u << (j0 + u);
+      }
+    }
+  }
+  // s[k][warp]: lane l writes bucket 8l + c, c rotated by l / 4
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = (i + (lane >> 2)) & 7;
+    s[(8 * lane + c) * (kBitsWarps + 1) + warp] = pick8(wd, c);
+  }
+  __syncthreads();
+  uint32_t* out = bits + static_cast<size_t>(fam) * K * W;
+#pragma unroll
+  for (int i = 0; i < kChunk * kBitsWarps / (kBitsWarps * 32); ++i) {
+    const int e = threadIdx.x + i * kBitsWarps * 32;
+    const int kk = e / kBitsWarps, ww = e % kBitsWarps;
+    const int k = k0 + kk, wg = blockIdx.y * kBitsWarps + ww;
+    if (k < K && wg < W)
+      out[static_cast<size_t>(k) * W + wg] = s[kk * (kBitsWarps + 1) + ww];
+  }
+}
+
+// OR into acc the bitmap rows of the positive buckets of A[row, :] that
+// fall in this warp's quarter (chunks q, q + 4, ...); words s0 .. s0 + 63.
+__device__ __forceinline__ void or_row(const __nv_bfloat16* __restrict__ A,
+                                       const uint32_t* __restrict__ bits,
+                                       int row, int K, int W, int s0, int q,
+                                       int lane, uint32_t (&acc)[2]) {
+  const int nch = (K + kChunk - 1) / kChunk;
+  const __nv_bfloat16* a = A + static_cast<size_t>(row) * K;
+  const bool in0 = s0 + lane < W, in1 = s0 + 32 + lane < W;
+  for (int c0 = q; c0 < nch; c0 += kQuarters * kInFlight) {
+    uint4 v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int col = (c0 + kQuarters * u) * kChunk + 8 * lane;
+      v[u] = col < K ? *reinterpret_cast<const uint4*>(a + col)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const uint32_t m = positive8(v[u]);
+      uint32_t any = __ballot_sync(0xffffffffu, m != 0u);
+      while (any) {
+        const int src = __ffs(any) - 1;
+        any &= any - 1u;
+        uint32_t mm = __shfl_sync(0xffffffffu, m, src);
+        const int base = (c0 + kQuarters * u) * kChunk + 8 * src;
+        while (mm) {
+          const int k = base + __ffs(mm) - 1;
+          mm &= mm - 1u;
+          const uint32_t* p = bits + static_cast<size_t>(k) * W + s0;
+          if (in0) acc[0] |= p[lane];
+          if (in1) acc[1] |= p[32 + lane];
+        }
+      }
+    }
+  }
+}
+
+// grid (ceil(M / 2), ceil(N / 2048)), 256 threads: warp = (row, quarter).
+__global__ void __launch_bounds__(kRowsPerBlock * kQuarters * 32)
+overlap_rows_kernel(const __nv_bfloat16* __restrict__ a1,
+                    const __nv_bfloat16* __restrict__ a2,
+                    const uint32_t* __restrict__ bits, int M, int N, int K,
+                    int W, uint8_t* __restrict__ out) {
+  __shared__ uint32_t red[kRowsPerBlock][2][kQuarters][kSegWords];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = warp / kQuarters, q = warp % kQuarters;
+  const int row = blockIdx.x * kRowsPerBlock + r;
+  const int s0 = blockIdx.y * kSegWords;
+  const bool two = a2 != nullptr;
+  uint32_t acc1[2] = {0u, 0u}, acc2[2] = {0u, 0u};
+  if (row < M) {
+    or_row(a1, bits, row, K, W, s0, q, lane, acc1);
+    if (two)
+      or_row(a2, bits + static_cast<size_t>(K) * W, row, K, W, s0, q, lane,
+             acc2);
+  }
+  red[r][0][q][lane] = acc1[0];
+  red[r][0][q][32 + lane] = acc1[1];
+  red[r][1][q][lane] = acc2[0];
+  red[r][1][q][32 + lane] = acc2[1];
+  __syncthreads();
+  // 128 threads a row, four columns a thread
+  const int t = threadIdx.x % (kQuarters * 32);
+  const int col0 = blockIdx.y * kSegWords * 32;
+  const int cols = min(kSegWords * 32, N - col0);
+  if (row >= M) return;
+  uint8_t* o = out + static_cast<size_t>(row) * N + col0;
+  const bool vec = (N & 3) == 0;
+  for (int c = 4 * t; c < cols; c += 4 * kQuarters * 32) {
+    const int wi = c >> 5;
+    uint32_t f1 = 0u, f2 = 0u;
+#pragma unroll
+    for (int qq = 0; qq < kQuarters; ++qq) {
+      f1 |= red[r][0][qq][wi];
+      f2 |= red[r][1][qq][wi];
+    }
+    const uint32_t m = ((two ? f1 & f2 : f1) >> (c & 31)) & 0xFu;
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(o + c) =
+          (m & 1u) | ((m >> 1) & 1u) << 8 | ((m >> 2) & 1u) << 16 |
+          ((m >> 3) & 1u) << 24;
+    } else {
+      for (int e = 0; e < 4 && c + e < cols; ++e)
+        o[c + e] = static_cast<uint8_t>((m >> e) & 1u);
+    }
+  }
 }
 
 // ---- K8 -------------------------------------------------------------
@@ -331,12 +410,22 @@ DT_EXPORT int dt_build_incidence(const int32_t* table_ids, const int32_t* keys,
   return dt_status();
 }
 
+// K7.  bits: families * K * ceil(N / 32) uint32 of scratch.
 DT_EXPORT int dt_overlap(const __nv_bfloat16* a1, const __nv_bfloat16* b1,
                          const __nv_bfloat16* a2, const __nv_bfloat16* b2,
-                         int M, int N, int K, uint8_t* out, void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  overlap_kernel<<<grid, 128, 0, dt_stream(stream)>>>(a1, b1, a2, b2, M, N, K,
-                                                       out);
+                         int M, int N, int K, uint32_t* bits, uint8_t* out,
+                         void* stream) {
+  if (M < 1 || N < 1 || K < 8 || K % 8) return 1;
+  const cudaStream_t s = dt_stream(stream);
+  const int W = (N + 31) / 32;
+  const int fams = a2 != nullptr ? 2 : 1;
+  const dim3 gb((K + kChunk - 1) / kChunk, (W + kBitsWarps - 1) / kBitsWarps,
+                fams);
+  overlap_bits_kernel<<<gb, kBitsWarps * 32, 0, s>>>(b1, b2, N, K, W, bits);
+  const dim3 gr((M + kRowsPerBlock - 1) / kRowsPerBlock,
+                (W + kSegWords - 1) / kSegWords);
+  overlap_rows_kernel<<<gr, kRowsPerBlock * kQuarters * 32, 0, s>>>(
+      a1, a2, bits, M, N, K, W, out);
   return dt_status();
 }
 

@@ -15,8 +15,9 @@
 // it first and break every segment).  An optional device flag `due`
 // makes every launch return at once (the audit's cadence gate).
 //   Bound: bytes.  One read of the three lane arrays and one write of the
-//   three sorted ones; each radix pass reads the words twice and writes
-//   them once (6 passes at B = 2048 for DGCC, 7 for the audit).
+//   three sorted ones; the one-sweep sort reads the words once for its
+//   histograms and once a pass, and writes them once a pass (6 passes at
+//   B = 2048 for DGCC, 7 for the audit).
 //
 // K15b replaces :63 segment_bounds, :70 prev_writer (both scans) and the
 // edge census of cc/dgcc.py:111-122: the segment heads from adjacent
@@ -307,8 +308,8 @@ __global__ void __launch_bounds__(kRelaxThreads)
 // K15a: sort n lanes (keys int64 in [0, 2^32), pos < 2^pos_bits <= 2^31,
 // tid < 2^tid_bits) by (key, pos), ties in lane order.  Packed when
 // pos_bits + tid_bits <= 32, else `wide` (pay / pay_tmp: n int32 each);
-// `words` and `tmp` are n-word scratch, `counts` kRadix * (ceil(n /
-// kSortTile) + 1) uint32; `due` may be null.
+// `words` and `tmp` are n-word scratch, `counts` the sort's scratch
+// (radix.cuh sort_pairs_bits); `due` may be null.
 DT_EXPORT int dt_lane_sort(const int64_t* keys, const int32_t* pos,
                            const int32_t* tid, int n, int pos_bits,
                            int tid_bits, int wide, const uint8_t* due,

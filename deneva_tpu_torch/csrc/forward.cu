@@ -5,15 +5,14 @@
 // carrying the write flag.  Each lane packs into one 63-bit word
 //   key << 32 | rank << 1 | is_write        (key, rank in [0, 2^31))
 // whose ascending order refines (key, rank); ties are one txn's lanes on
-// one key, whose order the reference leaves open.  An LSD radix sort
-// (8 passes of 8 bits: per-tile histogram, a parallel scan of each
-// digit's row of tile counts, stable scatter) orders the words.
-//   Bound: bytes.  Each pass reads the words twice and writes them once,
-//   so 8 passes move ~24x the 8N-byte array where the bound is one read
-//   of the lanes and one write of the words; the histogram uses
-//   warp-aggregated shared atomics and the scatter ranks lanes stably
-//   with __match_any_sync, so no pass serializes on a hot digit, and
-//   2048-lane tiles give 320 blocks to the 132 SMs at N = 655,360.
+// one key, whose order the reference leaves open.  The one-sweep LSD
+// radix sort of radix.cuh orders the words (8 passes of 8 bits).
+//   Bound: bytes.  The histogram reads the words once and each pass reads
+//   and writes them once, so the sort moves ~17x the 8N-byte array where
+//   the bound is one read of the lanes and one write of the words; a pass
+//   whose digits are all equal (the key's high bytes on a table below
+//   2^24) is a straight copy.  10 launches and the pack; 2048-lane tiles
+//   give 320 blocks to the 132 SMs at N = 655,360.
 //
 // K2 replaces the Kogge-Stone segmented scans of forward_plan_flat
 // (:191 _seg_scan, :220 seg_first, :266-288).  Inside a key segment the
@@ -178,7 +177,7 @@ __global__ void plan_kernel(const uint64_t* __restrict__ words, int n,
 }  // namespace
 
 // K1: sort lanes (k, r, w) into ascending words `out`; `tmp` is an N-word
-// scratch, `counts` holds kRadix * (ceil(N / kSortTile) + 1) uint32.
+// scratch, `counts` the sort's scratch (radix.cuh sort_pairs_bits).
 DT_EXPORT int dt_sort_lanes(const int32_t* k, const int32_t* r,
                             const uint8_t* w, int n, uint64_t* out,
                             uint64_t* tmp, uint32_t* counts, void* stream) {

@@ -14,9 +14,11 @@ its plain PyTorch version, written op for op from the reference:
   ``ops/conflict.py:47`` `access_incidence` as ``cc/base.py:587``
   `build_incidence` calls them: one launch hashes every lane in each
   family and writes the requested count rows plus family 0's bucket ids.
-* **K7** `overlap` — replaces ``ops/conflict.py:63``: bf16 tensor-core
-  products with f32 accumulation, the ``> 0`` compare and the AND of the
-  second family in one kernel.
+* **K7** `overlap` — replaces ``ops/conflict.py:63``: on count rows the
+  product is positive exactly where two rows share a positive bucket, so
+  the kernel builds bitmaps of the B side's buckets and ORs, for each A
+  row, the bitmaps of its positive buckets (each input read once), with
+  the AND of the second family.
 * **K8** `first_fit` — replaces ``ops/conflict.py:78`` `earlier_edges`
   fused into ``:96`` `greedy_first_fit`.
 
@@ -54,7 +56,7 @@ K56_INCIDENCE = kernels.Kernel("dt_build_incidence", [
     kernels.P, kernels.P, kernels.P])
 K7_OVERLAP = kernels.Kernel("dt_overlap", [
     kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
-    kernels.I32, kernels.P, kernels.P])
+    kernels.I32, kernels.P, kernels.P, kernels.P])
 K8_FIRST_FIT = kernels.Kernel("dt_first_fit", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
     kernels.P, kernels.P, kernels.P, kernels.P])
@@ -166,7 +168,14 @@ def overlap_plain(inc_a, inc_b, inc_a2=None, inc_b2=None) -> torch.Tensor:
 
 
 def overlap(inc_a, inc_b, inc_a2=None, inc_b2=None) -> torch.Tensor:
-    """K7: one kernel for both families' products, compares and AND."""
+    """K7: both families' overlaps and their AND, in two launches.
+
+    Precondition: the rows are K5+K6 count rows, non-negative integers
+    (as every caller passes).  Then ``(A @ B.T)[i, j] > 0`` holds exactly
+    when some bucket k has ``A[i, k] > 0`` and ``B[j, k] > 0``, which is
+    what the kernel computes: bitmaps of the B side's positive buckets
+    (scratch allocated here), then each A row ORs the bitmaps of its
+    positive buckets.  ``inc_a`` may be the same tensor as ``inc_b``."""
     two = inc_a2 is not None
     if kernels.on_cpu(inc_a, inc_b, *((inc_a2, inc_b2) if two else ())):
         return overlap_plain(inc_a, inc_b, inc_a2, inc_b2)
@@ -181,10 +190,13 @@ def overlap(inc_a, inc_b, inc_a2=None, inc_b2=None) -> torch.Tensor:
     if k % 8:
         raise ValueError("K7 loads 16-byte rows: K must be a multiple of 8")
     out = torch.empty((m, n), dtype=torch.bool, device=dev)
+    bits = torch.empty((2 if two else 1) * k * -(-n // 32),
+                       dtype=torch.int32, device=dev)
     K7_OVERLAP.launch(kernels.ptr(inc_a), kernels.ptr(inc_b),
                       kernels.ptr(inc_a2) if two else None,
                       kernels.ptr(inc_b2) if two else None, m, n, k,
-                      kernels.ptr(out), kernels.stream(inc_a))
+                      kernels.ptr(bits), kernels.ptr(out),
+                      kernels.stream(inc_a))
     return out
 
 

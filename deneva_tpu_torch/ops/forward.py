@@ -12,10 +12,10 @@ Two kernels carry it on the card:
   ``forward_plan_flat`` (``deneva_tpu/ops/forward.py:258-264``).  Each
   lane packs into one non-negative 63-bit word
   ``key << 32 | rank << 1 | is_write`` (keys and ranks are in [0, 2^31)),
-  whose ascending order refines (key, rank); an LSD radix sort orders
-  the words.  Lanes with equal (key, rank) are one txn's accesses to one
-  key, whose order the reference leaves open (``is_stable=False``); the
-  word orders them reads first.
+  whose ascending order refines (key, rank); a one-sweep LSD radix sort
+  (``csrc/radix.cuh``) orders the words.  Lanes with equal (key, rank)
+  are one txn's accesses to one key, whose order the reference leaves
+  open (``is_stable=False``); the word orders them reads first.
 * **K2** `plan_scans` (``csrc/forward.cu``) — replaces the Kogge-Stone
   segmented scans of ``forward_plan_flat`` (``:191`` ``_seg_scan``,
   ``:220`` ``seg_first``, ``:266-288``).  Inside a key segment ranks
@@ -80,7 +80,7 @@ K18B_PACK = kernels.Kernel("dt_mc_pack", [
     kernels.I32, kernels.I32, kernels.I32, kernels.I32, kernels.P,
     kernels.P, kernels.P, kernels.P, kernels.P])
 
-SORT_TILE = 2048        # lanes per radix-sort block (csrc/forward.cu)
+SORT_PASSES = 8         # the most 8-bit passes a sort runs (csrc/radix.cuh)
 SCAN_TILE = 1024        # lanes per scan block (csrc/forward.cu)
 MC_MAX_PARTS = 8        # the most shards K18a / K18b take (csrc/mc.cu)
 
@@ -380,6 +380,14 @@ def sort_lanes_plain(k, r, w):
     return torch.sort(pack_lanes(k, r, w))
 
 
+def sort_scratch(n: int, dev) -> torch.Tensor:
+    """The radix sort's scratch (``csrc/radix.cuh``): the passes' digit
+    histograms, their tile counters and each tile's look-back status
+    words, sized for the smallest tile the sort picks (256 words)."""
+    words = SORT_PASSES * 256 + 32 + SORT_PASSES * 256 * -(-n // 256)
+    return torch.empty(words, dtype=torch.int32, device=dev)
+
+
 def sort_lanes(k: torch.Tensor, r: torch.Tensor, w: torch.Tensor
                ) -> torch.Tensor:
     """K1: lanes (k int32[N], r int32[N], w bool[N]) -> sorted int64[N]
@@ -392,9 +400,7 @@ def sort_lanes(k: torch.Tensor, r: torch.Tensor, w: torch.Tensor
         kernels.check(name, t, dt, (n,), k.device)
     out = torch.empty(n, dtype=torch.int64, device=k.device)
     tmp = torch.empty_like(out)
-    nblk = -(-n // SORT_TILE)
-    counts = torch.empty(256 * (nblk + 1), dtype=torch.int32,
-                         device=k.device)
+    counts = sort_scratch(n, k.device)
     K1_SORT.launch(kernels.ptr(k), kernels.ptr(r), kernels.ptr(w), n,
                    kernels.ptr(out), kernels.ptr(tmp), kernels.ptr(counts),
                    kernels.stream(k))

@@ -94,6 +94,67 @@ def test_overlap_exact(two, b, k):
     assert 0 < int(got.sum()) < b * b
 
 
+def _premise_lanes(rng, b, k, kind):
+    """Bucket ids and valid flags of ``b`` rows: few lanes a row, or all
+    lanes of a row in one bucket (counts up to 256), half the rows empty,
+    or a row touching every bucket."""
+    a = 256 if kind == "duplicates" else (k if kind == "dense_rows" else 6)
+    ids = rng.integers(0, k, (b, a)).astype(np.int32)
+    valid = rng.random((b, a)) < (0.02 if kind == "dense_rows" else 0.7)
+    if kind == "duplicates":
+        ids[:] = ids[:, :1]
+        valid[0] = True
+    if kind == "empty_rows":
+        valid[: b // 2] = False
+    if kind == "dense_rows":
+        ids[b // 3] = np.arange(k)
+        valid[b // 3] = True
+    return ids, valid
+
+
+@pytest.mark.parametrize("kind", ["random", "alias", "empty_rows",
+                                  "dense_rows", "duplicates"])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("b,k", [(48, 64), (7, 8)])
+def test_overlap_is_a_bucket_intersection(kind, two, b, k):
+    """K7's premise: on K5+K6 count rows the reference's product test
+    ``A @ B.T > 0`` is the bucket intersection ``exists k: A > 0 and B >
+    0`` (counts are non-negative: nothing cancels), which the kernel
+    computes from bitmaps.  The port's plain version equals both."""
+    rng = np.random.default_rng(b * k + 7 * two + len(kind))
+    lanes = [_premise_lanes(rng, b, k, kind) for _ in range(4 if two else 2)]
+    if kind == "alias":
+        lanes[1] = lanes[0]
+        if two:
+            lanes[3] = lanes[2]
+    j = [jconflict.access_incidence(jnp.asarray(i), jnp.asarray(v), k)
+         for i, v in lanes]
+    t = [conflict.access_incidence(torch.from_numpy(i), torch.from_numpy(v),
+                                   k) for i, v in lanes]
+    if kind == "alias":      # one tensor on both sides, as twopl.py passes
+        t[1] = t[0]
+        if two:
+            t[3] = t[2]
+    cnt = [np.asarray(x, dtype=np.float32) for x in j]
+    assert min(float(c.min()) for c in cnt) >= 0
+    if kind == "duplicates":
+        assert max(float(c.max()) for c in cnt) == 256
+
+    def meets(x, y):
+        return ((x > 0)[:, None, :] & (y > 0)[None, :, :]).any(axis=2)
+    want = meets(cnt[0], cnt[1])
+    if two:
+        want &= meets(cnt[2], cnt[3])
+    ref = np.asarray(jconflict.overlap(*j))
+    np.testing.assert_array_equal(ref, want)
+    np.testing.assert_array_equal(conflict.overlap_plain(*t).numpy(), want)
+    np.testing.assert_array_equal(conflict.overlap(*t).numpy(), want)
+    if kind == "empty_rows":
+        assert not want[: b // 2].any()
+    if kind == "dense_rows" and not two:
+        np.testing.assert_array_equal(want[b // 3], (cnt[1] > 0).any(1))
+
+
 @pytest.mark.parametrize("rounds", [1, 3, 24])
 @pytest.mark.parametrize("b", [16, 64, 200])
 def test_earlier_edges_and_first_fit_exact(rounds, b):

@@ -91,6 +91,35 @@ def test_sort_and_scans_match_plain(dev, n, n_keys):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
+@pytest.mark.parametrize("kind,n", [("one_key", 655360),
+                                    ("all_sentinel", 4097),
+                                    ("one_key", 2049), ("two_keys", 2047),
+                                    ("main_path", 655360)])
+def test_sort_hot_digits_match_plain(dev, kind, n):
+    """K1's one-sweep sort where one digit holds every word of a pass (a
+    pass that is a copy), where the sentinel key 0x7FFFFFFF fills the
+    array, at N off the 2,048-word tile, and at the main path's N."""
+    g = torch.Generator().manual_seed(n)
+    r = torch.randint(1, 65537, (n,), generator=g, dtype=torch.int32)
+    w = torch.rand(n, generator=g) < 0.5
+    if kind == "one_key":
+        k = torch.full((n,), 12345, dtype=torch.int32)
+    elif kind == "all_sentinel":
+        k = torch.full((n,), BIG, dtype=torch.int32)
+        w[:] = False
+    elif kind == "two_keys":
+        k = torch.where(torch.rand(n, generator=g) < 0.5, 7, BIG).to(
+            torch.int32)
+    else:
+        k = torch.randint(0, 1 << 24, (n,), generator=g, dtype=torch.int32)
+        r = (1 + torch.arange(n // 10, dtype=torch.int32)).repeat_interleave(
+            10)
+    k, r, w = k.to(dev), r.to(dev), w.to(dev)
+    for _ in range(2):      # the second call reuses freed scratch
+        words = forward.sort_lanes(k, r, w)
+        assert torch.equal(words, forward.sort_lanes_plain(k, r, w).values)
+
+
 @pytest.mark.parametrize("width", [0, 100, 24])
 def test_forward_execute_matches_plain(dev, width):
     cap = 5000
@@ -178,7 +207,11 @@ def test_build_incidence_matches_plain(dev, b, a, k, fams, order_free):
 
 @pytest.mark.parametrize("m,n,k,two", [(1024, 1024, 8192, True),
                                        (1024, 1024, 8192, False),
-                                       (100, 70, 64, True), (5, 5, 64, False)])
+                                       (2048, 2048, 8192, True),
+                                       (1000, 333, 8192, True),
+                                       (333, 1000, 8192, False),
+                                       (100, 70, 64, True), (5, 5, 64, False),
+                                       (300, 4100, 64, True)])
 def test_overlap_matches_plain(dev, m, n, k, two):
     g = torch.Generator().manual_seed(m + k)
 
@@ -191,6 +224,39 @@ def test_overlap_matches_plain(dev, m, n, k, two):
     got = conflict.overlap(*ins)
     assert torch.equal(got, conflict.overlap_plain(*ins))
     assert 0 < int(got.sum()) < m * n
+
+
+@pytest.mark.parametrize("kind", ["alias", "dense_row", "count_256",
+                                  "empty_rows"])
+@pytest.mark.parametrize("m,k,two", [(64, 8, True), (64, 8, False),
+                                     (2048, 8192, True), (77, 8192, False)])
+def test_overlap_edge_rows_match_plain(dev, kind, m, k, two):
+    """K7 on the rows its bitmaps find hard: A aliased to B, a row whose
+    every bucket is positive, counts of 256 (the largest K5+K6 writes),
+    and rows with no access."""
+    g = torch.Generator().manual_seed(m + k + len(kind))
+
+    def inc(rows):
+        x = torch.zeros(rows, k)
+        x.scatter_add_(1, torch.randint(0, k, (rows, 3), generator=g),
+                       torch.ones(rows, 3))
+        x[torch.rand(rows, generator=g) < 0.3] = 0
+        if kind == "dense_row":
+            x[rows // 2] = 1
+        if kind == "count_256":
+            x[x > 0] = 256
+        return x.to(torch.bfloat16).to(dev)
+    a, b = inc(m), inc(m + 5)
+    a2, b2 = (inc(m), inc(m + 5)) if two else (None, None)
+    if kind == "alias":
+        b = a
+        b2 = a2
+    if kind == "empty_rows":
+        a[: m // 2] = 0
+    got = conflict.overlap(a, b, a2, b2)
+    assert torch.equal(got, conflict.overlap_plain(a, b, a2, b2))
+    if kind == "dense_row" and not two:
+        assert bool(got[m // 2, (b > 0).any(1)].all())
 
 
 @pytest.mark.parametrize("b", [16, 100, 1024, 2048])
@@ -1024,6 +1090,28 @@ def test_lane_sort_wide_positions_match_plain(dev, b, a, n_keys, levels):
         assert torch.equal(x, y)
     off = torch.zeros((), dtype=torch.bool, device=dev)
     depgraph.lane_sort(*lanes, b, pos_bound=bound, due=off)   # returns
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("b,a,n_keys", [(2048, 10, 1 << 24), (2048, 10, 3),
+                                        (16384, 4, 5000), (5, 1, 1)])
+def test_lane_sort_due_gate(dev, wide, b, a, n_keys):
+    """K15a packed and wide behind the audit's ``due`` flag: on, the sort
+    is exact; off, every launch returns at once, and the next sort on
+    the same stream is exact."""
+    from deneva_tpu_torch.cc import depgraph
+    *_, lanes = _audit_lanes(b, a, n_keys, 4, dev, b + a + wide)
+    # a position bound of 2^30 takes 30 bits: past the packed word's 32
+    bound = 1 << 30 if wide else 2 * 4 * (b + 2)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    want = depgraph.lane_sort_plain(*lanes)
+    for due in (on, off, on):
+        got = depgraph.lane_sort(*lanes, b, pos_bound=bound, due=due)
+        torch.cuda.synchronize()
+        if bool(due):
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("b,a,n_keys,levels,cap,order_vis", [
