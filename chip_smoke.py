@@ -73,7 +73,16 @@ paths drive it:
   on the one card: the sharded plan's capacity rule K18a and owner
   blocks K18b, then K1-K3 per shard; ``mesh_scaling``'s cells; TPC-C
   at 64 warehouses and PPS over 8 shards through each shard's executor.
-  The shards share one card, so no number here is a multi-GPU one.
+  The shards share one card, so no number here is a multi-GPU one;
+* partitioned keyspaces and the router (``part_cnt = 4``, node 0's
+  striped view) — YCSB over 2^26 keys (node 0 stores the paper's 2^24
+  rows; forwarding in both table modes, OCC and MVCC at ``ycsb_skew``),
+  TPC-C at 64 warehouses (16 local) and PPS at ``pps_scaling``; the
+  router's cell (the ``ycsb_skew`` shape at theta 0.6 over 2^26 keys,
+  2^18 buckets, metrics, audit at cadence 1, repair rounds 2, ``ctrl``)
+  under static knobs, the mixed assignment [0, 1, 2, 2] (K21, the
+  cross-group defer) and ``ctrl_dgcc``'s [0, 1, 2, 3], and
+  ``run_simulation`` with the controller armed.
 
 Phases (any error or mismatch exits non-zero and prints no result):
 
@@ -229,6 +238,22 @@ Phases (any error or mismatch exits non-zero and prints no result):
                per-epoch count on that path (``PATH_LAUNCHES``) times the
                epochs run; the YCSB sweep backends must commit and
                abort, TPC-C's and PPS's may abort, the others never.
+   Slice 11: ``[K21]`` K21 against its plain version on a generated
+               ``ycsb_skew`` batch at 4 partitions (B = 2,048 x 10,
+               K = 8,192, G = 3 and 4; also at K = 64 and 2^18), its
+               time against the reference's 18 einsums in bf16;
+               ``[part]`` kernel epochs equal plain epochs at
+               ``part_cnt = 4`` on every leaf, the trash and pad rows
+               left 0, with the non-owned lanes counted, and one
+               forwarding epoch against the numpy serial oracle;
+               ``[router]`` static knobs equal the unrouted step, mixed
+               and ``ctrl_dgcc`` routed kernel epochs equal plain ones,
+               and one mixed epoch's committed set against numpy (K21's
+               defers from their definition, no cross-group conflict,
+               each group's own rule); ``[ctrl-simulate]`` the armed
+               controller's ``run_simulation``: its ``[ctrl]`` lines
+               parse and replay, ``ctrl_decisions`` > 0.  ``--slice11``
+               runs only these.
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -356,6 +381,8 @@ KERNELS = {
                       "deneva_tpu/ops/forward.py:109"),
     "K18b_mc_pack": ("deneva_tpu_torch/csrc/mc.cu",
                      "deneva_tpu/workloads/ycsb.py:413"),
+    "K21_cross_group_defer": ("deneva_tpu_torch/csrc/router.cu",
+                              "deneva_tpu/cc/router.py:149"),
 }
 # kernels that no reference path launches: their launches come from the
 # oracle check that probes them, and the kernels line marks them
@@ -606,6 +633,18 @@ def _per_shard(path: str, d: int) -> dict:
 for _d in (2, 4, 8):
     PATH_LAUNCHES[f"MESH{_d}"] = mesh_launches("MESH", _d)
     PATH_LAUNCHES[f"MESH_REPL{_d}"] = mesh_launches("MESH_REPL", _d)
+# the router's mixed branch: one K5+K6 launch, K21, each group's validate
+# (NO_WAIT and OCC: K7 and K8; TPU_BATCH: K7 and K9a; DGCC: K15a, K15b,
+# K16), the union through exec_subrounds = 4 level passes without K10
+# (or, under ctrl_dgcc, dgcc_levels = 32 with it); repair sits out mixed
+# epochs; the metrics and audit planes once
+_MIXED = {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1,
+          "K5K6_build_incidence": 1, "K21_cross_group_defer": 1,
+          "K7_overlap": 3, "K8_first_fit": 2, "K9a_wavefront_levels": 1}
+PATH_LAUNCHES.update({"ROUTED_MIXED": _MIXED, "ROUTED_MIXED_DGCC": {
+    **_MIXED, **_DGCC, "K10_last_writer": DGCC_PASSES}})
+PATH_LAUNCHES.update({p: _armed(p)
+                      for p in ("ROUTED_MIXED", "ROUTED_MIXED_DGCC")})
 PATH_LAUNCHES.update({
     "TPCC_CHAINED@8": _per_shard("TPCC_CHAINED", 8),
     "TPCC_SWEEP@8": _per_shard("TPCC_SWEEP", 8),
@@ -628,7 +667,8 @@ def plain_path(wl):
     comparison side of phase 4 and of tests/test_torch_cuda.py; the
     package itself has no such switch).  A kernel added to the main path
     is swapped here."""
-    from deneva_tpu_torch.cc import base, depgraph, dgcc, maat, timestamp
+    from deneva_tpu_torch.cc import (base, depgraph, dgcc, maat, router,
+                                     timestamp)
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.storage import index, table
     from deneva_tpu_torch.workloads import ycsb
@@ -676,6 +716,7 @@ def plain_path(wl):
              (depgraph, "audit_scans", depgraph.audit_scans_plain),
              (depgraph, "compact_edges", depgraph.compact_edges_plain),
              (forward, "mc_slice_defer", forward.mc_slice_defer_plain),
+             (router, "cross_group_defer", router.cross_group_defer_plain),
              (forward, "mc_pack_blocks",
               lambda k, v, ts, r, w, dfr, order, d, cap:
               forward.mc_pack_blocks_plain(k, v, ts, r, w, dfr, d, cap))]
@@ -3298,34 +3339,45 @@ def slice7_checks(cfg, path: str, label: str, fields: dict, card: str):
           f"(card {card})", flush=True)
 
 
+def counted(fn):
+    """(fn's result, launches per kernel during it): counts set to 0 just
+    before, read just after."""
+    from deneva_tpu_torch import kernels
+    ks = kernels.all_kernels()
+    for k in ks.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {nm: k.launches for nm, k in ks.items()}
+
+
+def check_launches(counts: dict, path: str, epochs: int, label: str):
+    for nm, c in counts.items():
+        want = PATH_LAUNCHES[path].get(nm, 0) * epochs
+        if c != want:
+            fail(f"{label}: {nm} launched {c} times in {epochs} epochs, "
+                 f"expected {want}")
+
+
 def phase_simulate(dev, cfg, path: str, label: str, card: str
                    ) -> tuple[dict, dict]:
     """``run_simulation`` with every launch count zeroed just before it;
     each kernel must launch its per-epoch count on ``path`` times the
     epochs run."""
-    from deneva_tpu_torch import kernels
     from deneva_tpu_torch.engine.driver import run_simulation
     from deneva_tpu_torch.stats import parse_summary
-    ks = kernels.all_kernels()
-    for k in ks.values():
-        k.launches = 0
     with contextlib.ExitStack() as ctx:
         if cfg.device_parts > 1:
             from deneva_tpu_torch.parallel import use_mesh
             ctx.enter_context(use_mesh(mesh_of(dev, cfg.device_parts)))
-        st = run_simulation(cfg, device=dev)
-    counts = {nm: k.launches for nm, k in ks.items()}
+        st, counts = counted(lambda: run_simulation(cfg, device=dev))
     fields = parse_summary(st.summary_line())
     commits = fields["total_txn_commit_cnt"]
     aborts = fields["total_txn_abort_cnt"]
     if commits <= 0 or (path not in MAY_ABORT
                         and (aborts > 0) != (path in ABORTING)):
         fail(f"simulate {label}: commits {commits} aborts {aborts}")
-    for nm, c in counts.items():
-        want = PATH_LAUNCHES[path].get(nm, 0) * st.epochs_run
-        if c != want:
-            fail(f"simulate {label}: {nm} launched {c} times in "
-                 f"{st.epochs_run} epochs, expected {want}")
+    check_launches(counts, path, st.epochs_run, f"simulate {label}")
     print(f"[simulate] {label}: {fields['tput']:.1f} committed txn/s on "
           f"{card}; epochs={st.epochs_run} commits={commits} "
           f"aborts={aborts} abort_rate={fields['abort_rate']} "
@@ -3382,16 +3434,22 @@ def host_hot_spots(run, st, mode: str, n: int = 20):
     return st
 
 
-def phase_profile(dev, cfg, mode: str) -> None:
+def phase_profile(dev, cfg, mode: str, knobs_of=None) -> None:
     """Where an epoch's time goes (``--profile`` only): host enqueue time
     and wall time per epoch, device time by kernel, and the device's idle
     share.  The profiler slows the host, so the idle share is taken
     against the unprofiled wall time per epoch; the share against the
-    profiled window is printed beside it."""
+    profiled window is printed beside it.  ``knobs_of(cfg)`` routes
+    every epoch under those knobs (`Engine.run_ctrl`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, run, st = mesh_engine(dev, cfg)
+    eng, run, st = mesh_engine(dev, cfg)
+    if knobs_of is not None:
+        knobs = knobs_of(cfg)
+
+        def run(s, n):
+            return eng.run_ctrl(s, knobs, n)
     st = run(st, 20)
     torch.cuda.synchronize()
     n = 200
@@ -3404,7 +3462,7 @@ def phase_profile(dev, cfg, mode: str) -> None:
           f"{wall / n * 1e3:.4f} ms/epoch ({n} epochs, no profiler)",
           flush=True)
     if mode.startswith(("TPCC", "PPS", "OCC repair", "DGCC",
-                        "OCC ycsb_skew audited", "mesh")):
+                        "OCC ycsb_skew audited", "mesh", "router")):
         st = host_hot_spots(run, st, mode)
     m = 50
     with profile(activities=[ProfilerActivity.CPU,
@@ -3929,12 +3987,12 @@ def audit_oracle_epoch(eng, state, label: str, card: str):
     real = step_mod.audit_observe
 
     def grab(cfg, batch, committed, order, lvl, order_vis, stamps, epoch,
-             n_levels):
+             n_levels, cadence=None):
         seen["args"] = (batch, committed, order, lvl, order_vis,
                         {f: v.clone() for f, v in stamps.items()},
                         int(epoch))
         out = real(cfg, batch, committed, order, lvl, order_vis, stamps,
-                   epoch, n_levels)
+                   epoch, n_levels, cadence=cadence)
         seen["out"] = out
         return out
     step_mod.audit_observe = grab
@@ -4303,7 +4361,6 @@ def mesh_equal_epochs(dev, cfg, n: int, label: str):
     plain versions, every leaf but each block's trash row (the masked
     scatter writes it in an unspecified order).  Returns the kernel state
     and the kernels' launches in those epochs."""
-    from deneva_tpu_torch import kernels
     t = time.monotonic()
     eng_k, run_k, sk = mesh_engine(dev, cfg)
     eng_p = make_engine(dev, cfg)
@@ -4312,12 +4369,7 @@ def mesh_equal_epochs(dev, cfg, n: int, label: str):
         from deneva_tpu_torch.parallel import make_sharded_run
         run_p = make_sharded_run(eng_p, mesh_of(dev, cfg.device_parts))[1]
     sp = copy.deepcopy(sk)
-    ks = kernels.all_kernels()
-    for k in ks.values():
-        k.launches = 0
-    sk = run_k(sk, n)
-    torch.cuda.synchronize()
-    counts = {nm: k.launches for nm, k in ks.items()}
+    sk, counts = counted(lambda: run_k(sk, n))
     with plain_path(eng_p.workload):
         sp = run_p(sp, n)
     torch.cuda.synchronize()
@@ -4497,6 +4549,452 @@ def phase_slice9_epochs(dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# -- slice 11: partitioned keyspaces and the contention router --------------
+
+PART = 4                        # part_cnt of the slice's cells
+ROUTER_BUCKETS = 1 << 18        # the router cell's conflict_buckets
+
+
+def part_cfg(cfg_fn, *a, **kw):
+    """``cfg_fn``'s cell over ``part_cnt = 4`` partitions of four times
+    its keys: node 0 stores the paper's per-node table (2^24 YCSB rows,
+    or a quarter of TPC-C's warehouses / PPS's keys)."""
+    if cfg_fn in (config, occ_config, skew_config):
+        kw.setdefault("synth_table_size", PART * ROWS)
+    return cfg_fn(*a, part_cnt=PART, **kw)
+
+
+def router_cfg(**kw):
+    """The router's cell: the ``ycsb_skew`` shape (B = 2,048 over a pool
+    of 10,000, 10 requests, dual hashing) over 2^26 keys in 4
+    partitions at theta 0.6, with the metrics plane, the audit plane at
+    cadence 1 and repair (2 rounds), routed (``ctrl``, escrow exemptions
+    off as its pin requires).  The bucket space is 2^18: at 8,192
+    buckets the epoch's 20,480 lanes leave almost no txn of a mixed
+    epoch without a cross-group bucket, and nearly every one defers."""
+    kw = {"metrics": True, "audit": True, "audit_cadence": 1,
+          "repair": True, "repair_rounds": 2, "ctrl": True,
+          "escrow_order_free": False, "zipf_theta": 0.6, **kw}
+    return part_cfg(skew_config, False, kw.pop("cc_alg", "OCC"),
+                    **kw).replace(conflict_buckets=ROUTER_BUCKETS)
+
+
+def untouched_pad(state, label: str) -> None:
+    """Every table's trash and pad rows (and the version ring's) still
+    hold the loader's 0: no store of the port writes them."""
+    from deneva_tpu_torch.storage.table import DeviceTable, VersionRing
+    from deneva_tpu_torch.workloads.ycsb import TABLE
+    for name, t in state.db.items():
+        if isinstance(t, DeviceTable):
+            for c, v in t.columns.items():
+                if v[t.capacity:].any():
+                    fail(f"{label}: {name}.{c} trash or pad row written")
+        elif isinstance(t, VersionRing):
+            cap = state.db[TABLE].capacity
+            if t.wts[cap * t.depth:].any():
+                fail(f"{label}: the version ring's trash rows written")
+
+
+def kernel_vs_plain(dev, cfg, run, n: int, path: str | None, label: str,
+                    total: dict):
+    """``run(engine, state, n)`` on a kernel engine and on a plain one
+    from the same state: every leaf equal, trash and pad rows included
+    (both leave them 0).  With ``path`` the kernel run launches its count
+    per epoch; its launches add into ``total``.  Returns the kernel
+    engine, its state, its launches and the number of leaves."""
+    from deneva_tpu_torch.convert import state_leaves
+    ek, ep = tpcc_engine(dev, cfg), tpcc_engine(dev, cfg)
+    sk = ek.init_state()
+    sp = copy.deepcopy(sk)
+    sk, counts = counted(lambda: run(ek, sk, n))
+    if path is not None:
+        check_launches(counts, path, n, label)
+    for nm, c in counts.items():
+        total[nm] = total.get(nm, 0) + c
+    with plain_path(ep.workload):
+        sp = run(ep, sp, n)
+    torch.cuda.synchronize()
+    lk, lp = state_leaves(sk), state_leaves(sp)
+    for p_, x in lk.items():
+        if not torch.equal(x, lp[p_]):
+            fail(f"{label}: leaf {p_} differs between kernel and plain "
+                 "epochs")
+    untouched_pad(sk, label)
+    n_leaves = len(lk)
+    del ep, sp, lk, lp
+    torch.cuda.empty_cache()
+    return ek, sk, counts, n_leaves
+
+
+def part_epochs(dev, cfg, path: str, n: int, label: str, card: str,
+                total: dict) -> None:
+    """``n`` kernel epochs at part_cnt = 4 equal ``n`` plain epochs
+    (`kernel_vs_plain`); the kernel run launches ``path``'s count per
+    epoch."""
+    t = time.monotonic()
+    ek, sk, _c, n_leaves = kernel_vs_plain(
+        dev, cfg, lambda e, s, m: e.run(s, m), n, path, f"[part] {label}",
+        total)
+    planned = ek.workload.plan(sk.db, sk.pool.queries)
+    foreign = int(((planned["owner"] != cfg.node_id)
+                   & planned["valid"]).sum())
+    lanes = int(planned["valid"].sum())
+    dens = sk.stats["conflict_density"].tolist() if cfg.metrics else None
+    print(f"[part] {label}: {n} kernel epochs == {n} plain epochs "
+          f"({n_leaves} leaves, trash and pad rows 0); commits "
+          f"{int(sk.stats['total_txn_commit_cnt'])} aborts "
+          f"{int(sk.stats['total_txn_abort_cnt'])}; pool lanes non-owned "
+          f"{foreign} of {lanes}; density {dens} in "
+          f"{time.monotonic() - t:.1f} s on {card}", flush=True)
+    del ek, sk
+    torch.cuda.empty_cache()
+
+
+def phase_part(dev, card: str) -> dict:
+    """[part]: epochs at part_cnt = 4, kernel against plain; YCSB's
+    forwarding epoch also against the numpy serial oracle.  Returns the
+    kernel runs' launches."""
+    total: dict[str, int] = {}
+    for full in (False, True):
+        mode = "full_row" if full else "fingerprint"
+        part_epochs(dev, part_cfg(config, full, metrics=True), "TPU_BATCH+D",
+                    2, f"YCSB forwarding 2^26 keys {mode}", card, total)
+    for alg, path in (("OCC", "OCC+D"), ("MVCC", "MVCC")):
+        extra = {"metrics": True} if alg == "OCC" else {}
+        part_epochs(dev, part_cfg(skew_config, False, alg, **extra), path, 3,
+                    f"YCSB {alg} ycsb_skew 2^26 keys", card, total)
+    part_epochs(dev, part_cfg(tpcc_config, 64), "TPCC_CHAINED", 2,
+                "TPC-C 64 wh (16 local)", card, total)
+    part_epochs(dev, part_cfg(pps_config), "PPS_CHAINED", 2,
+                "PPS pps_scaling", card, total)
+    # the forwarding epoch against serial execution: a non-owned read
+    # folds the trash row's 0 unless forwarded
+    cfg = part_cfg(config, False)
+    eng = tpcc_engine(dev, cfg)
+    st = eng.run(eng.init_state(), 2)
+    part_oracle_epoch(eng, st, dev)
+    del eng, st
+    torch.cuda.empty_cache()
+    return total
+
+
+def part_oracle_epoch(eng, state, dev) -> None:
+    """One forwarding epoch at part_cnt = 4 against serial execution in
+    rank order over the whole keyspace: owned reads fold their slot's
+    epoch-start value (or their forwarded writer's), non-owned reads the
+    trash row's 0 unless forwarded; owned keys' last writers land, the
+    trash row stays 0."""
+    from deneva_tpu_torch.workloads.ycsb import TABLE
+    p = eng.cfg.part_cnt
+    start = state.db[TABLE].columns["F0"].clone()
+    pre = int(state.stats["read_checksum"])
+    state = eng.step(state)
+    torch.cuda.synchronize()
+    keys = state.pool.queries.keys.cpu().numpy().astype(np.int64)
+    isw = state.pool.queries.is_write.cpu().numpy()
+    seq = state.pool.seq.cpu().numpy().astype(np.int64)
+    lk, lw = keys.reshape(-1), isw.reshape(-1)
+    comp = (lk << 32) | np.repeat(seq, keys.shape[1])
+    wc = np.sort(comp[lw])
+    rk, rc = lk[~lw], comp[~lw]
+    pos = np.searchsorted(wc, rc, side="left") - 1
+    prev = wc[np.maximum(pos, 0)]
+    fwd = np.where((pos >= 0) & ((prev >> 32) == rk), prev & MASK32, -1)
+    owned = rk % p == 0
+    rows = start.cpu().numpy().view(np.uint32)
+    vals = np.where(fwd >= 0, np_fingerprint(rk, np.maximum(fwd, 0)),
+                    np.where(owned, rows[np.where(owned, rk // p, 0)], 0))
+    cks = int(vals.astype(np.uint64).sum()) & MASK32
+    got = (int(state.stats["read_checksum"]) - pre) & MASK32
+    if got != cks:
+        fail(f"[part] oracle: checksum {got} != serial {cks}")
+    wkey = wc >> 32
+    last = np.r_[wkey[1:] != wkey[:-1], True]
+    win_k, win_r = wkey[last], wc[last] & MASK32
+    mine = win_k % p == 0
+    expect = rows.copy()
+    expect[win_k[mine] // p] = np_fingerprint(win_k[mine], win_r[mine])
+    if not np.array_equal(
+            state.db[TABLE].columns["F0"].cpu().numpy().view(np.uint32),
+            expect):
+        fail("[part] oracle: table differs from the serial apply")
+    print(f"[part] oracle epoch ok: reads {len(rk)} (non-owned "
+          f"{int((~owned).sum())}, forwarded {int((fwd >= 0).sum())}), "
+          f"owned keys written {int(mine.sum())}", flush=True)
+
+
+def k21_library(inc, batch, group, n_groups: int):
+    """The reference's 2 + 4G einsums as bf16 ``torch.einsum`` (timed
+    only: bf16 cannot hold the larger masses exactly)."""
+    u1, w1 = inc.u1, inc.w1
+    act = batch.active.to(torch.bfloat16)
+    tot_w = torch.einsum("bk,b->k", w1, act)
+    tot_u = torch.einsum("bk,b->k", u1, act)
+    conf = torch.zeros(group.shape, dtype=torch.float32, device=u1.device)
+    for g in range(n_groups):
+        m = act * (group == g).to(torch.bfloat16)
+        oth_w = tot_w - torch.einsum("bk,b->k", w1, m)
+        oth_u = tot_u - torch.einsum("bk,b->k", u1, m)
+        c_g = torch.einsum("bk,k->b", u1, oth_w).float() \
+            + torch.einsum("bk,k->b", w1, oth_u).float()
+        conf = torch.where(group == g, c_g, conf)
+    return batch.active & (conf > 0.5)
+
+
+def phase_k21(dev, rec: dict, card: str) -> None:
+    """[K21]: the cross-group defer against its plain version on a
+    generated ``ycsb_skew`` batch at part_cnt = 4 (B = 2,048, 10
+    accesses), groups from the knobs [0, 1, 2, 2] (G = 3) and
+    [0, 1, 2, 3] (G = 4), at K = 8,192 and at K = 64 (buckets collide)."""
+    from deneva_tpu_torch.cc import base, router
+    from deneva_tpu_torch.ops import prng
+    cfg = router_cfg()
+    wl = tpcc_engine(dev, cfg).workload
+    q = wl.generate(prng.key_from_seed(21, dev), SKEW_BATCH)
+    p = wl.plan(None, q)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    active = (torch.rand(SKEW_BATCH, generator=g) < 0.9).to(dev)
+    ts = torch.arange(1, SKEW_BATCH + 1, dtype=torch.int32, device=dev)
+    bt = base.AccessBatch(
+        table_ids=p["table_ids"], keys=p["keys"], is_read=p["is_read"],
+        is_write=p["is_write"], valid=p["valid"], ts=ts, rank=ts - 1,
+        active=active)
+    b, a = bt.keys.shape
+    r = rec["K21_cross_group_defer"]
+    worst = 0
+    for k in (BUCKETS, 64, ROUTER_BUCKETS):
+        inc = base.build_incidence(bt, k, True, views=("u", "w"))
+        for assign in ([0, 1, 2, 2], [0, 1, 2, 3]):
+            n_g = 4 if 3 in assign else 3
+            kn = router.knobs_from_decision(cfg, assign, [0] * PART, 1, 1,
+                                            dev)
+            grp = router.txn_backend(kn, p["owner"])
+            out = router.cross_group_defer(inc, bt, grp, n_g)
+            ref = router.cross_group_defer_plain(inc, bt, grp, n_g)
+            err = int((out != ref).sum())
+            if err:
+                fail(f"K21 (K={k}, G={n_g}): {err} txns differ from plain")
+            worst = max(worst, err)
+            print(f"[K21] K={k} G={n_g}: exact; deferred "
+                  f"{int(out.sum())} of {int(active.sum())} active",
+                  flush=True)
+            if k == BUCKETS and n_g == 4:
+                r.update(max_abs_err=worst,
+                         ms=cuda_ms(lambda: router.cross_group_defer(
+                             inc, bt, grp, n_g)),
+                         plain_ms=cuda_ms(lambda: router.
+                                          cross_group_defer_plain(
+                                              inc, bt, grp, n_g)),
+                         library_ms=cuda_ms(lambda: k21_library(
+                             inc, bt, grp, n_g)))
+                # the function's traffic: lanes (bucket, three flags)
+                # read and B x (active, group) read, out written, once;
+                # the count tables are the kernel's scratch
+                bound(r, b * a * 7 + b * 6, b * a * 4)
+    r["max_abs_err"] = worst
+    print_kernel("K21_cross_group_defer", r, card)
+
+
+def capture_mixed(eng, state, knobs):
+    """One routed epoch with the mixed branch's inputs and verdict
+    captured: (state', {batch, group, crossdef, groups, verdict})."""
+    from deneva_tpu_torch.cc import router
+    from deneva_tpu_torch.engine import step as step_mod
+    seen = {}
+    k21, runl = router.cross_group_defer, step_mod._run_levels
+
+    def cgd(inc, batch, group, n_groups=3):
+        out = k21(inc, batch, group, n_groups)
+        seen.update(batch=batch, group=group, crossdef=out, groups=n_groups)
+        return out
+
+    def levels(cfg, wl, db, queries, exec_commit, verdict, stats, **kw):
+        seen["verdict"] = verdict
+        return runl(cfg, wl, db, queries, exec_commit, verdict, stats, **kw)
+    router.cross_group_defer, step_mod._run_levels = cgd, levels
+    try:
+        state = eng.step(state, knobs)
+    finally:
+        router.cross_group_defer, step_mod._run_levels = k21, runl
+    torch.cuda.synchronize()
+    return state, seen
+
+
+def mixed_oracle(cfg, seen: dict) -> dict:
+    """The committed set of one mixed epoch in numpy, in the (coarsened)
+    bucket space: K21's defers re-derived from the lanes; no two
+    committed txns of different groups conflict (family 1, either way);
+    inside each group the backend's own rule holds (NO_WAIT: no conflict
+    either way; OCC: no earlier committed writer of a later committed
+    txn's access; TPU_BATCH: none inside one level; each under both
+    hash families)."""
+    bt, v = seen["batch"], seen["verdict"]
+    keys = bt.keys.cpu().numpy().astype(np.int64)
+    isw, isr = bt.is_write.cpu().numpy(), bt.is_read.cpu().numpy()
+    valid = bt.valid.cpu().numpy()
+    act = bt.active.cpu().numpy()
+    grp = seen["group"].cpu().numpy()
+    rank = bt.rank.cpu().numpy()
+    commit = v.commit.cpu().numpy() & act
+    level = v.level.cpu().numpy()
+    b, k, n_g = len(rank), cfg.conflict_buckets, seen["groups"]
+    lane_u = valid & act[:, None] & (isr | isw)
+    lane_w = valid & act[:, None] & isw
+    rows = np.repeat(np.arange(b), keys.shape[1])
+
+    def dense(cols, lanes):
+        m = np.zeros((b, k), np.float32)
+        sel = lanes.reshape(-1)
+        m[rows[sel], cols.reshape(-1)[sel]] = 1
+        return m
+    fam = [(dense(np_bucket(keys, f, k), lane_u),
+            dense(np_bucket(keys, f, k), lane_w)) for f in (0, 1)]
+    u1, w1 = fam[0]
+    # K21 from its definition
+    tot_u, tot_w = u1.sum(0), w1.sum(0)
+    want = np.zeros(b, bool)
+    for g in range(n_g):
+        m = grp == g
+        ow = tot_w - w1[m].sum(0)
+        ou = tot_u - u1[m].sum(0)
+        hit = (u1 @ (ow > 0)) + (w1 @ (ou > 0)) > 0
+        want |= m & hit
+    want &= act
+    if not np.array_equal(want, seen["crossdef"].cpu().numpy()):
+        fail("router oracle: K21's defers differ from their definition")
+    c = np.flatnonzero(commit)
+    uw = [(fu[c] @ fw[c].T) > 0 for fu, fw in fam]   # [i, j]: U_i meets W_j
+    both = uw[0] & uw[1]
+    gi = grp[c]
+    cross = gi[:, None] != gi[None, :]
+    if (uw[0] & cross).any() or (uw[0].T & cross).any():
+        fail("router oracle: two committed txns of different groups "
+             "conflict")
+    from deneva_tpu_torch.cc.router import candidates
+    for g, alg in enumerate(candidates(cfg)):
+        m = (gi[:, None] == g) & (gi[None, :] == g)
+        np.fill_diagonal(m, False)
+        if alg.value == "NO_WAIT":
+            bad = both & m
+        elif alg.value == "OCC":
+            # j committed before i (by rank) and writes what i accesses
+            rc = rank[c]
+            bad = both & m & (rc[None, :] < rc[:, None])
+        elif alg.value == "TPU_BATCH":
+            lc = level[c]
+            bad = both & m & (lc[:, None] == lc[None, :])
+        else:
+            continue
+        if bad.any():
+            fail(f"router oracle: committed {alg.value} txns conflict "
+                 f"({int(bad.sum())} pairs)")
+    return {"active": int(act.sum()), "commit": int(commit.sum()),
+            "crossdef": int(want.sum()),
+            "by_group": [int((commit & (grp == g)).sum())
+                         for g in range(n_g)]}
+
+
+def routed_equal(dev, cfg, knobs, n: int, label: str, card: str,
+                 path: str | None, total: dict):
+    """``n`` routed kernel epochs equal ``n`` routed plain epochs on every
+    leaf; with ``path`` the kernel run launches its count per epoch.
+    Returns the kernel engine and state."""
+    t = time.monotonic()
+    ek, sk, counts, n_leaves = kernel_vs_plain(
+        dev, cfg, lambda e, s, m: e.run_ctrl(s, knobs, m), n, path,
+        f"[router] {label}", total)
+    st = {k_: int(v.sum()) for k_, v in sk.stats.items()}
+    print(f"[router] {label}: {n} kernel epochs == {n} plain epochs "
+          f"({n_leaves} leaves); commits {st['total_txn_commit_cnt']} aborts "
+          f"{st['total_txn_abort_cnt']} defers {st['defer_cnt']} salvaged "
+          f"{st['rep_salvaged_cnt']} waves {st['dgcc_wave_cnt']} K21 "
+          f"{counts['K21_cross_group_defer']} in "
+          f"{time.monotonic() - t:.1f} s on {card}", flush=True)
+    return ek, sk
+
+
+def phase_router(dev, card: str) -> dict:
+    """[router]: routed epochs at the router's cell.  (i) static knobs
+    equal the unrouted step leaf by leaf; (ii) mixed [0, 1, 2, 2] with
+    gshift [0, 2, 0, 0], repair_cap 1, audit_cadence 2 and (iii)
+    ctrl_dgcc's [0, 1, 2, 3], each kernel against plain, then one more
+    mixed epoch against the numpy oracle of its committed set.  Returns
+    the kernel runs' launches."""
+    from deneva_tpu_torch.cc import router
+    from deneva_tpu_torch.convert import state_leaves
+    total: dict[str, int] = {}
+    t = time.monotonic()
+    cfg = router_cfg()
+    e1, e2 = tpcc_engine(dev, cfg), tpcc_engine(dev, cfg)
+    s1 = e1.init_state()
+    s2 = copy.deepcopy(s1)
+    s1 = e1.run(s1, 3)
+    s2, counts = counted(lambda: e2.run_ctrl(
+        s2, router.static_knobs(cfg, dev), 3))
+    check_launches(counts, "OCC+R2+A", 3, "[router] static knobs")
+    l1, l2 = state_leaves(s1), state_leaves(s2)
+    for p_, x in l1.items():
+        if not torch.equal(x, l2[p_]):
+            fail(f"[router] static knobs: leaf {p_} differs from the "
+                 "unrouted epochs")
+    print(f"[router] static knobs: 3 routed epochs == 3 unrouted epochs "
+          f"({len(l1)} leaves) in {time.monotonic() - t:.1f} s",
+          flush=True)
+    del e1, e2, s1, s2, l1, l2
+    torch.cuda.empty_cache()
+    for label, extra, assign, gshift, path in (
+            ("mixed", {}, [0, 1, 2, 2], [0, 2, 0, 0], "ROUTED_MIXED"),
+            ("mixed ctrl_dgcc", {"ctrl_dgcc": True}, [0, 1, 2, 3],
+             [0, 2, 0, 0], "ROUTED_MIXED_DGCC")):
+        cfg = router_cfg(**extra)
+        kn = router.knobs_from_decision(cfg, assign, gshift, 1, 2, dev)
+        eng, st = routed_equal(dev, cfg, kn, 3, label, card, path, total)
+        st, seen = capture_mixed(eng, st, kn)
+        o = mixed_oracle(cfg, seen)
+        print(f"[router] {label} oracle epoch ok: {o}", flush=True)
+        del eng, st, seen
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_ctrl_simulate(dev, card: str) -> dict:
+    """[ctrl-simulate]: ``run_simulation`` with the controller armed on the
+    router's cell; its ``[ctrl]`` lines parse with the port's
+    ``parse_ctrl`` and replay with its ``replay_decisions``.  Returns the
+    run's launches."""
+    import io
+
+    from deneva_tpu_torch.engine.driver import run_simulation
+    from deneva_tpu_torch.runtime.controller import replay_decisions
+    from deneva_tpu_torch.stats import parse_ctrl, parse_summary
+    cfg = router_cfg(warmup_secs=0.5, done_secs=1.5)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        st, counts = counted(lambda: run_simulation(cfg, device=dev))
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        if ln.startswith("[ctrl]"):
+            print(ln, flush=True)
+    rows = parse_ctrl(lines)
+    fields = parse_summary(st.summary_line())
+    if not rows or fields.get("ctrl_decisions", 0) <= 0 \
+            or fields["ctrl_decisions"] != len(rows):
+        fail(f"[ctrl-simulate] {len(rows)} [ctrl] lines, ctrl_decisions "
+             f"{fields.get('ctrl_decisions')}")
+    bad = replay_decisions(cfg, rows)
+    if bad:
+        fail(f"[ctrl-simulate] the decisions do not replay: {bad[:3]}")
+    if fields["total_txn_commit_cnt"] <= 0:
+        fail("[ctrl-simulate] nothing committed")
+    used = {nm: c for nm, c in counts.items() if c}
+    print(f"[ctrl-simulate] {fields['tput']:.1f} committed txn/s on {card}; "
+          f"epochs={st.epochs_run} decisions={len(rows)} (replayed clean) "
+          f"assignments={sorted({r['assign'] for r in rows})} "
+          f"launches={used}", flush=True)
+    print(f"[ctrl-simulate] {st.summary_line()}", flush=True)
+    return counts
+
+
 def flat_state(state):
     """The state with each stacked table in one-device form (non-ring
     tables mapped back, ring tables' blocks concatenated in cursor
@@ -4540,6 +5038,13 @@ def main() -> int:
         audit_overhead(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
         return 0
+    if "--slice11" in sys.argv:
+        phase_k21(dev, {"K21_cross_group_defer": {}}, info["card"])
+        phase_part(dev, info["card"])
+        phase_router(dev, info["card"])
+        phase_ctrl_simulate(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     rec = {nm: {} for nm in ("K1_sort_lanes", "K2_plan_scans",
                              "K3_forward_execute[fingerprint]",
                              "K3_forward_execute[full_row]",
@@ -4561,7 +5066,8 @@ def main() -> int:
                              "K15c_compact_edges",
                              "K17_audit_observe[lanes]",
                              "K17_audit_observe[stamps]",
-                             "K18a_mc_defer", "K18b_mc_pack")}
+                             "K18a_mc_defer", "K18b_mc_pack",
+                             "K21_cross_group_defer")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
@@ -4577,6 +5083,7 @@ def main() -> int:
     phase_slice8_kernels(dev, rec, info["card"])
     torch.cuda.empty_cache()
     phase_slice9_kernels(dev, rec, info["card"])
+    phase_k21(dev, rec, info["card"])
     for full in (False, True):
         phase_epochs(dev, full)
         torch.cuda.empty_cache()
@@ -4598,6 +5105,15 @@ def main() -> int:
     phase_slice9_epochs(dev, info["card"])
     torch.cuda.empty_cache()
     launches: dict[str, int] = {}
+    # slice 11: the partitioned cells, the routed epochs and the armed
+    # controller's run; their kernel runs count on the main path
+    for counts in (phase_part(dev, info["card"]),
+                   phase_router(dev, info["card"]),
+                   phase_ctrl_simulate(dev, info["card"])):
+        for nm, c in counts.items():
+            if nm in rec:
+                launches[nm] = launches.get(nm, 0) + c
+    torch.cuda.empty_cache()
     tput = {}
     fields_of: dict[str, dict] = {}
     win = {"warmup_secs": 1.0, "done_secs": 3.0}
@@ -4771,9 +5287,16 @@ def main() -> int:
                            ("OCC ycsb_skew audited cadence 1",
                             audited(skew_config, False, "OCC")),
                            ("mesh 2^27 D=1", mesh_config(1)),
-                           ("mesh 2^27 D=8", mesh_config(8))):
+                           ("mesh 2^27 D=8", mesh_config(8)),
+                           ("part_cnt 4 forwarding fingerprint",
+                            part_cfg(config, False, metrics=True))):
             phase_profile(dev, cfg, label)
             torch.cuda.empty_cache()
+        from deneva_tpu_torch.cc.router import knobs_from_decision
+        phase_profile(dev, router_cfg(), "router mixed [0,1,2,2]",
+                      lambda c: knobs_from_decision(
+                          c, [0, 1, 2, 2], [0, 2, 0, 0], 1, 2, dev))
+        torch.cuda.empty_cache()
     out = []
     for nm, v in rec.items():
         row = {"path": True}

@@ -6,8 +6,8 @@ and numpy, never JAX and nothing of ``deneva_tpu``.  Entry points run on
 CUDA unless the caller passes ``device="cpu"``; asking for CUDA where
 there is none raises.
 
-The ported slices, on one partition and one device, over a full or a
-partial pool: YCSB, TPC-C (Payment + NewOrder, with or without the
+The ported slices, on one node and one device (``part_cnt > 1``: node
+``node_id``'s striped partition), over a full or a partial pool: YCSB, TPC-C (Payment + NewOrder, with or without the
 dynamic ORDER index of ``tpcc_order_index``) and PPS, under
 ``CC_ALG=TPU_BATCH`` and ``CALVIN`` (YCSB through the single-pass
 forwarding executor, TPC-C and PPS through the chained executor),
@@ -42,6 +42,11 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/``):
   `SortedIndex.lookup_count`, `range_slots`, `range_between`)
 * K19 — TPC-C generation                   (`workloads.tpcc.TPCCWorkload.generate`)
 * K20 — PPS generation                     (`workloads.pps.PPSWorkload.generate`)
+* K21 — the router's cross-group defer     (`cc.router.cross_group_defer`)
+
+and the planes' kernels (K13a-b, K15a-c, K16, K17, K18a-b) named in
+their modules.  Under ``ctrl`` the contention router routes each epoch
+(`cc.router`, `runtime.controller`).
 
 Library surface, as the reference's:
 ``Config.from_args([...])`` -> ``engine.driver.run_simulation(cfg)`` ->
@@ -54,7 +59,8 @@ Package map (mirrors ``deneva_tpu``):
 * `ops`       — threefry stream, zipfian sampling, forwarding plan,
   hashing, conflict incidence and sweep, last-writer resolution
 * `cc`        — the backend registry (TPU_BATCH, CALVIN, OCC, NO_WAIT,
-  WAIT_DIE, TIMESTAMP, MVCC, MAAT, NOCC), incidence
+  WAIT_DIE, TIMESTAMP, MVCC, MAAT, DGCC, NOCC), incidence, the router
+* `runtime`   — the control plane's controller
 * `workloads` — YCSB, TPC-C, PPS
 * `engine`    — pool, epoch step, run driver
 * `stats`     — counters, percentile arrays, [summary] emitter

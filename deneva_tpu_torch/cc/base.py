@@ -566,19 +566,22 @@ def audit_stamps(stamps: dict, sk: torch.Tensor, sp: torch.Tensor,
 
 def audit_observe(cfg, batch: AccessBatch, committed: torch.Tensor,
                   order: torch.Tensor, lvl: torch.Tensor, order_vis: bool,
-                  stamps: dict, epoch: torch.Tensor, n_levels: int = 1):
+                  stamps: dict, epoch: torch.Tensor, n_levels: int = 1,
+                  cadence: int | None = None):
     """Per-epoch committed-txn dependency observations under the backend's
     visibility rule (``deneva_tpu/cc/base.py:336``): forwarding
     (``order_vis``) reads observe the latest committed writer of lower
     serialization order; otherwise the latest of strictly lower ``lvl``.
     Epochs off ``audit_cadence`` take the reference's skip outputs, gated
     on the device (``due``), so no epoch syncs the host.  ``n_levels``
-    bounds ``lvl`` of the committed txns (`audit_levels`).
+    bounds ``lvl`` of the committed txns (`audit_levels`).  ``cadence``
+    (the control plane's knob, a host int) replaces ``cfg.audit_cadence``;
+    the epoch's ``due`` flag stays a device test of the epoch counter.
 
     Returns ``(stamps', edges, ebkt, cnt, dropped, vdig, rdig, wit)``: the
     reference's seven outputs (digests int64 in [0, 2^32)) and the
     witness count of the kept edges (`depgraph.witness_count`)."""
-    cad = max(1, cfg.audit_cadence)
+    cad = max(1, cfg.audit_cadence if cadence is None else int(cadence))
     due = None if cad == 1 else (epoch % cad) == 0
     b, _a = batch.shape
     keys2, pos2, tid2 = audit_lanes(batch, committed, order, lvl, order_vis,

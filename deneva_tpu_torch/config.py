@@ -6,8 +6,11 @@ reference's name, type and default, so one ``--flag=value`` list drives
 both packages.
 
 The port runs YCSB, TPC-C (Payment + NewOrder, with or without the
-dynamic ORDER index of ``tpcc_order_index``) and PPS on one partition
-and one device, over a full or a partial pool.  YCSB takes zipfian or
+dynamic ORDER index of ``tpcc_order_index``) and PPS on one node and
+one device, over a full or a partial pool; ``part_cnt > 1`` stripes the
+keyspace as the reference's cluster does and the process holds node
+``node_id``'s partition (keys = node_id mod part_cnt; every other key
+resolves to a table's trash row).  YCSB takes zipfian or
 HOT keys, ``key_order``, any ``txn_write_perc`` and either index;
 ``CC_ALG=TPU_BATCH`` and ``CALVIN`` run it through the single-pass
 forwarding executor, and TPC-C and PPS, whose writes read, through the
@@ -21,12 +24,17 @@ dependency-graph wavefront through the chained executor, both on YCSB
 and TPC-C.  ``metrics`` adds the per-partition conflict density to the
 device counters, and ``audit`` (YCSB and TPC-C) the isolation audit
 plane's per-epoch dependency observations and stamp tables, with the
-seeded ``audit_mutate`` fault under OCC.  ``device_parts > 1`` runs
+seeded ``audit_mutate`` fault under OCC.  ``ctrl`` (with
+``ctrl_dgcc``) routes each epoch through the contention router: the
+controller's per-partition backend among NO_WAIT / OCC / TPU_BATCH
+(/ DGCC), key coarsening, repair cap and audit cadence.
+``device_parts > 1`` runs
 every workload and backend over a mesh of that many shards (tables
 owner-major, `parallel` and `workloads.mc`), with ``mc_plan_capacity``
 sizing the sharded forwarding plan; the reference's checks and its
 ``device_parts == 1`` pins (metrics, audit, repair, the ORDER index,
-elastic, ctrl) raise as they do there.  A flag that would leave
+elastic, ctrl) raise as they do there.  ``node_cnt > 1`` and
+``elastic`` (the cluster runtime) are not ported.  A flag that would leave
 those slices raises in :meth:`Config.validate` and names the ROADMAP.md
 item that brings it; a flag the port does not know at all raises in
 :meth:`Config.from_args`.  Nothing is silently ignored.
@@ -79,7 +87,10 @@ class Config:
 
     # ---- topology ----
     node_id: int = 0
-    part_cnt: int = 1              # keyspace partitions
+    node_cnt: int = 1              # server nodes (one: the cluster
+    #                                runtime is not ported)
+    part_cnt: int = 1              # keyspace partitions; node 0 stores
+    #                                the keys = node_id (mod part_cnt)
     device_parts: int = 1          # keyspace partitions across the devices
     #                                of a mesh: tables owner-major, the
     #                                executors run once per shard
@@ -199,10 +210,24 @@ class Config:
     #                                [:COUNT]": OCC's read check dropped on
     #                                epochs [START, START + COUNT)
 
+    # ---- the control plane (runtime/controller.py, cc/router.py) ----
+    ctrl: bool = False             # the contention router: per-partition
+    #                                CC backend, key coarsening, repair
+    #                                cap and audit cadence, decided at
+    #                                chunk boundaries
+    ctrl_lo: float = 0.02          # density below which a partition is
+    #                                SPARSE (lanes per batch row)
+    ctrl_hi: float = 0.20          # density above which it is HOT
+    ctrl_confirm: int = 2          # ticks a new class must persist
+    ctrl_cooldown: int = 4         # ticks a moved knob holds
+    ctrl_stale_s: float = 2.0      # boundary gap that trips the governor
+    ctrl_heal: int = 3             # healthy ticks before it re-engages
+    ctrl_gshift: int = 2           # key bits SPARSE partitions coarsen
+    ctrl_scale_max: int = 4        # admission quota-scale steps (cluster)
+    ctrl_dgcc: bool = False        # HOT partitions route to DGCC
+
     # ---- planes the port does not carry yet (validate rejects them) ----
     elastic: bool = False
-    ctrl: bool = False
-    ctrl_dgcc: bool = False
     checkpoint_path: str = ""
     resume: bool = False
 
@@ -235,7 +260,8 @@ class Config:
 
     def validate(self) -> "Config":
         # the reference's own checks on these fields
-        _check(self.part_cnt >= 1, "part_cnt must be >= 1")
+        _check(self.node_cnt >= 1 and self.part_cnt >= 1,
+               "node_cnt/part_cnt must be >= 1")
         _check(self.device_parts >= 1, "device_parts must be >= 1")
         if self.device_parts > 1:
             # deneva_tpu/config.py:1036-1065, with its messages
@@ -316,12 +342,6 @@ class Config:
             _check(self.max_accesses >= 1 + 2 * self.pps_parts_per,
                    "PPS max_accesses must cover anchor + mapping + parts "
                    f"(>= {1 + 2 * self.pps_parts_per})")
-            # PARTS / PRODUCTS / SUPPLIERS stripe by key % part_cnt
-            # (deneva_tpu/workloads/pps.py:108-112)
-            for nm in ("pps_parts_cnt", "pps_products_cnt",
-                       "pps_suppliers_cnt"):
-                _check(getattr(self, nm) % max(self.part_cnt, 1) == 0,
-                       f"{nm} must divide evenly over part_cnt")
         _check(self.isolation_level in (
             "SERIALIZABLE", "READ_COMMITTED", "READ_UNCOMMITTED", "NOLOCK"),
             f"bad isolation_level {self.isolation_level!r}")
@@ -401,18 +421,58 @@ class Config:
                    "DGCC's wave re-execution closures are wired for YCSB "
                    "and TPCC (workloads declare chained execution; PPS "
                    "keeps the sweep backends)")
-        # the reference's device_parts == 1 pins of the planes the port
-        # refuses in _NOT_PORTED (deneva_tpu/config.py:1214,1472): the
-        # same messages, raised first, as the reference raises them
+        # the reference's device_parts == 1 pin of elastic, refused in
+        # _NOT_PORTED (deneva_tpu/config.py:1214): its message first
         if self.elastic:
             _check(self.device_parts == 1,
                    "elastic (process-level) and device_parts (chip-level) "
                    "repartitioning do not compose yet")
+        # the control plane (deneva_tpu/config.py:1446-1494, the same
+        # messages in the same order; the cluster's admission pin has no
+        # field here: the port runs one node)
+        _check(0.0 <= self.ctrl_lo < self.ctrl_hi,
+               "ctrl hysteresis band needs 0 <= ctrl_lo < ctrl_hi")
+        _check(self.ctrl_confirm >= 1 and self.ctrl_cooldown >= 0
+               and self.ctrl_heal >= 1,
+               "ctrl_confirm/ctrl_heal must be >= 1, ctrl_cooldown >= 0")
+        _check(self.ctrl_stale_s > 0, "ctrl_stale_s must be > 0")
+        _check(0 <= self.ctrl_gshift <= 16,
+               "ctrl_gshift must be in [0, 16] (key bits to coarsen)")
+        _check(0 <= self.ctrl_scale_max <= 16,
+               "ctrl_scale_max must be in [0, 16] quota-scale steps")
         if self.ctrl:
+            _check(self.metrics,
+                   "ctrl consumes the conflict-density signal: needs "
+                   "--metrics=true (the PR 14 observability plane)")
+            _check(self.mode == Mode.NORMAL,
+                   "ctrl adapts executed-state knobs; degraded modes "
+                   "(SIMPLE/NOCC/QRY_ONLY) have nothing to adapt")
+            cands = (CCAlg.NO_WAIT, CCAlg.OCC, CCAlg.TPU_BATCH) \
+                + ((CCAlg.DGCC,) if self.ctrl_dgcc else ())
+            _check(self.cc_alg in cands,
+                   "ctrl routes between NO_WAIT/OCC/TPU_BATCH (plus "
+                   "DGCC when --ctrl_dgcc=true); the static cc_alg must "
+                   "be one of the candidates (it is the governor's "
+                   "fail-safe assignment)")
             _check(self.device_parts == 1,
                    "the ctrl router's branched epoch program is "
                    "single-device (multi-chip plans are built per-shard "
                    "inside shard_map)")
+            _check(not self.ycsb_abort_mode,
+                   "ctrl does not compose with the ycsb_abort_mode "
+                   "sentinel (the forced-abort mask is backend-path "
+                   "specific)")
+            _check(not self.audit_mutate,
+                   "ctrl does not compose with audit_mutate (the "
+                   "seeded fault targets the static OCC path)")
+            _check(not self.escrow_order_free,
+                   "ctrl does not compose with escrow ordering "
+                   "exemptions yet (the router's cross-backend batch "
+                   "carries one shared conflict derivation)")
+        if self.ctrl_dgcc:
+            _check(self.ctrl,
+                   "ctrl_dgcc arms the router's fourth (DGCC) class: "
+                   "needs --ctrl=true")
         # the slice the port runs so far
         for cond, what, item in _NOT_PORTED:
             if cond(self):
@@ -453,11 +513,9 @@ class Config:
 
 # (predicate, what, ROADMAP item) for every setting outside the slices
 _NOT_PORTED = (
-    (lambda c: c.part_cnt > 1,
-     "part_cnt > 1", "item 18: cluster runtime"),
+    (lambda c: c.node_cnt > 1,
+     "node_cnt > 1", "item 18: cluster runtime"),
     (lambda c: c.elastic, "elastic", "item 18: cluster runtime"),
-    (lambda c: c.ctrl or c.ctrl_dgcc,
-     "ctrl/ctrl_dgcc", "item 16d: control plane + router"),
     (lambda c: bool(c.checkpoint_path) or c.resume,
      "checkpoint_path/resume", "item 17: checkpoint"),
     (lambda c: c.sim_full_row and c.tup_size % 4 != 0,

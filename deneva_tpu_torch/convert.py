@@ -35,6 +35,12 @@ live on the workload and not in the state: the reference's
 TPC-C's CUSTOMER_LAST index also lives on the workload; the port
 rebuilds it from numpy (`workloads.tpcc.TPCCWorkload`).
 
+Under ``part_cnt > 1`` a table holds node ``node_id``'s ``n_local`` rows
+(then its trash row and pad rows) and ``stats/conflict_density`` one
+count per partition; both cross as they are.  The reference's trash
+rows hold what its stores left there and the port's stores write
+nothing there, so a comparison of the two takes rows ``[0, capacity)``.
+
 uint32 leaves cross as int32 bit patterns (table columns) or int64
 values (rng, counters), as the port holds them.
 """
@@ -180,7 +186,8 @@ def from_reference_state(tree, cfg, device) -> EngineState:
             ref_dtypes=ref, ring=bool(getattr(tab, "ring", False)),
             mc_parts=int(getattr(tab, "mc_parts", 1)),
             anchor_rows=int(getattr(tab, "anchor_rows", 1)),
-            mc_replicated=bool(getattr(tab, "mc_replicated", False)))
+            mc_replicated=bool(getattr(tab, "mc_replicated", False)),
+            striped=cfg.part_cnt > 1)
     q = tree.pool.queries
     pool = PoolState(
         queries=_query_class(cfg)(**{f: _t(getattr(q, f), device)

@@ -4,7 +4,10 @@
 // law :57 _field_fingerprint, :65 _field_bytes) over a sorted ForwardPlan:
 // read lanes gather F0 at their slot — a forwarded read (fwd >= 0) takes
 // f(key, fwd) instead — and fold into a wrapping uint32 checksum; each
-// key's final writer (win) stores f(key, rank).  A read with fwd < 0 must
+// key's final writer (win) stores f(key, rank) — only at a slot below cap:
+// under part_cnt > 1 the winners of keys another partition owns carry the
+// trash slot, and the trash row is never written (its gathers read the
+// loader's 0).  A read with fwd < 0 must
 // see the epoch-start value of a slot the same epoch's winner overwrites,
 // so the gather + checksum launch completes before the winners' store
 // launch runs (stream order).  Each key has exactly one winner, so the
@@ -87,9 +90,10 @@ __global__ void write_fp_kernel(uint32_t* __restrict__ f0,
                                 const int32_t* __restrict__ keys,
                                 const int32_t* __restrict__ rank,
                                 const uint8_t* __restrict__ win,
-                                const int32_t* __restrict__ slots, int n) {
+                                const int32_t* __restrict__ slots, int n,
+                                int cap) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && win[i])
+  if (i < n && win[i] && slots[i] < cap)
     f0[slots[i]] = fp_law(static_cast<uint32_t>(keys[i]),
                           static_cast<uint32_t>(rank[i]));
 }
@@ -131,7 +135,8 @@ __global__ void write_row_kernel(uint8_t* __restrict__ f0, int tup,
                                  const int32_t* __restrict__ keys,
                                  const int32_t* __restrict__ rank,
                                  const uint8_t* __restrict__ win,
-                                 const int32_t* __restrict__ slots, int n) {
+                                 const int32_t* __restrict__ slots, int n,
+                                 int cap) {
   const int words = tup >> 2;
   const long long total = static_cast<long long>(n) * words;
   const long long t =
@@ -139,7 +144,7 @@ __global__ void write_row_kernel(uint8_t* __restrict__ f0, int tup,
   if (t >= total) return;
   const int i = static_cast<int>(t / words);
   const int u = static_cast<int>(t - static_cast<long long>(i) * words);
-  if (!win[i]) return;
+  if (!win[i] || slots[i] >= cap) return;
   *reinterpret_cast<uint32_t*>(f0 + static_cast<size_t>(slots[i]) * tup +
                                4 * u) =
       word_law(fp_law(static_cast<uint32_t>(keys[i]),
@@ -227,12 +232,14 @@ __global__ void sort_rows_kernel(int32_t* __restrict__ keys, int n, int req) {
 }  // namespace
 
 // K3: tup == 0 -> fingerprint table (uint32 F0); else uint8[rows, tup]
-// with tup % 4 == 0.  acc receives (checksum, write lanes).
+// with tup % 4 == 0.  acc receives (checksum, write lanes).  Winners store
+// only at slots < cap (the trash slot).
 DT_EXPORT int dt_forward_execute(void* f0, int tup, const int32_t* keys,
                                  const int32_t* rank, const uint8_t* is_read,
                                  const uint8_t* is_write, const int32_t* fwd,
                                  const uint8_t* win, const int32_t* slots,
-                                 int n, uint32_t* acc, void* stream) {
+                                 int n, int cap, uint32_t* acc,
+                                 void* stream) {
   cudaStream_t s = dt_stream(stream);
   cudaMemsetAsync(acc, 0, 2 * sizeof(uint32_t), s);
   if (tup == 0) {
@@ -241,14 +248,14 @@ DT_EXPORT int dt_forward_execute(void* f0, int tup, const int32_t* keys,
                                                      is_write, fwd, slots, n,
                                                      acc);
     write_fp_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(tab, keys, rank, win,
-                                                      slots, n);
+                                                      slots, n, cap);
   } else {
     auto* tab = static_cast<uint8_t*>(f0);
     const long long total = static_cast<long long>(n) * (tup >> 2);
     read_row_kernel<<<dt_blocks(total, 256), 256, 0, s>>>(
         tab, tup, keys, is_read, is_write, fwd, slots, n, acc);
     write_row_kernel<<<dt_blocks(total, 256), 256, 0, s>>>(
-        tab, tup, keys, rank, win, slots, n);
+        tab, tup, keys, rank, win, slots, n, cap);
   }
   return dt_status();
 }

@@ -10,9 +10,13 @@ at the end.  Chunks are sized to ``chunk_target_secs`` of work.  The
 measured window's counter deltas become the reference-compatible
 ``[summary]`` line (with the ``rep_*`` fields under ``repair``, the
 ``mb_density_*`` fields under ``metrics``, the ``audit_*`` fields under
-``audit``, and the ``dgcc_*`` fields and one ``[dgcc]`` line under DGCC);
+``audit``, the ``dgcc_*`` fields and one ``[dgcc]`` line under DGCC or
+``ctrl_dgcc``, and ``ctrl_decisions`` / ``ctrl_trips`` under ``ctrl``);
 latency buckets (in epochs) are scaled to seconds by the pace of the
-chunk that produced them.
+chunk that produced them.  Under ``ctrl`` each chunk runs the routed
+step under one decision; at each chunk boundary the controller
+(`runtime.controller`) folds the counter deltas, which ride the same
+copy, into the next decision and prints it as a ``[ctrl]`` line.
 """
 
 from __future__ import annotations
@@ -42,21 +46,37 @@ def _indexes(state: EngineState) -> dict:
             if hasattr(t, "overflowed")}
 
 
-def _sync(state: EngineState) -> tuple[int, int, np.ndarray, bool]:
+CTRL_SIGNALS = ("conflict_density", "rep_fallback_cnt", "rep_salvaged_cnt",
+                "audit_wit_cnt")
+
+
+def _sync(state: EngineState, ctrl: bool = False
+          ) -> tuple[int, int, np.ndarray, bool, list | None]:
     """One device->host copy as the pacing barrier: returns (commit_cnt,
-    next_seq, latency_hist, index_overflowed).  The overflow bits ride
-    this copy rather than pay a second one per chunk
-    (``deneva_tpu/engine/driver.py:33-55``)."""
+    next_seq, latency_hist, index_overflowed, ctrl_counters).  The
+    overflow bits, and under ``ctrl`` the controller's four counters
+    (`CTRL_SIGNALS`, as uint32), ride this copy rather than pay a second
+    one per chunk (``deneva_tpu/engine/driver.py:33-55``)."""
     st = state.stats
     nh = st["latency_hist"].numel()
+    sig = [st[k].reshape(-1) for k in CTRL_SIGNALS] if ctrl else []
+    idx = [t.overflowed().reshape(1).to(torch.int64)
+           for t in _indexes(state).values()]
     flat = torch.cat([st["total_txn_commit_cnt"].reshape(1),
                       state.pool.next_seq.reshape(1).to(torch.int64),
-                      st["latency_hist"].reshape(-1)]
-                     + [t.overflowed().reshape(1).to(torch.int64)
-                        for t in _indexes(state).values()]).cpu().numpy()
+                      st["latency_hist"].reshape(-1)] + sig + idx
+                     ).cpu().numpy()
     hist = flat[2:2 + nh].astype(np.uint32).reshape(
         st["latency_hist"].shape)
-    return int(flat[0]), int(flat[1]), hist, bool(flat[2 + nh:].any())
+    at = 2 + nh
+    counters = None
+    if ctrl:
+        counters = []
+        for t in sig:
+            counters.append(flat[at:at + t.numel()].astype(np.uint32))
+            at += t.numel()
+    return int(flat[0]), int(flat[1]), hist, bool(flat[at:].any()), \
+        counters
 
 
 def _guard_overflow(ovf: bool) -> None:
@@ -95,6 +115,22 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
     eng = Engine(cfg, wl, device=device)
     state = eng.init_state()
     run_n = eng.run
+    ctl = None
+    if cfg.ctrl:
+        # the control plane: the routed step replaces run; each chunk
+        # boundary folds the counter deltas into one decision and re-arms
+        # the knobs for the next chunk
+        from deneva_tpu_torch.cc.router import (knobs_from_decision,
+                                                static_knobs)
+        from deneva_tpu_torch.runtime.controller import (Controller,
+                                                         CtrlSignals,
+                                                         ctrl_line)
+        ctl = Controller(cfg)
+        knobs = [static_knobs(cfg, device)]
+        ctrl_prev = [None]          # the previous tick's counters
+
+        def run_n(state, n):
+            return eng.run_ctrl(state, knobs[0], n)
     if mesh is not None:
         # tables owner-major over the mesh, the shards' executors in turn
         place, run_n = make_sharded_run(eng, mesh)
@@ -127,10 +163,36 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
     chunk_log: list[tuple[int, float, np.ndarray]] = []
     last_t = [time.monotonic()]
 
+    def _ctrl_tick(counters):
+        """One decision per chunk boundary (``deneva_tpu/engine/driver.py:
+        138-177``): the counter deltas since the previous tick, decided,
+        the knobs re-armed.  The first tick only takes the baseline."""
+        dens, fb, sv, wit = counters
+        now = time.monotonic()
+        cur = (dens.astype(np.int64), int(fb[0]), int(sv[0]), int(wit[0]),
+               epochs_total[0], now)
+        prev, ctrl_prev[0] = ctrl_prev[0], cur
+        if prev is None:
+            return
+        sig = CtrlSignals(
+            epoch=epochs_total[0], epochs=cur[4] - prev[4],
+            dens=[int(x) for x in cur[0] - prev[0]],
+            fallback=cur[1] - prev[1], salvaged=cur[2] - prev[2],
+            witnesses=cur[3] - prev[3], breaches=0,
+            gap_us=int((now - prev[5]) * 1e6))
+        dec = ctl.decide(sig)
+        knobs[0] = knobs_from_decision(cfg, dec.assign, dec.gshift,
+                                       dec.repair_cap, dec.audit_cadence,
+                                       device)
+        if not quiet:
+            print(ctrl_line(0, sig, dec), flush=True)
+
     def _after_chunk(state):
-        _, head, hist, ovf = _sync(state)
+        _, head, hist, ovf, counters = _sync(state, ctl is not None)
         _guard_seq(head)
         _guard_overflow(ovf)
+        if ctl is not None:
+            _ctrl_tick(counters)
         now = time.monotonic()
         chunk_log.append((chunk, now - last_t[0], hist))
         epochs_total[0] += chunk
@@ -205,7 +267,11 @@ def run_simulation(cfg: Config, device=None, chunk: int = 50,
         # overflows and claim-violating edges over the measured window
         for k in ("audit_edge_cnt", "audit_drop_cnt", "audit_wit_cnt"):
             st.set(k, float(after[k] - before[k]))
-    if cfg.cc_alg == CCAlg.DGCC:
+    if cfg.ctrl:
+        # decision ticks and governor trips over the whole run
+        st.set("ctrl_decisions", float(ctl.seq))
+        st.set("ctrl_trips", float(ctl.stale_trips))
+    if cfg.cc_alg == CCAlg.DGCC or cfg.ctrl_dgcc:
         # waves over the window, the deepest epoch of the whole run (a
         # running max), deferred closures and the dependency edges
         for k in ("dgcc_wave_cnt", "dgcc_fallback_cnt", "dgcc_edge_cnt"):

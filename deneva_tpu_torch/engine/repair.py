@@ -56,11 +56,8 @@ def run_repair(cfg, wl, be, db, queries, batch, inc, verdict, cc_state,
     commit, ``rounds`` names each salvaged txn's sub-round (1-based).
     ``stats`` is updated in place; ``forced`` (ycsb_abort_mode) txns are
     final aborts and never salvaged.  ``rounds_cap`` is the control
-    plane's knob (ROADMAP.md queue 1, item 16d); only None is taken."""
-    if rounds_cap is not None:
-        raise NotImplementedError(
-            "run_repair: rounds_cap is the control plane's knob, not "
-            "ported to deneva_tpu_torch yet (ROADMAP.md queue 1, item 16d)")
+    plane's knob, a host int: the rounds at or past it do nothing, as
+    the reference's ``lax.cond`` skips them; None runs every round."""
     losers = verdict.abort & batch.active
     if forced is not None:
         losers = losers & ~forced
@@ -69,7 +66,9 @@ def run_repair(cfg, wl, be, db, queries, batch, inc, verdict, cc_state,
     rounds = torch.zeros_like(batch.rank)
     fresh = repair_ts(batch, ts_base)
     fcnt = stats["rep_frontier_cnt"]
-    for rnd in range(cfg.repair_rounds):
+    n_rounds = cfg.repair_rounds if rounds_cap is None \
+        else max(0, min(cfg.repair_rounds, int(rounds_cap)))
+    for rnd in range(n_rounds):
         frontier = be.repair_rule(cfg, cc_state, batch, inc, committed,
                                   losers)
         fcnt = (fcnt + frontier.sum()) & MASK32

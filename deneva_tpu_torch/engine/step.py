@@ -42,6 +42,13 @@ Between 4 and 5, ``audit_mutate`` flips the window's clean OCC losers
 (K13a's launch on the write lanes) and ``metrics`` adds the epoch's
 per-partition conflict density (K13b) to its counter.
 
+Under ``ctrl`` the driver steps with the contention router's knobs
+(`cc.router.RouterKnobs`, `Engine.run_ctrl`): sections 4-5 become the
+uniform branch of the backend every partition is assigned (NO_WAIT /
+OCC through the sweep with repair under the knobs' cap, TPU_BATCH
+forwarding or chained, DGCC under ``ctrl_dgcc``) or the mixed branch,
+whose cross-group defers are K21; the branch is picked on the host.
+
 The reference scans this step under ``lax.scan``; here `Engine.run` is a
 Python loop that enqueues epochs on the device without a host sync.
 Device counters are the reference's uint32 scalars, held as int64 in
@@ -181,7 +188,9 @@ class Engine:
             stats=init_device_stats(len(self.workload.txn_type_names),
                                     max(cfg.part_cnt, 1), dev))
 
-    def step(self, state: EngineState) -> EngineState:
+    def _front(self, state: EngineState):
+        """Sections 1-3, shared by the static and the routed step: split
+        the rng, admit fresh queries, select the batch and plan it."""
         cfg, wl, be = self.cfg, self.workload, self.backend
         rng, gen_key = prng.split(state.rng)
         stats = dict(state.stats)
@@ -212,6 +221,38 @@ class Engine:
             active=active,
             order_free=gate_order_free(cfg, be, planned.get("order_free")))
 
+        return rng, stats, pool, slots, active, queries, sel, planned, batch
+
+    def step(self, state: EngineState, knobs=None) -> EngineState:
+        if knobs is not None:
+            # the contention router (cfg.ctrl): the knobs pick the branch
+            return self._routed_step(state, knobs)
+        rng, stats, pool, slots, active, queries, sel, planned, batch = \
+            self._front(state)
+        db, cc_state, verdict, exec_commit, release, aborts = \
+            self._validate_execute(state, stats, pool, active, queries, sel,
+                                   planned, batch, self.backend)
+        # 6. update pool + counters (forced txns release like commits)
+        pool = self._update(state, pool, stats, slots, active, queries, sel,
+                            exec_commit, release, verdict.abort, aborts,
+                            verdict.defer, self.backend.fresh_ts_on_restart)
+        return EngineState(db=db, cc_state=cc_state, pool=pool,
+                           rng=rng, epoch=state.epoch + 1, stats=stats)
+
+    def _validate_execute(self, state, stats, pool, active, queries, sel,
+                          planned, batch, be, cbatch=None, rounds_cap=None,
+                          cadence=None):
+        """Sections 4-5 for one backend: validate, density, defer budget,
+        execute, repair and audit.  The static step passes its own
+        backend; a uniform routed epoch passes the assigned one with the
+        coarsened conflict view ``cbatch`` (validate and the density read
+        it, the executor and the audit the exact ``batch``), its knobs'
+        repair cap and audit cadence.  Returns the tables, the cc state,
+        the verdict, the executed commits, the released slots and the
+        aborts counted (the CC's and the forced ones)."""
+        cfg, wl = self.cfg, self.workload
+        cbatch = batch if cbatch is None else cbatch
+
         # 4. validate
         forwarding = forwarding_applies(be, wl) and cfg.mode == Mode.NORMAL
         fwd = None
@@ -234,14 +275,14 @@ class Engine:
                 verdict, fwd = forward_verdict(fbatch)
             cc_state = state.cc_state
         else:
-            inc = build_conflict_incidence(cfg, be, batch, batch.order_free)
+            inc = build_conflict_incidence(cfg, be, cbatch, cbatch.order_free)
             if be.alg == CCAlg.DGCC:
                 # DGCC's [dgcc] counters come from inside the wave
                 # assignment, where the lane graph is in hand
-                verdict, cc_state = be.validate(cfg, state.cc_state, batch,
+                verdict, cc_state = be.validate(cfg, state.cc_state, cbatch,
                                                 inc, stats=stats)
             else:
-                verdict, cc_state = be.validate(cfg, state.cc_state, batch,
+                verdict, cc_state = be.validate(cfg, state.cc_state, cbatch,
                                                 inc)
             if cfg.audit_mutate:
                 # the seeded edge-derivation fault: flipped losers execute
@@ -256,15 +297,12 @@ class Engine:
             ref_inc = not (forwarding or cfg.mode == Mode.NOCC
                            or be.alg in (CCAlg.NOCC, CCAlg.DGCC))
             _acc(stats, "conflict_density", cc_base.conflict_density(
-                cfg, batch, planned["owner"], ref_inc))
+                cfg, cbatch, planned["owner"], ref_inc))
         # defer budget: a txn deferred past defer_rounds_max force-restarts
         # (deterministic chained backends are exempt)
-        if not be.chained and cfg.defer_rounds_max > 0:
-            stuck = verdict.defer & active \
-                & (sel(pool.defer_cnt) >= cfg.defer_rounds_max)
-            verdict = dataclasses.replace(
-                verdict, abort=verdict.abort | stuck,
-                defer=verdict.defer & ~stuck)
+        if not be.chained:
+            verdict = self._defer_budget(pool, sel, active, verdict)
+
         def finalize(verdict, forced):
             # a forced txn completes-as-aborted only when the CC would not
             # retry it anyway; released slots are commits + forced
@@ -313,16 +351,15 @@ class Engine:
         if cfg.repair and cfg.mode == Mode.NORMAL and not forwarding \
                 and be.repair_rule is not None:
             db, cc_state, verdict, salvaged, srounds = run_repair(
-                cfg, wl, be, db, queries, batch, inc, verdict, cc_state,
+                cfg, wl, be, db, queries, cbatch, inc, verdict, cc_state,
                 stats, exec_commit, forced,
-                ts_base=pool.next_seq - self.pool.b)
+                ts_base=pool.next_seq - self.pool.b, rounds_cap=rounds_cap)
             exec_commit = exec_commit | salvaged
             release = release | salvaged
         else:
             srounds = None
 
-        # 5c. isolation audit (default off): an observation of the final
-        # committed set, never an input to a verdict or a table write
+        # 5c. isolation audit (default off)
         if cfg.audit and cfg.mode == Mode.NORMAL:
             if forwarding:
                 lvl = torch.zeros_like(verdict.level)
@@ -331,32 +368,171 @@ class Engine:
             else:
                 lvl = srounds if srounds is not None \
                     else torch.zeros_like(verdict.level)
-            aud, _e, _bk, cnt, drop, _vd, _rd, wit = audit_observe(
-                cfg, batch, exec_commit & active, verdict.order, lvl,
-                forwarding, db[AUDIT_KEY], state.epoch,
-                audit_levels(cfg, be, forwarding))
-            db = dict(db)
-            db[AUDIT_KEY] = aud
-            _acc(stats, "audit_edge_cnt", cnt)
-            _acc(stats, "audit_drop_cnt", drop)
-            if not forwarding and not be.chained:
-                # edges between two level-0 commits of a sweep backend,
-                # whose claim is a conflict-free committed set
-                _acc(stats, "audit_wit_cnt", wit)
+            # edges between two level-0 commits of a sweep backend, whose
+            # claim is a conflict-free committed set, are its witnesses
+            db = self._audit(state, db, stats, batch, active, exec_commit,
+                             verdict.order, lvl, forwarding,
+                             audit_levels(cfg, be, forwarding),
+                             claim_zero=not forwarding and not be.chained,
+                             cadence=cadence)
 
-        # 6. update pool + counters (forced txns release like commits)
-        pre_abort_cnt = sel(pool.abort_cnt)
-        pool = self.pool.update(pool, slots, active, release, verdict.abort,
-                                state.epoch, be.fresh_ts_on_restart)
-        committed = exec_commit & active
         aborts = verdict.abort if forced is None else verdict.abort | forced
+        return db, cc_state, verdict, exec_commit, release, aborts
+
+    def _defer_budget(self, pool, sel, active, verdict, eligible=None):
+        """A txn deferred past ``defer_rounds_max`` force-restarts;
+        ``eligible`` narrows the rule (the mixed routed branch)."""
+        cfg = self.cfg
+        if cfg.defer_rounds_max <= 0:
+            return verdict
+        stuck = verdict.defer & active \
+            & (sel(pool.defer_cnt) >= cfg.defer_rounds_max)
+        if eligible is not None:
+            stuck = stuck & eligible
+        return dataclasses.replace(verdict, abort=verdict.abort | stuck,
+                                   defer=verdict.defer & ~stuck)
+
+    def _audit(self, state, db, stats, batch, active, commit, order, lvl,
+               order_vis, n_levels, claim_zero, cadence=None):
+        """Section 5c: the isolation audit (default off), an observation
+        of the final committed set over the exact keys, never an input
+        to a verdict or a table write."""
+        if not self.cfg.audit:
+            return db
+        aud, _e, _bk, cnt, drop, _vd, _rd, wit = audit_observe(
+            self.cfg, batch, commit & active, order, lvl, order_vis,
+            db[AUDIT_KEY], state.epoch, n_levels, cadence=cadence)
+        db = dict(db)
+        db[AUDIT_KEY] = aud
+        _acc(stats, "audit_edge_cnt", cnt)
+        _acc(stats, "audit_drop_cnt", drop)
+        if claim_zero:
+            _acc(stats, "audit_wit_cnt", wit)
+        return db
+
+    def _routed_step(self, state: EngineState, knobs) -> EngineState:
+        """One epoch under the contention router (``deneva_tpu/engine/
+        step.py:476-800``): sections 1-3 and 6 are the static step's;
+        sections 4-5 are picked on the host from the knobs (the
+        reference's ``lax.switch``).  A uniform assignment runs the static
+        step's sections 4-5 for the assigned backend over the coarsened
+        conflict view, with the knobs' repair cap and audit cadence (the
+        config's pins leave no forced, mutated or multi-device path
+        there).  Any other assignment takes the mixed branch: each
+        group's sub-batch validates against one shared incidence, with
+        the cross-group conflicts deferred on both sides (K21), and the
+        union runs through one level chain.  The cc state is returned as
+        it came, as in the reference (every candidate is stateless)."""
+        from deneva_tpu_torch.cc.router import (candidates, coarsen_keys,
+                                                cross_group_defer,
+                                                txn_backend)
+        cfg, wl = self.cfg, self.workload
+        rng, stats, pool, slots, active, queries, sel, planned, batch = \
+            self._front(state)
+        # the exact owners anchor the knob lookups and the density fold;
+        # the coarsened keys feed only the conflict derivation
+        owner = planned["owner"]
+        cbatch = coarsen_keys(batch, owner, knobs)
+        backends = [get_backend(a) for a in candidates(cfg)]
+
+        a0 = knobs.assign[0]
+        if all(a == a0 for a in knobs.assign):
+            if not 0 <= a0 < len(backends):
+                raise ValueError(f"router: no branch for assignment {a0} "
+                                 f"among {len(backends)} candidates")
+            db, _cc, verdict, exec_commit, release, _aborts = \
+                self._validate_execute(
+                    state, stats, pool, active, queries, sel, planned,
+                    batch, backends[a0], cbatch=cbatch,
+                    rounds_cap=knobs.repair_cap,
+                    cadence=knobs.audit_cadence)
+        else:
+            # the mixed branch: one shared incidence with every
+            # candidate's views; each group validates its sub-batch with
+            # the cross-group conflict surface deferred; no repair
+            views = ("u", "w") + tuple(v for be_g in backends
+                                       for v in be_g.views(cfg))
+            inc = cc_base.build_incidence(
+                cbatch, cfg.conflict_buckets, cfg.conflict_exact,
+                order_free=gate_order_free(cfg, backends[0],
+                                           cbatch.order_free),
+                views=tuple(dict.fromkeys(views)))
+            group = txn_backend(knobs, owner)
+            crossdef = cross_group_defer(inc, cbatch, group,
+                                         n_groups=len(backends))
+            commit = torch.zeros_like(active)
+            abort = torch.zeros_like(active)
+            defer = crossdef
+            level = torch.zeros_like(batch.rank)
+            nonchained = torch.zeros_like(active)
+            for g, be_g in enumerate(backends):
+                m = active & (group == g) & ~crossdef
+                sb = dataclasses.replace(cbatch, active=m)
+                if be_g.alg == CCAlg.DGCC:
+                    v_g, _cc = be_g.validate(cfg, state.cc_state, sb, None,
+                                             stats=stats)
+                else:
+                    v_g, _cc = be_g.validate(cfg, state.cc_state, sb, inc)
+                commit = commit | (v_g.commit & m)
+                abort = abort | (v_g.abort & m)
+                defer = defer | (v_g.defer & m)
+                if be_g.chained:
+                    level = torch.where(m, v_g.level, level)
+                else:
+                    nonchained = nonchained | (group == g)
+            _acc(stats, "conflict_density", cc_base.conflict_density(
+                cfg, cbatch, owner, True))
+            # the budget covers the sweep groups and the cross-group
+            # defers; chained groups keep their exemption
+            verdict = self._defer_budget(
+                pool, sel, active,
+                cc_base.Verdict(commit=commit, abort=abort, defer=defer,
+                                order=batch.rank, level=level),
+                eligible=nonchained | crossdef)
+            # the union runs through one level chain; with DGCC armed, the
+            # executor's order tournament (its waves carry several writers)
+            n_levels = max(cfg.exec_subrounds,
+                           cfg.dgcc_levels if cfg.ctrl_dgcc else 0)
+            db, stats = _run_levels(cfg, wl, state.db, queries,
+                                    verdict.commit, verdict, stats,
+                                    level_exec=not cfg.ctrl_dgcc,
+                                    n_levels=n_levels)
+            db = self._audit(state, db, stats, batch, active, verdict.commit,
+                             verdict.order, verdict.level, False, n_levels,
+                             claim_zero=False, cadence=knobs.audit_cadence)
+            exec_commit = release = verdict.commit
+
+        # 6. (forced = None; every candidate restamps its aborts)
+        pool = self._update(state, pool, stats, slots, active, queries, sel,
+                            exec_commit, release, verdict.abort,
+                            verdict.abort, verdict.defer, True)
+        return EngineState(db=db, cc_state=state.cc_state, pool=pool,
+                           rng=rng, epoch=state.epoch + 1, stats=stats)
+
+    def run_ctrl(self, state: EngineState, knobs, n: int) -> EngineState:
+        """``n`` routed epochs under one decision (the reference's
+        ``jit_run_ctrl``)."""
+        for _ in range(n):
+            state = self.step(state, knobs)
+        return state
+
+    def _update(self, state, pool, stats, slots, active, queries, sel,
+                exec_commit, release, retry, aborts, defers, fresh_ts):
+        """Section 6, shared by the static and the routed step: the pool
+        update (``retry``: the CC's aborts, which restart) and the device
+        counters (``aborts``: those and the forced ones)."""
+        wl = self.workload
+        pre_abort_cnt = sel(pool.abort_cnt)
+        pool = self.pool.update(pool, slots, active, release, retry,
+                                state.epoch, fresh_ts)
+        committed = exec_commit & active
         aborts = aborts & active
         _acc(stats, "total_txn_commit_cnt", committed.sum())
         _acc(stats, "total_txn_abort_cnt", aborts.sum())
         _acc(stats, "unique_txn_abort_cnt",
              (aborts & (pre_abort_cnt == 0)).sum())
         count_by_type(stats, wl, queries, committed, aborts)
-        _acc(stats, "defer_cnt", (verdict.defer & active).sum())
+        _acc(stats, "defer_cnt", (defers & active).sum())
         lat = torch.clamp(state.epoch - sel(pool.entry_epoch), 0,
                           LAT_BUCKETS - 1)
         buckets = torch.arange(LAT_BUCKETS, dtype=torch.int32,
@@ -377,9 +553,7 @@ class Engine:
              ((retries[:, None] == rb) & committed[:, None]).sum(dim=0))
         _acc(stats, "wait_hist",
              ((waits[:, None] == rb) & committed[:, None]).sum(dim=0))
-
-        return EngineState(db=db, cc_state=cc_state, pool=pool,
-                           rng=rng, epoch=state.epoch + 1, stats=stats)
+        return pool
 
     def run(self, state: EngineState, n: int) -> EngineState:
         """``n`` epochs, enqueued back to back (the reference's

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "conflict.cu", "scatter.cu", "timestamp.cu", "version.cu",
            "levels.cu", "maat.cu", "index.cu", "table.cu", "tpcc.cu",
-           "pps.cu", "frontier.cu", "depgraph.cu", "audit.cu", "mc.cu")
+           "pps.cu", "frontier.cu", "depgraph.cu", "audit.cu", "mc.cu",
+           "router.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
            "bits.cuh", "radix.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -209,7 +210,8 @@ def on_cpu(*ts: torch.Tensor) -> bool:
 def all_kernels() -> dict[str, Kernel]:
     """Every kernel of the main path, by name (imports the modules that
     own them)."""
-    from deneva_tpu_torch.cc import base, depgraph, dgcc, maat, timestamp
+    from deneva_tpu_torch.cc import (base, depgraph, dgcc, maat, router,
+                                     timestamp)
     from deneva_tpu_torch.ops import conflict, forward, prng, scatter
     from deneva_tpu_torch.storage import index, table
     from deneva_tpu_torch.workloads import pps, tpcc, ycsb
@@ -248,4 +250,5 @@ def all_kernels() -> dict[str, Kernel]:
             "K17_audit_observe[lanes]": base.K17_LANES,
             "K17_audit_observe[stamps]": base.K17_OBSERVE,
             "K18a_mc_defer": forward.K18A_DEFER,
-            "K18b_mc_pack": forward.K18B_PACK}
+            "K18b_mc_pack": forward.K18B_PACK,
+            "K21_cross_group_defer": router.K21_DEFER}

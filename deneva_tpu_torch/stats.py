@@ -10,9 +10,10 @@ package), unchanged in behaviour so both packages print the same
 from __future__ import annotations
 
 import os
+import re
 import time
 from collections import defaultdict
-from typing import Iterable
+from typing import Any, Iterable
 
 import numpy as np
 
@@ -292,3 +293,44 @@ def parse_summary(line: str) -> dict[str, float]:
         k, v = kv.split("=", 1)
         out[k] = float(v)
     return out
+
+
+_CTRL = re.compile(r"\[ctrl\] (.*)")
+
+
+def _auto(v: str) -> Any:
+    for conv in (int, float):
+        try:
+            return conv(v)
+        except ValueError:
+            pass
+    return v
+
+
+def _parse_tagged(lines, pattern: re.Pattern) -> list[dict[str, Any]]:
+    """One tagged-line family -> [{k: v}], values auto-typed (a copy of
+    ``deneva_tpu/harness/parse.py:116``)."""
+    out = []
+    for line in lines:
+        m = pattern.search(line)
+        if not m:
+            continue
+        d: dict[str, Any] = {}
+        for kv in m.group(1).split():
+            if "=" not in kv:
+                continue
+            k, v = kv.split("=", 1)
+            d[k] = _auto(v)
+        out.append(d)
+    return out
+
+
+def parse_ctrl(lines) -> list[dict[str, Any]]:
+    """``[ctrl]`` decision lines (`runtime.controller.ctrl_line`) ->
+    [{node, seq, epoch, epochs, dens, fb, sv, wit, slo, gap_us, gov, heal,
+    trips, assign, gshift, cap, cad, qidx}], in emit order (a copy of
+    ``deneva_tpu/harness/parse.py:285``).  ``dens``, ``assign`` and
+    ``gshift`` of more than one partition stay colon-joined strings.
+    Takes lines, not a path; `runtime.controller.replay_decisions`
+    replays the rows."""
+    return _parse_tagged(lines, _CTRL)

@@ -2,8 +2,11 @@
 
 The port's counterpart of ``deneva_tpu/storage/table.py``: one tensor per
 column, indexed by slot id, with one extra **trash slot** at index
-``capacity`` that masked writes steer to, and the row count padded to a
-multiple of 64 past it.
+``capacity``, the slot of masked lanes and of keys another partition
+owns (``part_cnt > 1``), and the row count padded to a multiple of 64
+past it.  In a ``striped`` table (``part_cnt > 1``) no store of the
+port writes the trash row: it keeps its loader value (0), which a gather
+of a key this node does not own reads.
 
 Column representations follow the reference package, with one PyTorch
 twist: a ``string`` column in fingerprint mode is the reference's uint32
@@ -105,10 +108,13 @@ class DeviceTable:
     #                        (slot // anchor_rows) % mc_parts
     mc_replicated: bool = False  # read-only table every shard reads whole
     #                              (ITEM, USES, SUPPLIES)
+    striped: bool = False  # part_cnt > 1: keys another partition owns
+    #                        read the trash row, which no store writes
 
     @classmethod
     def create(cls, schema: TableSchema, capacity: int, device,
-               full_row: bool = False, ring: bool = False) -> "DeviceTable":
+               full_row: bool = False, ring: bool = False,
+               striped: bool = False) -> "DeviceTable":
         nrows = padded_rows(capacity)
         cols, ref = {}, {}
         for c in schema.columns:
@@ -118,7 +124,7 @@ class DeviceTable:
         return cls(columns=cols,
                    row_cnt=torch.zeros((), dtype=torch.int32, device=device),
                    name=schema.name, capacity=capacity, full_row=full_row,
-                   ref_dtypes=ref, ring=ring)
+                   ref_dtypes=ref, ring=ring, striped=striped)
 
     def mc_block_rows(self) -> tuple[int, int, int]:
         """(rows, data rows, trash row) of each block of an owner-major
@@ -142,7 +148,7 @@ class DeviceTable:
                      for n, v in self.columns.items()},
             row_cnt=self.row_cnt[d], name=self.name, capacity=cap,
             full_row=self.full_row, ref_dtypes=self.ref_dtypes,
-            ring=self.ring)
+            ring=self.ring, striped=self.striped)
 
     def gather(self, slots: torch.Tensor, cols: tuple[str, ...] | None = None
                ) -> dict[str, torch.Tensor]:
@@ -154,14 +160,22 @@ class DeviceTable:
     def scatter(self, slots: torch.Tensor, updates: dict[str, torch.Tensor],
                 mask: torch.Tensor | None = None) -> "DeviceTable":
         """Masked last-write scatter, in place.  Masked-out and
-        out-of-range slots steer to the trash row.  Duplicate slots follow
-        torch's unspecified order, as the reference's follow XLA's:
-        callers pre-resolve winners (`ops.scatter.last_writer`), so only
-        the trash row receives duplicates."""
+        out-of-range slots steer to the trash row.  Callers pre-resolve
+        winners (`ops.scatter.last_writer`), so no data row receives
+        duplicates.  A ``striped`` table's trash row is read by the keys
+        another partition owns: there those lanes store the row's own
+        value back, so it keeps its loader value (the reference leaves it
+        unspecified); elsewhere no gather reads it, and duplicates there
+        follow torch's unspecified order."""
         slots = _sanitize(slots, self.capacity, mask).long()
+        keep = slots < self.capacity if self.striped else None
         for n, v in updates.items():
             col = self.columns[n]
-            col.index_put_((slots,), v.to(col.dtype))
+            v = v.to(col.dtype)
+            if keep is not None:
+                k = keep.reshape(keep.shape + (1,) * (v.ndim - keep.ndim))
+                v = torch.where(k, v, col[self.capacity])
+            col.index_put_((slots,), v)
         return self
 
     def _word_columns(self, updates: dict[str, torch.Tensor], n: int
@@ -346,7 +360,7 @@ def to_mc_layout(tab: DeviceTable, d_parts: int, anchor_rows: int = 1
                                          device=dev),
         name=tab.name, capacity=tab.capacity, full_row=tab.full_row,
         ref_dtypes=tab.ref_dtypes, ring=tab.ring, mc_parts=d_parts,
-        anchor_rows=r)
+        anchor_rows=r, striped=tab.striped)
 
 
 def mc_stacked_rows(tab: DeviceTable) -> torch.Tensor:

@@ -16,28 +16,27 @@ import torch
 DB = dict
 
 
-def _one_partition(n_parts: int) -> None:
-    if n_parts != 1:
-        raise NotImplementedError(
-            "deneva_tpu_torch runs one partition (ROADMAP.md queue 1, "
-            "item 18: cluster runtime)")
-
-
 def partition_owned(key: torch.Tensor, n_parts: int, me: int
                     ) -> torch.Tensor:
     """bool mask: does this node own ``key`` under modulo striping
     (``deneva_tpu/workloads/base.py:39``; reference GET_NODE_ID,
-    `system/global.h:294`)?  The port runs one partition."""
-    _one_partition(n_parts)
-    return torch.ones_like(key, dtype=torch.bool)
+    `system/global.h:294`)?"""
+    if n_parts == 1:
+        return torch.ones_like(key, dtype=torch.bool)
+    return key % n_parts == me
 
 
 def partition_slot(key: torch.Tensor, n_parts: int, me: int,
                    n_local: int) -> torch.Tensor:
     """Local storage slot of a striped global key
-    (``deneva_tpu/workloads/base.py:58``): on one partition, the key."""
-    _one_partition(n_parts)
-    return key
+    (``deneva_tpu/workloads/base.py:58``); a key this node does not own
+    resolves to ``n_local``, the table's trash row.  The port's stores
+    write nothing there, so a gather through it reads the loader's
+    value (0)."""
+    if n_parts == 1:
+        return key
+    return torch.where(partition_owned(key, n_parts, me),
+                       key // n_parts, n_local).to(key.dtype)
 
 
 class Workload(Protocol):

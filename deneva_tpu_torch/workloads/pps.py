@@ -1,7 +1,9 @@
 """PPS — Product-Parts-Suppliers (reference `benchmarks/pps_wl.cpp`,
 `pps_query.cpp`, `pps_txn.cpp`).
 
-The port of ``deneva_tpu/workloads/pps.py``, single-partition arm.  Five
+The port of ``deneva_tpu/workloads/pps.py``; under ``part_cnt > 1``
+PARTS, PRODUCTS and SUPPLIERS hold node ``node_id``'s keys (key mod
+part_cnt) and the mapping tables stay whole.  Five
 tables (`benchmarks/PPS_schema.txt`): PARTS, PRODUCTS, SUPPLIERS and the
 two mapping tables USES (product -> ``pps_parts_per`` parts) and
 SUPPLIES (supplier -> parts), every primary key dense.  Eight txn types
@@ -84,7 +86,7 @@ class PPSQuery:
 
 
 class PPSWorkload:
-    """Product-Parts-Suppliers over five device tables, one partition."""
+    """Product-Parts-Suppliers over five device tables."""
 
     txn_type_names = ("pps_getpart", "pps_getproduct", "pps_getsupplier",
                       "pps_getpartbyproduct", "pps_getpartbysupplier",
@@ -105,12 +107,19 @@ class PPSWorkload:
         self.n_products = cfg.pps_products_cnt
         self.n_suppliers = cfg.pps_suppliers_cnt
         self.per = cfg.pps_parts_per     # MAX_PPS_PART_PER_PRODUCT
+        # partitioned deployment: PARTS / PRODUCTS / SUPPLIERS stripe by
+        # key % part_cnt; the immutable USES / SUPPLIES maps stay whole on
+        # every node, which keeps the recon plan local
         self.n_pt = max(cfg.part_cnt, 1)
-        if self.n_pt != 1:
-            raise NotImplementedError(
-                "deneva_tpu_torch's PPS runs one partition (ROADMAP.md "
-                "queue 1, item 18: cluster runtime)")
-        self.me = 0
+        self.me = cfg.node_id if self.n_pt > 1 else 0
+        for nm, n in (("pps_parts_cnt", self.n_parts),
+                      ("pps_products_cnt", self.n_products),
+                      ("pps_suppliers_cnt", self.n_suppliers)):
+            if n % self.n_pt != 0:
+                raise ValueError(f"{nm} must divide evenly over part_cnt")
+        self.n_parts_loc = self.n_parts // self.n_pt
+        self.n_products_loc = self.n_products // self.n_pt
+        self.n_suppliers_loc = self.n_suppliers // self.n_pt
         need = 1 + 2 * self.per
         if cfg.max_accesses < need:
             raise ValueError(f"PPS needs max_accesses >= {need}")
@@ -125,15 +134,15 @@ class PPSWorkload:
         self.cum = torch.from_numpy(
             np.cumsum(self.mix).astype(np.float32)).to(self.device)
 
-    # local slots: on one partition every key is its own slot
+    # local slots: a key another node owns resolves to the trash row
     def _owned(self, key):
         return partition_owned(key, self.n_pt, self.me)
 
     def part_slot(self, key):
-        return partition_slot(key, self.n_pt, self.me, self.n_parts)
+        return partition_slot(key, self.n_pt, self.me, self.n_parts_loc)
 
     def product_slot(self, key):
-        return partition_slot(key, self.n_pt, self.me, self.n_products)
+        return partition_slot(key, self.n_pt, self.me, self.n_products_loc)
 
     # -- loader (pps_wl.cpp:71-111 threadInit*) -------------------------
     def load(self) -> dict:
@@ -142,20 +151,21 @@ class PPSWorkload:
 
         def fill(name, cap, cols):
             t = DeviceTable.create(self.catalog.table(name), cap,
-                                   self.device)
+                                   self.device, striped=self.n_pt > 1)
             db[name] = fill_columns(t, cap, {
                 c: torch.from_numpy(v) for c, v in cols.items()})
 
-        p_ids = np.arange(self.n_parts, dtype=np.int32)
-        fill("PARTS", self.n_parts,
+        p, me = self.n_pt, self.me
+        p_ids = me + p * np.arange(self.n_parts_loc, dtype=np.int32)
+        fill("PARTS", self.n_parts_loc,
              {"PART_KEY": p_ids,
-              "PART_AMOUNT": np.full(self.n_parts, 10000, np.int32)})
-        pr_ids = np.arange(self.n_products, dtype=np.int32)
-        fill("PRODUCTS", self.n_products,
+              "PART_AMOUNT": np.full(self.n_parts_loc, 10000, np.int32)})
+        pr_ids = me + p * np.arange(self.n_products_loc, dtype=np.int32)
+        fill("PRODUCTS", self.n_products_loc,
              {"PRODUCT_KEY": pr_ids,
               "PRODUCT_PART": _map_part(pr_ids, 0, 0, self.n_parts)})
-        fill("SUPPLIERS", self.n_suppliers,
-             {"SUPPLIER_KEY": np.arange(self.n_suppliers, dtype=np.int32)})
+        s_ids = me + p * np.arange(self.n_suppliers_loc, dtype=np.int32)
+        fill("SUPPLIERS", self.n_suppliers_loc, {"SUPPLIER_KEY": s_ids})
         # mapping tables: row (anchor * per + j) -> part
         u = np.arange(self.n_products * self.per, dtype=np.int32)
         fill("USES", len(u),
@@ -282,9 +292,16 @@ class PPSWorkload:
         is_write[:, 1 + per:1 + 2 * per] = pw
         valid[:, 1 + per:1 + 2 * per] = wmask
         order_free[:, 1 + per:1 + 2 * per] = pw
+        if self.n_pt > 1:
+            # each access's owner (0 on one partition): the anchor row's
+            # node, which the replicated maps' reads belong to as well,
+            # and each part row's
+            owner[:, 0] = keys[:, 0] % self.n_pt
+            owner[:, 1:1 + per] = (anchor % self.n_pt)[:, None]
+            owner[:, 1 + per:1 + 2 * per] = part_keys % self.n_pt
         return dict(table_ids=tables, keys=keys, is_read=is_read,
                     is_write=is_write, valid=valid, order_free=order_free,
-                    owner=owner)      # key % 1: one partition
+                    owner=owner)
 
     # -- execution ------------------------------------------------------
     def execute(self, db, q: PPSQuery, mask: torch.Tensor,

@@ -1,7 +1,8 @@
 """TPC-C (reference `benchmarks/tpcc_wl.cpp`, `tpcc_query.cpp`, `tpcc_txn.cpp`).
 
-The port of ``deneva_tpu/workloads/tpcc.py``, single-partition arm:
-Payment + NewOrder over nine device tables (`benchmarks/
+The port of ``deneva_tpu/workloads/tpcc.py`` (under ``part_cnt > 1``
+node ``node_id`` stores the warehouses = node_id mod part_cnt, and ITEM
+whole): Payment + NewOrder over nine device tables (`benchmarks/
 TPCC_short_schema.txt`, or the full schema's extra columns), composite
 keys flattened to dense int32 slots.  An epoch is four functions:
 
@@ -57,7 +58,8 @@ from deneva_tpu_torch.storage.catalog import parse_schema
 from deneva_tpu_torch.storage.index import DynamicSortedIndex, HashIndex
 from deneva_tpu_torch.storage.table import (DeviceTable, fill_columns,
                                             to_mc_layout)
-from deneva_tpu_torch.workloads.base import partition_slot
+from deneva_tpu_torch.workloads.base import (partition_owned,
+                                              partition_slot)
 
 MASK32 = 0xFFFFFFFF
 
@@ -202,7 +204,7 @@ def _uniform_range(key: torch.Tensor, shape, lo: float, hi: float
 
 
 class TPCCWorkload:
-    """Payment + NewOrder over 9 device tables, one partition."""
+    """Payment + NewOrder over 9 device tables."""
 
     txn_type_names = ("tpcc_payment", "tpcc_new_order")
     # NewOrder's stock update reads what it writes, so the single-pass
@@ -222,12 +224,14 @@ class TPCCWorkload:
         self.cust_per_dist = cfg.cust_per_dist
         self.max_items = cfg.max_items
         self.ipt = cfg.max_items_per_txn     # MAX_ITEMS_PER_TXN
+        # partitioned deployment: warehouse -> node (reference
+        # wh_to_part, tpcc_helper.cpp); this node stores the warehouses
+        # = node_id (mod part_cnt), and the read-only ITEM whole
         self.n_parts = max(cfg.part_cnt, 1)
-        if self.n_parts != 1:
-            raise NotImplementedError(
-                "deneva_tpu_torch's TPC-C runs one partition (ROADMAP.md "
-                "queue 1, item 18: cluster runtime)")
-        self.me = 0
+        self.me = cfg.node_id if self.n_parts > 1 else 0
+        if self.n_wh % self.n_parts != 0:
+            raise ValueError("num_wh must divide evenly over part_cnt")
+        self.n_wh_loc = self.n_wh // self.n_parts
         # every district holds at least one customer per lastname
         self.lastnames = min(_LASTNAMES, self.cust_per_dist)
         need = 3 + self.ipt                  # wh + dist + cust + stock rows
@@ -237,6 +241,10 @@ class TPCCWorkload:
         self.n_districts = self.n_wh * self.n_dist
         self.n_cust = self.n_districts * self.cust_per_dist
         self.n_stock = self.n_wh * self.max_items
+        # local (stored) row counts: the global counts over n_parts
+        self.n_districts_loc = self.n_wh_loc * self.n_dist
+        self.n_cust_loc = self.n_districts_loc * self.cust_per_dist
+        self.n_stock_loc = self.n_wh_loc * self.max_items
         lim = 2**31 - 1
         if max(self.n_stock, self.n_cust) > lim:
             raise ValueError("TPCC key space exceeds int32: shrink "
@@ -297,21 +305,39 @@ class TPCCWorkload:
     def stock_key(self, w, i):
         return w * self.max_items + i
 
-    # local slots: on one partition every key is its own slot
+    # local slots (``tpcc.py:292-320``): a warehouse this node does not
+    # own resolves to each table's trash row, which no store writes
+    def wh_owned(self, w):
+        return partition_owned(w, self.n_parts, self.me)
+
+    def _at_home(self, m, w):
+        """``m`` narrowed to the txns whose warehouse ``w`` this node
+        owns: the inserts happen at the home warehouse's owner only."""
+        return m if self.n_parts == 1 else m & self.wh_owned(w)
+
+    def _wloc(self, w):
+        return w // self.n_parts if self.n_parts > 1 else w
+
     def wh_slot(self, w):
-        return partition_slot(w, self.n_parts, self.me, self.n_wh)
+        return partition_slot(w, self.n_parts, self.me, self.n_wh_loc)
+
+    def _owned_slot(self, w, local, trash: int):
+        if self.n_parts == 1:
+            return local
+        return torch.where(self.wh_owned(w), local, trash).to(local.dtype)
 
     def dist_slot(self, w, d):
-        return partition_slot(self.dist_key(w, d), self.n_parts, self.me,
-                              self.n_districts)
+        return self._owned_slot(w, self._wloc(w) * self.n_dist + d,
+                                self.n_districts_loc)
 
     def cust_slot(self, w, d, c):
-        return partition_slot(self.cust_key(w, d, c), self.n_parts, self.me,
-                              self.n_cust)
+        return self._owned_slot(
+            w, (self._wloc(w) * self.n_dist + d) * self.cust_per_dist + c,
+            self.n_cust_loc)
 
     def stock_slot(self, w, i):
-        return partition_slot(self.stock_key(w, i), self.n_parts, self.me,
-                              self.n_stock)
+        return self._owned_slot(w, self._wloc(w) * self.max_items + i,
+                                self.n_stock_loc)
 
     # -- loader (tpcc_wl.cpp:89-152) --------------------------------------
     def load(self) -> dict:
@@ -322,45 +348,50 @@ class TPCCWorkload:
 
         def tab(name, cap, ring=False):
             t = DeviceTable.create(self.catalog.table(name), cap, dev,
-                                   ring=ring)
+                                   ring=ring, striped=self.n_parts > 1)
             db[name] = t
             return t
 
         def ar(n):
             return torch.arange(n, dtype=torch.int32, device=dev)
 
+        # local slot l stores global warehouse me + n_parts * (l // ...):
+        # values derive from GLOBAL ids, as a one-node load gives them
+        p, me = self.n_parts, self.me
         f02 = _f32(0.2, dev)
-        w_glob = ar(self.n_wh)
-        fill_columns(tab("WAREHOUSE", self.n_wh), self.n_wh, {
+        n_wh, n_dist, n_cust = self.n_wh_loc, self.n_districts_loc, \
+            self.n_cust_loc
+        w_glob = me + p * ar(n_wh)
+        fill_columns(tab("WAREHOUSE", n_wh), n_wh, {
             "W_ID": w_glob,
             "W_TAX": _rand01(w_glob, 7) * f02,      # URand(0,.2) (init_wh)
-            "W_YTD": torch.full((self.n_wh,), 300000.0, device=dev)})
+            "W_YTD": torch.full((n_wh,), 300000.0, device=dev)})
 
-        dl = ar(self.n_districts)
-        d_w = dl // self.n_dist
+        dl = ar(n_dist)
+        d_w = me + p * (dl // self.n_dist)
         d_id = dl % self.n_dist
-        fill_columns(tab("DISTRICT", self.n_districts), self.n_districts, {
+        fill_columns(tab("DISTRICT", n_dist), n_dist, {
             "D_ID": d_id,
             "D_W_ID": d_w,
             "D_TAX": _rand01(d_w * self.n_dist + d_id, 11) * f02,
-            "D_YTD": torch.full((self.n_districts,), 30000.0, device=dev),
-            "D_NEXT_O_ID": torch.full((self.n_districts,), 3001,
-                                      dtype=torch.int32, device=dev)})
+            "D_YTD": torch.full((n_dist,), 30000.0, device=dev),
+            "D_NEXT_O_ID": torch.full((n_dist,), 3001, dtype=torch.int32,
+                                      device=dev)})
 
-        cl = ar(self.n_cust)
+        cl = ar(n_cust)
         c_local = cl % self.cust_per_dist
         c_d = (cl // self.cust_per_dist) % self.n_dist
-        c_w = cl // (self.cust_per_dist * self.n_dist)
+        c_w = me + p * (cl // (self.cust_per_dist * self.n_dist))
         c_glob = (c_w * self.n_dist + c_d) * self.cust_per_dist + c_local
-        fill_columns(tab("CUSTOMER", self.n_cust), self.n_cust, {
+        fill_columns(tab("CUSTOMER", n_cust), n_cust, {
             "C_ID": c_local,
             "C_D_ID": c_d,
             "C_W_ID": c_w,
             "C_LAST": c_local % self.lastnames,
             "C_DISCOUNT": _rand01(c_glob, 13) * _f32(0.5, dev),
-            "C_BALANCE": torch.full((self.n_cust,), -10.0, device=dev),
-            "C_YTD_PAYMENT": torch.full((self.n_cust,), 10.0, device=dev),
-            "C_PAYMENT_CNT": torch.ones(self.n_cust, dtype=torch.int32,
+            "C_BALANCE": torch.full((n_cust,), -10.0, device=dev),
+            "C_YTD_PAYMENT": torch.full((n_cust,), 10.0, device=dev),
+            "C_PAYMENT_CNT": torch.ones(n_cust, dtype=torch.int32,
                                         device=dev)})
 
         i_ids = ar(self.max_items)
@@ -369,15 +400,16 @@ class TPCCWorkload:
             "I_IM_ID": _mulmod(i_ids, 2654435761, 10000),
             "I_PRICE": 1 + _mulmod(i_ids, 48271, 100)})
 
-        sl = ar(self.n_stock)
+        n_stock = self.n_stock_loc
+        sl = ar(n_stock)
         s_i = sl % self.max_items
-        s_w = sl // self.max_items
-        fill_columns(tab("STOCK", self.n_stock), self.n_stock, {
+        s_w = me + p * (sl // self.max_items)
+        fill_columns(tab("STOCK", n_stock), n_stock, {
             "S_I_ID": s_i,
             "S_W_ID": s_w,
             "S_QUANTITY": 10 + _mulmod(s_w * self.max_items + s_i, 69621,
                                        91),
-            "S_REMOTE_CNT": torch.zeros(self.n_stock, dtype=torch.int32,
+            "S_REMOTE_CNT": torch.zeros(n_stock, dtype=torch.int32,
                                         device=dev)})
 
         cap = cfg.insert_table_cap
@@ -390,9 +422,9 @@ class TPCCWorkload:
         if self.full_schema:
             # the extra columns of the fixed tables: deterministic
             # per-row hashes (spec-initialized counters stay zero)
-            counts = {"WAREHOUSE": self.n_wh, "DISTRICT": self.n_districts,
-                      "CUSTOMER": self.n_cust, "ITEM": self.max_items,
-                      "STOCK": self.n_stock}
+            counts = {"WAREHOUSE": n_wh, "DISTRICT": n_dist,
+                      "CUSTOMER": n_cust, "ITEM": self.max_items,
+                      "STOCK": n_stock}
             for t, extras in _FULL_EXTRA.items():
                 n = counts.get(t)
                 if n is None:          # ring tables fill at insert time
@@ -583,9 +615,17 @@ class TPCCWorkload:
         is_read[:, 3:3 + i] = iv
         is_write[:, 3:3 + i] = iv
         valid[:, 3:3 + i] = iv
+        p = self.n_parts
+        if p > 1:
+            # each access's owner (0 on one partition): its row's
+            # warehouse's node (wh_to_part)
+            owner[:, 0] = q.w_id % p
+            owner[:, 1] = q.w_id % p
+            owner[:, 2] = torch.where(is_pay, q.c_w_id, q.w_id) % p
+            owner[:, 3:3 + i] = q.supply_w % p
         return dict(table_ids=tables, keys=keys, is_read=is_read,
                     is_write=is_write, valid=valid, order_free=order_free,
-                    owner=owner)      # wh % 1: one partition
+                    owner=owner)
 
     def re_execute(self, db, q: TPCCQuery, mask: torch.Tensor,
                    order: torch.Tensor, stats: dict):
@@ -628,7 +668,9 @@ class TPCCWorkload:
             hist_row["H_DATE"] = torch.full_like(q.c_id, 2013)
             hist_row["H_DATA"] = mul32(u32(q.c_id), 0x9E3779B9).to(
                 torch.int32)
-        db["HISTORY"].append(hist_row, m, anchor=q.w_id)
+        # the HISTORY row at the home warehouse's owner only
+        db["HISTORY"].append(hist_row, self._at_home(m, q.w_id),
+                             anchor=q.w_id)
         # W_YTD + D_YTD + 3 customer cols + HISTORY row per payment
         _acc(stats, "write_cnt", m.sum() * 6)
 
@@ -712,9 +754,8 @@ class TPCCWorkload:
         stock.scatter_add(sk, adds, mask=iv)
 
         # inserts: ORDER, NEW-ORDER, ORDER-LINE (new_order_1 / _3 / _9)
-        # on one partition every warehouse is local (partition_slot
-        # raises otherwise), so the inserts take the commit mask as it is
-        m_ins = m
+        # at the home warehouse's owner only
+        m_ins = self._at_home(m, q.w_id)
         all_local = (~q.item_valid | (q.supply_w == q.w_id[:, None])).all(
             dim=1)
         order_row = {"O_ID": o_id, "O_C_ID": q.c_id, "O_D_ID": q.d_id,

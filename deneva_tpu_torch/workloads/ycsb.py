@@ -1,7 +1,9 @@
 """YCSB (reference `benchmarks/ycsb_wl.cpp`, `ycsb_query.cpp`, `ycsb_txn.cpp`).
 
-The port of ``deneva_tpu/workloads/ycsb.py``, single-partition arm: one
-table of ``synth_table_size`` rows with ``field_per_tuple`` string
+The port of ``deneva_tpu/workloads/ycsb.py``: one table of
+``synth_table_size`` rows (under ``part_cnt > 1``, node ``node_id``'s
+``synth_table_size / part_cnt`` rows: key ``node_id + s * part_cnt`` at
+slot s, every other key at the trash slot) with ``field_per_tuple`` string
 fields; a query is ``req_per_query`` zipfian or HOT keys, each read
 (field F0) or blindly overwritten with a pure function of (key, writer
 rank).
@@ -78,7 +80,8 @@ FP_MUL_VER = 0x9E3779B9
 
 K3_EXEC = kernels.Kernel("dt_forward_execute", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
-    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
+    kernels.P])
 K12C_READ = kernels.Kernel("dt_version_read", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.P, kernels.P])
@@ -121,8 +124,10 @@ def _forward_execute_f0_plain(f0, p, slots, trash, mono: bool = False):
 
     ``mono`` drops the lanes before the first winner (index -1).  The
     reference's ``.at[-1].set(mode="drop")`` wraps -1 to the last padded
-    row first, leaving an XLA-unspecified duplicate there; the port
-    leaves padded rows untouched."""
+    row first, leaving an XLA-unspecified duplicate there, and without
+    ``mono`` it steers losers and the winners of keys another partition
+    owns onto the trash row; the port stores only winners below
+    ``trash`` and leaves the trash and padded rows untouched."""
     gidx = torch.where(p.is_read, slots, torch.full_like(slots, trash)).long()
     vals = f0[gidx]
     if f0.ndim == 2:
@@ -143,21 +148,22 @@ def _forward_execute_f0_plain(f0, p, slots, trash, mono: bool = False):
         neg = torch.full_like(slots, -1)
         wslot = torch.cummax(torch.where(p.win, slots, neg), 0).values
         wvals = law(seg_first(p.win, p.keys), seg_first(p.win, p.rank))
-        keep = wslot >= 0
+        keep = (wslot >= 0) & (wslot < trash)
         f0[wslot[keep].long()] = wvals[keep]
     else:
-        f0[torch.where(p.win, slots, torch.full_like(slots, trash)).long()] \
-            = law(p.keys, p.rank)
+        keep = p.win & (slots < trash)
+        f0[slots[keep].long()] = law(p.keys[keep], p.rank[keep])
     return f0, cks & MASK32, p.is_write.sum() & MASK32
 
 
 def _forward_execute_f0(f0, p, slots, trash, mono: bool = False):
     """K3: the forwarding executor's data path over a sorted plan.
 
-    On CUDA the kernel stores winners only — the result of the
-    reference's ``mono`` scatter.  (Under ``mono=False`` the reference
-    also fills the trash row with losers' values, a row it leaves
-    unspecified.)"""
+    On CUDA the kernel stores winners only, and only below ``trash``:
+    the result of the reference's ``mono`` scatter.  (Under ``mono=False``,
+    the striped layout of ``part_cnt > 1``, the reference also fills the
+    trash row with losers' values and the winners of keys another
+    partition owns, a row it leaves unspecified.)"""
     if kernels.on_cpu(f0, p.keys, slots):
         return _forward_execute_f0_plain(f0, p, slots, trash, mono)
     n = p.keys.shape[0]
@@ -183,7 +189,7 @@ def _forward_execute_f0(f0, p, slots, trash, mono: bool = False):
     K3_EXEC.launch(kernels.ptr(f0), tup, kernels.ptr(p.keys),
                    kernels.ptr(p.rank), kernels.ptr(p.is_read),
                    kernels.ptr(p.is_write), kernels.ptr(p.fwd),
-                   kernels.ptr(p.win), kernels.ptr(slots), n,
+                   kernels.ptr(p.win), kernels.ptr(slots), n, int(trash),
                    kernels.ptr(acc), kernels.stream(f0))
     acc = acc.to(torch.int64) & MASK32
     return f0, acc[0], acc[1]
@@ -256,14 +262,27 @@ class YCSBWorkload:
                       for i in range(cfg.field_per_tuple))
             + "INDEX=MAIN_INDEX\n\tMAIN_TABLE,0\n")
         self.n_rows = cfg.synth_table_size
+        # partitioned deployment (reference `key % g_part_cnt` ownership,
+        # ycsb_wl.cpp:70-74): this node stores only the keys = node_id
+        # (mod part_cnt); the strided index steers every other key to
+        # the trash slot, so execution is local only
         self.n_parts = max(cfg.part_cnt, 1)
-        if self.n_parts != 1 or cfg.elastic:
+        if cfg.elastic:
             raise NotImplementedError(
-                "deneva_tpu_torch's YCSB runs one partition (ROADMAP.md "
-                "queue 1, item 18: cluster runtime)")
-        self.n_local = self.n_rows
-        self.index = DenseIndex(base=0, stride=1, size=self.n_rows,
-                                miss_slot=self.n_rows)
+                "deneva_tpu_torch's YCSB has no elastic membership "
+                "(ROADMAP.md queue 1, item 18: cluster runtime)")
+        if self.n_parts > 1:
+            if self.n_rows % self.n_parts != 0:
+                raise AssertionError(
+                    "synth_table_size must divide evenly over part_cnt")
+            self.n_local = self.n_rows // self.n_parts
+            self.index = DenseIndex(base=cfg.node_id, stride=self.n_parts,
+                                    size=self.n_local,
+                                    miss_slot=self.n_local)
+        else:
+            self.n_local = self.n_rows
+            self.index = DenseIndex(base=0, stride=1, size=self.n_rows,
+                                    miss_slot=self.n_rows)
         if cfg.index_struct == "IDX_BTREE":
             # the ordered index on the primary path: the same key -> slot
             # map through a binary search (global.h:320-324)
@@ -292,15 +311,20 @@ class YCSBWorkload:
             is_write=torch.zeros(shape, dtype=torch.bool, device=device))
 
     def _owned_keys(self, lo: int, hi: int) -> torch.Tensor:
-        """Global keys owned by this node in slots [lo, hi) — one
-        partition owns every key, in key order."""
-        return torch.arange(lo, hi, dtype=torch.int32, device=self.device)
+        """Global keys owned by this node in slots [lo, hi): slot s holds
+        key ``node_id + s * part_cnt`` (``ycsb.py:203``, the one
+        definition of the striped layout)."""
+        base = self.cfg.node_id if self.n_parts > 1 else 0
+        return (base + torch.arange(lo, hi, dtype=torch.int64,
+                                    device=self.device)
+                * self.n_parts).to(torch.int32)
 
     # -- loader (ycsb_wl.cpp:125-203) ----------------------------------
     def load(self, chunk: int = 1 << 18) -> dict:
         full = self.cfg.sim_full_row
         tab = DeviceTable.create(self.catalog.table(TABLE), self.n_local,
-                                 self.device, full_row=full)
+                                 self.device, full_row=full,
+                                 striped=self.n_parts > 1)
         for lo in range(0, self.n_local, chunk):
             hi = min(lo + chunk, self.n_local)
             keys = self._owned_keys(lo, hi)
@@ -376,10 +400,12 @@ class YCSBWorkload:
     # -- RW-set planning ------------------------------------------------
     def plan(self, db, q: YCSBQuery) -> dict:
         zeros = torch.zeros_like(q.keys)
-        return dict(table_ids=zeros, keys=q.keys, is_read=~q.is_write,
-                    is_write=q.is_write,
+        return dict(table_ids=zeros, keys=q.keys,
+                    is_read=~q.is_write, is_write=q.is_write,
                     valid=torch.ones_like(q.is_write),
-                    owner=zeros)      # key % 1: one partition
+                    # the access's owner under modulo striping
+                    owner=q.keys % self.n_parts if self.n_parts > 1
+                    else zeros)
 
     def _local_slots(self, db, keys: torch.Tensor) -> torch.Tensor:
         return self.index.lookup(keys)
@@ -480,8 +506,11 @@ class YCSBWorkload:
                                  "pass mask=None")
             p = fwd_rank
             slots = self._local_slots(db, p.keys)
+            # one partition: slots follow the plan's sorted keys; striped,
+            # the misses sit between the owned slots
             _, cks, wcnt = _forward_execute_f0(tab.columns["F0"], p, slots,
-                                               tab.capacity, mono=True)
+                                               tab.capacity,
+                                               mono=self.n_parts == 1)
         else:
             cks, wcnt = self._execute_masked(tab, db.get(VER_TABLE), q,
                                              mask, order, level_exec)
@@ -531,7 +560,9 @@ class YCSBWorkload:
         wvals = _field_bytes(keys, worder, self.cfg.tup_size) if full \
             else _field_fingerprint(keys, worder).to(torch.int32)
         if ver is not None:
-            # one winner per row per epoch: each row advances one entry
-            ver.push(wslots, worder, win)
+            # one winner per row per epoch: each row advances one entry;
+            # a winner of a key another partition owns pushes nothing
+            ver.push(wslots, worder,
+                     win & (wslots < tab.capacity) if tab.striped else win)
         tab.scatter(wslots, {"F0": wvals}, mask=win)
         return cks & MASK32, wmask.sum() & MASK32

@@ -33,22 +33,73 @@ def test_from_args_parses_like_reference():
         Config.from_args(["epoch_batch=4"])
 
 
+# (flag, what it meets): a ROADMAP item (or None: an unknown field) it
+# raises NotImplementedError for; ValueError: a pin of the reference,
+# raised with its message; ADMIT: ported since (slice 11 admits
+# part_cnt > 1 on one node, whose node_cnt > 1 still raises item 18)
+ADMIT = "admitted"
 RAISING = [
-    ("--part_cnt=2", 18),
+    ("--part_cnt=2", ADMIT),
     ("--elastic=true", 18),
-    ("--ctrl=true", "16d"), ("--ctrl_dgcc=true", "16d"),
+    ("--ctrl=true", ValueError), ("--ctrl_dgcc=true", ValueError),
     ("--sim_full_row=true --tup_size=10", 11),
-    ("--checkpoint_path=/dev/null", 17), ("--node_cnt=2", None),
+    ("--checkpoint_path=/dev/null", 17), ("--node_cnt=2", 18),
     ("--fault_drop_prob=0.1", None)]
 
 
 @pytest.mark.parametrize("flag,item", RAISING, ids=[f for f, _ in RAISING])
 def test_unsupported_flags_raise(flag, item):
-    match = "ROADMAP" if item is None else f"ROADMAP.md queue 1, item {item}:"
-    with pytest.raises(NotImplementedError, match=match):
-        Config.from_args(SLICE + flag.split())
-    with pytest.raises(NotImplementedError, match=match):
-        Config.from_args(SWEEP + flag.split())
+    for base in (SLICE, SWEEP):
+        args = base + flag.split()
+        if item is ADMIT:
+            mine, ref = Config.from_args(args), JConfig.from_args(args)
+            for f in dataclasses.fields(Config):
+                assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP.md queue 1, item 18:"):
+                Config.from_args(args + ["--node_cnt=2"])
+        elif item is ValueError:
+            msgs = []
+            for cls in (Config, JConfig):
+                with pytest.raises(ValueError) as e:
+                    cls.from_args(args)
+                msgs.append(str(e.value))
+            assert msgs[0] == msgs[1]
+        else:
+            match = "ROADMAP" if item is None \
+                else f"ROADMAP.md queue 1, item {item}:"
+            with pytest.raises(NotImplementedError, match=match):
+                Config.from_args(args)
+
+
+CTRL = ["--ctrl=true", "--metrics=true", "--escrow_order_free=false"]
+# each pin of the control plane, raised with the reference's message
+CTRL_PINS = [
+    (["--ctrl=true"], "needs --metrics=true"),
+    (["--ctrl=true", "--metrics=true"], "escrow ordering"),
+    (CTRL + ["--mode=SIMPLE"], "degraded modes"),
+    (CTRL + ["--cc_alg=MVCC"], "candidates"),
+    (CTRL + ["--cc_alg=DGCC"], "candidates"),
+    (CTRL + ["--ycsb_abort_mode=true"], "ycsb_abort_mode"),
+    (CTRL + ["--audit=true", "--audit_mutate=occ-read-skip:1"],
+     "audit_mutate"),
+    (["--ctrl_dgcc=true"], "needs --ctrl=true"),
+    (["--ctrl_lo=0.5", "--ctrl_hi=0.1"], "hysteresis band"),
+    (["--ctrl_confirm=0"], "ctrl_confirm/ctrl_heal"),
+    (["--ctrl_stale_s=0"], "ctrl_stale_s"),
+    (["--ctrl_gshift=17"], "ctrl_gshift"),
+    (["--ctrl_scale_max=-1"], "ctrl_scale_max")]
+
+
+@pytest.mark.parametrize("flags,match", CTRL_PINS,
+                         ids=[" ".join(f) for f, _ in CTRL_PINS])
+def test_ctrl_pins_raise_like_reference(flags, match):
+    msgs = []
+    for cls in (Config, JConfig):
+        with pytest.raises(ValueError, match=match) as e:
+            cls.from_args(SWEEP + flags)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 # flags of the slices ported since the raise list was first written
@@ -86,7 +137,17 @@ ADMITTED = [
      "--max_accesses=18", "--epoch_batch=16384"],
     ["--metrics=true", "--workload=PPS", "--max_accesses=32"],
     ["--metrics=true", "--cc_alg=TPU_BATCH", "--epoch_batch=65536",
-     "--max_txn_in_flight=65536"]]
+     "--max_txn_in_flight=65536"],
+    ["--part_cnt=4"], ["--part_cnt=2", "--workload=TPCC", "--num_wh=4",
+                       "--max_accesses=18"],
+    ["--part_cnt=4", "--workload=PPS", "--max_accesses=32"],
+    CTRL, CTRL + ["--ctrl_dgcc=true"], CTRL + ["--part_cnt=4",
+                                               "--cc_alg=NO_WAIT"],
+    CTRL + ["--ctrl_dgcc=true", "--cc_alg=DGCC", "--part_cnt=4",
+            "--repair=false", "--audit=true", "--ctrl_gshift=0"],
+    CTRL + ["--cc_alg=TPU_BATCH", "--ctrl_lo=0.1", "--ctrl_hi=0.3",
+            "--ctrl_confirm=1", "--ctrl_cooldown=0", "--ctrl_heal=1",
+            "--ctrl_stale_s=0.5", "--ctrl_scale_max=0"]]
 
 
 @pytest.mark.parametrize("flags", ADMITTED)

@@ -10,7 +10,9 @@ epochs under the six sweep backends and TPC-C, DGCC epochs on YCSB and
 TPC-C), and of the metrics and audit planes (K13b, K15a at wide
 positions, K15c and K17 alone and as ``audit_observe``; armed epochs of
 OCC, OCC with ``audit_mutate`` and with repair, CALVIN, MVCC, TIMESTAMP
-off and on the cadence, DGCC, and TPC-C).  Marked ``cuda``;
+off and on the cadence, DGCC, and TPC-C), and of the partitioned
+keyspace and the router (K3 leaving the trash row alone at
+``part_cnt = 4``, K21 alone, routed mixed epochs).  Marked ``cuda``;
 without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -1365,3 +1367,107 @@ def test_generic_mesh_epochs_through_kernels_match_plain(dev, args, alg):
         sp = run_p(sp, 4)
     assert differing_leaf(sk, sp) is None
     assert int(sk.stats["total_txn_commit_cnt"]) > 0
+
+
+# -- slice 11: partitioned keyspaces and the contention router ---------------
+
+def _k21_batch(dev, b, a, n_keys, seed):
+    from deneva_tpu_torch.cc.base import AccessBatch
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, n_keys, (b, a), generator=g, dtype=torch.int32)
+    is_w = torch.rand(b, a, generator=g) < 0.4
+    is_r = ~is_w | (torch.rand(b, a, generator=g) < 0.2)
+    valid = torch.rand(b, a, generator=g) < 0.9
+    active = torch.rand(b, generator=g) < 0.85
+    ts = torch.arange(1, b + 1, dtype=torch.int32)
+    return AccessBatch(table_ids=torch.zeros_like(keys).to(dev),
+                       keys=keys.to(dev), is_read=is_r.to(dev),
+                       is_write=is_w.to(dev), valid=valid.to(dev),
+                       ts=ts.to(dev), rank=(ts - 1).to(dev),
+                       active=active.to(dev))
+
+
+@pytest.mark.parametrize("b,a,k,groups", [
+    (2048, 10, 8192, 3), (2048, 10, 8192, 4), (2048, 16, 64, 4),
+    (333, 7, 1024, 3)])
+def test_cross_group_defer_matches_plain(dev, b, a, k, groups):
+    from deneva_tpu_torch.cc import router
+    from deneva_tpu_torch.cc.base import build_incidence
+    bt = _k21_batch(dev, b, a, 1 << 20, seed=b + k)
+    inc = build_incidence(bt, k, True, views=("u", "w"))
+    owner = bt.keys % 4
+    for assign in ([0, 1, 2, 2], [2, 1, 0, 1], [0, 1, 2, 3][:groups]
+                   + [0] * (4 - groups)):
+        kn = router.knobs_from_decision(None, assign, [0] * 4, 1, 1, dev)
+        grp = router.txn_backend(kn, owner)
+        before = router.K21_DEFER.launches
+        out = router.cross_group_defer(inc, bt, grp, groups)
+        assert router.K21_DEFER.launches == before + 1
+        assert torch.equal(out, router.cross_group_defer_plain(
+            inc, bt, grp, groups))
+
+
+def test_forward_execute_leaves_the_trash_row_at_part_cnt_4(dev):
+    """K3 at part_cnt = 4: the winners of keys another partition owns
+    carry the trash slot, and the kernel writes nothing there (the plain
+    version neither); every data row equals the plain version's."""
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.ops import forward
+    for full in (False, True):
+        cfg = Config.from_args(["--synth_table_size=65536", "--part_cnt=4",
+                                "--epoch_batch=4096",
+                                "--max_txn_in_flight=4096",
+                                f"--sim_full_row={full}", "--tup_size=8",
+                                "--field_per_tuple=1"])
+        wl = ycsb.YCSBWorkload(cfg, device=dev)
+        tab = wl.load()[ycsb.TABLE]
+        f0 = tab.columns["F0"]
+        f0p = f0.clone()
+        k, r, w = _lanes(40960, 65536, dev, seed=4)
+        words = forward.sort_lanes(k, r, w)
+        plan = forward.plan_scans(words)
+        slots = wl._local_slots(None, plan.keys)
+        trash = tab.capacity
+        assert bool((plan.win & (slots == trash)).any())
+        _, cks, wc = ycsb._forward_execute_f0(f0, plan, slots, trash)
+        _, cksp, wcp = ycsb._forward_execute_f0_plain(f0p, plan, slots,
+                                                      trash)
+        assert torch.equal(f0, f0p)
+        assert int(cks) == int(cksp) and int(wc) == int(wcp)
+        assert not f0[trash:].any()
+
+
+def test_routed_mixed_epochs_through_kernels_match_plain(dev):
+    """Routed epochs of the mixed branch (and of ctrl_dgcc's four groups)
+    at part_cnt = 4: kernel epochs equal plain epochs on every leaf, and
+    K21 launches once an epoch."""
+    from deneva_tpu_torch.cc import router
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.kernels import all_kernels
+    base = ["--synth_table_size=65536", "--part_cnt=4", "--req_per_query=10",
+            "--max_accesses=16", "--epoch_batch=512",
+            "--max_txn_in_flight=2048", "--conflict_buckets=65536",
+            "--zipf_theta=0.6", "--cc_alg=OCC", "--metrics=true",
+            "--ctrl=true", "--escrow_order_free=false", "--repair=true",
+            "--audit=true", "--audit_cadence=1"]
+    for extra, assign, path in (
+            ([], [0, 1, 2, 2], "ROUTED_MIXED"),
+            (["--ctrl_dgcc=true"], [0, 1, 2, 3], "ROUTED_MIXED_DGCC")):
+        cfg = Config.from_args(base + extra)
+        wk = ycsb.YCSBWorkload(cfg, device=dev)
+        wp = ycsb.YCSBWorkload(cfg, device=dev)
+        ek, ep = Engine(cfg, wk), Engine(cfg, wp)
+        kn = router.knobs_from_decision(cfg, assign, [0, 2, 0, 0], 1, 2, dev)
+        sk = ek.init_state()
+        sp = copy.deepcopy(sk)
+        before = {nm: kern.launches for nm, kern in all_kernels().items()}
+        sk = ek.run_ctrl(sk, kn, 3)
+        for nm, kern in all_kernels().items():
+            want = 3 * PATH_LAUNCHES[path].get(nm, 0)
+            assert kern.launches == before[nm] + want, nm
+        with plain_path(wp):
+            sp = ep.run_ctrl(sp, kn, 3)
+        assert differing_leaf(sk, sp) is None
+        assert int(sk.stats["total_txn_commit_cnt"]) > 0
+        assert int(sk.stats["defer_cnt"]) > 0

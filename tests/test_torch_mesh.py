@@ -533,14 +533,26 @@ def test_pins_raise_like_reference(args, match):
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("--elastic=true", "elastic"), ("--ctrl=true", "ctrl router")])
+    ("--elastic=true", "elastic"), ("--ctrl=true", "needs --metrics")],
+    ids=["--elastic=true-elastic", "--ctrl=true-ctrl router"])
 def test_refused_planes_pin_before_their_roadmap_raise(flag, match):
-    """elastic and ctrl are refused as not ported; at D > 1 the
-    reference's pin raises first, with its message."""
+    """elastic is refused as not ported, and at D > 1 the reference's pin
+    raises first, with its message; ctrl is ported, and raises the
+    reference's pins with their messages (at D > 1 and D = 1 alike,
+    metrics first)."""
     with pytest.raises(ValueError, match=match):
         Config.from_args(ycsb_args(device_parts=2) + [flag])
-    with pytest.raises(NotImplementedError):
-        Config.from_args(ycsb_args() + [flag])
+    if flag == "--elastic=true":
+        with pytest.raises(NotImplementedError):
+            Config.from_args(ycsb_args() + [flag])
+        return
+    for args in (ycsb_args(device_parts=2), ycsb_args()):
+        msgs = []
+        for cls in (Config, JConfig):
+            with pytest.raises(ValueError, match=match) as e:
+                cls.from_args(args + [flag])
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
 
 
 def test_mesh_and_collectives():

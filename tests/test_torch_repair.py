@@ -261,21 +261,23 @@ class Rig:
         np.testing.assert_array_equal(self.tv.abort.numpy(),
                                       np.asarray(self.jv.abort))
 
-    def repair(self, rounds=2, ts_base=None):
-        """`run_repair` in both; asserts equal results; returns the port's
-        (F0, verdict, salvaged, rounds, stats) as numpy."""
+    def repair(self, rounds=2, ts_base=None, cap=None):
+        """`run_repair` in both (``cap``: the ``rounds_cap`` knob, a traced
+        scalar there and a host int here); asserts equal results; returns
+        the port's (F0, verdict, salvaged, rounds, stats) as numpy."""
         jcfg = self.jcfg.replace(repair_rounds=rounds)
         tcfg = self.tcfg.replace(repair_rounds=rounds)
         jstats, tstats = dict(self.jstats), dict(self.tstats)
         jdb, _, jv, jsalv, jrnd = j_run_repair(
             jcfg, self.jwl, self.jbe, self.jdb, self.jq, self.jb, self.jinc,
             self.jv, self.jst, jstats, self.jv.commit,
-            ts_base=None if ts_base is None else jnp.int32(ts_base))
+            ts_base=None if ts_base is None else jnp.int32(ts_base),
+            rounds_cap=None if cap is None else jnp.int32(cap))
         tdb, _, tv, tsalv, trnd = run_repair(
             tcfg, self.twl, self.tbe, self.tdb, self.tq, self.tb, self.tinc,
             self.tv, self.tst, tstats, self.tv.commit,
             ts_base=None if ts_base is None else torch.tensor(
-                ts_base, dtype=torch.int32))
+                ts_base, dtype=torch.int32), rounds_cap=cap)
         for f in ("commit", "abort", "defer", "order"):
             np.testing.assert_array_equal(getattr(tv, f).numpy(),
                                           np.asarray(getattr(jv, f)), f)
@@ -383,11 +385,18 @@ def test_repair_line_matches_reference():
 
 
 def test_rounds_cap_is_not_ported():
-    rig = Rig("OCC", [[(5, "w")], [(5, "w")]])
-    with pytest.raises(NotImplementedError, match="item 16d"):
-        run_repair(rig.tcfg, rig.twl, rig.tbe, rig.tdb, rig.tq, rig.tb,
-                   rig.tinc, rig.tv, rig.tst, dict(rig.tstats),
-                   rig.tv.commit, rounds_cap=torch.tensor(1))
+    """The control plane's ``rounds_cap`` (ported with it): rounds at or
+    past the cap do nothing, as the reference's ``lax.cond`` skips them,
+    and a cap of ``repair_rounds`` equals no cap."""
+    rig = Rig("OCC", [[(5, "w"), (9, "r")], [(5, "w")], [(9, "w")],
+                      [(9, "w"), (5, "r")]])
+    salvaged = []
+    for cap in (0, 1, 2, None):
+        _, _, salv, _, st = rig.repair(rounds=2, cap=cap)
+        salvaged.append(int(salv.sum()))
+        if cap == 0:
+            assert st["rep_salvaged_cnt"] == 0 == st["rep_frontier_cnt"]
+    assert salvaged[2] == salvaged[3] and salvaged[0] < salvaged[3]
 
 
 # -- engine level ------------------------------------------------------------

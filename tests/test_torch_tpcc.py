@@ -140,7 +140,8 @@ def test_plan_matches_reference():
 
 def test_partition_helpers_match_reference_on_one_partition():
     """``partition_owned`` and ``partition_slot`` equal the reference's
-    single-partition forms; more than one partition raises."""
+    single-partition forms, and its striped forms at 2 and 4 partitions
+    (every node's view; a key another node owns resolves to n_local)."""
     from deneva_tpu.workloads import base as jbase
     from deneva_tpu_torch.workloads import base
     key = np.arange(-3, 40, dtype=np.int32)
@@ -151,10 +152,16 @@ def test_partition_helpers_match_reference_on_one_partition():
     np.testing.assert_array_equal(
         base.partition_slot(tk, 1, 0, 40).numpy(),
         np.asarray(jbase.partition_slot(jnp.asarray(key), 1, 0, 40)))
-    for fn, extra in ((base.partition_owned, ()),
-                      (base.partition_slot, (20,))):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            fn(tk, 2, 0, *extra)
+    for parts in (2, 4):
+        for me in range(parts):
+            np.testing.assert_array_equal(
+                base.partition_owned(tk, parts, me).numpy(),
+                np.asarray(jbase.partition_owned(jnp.asarray(key), parts,
+                                                 me)))
+            np.testing.assert_array_equal(
+                base.partition_slot(tk, parts, me, 20).numpy(),
+                np.asarray(jbase.partition_slot(jnp.asarray(key), parts, me,
+                                                20)))
 
 
 def _run_port(args, epochs, seed=0):
