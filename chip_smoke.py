@@ -118,11 +118,13 @@ Phases (any error or mismatch exits non-zero and prints no result):
                txns (K14a also on 655,360 probes with misses), K14c on
                each table's scatter-add of a real epoch at 64 and at 4
                warehouses (``index_put_(accumulate=True)`` the
-               yardstick), K14d on ORDER-LINE's 30,720 lanes across
-               the ring's end.  K20 on one ``pps_scaling`` epoch's
-               2,048 txns (and with spans above 2^16); K14e's merge on a
-               real 64-warehouse NewOrder insert into an index of 2^20
-               entries holding 2^19, on an all-masked call and on a call
+               yardstick), K14d on each appended table's call (ORDER-
+               LINE's 30,720 lanes, 2,048 for HISTORY, ORDER and
+               NEW-ORDER) across the ring's end.  K20 on one
+               ``pps_scaling`` epoch's 2,048 txns (and with spans above
+               2^16); K14e's merge on a real 64-warehouse NewOrder
+               insert into an index of 2^20 entries holding 2^19, on an
+               all-masked call and on a call
                across the capacity; K14e's probes on the merged index.
                K13a on both sub-rounds of a real OCC repair epoch at
                ``repair_ablation`` (B = 2,048, 10 accesses, K = 8,192,
@@ -136,9 +138,10 @@ Phases (any error or mismatch exits non-zero and prints no result):
                one audited epoch of each slice-8 configuration
                (``argsort``, ``torch.sort``, ``cumsum`` + ``index_copy_``
                and two ``scatter_reduce_`` the yardsticks; K17's rank
-               launch alone, from a profile, against ``argsort``), and
-               K15a's wide mode on an audited DGCC epoch at
-               ``epoch_batch = 16384`` (``torch.sort`` the yardstick).
+               alone against ``argsort``), and K15a's
+               wide mode on an audited DGCC epoch at ``epoch_batch =
+               16384`` (``torch.sort`` the yardstick) with K17's rank on
+               its committed set.
                K18a and K18b on each shard's call of a real
                epoch of the main path at 2^27 rows over 8 shards (a
                stable ``torch.sort`` of the slice's packed (owner, ts)
@@ -254,6 +257,12 @@ Phases (any error or mismatch exits non-zero and prints no result):
                controller's ``run_simulation``: its ``[ctrl]`` lines
                parse and replay, ``ctrl_decisions`` > 0.  ``--slice11``
                runs only these.
+   Slice 12: ``[K17-rank]`` K17's rank through its own entry point
+               at B = 2,048 (the OCC audited epoch) and at 16,384 (the
+               audited DGCC epoch), each exact, beside a stable
+               ``torch.argsort``, both by CUDA events; ``[K14d]`` each of
+               TPC-C's four appended tables.  ``--slice12`` runs only
+               these and the wide K15a.
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -2247,8 +2256,8 @@ def capture_writes(eng, state):
 def phase_tpcc_kernels(dev, rec: dict, card: str) -> None:
     """K19 and K14a on one epoch's generation at 64 warehouses (and K14a
     on 655,360 probes with misses), K14c on a real epoch's scatter-adds
-    at 64 and at 4 warehouses, K14d on ORDER-LINE's 30,720 lanes across
-    a ring wrap: each exact against its plain version."""
+    at 64 and at 4 warehouses, K14d on each of the four tables' appends
+    across a ring wrap: each exact against its plain version."""
     from deneva_tpu_torch.ops import prng
     cfg = tpcc_config(64)
     eng = tpcc_engine(dev, cfg)
@@ -2318,7 +2327,7 @@ def phase_tpcc_kernels(dev, rec: dict, card: str) -> None:
     s4, calls4 = capture_writes(eng4, eng4.run(eng4.init_state(), 2))
     k14c_cases(dev, s4, calls4, None, card, "4wh")
     del eng4, s4, calls4
-    k14d_case(dev, state, calls, rec, card)
+    k14d_cases(dev, state, calls, rec, card)
     for nm in ("K19_tpcc_generate", "K14a_hash_lookup", "K14c_scatter_add",
                "K14d_append"):
         print_kernel(nm, rec[nm], card)
@@ -2377,38 +2386,53 @@ def k14c_cases(dev, state, calls, rec, card, label) -> None:
             rec["K14c_scatter_add"].update(r)
 
 
-def k14d_case(dev, state, calls, rec, card) -> None:
-    """ORDER-LINE's append of the epoch (30,720 lanes) replayed through
+K14D_TABLES = ("HISTORY", "ORDER", "NEW-ORDER", "ORDER-LINE")
+
+
+def k14d_cases(dev, state, calls, rec, card) -> None:
+    """Each of the four tables' first append of the epoch (ORDER-LINE's
+    30,720 lanes, 2,048 for the others at 64 warehouses) replayed through
     K14d and its plain version on clones whose cursor sits just before
-    the ring's end, so the call wraps."""
-    kind, name, _, mask, rows = next(c for c in calls if c[0] == "append"
-                                     and c[1] == "ORDER-LINE")
-    tab = state.db[name]
-    cap, live = tab.capacity, int(mask.sum())
-    a, p = table_clone(tab), table_clone(tab)
-    for t in (a, p):
-        t.row_cnt.fill_(cap - live // 2)
-    _, sa = a.append(rows, mask)
-    _, sp = p.append_plain(rows, mask)
-    if not (torch.equal(sa, sp) and torch.equal(a.row_cnt, p.row_cnt)):
-        fail("K14d slots or row_cnt differ from plain")
-    for c in tab.columns:
-        if not torch.equal(a.columns[c][:cap], p.columns[c][:cap]):
-            fail(f"K14d column {c} differs from plain")
-    wrapped = int(((sa < live) & mask).sum())
-    if wrapped == 0:
-        fail("K14d: the ring did not wrap")
-    r = {"max_abs_err": max_abs(sa, sp),
-         "ms": cuda_ms(lambda: a.append(rows, mask)),
-         "plain_ms": cuda_ms(lambda: p.append_plain(rows, mask)),
-         "library_ms": None}
-    n, k = mask.numel(), len(rows)
-    # mask in, the values of inserted lanes only; slots out, one row per
-    # inserted lane, the cursor
-    bound(r, n + 4 * live * k + 4 * n + 4 * live * k + 8, n)
-    rec["K14d_append"].update(r)
-    print(f"[K14d] ORDER-LINE: lanes={n} inserted={live} wrapped={wrapped} "
-          f"capacity={cap} columns={k}", flush=True)
+    the ring's end, so the call wraps: slots, cursor and every row, pad
+    and trash rows included, exact.  ORDER-LINE's is the kernel's
+    record; the appends an epoch of each table come from the same
+    epoch's calls."""
+    from deneva_tpu_torch.storage.table import APPEND_TILE
+    for name in K14D_TABLES:
+        _, _, _, mask, rows = next(c for c in calls if c[0] == "append"
+                                   and c[1] == name)
+        per_epoch = sum(1 for c in calls if c[0] == "append" and c[1] == name)
+        tab = state.db[name]
+        cap, live = tab.capacity, int(mask.sum())
+        a, p = table_clone(tab), table_clone(tab)
+        for t in (a, p):
+            t.row_cnt.fill_(cap - live // 2)
+        _, sa = a.append(rows, mask)
+        _, sp = p.append_plain(rows, mask)
+        if not (torch.equal(sa, sp) and torch.equal(a.row_cnt, p.row_cnt)):
+            fail(f"K14d {name}: slots or row_cnt differ from plain")
+        for c in tab.columns:
+            if not torch.equal(a.columns[c], p.columns[c]):
+                fail(f"K14d {name}: column {c} differs from plain")
+        wrapped = int(((sa < live) & mask).sum())
+        if tab.ring and live > 1 and wrapped == 0:
+            fail(f"K14d {name}: the ring did not wrap")
+        r = {"max_abs_err": max_abs(sa, sp),
+             "ms": cuda_ms(lambda: a.append(rows, mask)),
+             "plain_ms": cuda_ms(lambda: p.append_plain(rows, mask)),
+             "library_ms": None}
+        n, k = mask.numel(), len(rows)
+        # mask in, the values of inserted lanes only; slots out, one row
+        # per inserted lane, the cursor
+        bound(r, n + 4 * live * k + 4 * n + 4 * live * k + 8, n)
+        if name == "ORDER-LINE":
+            rec["K14d_append"].update(r)
+        print(f"[K14d] {name}: lanes={n} inserted={live} wrapped={wrapped} "
+              f"capacity={cap} ring={tab.ring} columns={k} blocks="
+              f"{-(-n // APPEND_TILE)} appends_per_epoch={per_epoch}: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.6f} {r['bound_by']}; card {card})",
+              flush=True)
 
 
 def tpcc_epochs_equal(dev, cfg, n: int, label: str, tag: str = "tpcc"):
@@ -3788,9 +3812,7 @@ def phase_slice8_kernels(dev, rec: dict, card: str) -> None:
             if label == "OCC ycsb_skew" and nm != "K15a_lane_sort":
                 rec[nm].update(r)
         if label == "OCC ycsb_skew":
-            k17_rank(lambda: base.audit_lanes(bt, committed, order, lvl,
-                                              ovis),
-                     lambda: torch.argsort(okey, stable=True), b, card)
+            k17_rank(f"{label} epoch 11", committed, order, card)
         print(f"[slice8-kernels] {label} epoch 11: B={b} A={a} lanes={n2} "
               f"live={n_lanes} pos_max={int(pos2.max())} observed={n_obs} "
               f"buckets_stamped={n_upd} edges={int(cnt)} "
@@ -3804,45 +3826,46 @@ def phase_slice8_kernels(dev, rec: dict, card: str) -> None:
     k15a_wide(dev, card)
 
 
-def k17_rank(fn, lib, b: int, card: str, n: int = 20) -> None:
-    """K17's first launch holds two kernels: the counting rank of the
-    committed txns (what ``argsort`` computes) and the lane build.  A
-    profile of ``n`` calls gives the rank kernel's device time alone."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rank = lanes = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            if "rank_kernel" in e.name:
-                rank += e.time_range.elapsed_us()
-            elif "audit_lanes_kernel" in e.name:
-                lanes += e.time_range.elapsed_us()
-    if rank == 0.0:
-        print("[K17-rank] no device events recorded (not measured)",
-              flush=True)
-        return
-    print(f"[K17-rank] B={b}: rank launch {rank / n / 1e3:.4f} ms, lane "
-          f"build {lanes / n / 1e3:.4f} ms (profiled device time), stable "
-          f"torch.argsort {cuda_ms(lib):.4f} ms (card {card})", flush=True)
+def k17_rank(label: str, committed, order, card: str) -> None:
+    """K17's rank alone through its own entry point (``audit_rank``),
+    exact against its plain version, beside a stable ``torch.argsort``
+    of the order keys, both timed by CUDA events as ``cuda_ms`` times
+    every kernel."""
+    from deneva_tpu_torch.cc import base
+    b = order.shape[0]
+    if not torch.equal(base.audit_rank(committed, order),
+                       base.audit_rank_plain(committed, order)):
+        fail(f"K17 rank ({label}, B={b}) differs from the plain version")
+    okey = torch.where(committed, order, base.INT32_MAX)
+    ms = cuda_ms(lambda: base.audit_rank(committed, order))
+    plain = cuda_ms(lambda: base.audit_rank_plain(committed, order),
+                    iters=3, warmup=1)
+    lib = cuda_ms(lambda: torch.argsort(okey, stable=True))
+    # B order keys and flags in, B ranks out; the operations of the
+    # cheapest algorithm known here, a radix sort's four digit passes over
+    # B keys (the counting kernel's B^2 compares are its own cost, not
+    # the function's)
+    r = {}
+    bound(r, 9 * b, 4 * b)
+    print(f"[K17-rank] {label}: B={b} committed={int(committed.sum())} "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, stable torch.argsort "
+          f"{lib:.4f} ms, bound {r['bound_ms']:.7f} ({r['bound_by']}); "
+          f"exact (card {card})", flush=True)
 
 
 def k15a_wide(dev, card: str, batch: int = 16384) -> None:
     """K15a's wide mode on an audited DGCC epoch at the reference's bound
     of ``epoch_batch`` (16,384): 32 levels of positions take 21 bits and
-    the txn ids 14, past the packed word's 32."""
-    from deneva_tpu_torch.cc import depgraph
+    the txn ids 14, past the packed word's 32.  K17's rank on that
+    epoch's committed set."""
+    from deneva_tpu_torch.cc import base, depgraph
     cfg = audited(dgcc_config, 0.9).replace(epoch_batch=batch,
                                              max_txn_in_flight=4 * batch)
     eng = make_engine(dev, cfg)
     st = eng.run(eng.init_state(), 2)
     calls = {}
-    with grab_pieces(((depgraph, "lane_sort"),), calls):
+    with grab_pieces(((depgraph, "lane_sort"), (base, "audit_lanes")),
+                     calls):
         st = eng.step(st)
     torch.cuda.synchronize()
     (keys2, pos2, tid2, nt), kw = calls["lane_sort"][1]   # the audit's
@@ -3860,6 +3883,8 @@ def k15a_wide(dev, card: str, batch: int = 16384) -> None:
           f"pos {pb} + tid {tb} bits > 32: wide sort exact, {ms:.4f} ms, "
           f"torch.sort of the packed word {lib:.4f} ms (card {card})",
           flush=True)
+    committed, order = calls["audit_lanes"][0][0][1:3]
+    k17_rank(f"audited DGCC epoch at B={batch}", committed, order, card)
     del eng, st, calls
     torch.cuda.empty_cache()
 
@@ -5019,6 +5044,29 @@ def flat_state(state):
     return types.SimpleNamespace(db=db)
 
 
+def phase_slice12(dev, card: str) -> None:
+    """K14d per table on a real 64-warehouse epoch, and K17's rank at the
+    OCC ``ycsb_skew`` audited epoch and the audited DGCC epoch at B =
+    16,384 (``--slice12`` runs only these)."""
+    from deneva_tpu_torch.cc import base
+    eng = tpcc_engine(dev, tpcc_config(64))
+    state, calls = capture_writes(eng, eng.run(eng.init_state(), 2))
+    k14d_cases(dev, state, calls, {"K14d_append": {}}, card)
+    del eng, state, calls
+    torch.cuda.empty_cache()
+    eng = make_engine(dev, audited(skew_config, False, "OCC"))
+    st = eng.run(eng.init_state(), 10)
+    calls = {}
+    with grab_pieces(((base, "audit_lanes"),), calls):
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    k17_rank("OCC ycsb_skew epoch 11", *calls["audit_lanes"][0][0][1:3],
+             card)
+    del eng, st, calls
+    torch.cuda.empty_cache()
+    k15a_wide(dev, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5036,6 +5084,10 @@ def main() -> int:
         return 0
     if "--audit-overhead" in sys.argv:
         audit_overhead(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
+    if "--slice12" in sys.argv:
+        phase_slice12(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
         return 0
     if "--slice11" in sys.argv:

@@ -28,13 +28,13 @@ Three kernels live here, each beside its plain version:
 * **K17** `audit_observe` (``csrc/audit.cu``) — replaces ``:414``
   `_audit_observe_impl` in two launches around K15a's sort and K15c's
   scans and compaction (`cc.depgraph`): ``dt_audit_lanes`` ranks the
-  committed txns by ``order`` (a counting rank) and builds the doubled
-  lanes; ``dt_audit_observe`` digests the epoch-start reads (``rdig``,
-  with MVCC's ``version_select``), advances the stamp tables by two
-  scatter-max passes, digests them (``vdig``) and, under MVCC, pushes
-  the version-boundary rings.  The kernel route updates the stamp tables
-  in place; the plain route returns new ones.  uint32 sums wrap as
-  ``uint32_t`` (the plain route: int64 masked to 32 bits).
+  committed txns by ``order`` (`audit_rank`, a counting rank) and builds
+  the doubled lanes; ``dt_audit_observe`` digests the epoch-start reads
+  (``rdig``, with MVCC's ``version_select``), advances the stamp tables
+  by two scatter-max passes, digests them (``vdig``) and, under MVCC,
+  pushes the version-boundary rings.  The kernel route updates the
+  stamp tables in place; the plain route returns new ones.  uint32 sums
+  wrap as ``uint32_t`` (the plain route: int64 masked to 32 bits).
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ K13B_DENSITY = kernels.Kernel("dt_conflict_density", [
     P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P, P, P])
 K17_LANES = kernels.Kernel("dt_audit_lanes", [
     P, P, P, P, P, P, P, P, P, I32, I32, I32, P, P, P, P, P, P])
+# the rank alone (K17_LANES runs it first): for timing and the tests
+K17_RANK = kernels.Kernel("dt_audit_rank", [P, P, I32, P, P, P])
 K17_OBSERVE = kernels.Kernel("dt_audit_observe", [
     P, P, P, P, P, I32, P, P, P, P, P, P, P, P, I32, I32, P, P, P, P])
 
@@ -364,12 +366,46 @@ def audit_levels(cfg, be, forwarding: bool) -> int:
     return cfg.repair_rounds + 1 if cfg.repair else 1
 
 
+def audit_rank_plain(committed: torch.Tensor, order: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain K17 rank, op for op from ``cc/base.py:434-437``: the dense
+    serialization rank ``opos`` of ``order`` over the committed txns, the
+    others (key ``INT32_MAX``) after them, ties by index."""
+    b = order.shape[0]
+    dev = order.device
+    okey = torch.where(committed, order, INT32_MAX)
+    perm = torch.argsort(okey, stable=True)
+    opos = torch.zeros(b, dtype=torch.int32, device=dev)
+    opos[perm] = torch.arange(b, dtype=torch.int32, device=dev)
+    return opos
+
+
+def audit_rank(committed: torch.Tensor, order: torch.Tensor,
+               due: torch.Tensor | None = None) -> torch.Tensor:
+    """K17's rank alone (``dt_audit_rank``, the first kernel of
+    `audit_lanes`): int32[B] opos.  With ``due`` False it returns at once
+    and opos is undefined."""
+    if kernels.on_cpu(committed, order):
+        return audit_rank_plain(committed, order)
+    b = order.shape[0]
+    dev = order.device
+    kernels.check("committed", committed, torch.bool, (b,), dev)
+    kernels.check("order", order, torch.int32, (b,), dev)
+    if due is not None:
+        kernels.check("due", due, torch.bool, (), dev)
+    opos = torch.empty(b, dtype=torch.int32, device=dev)
+    K17_RANK.launch(kernels.ptr(committed), kernels.ptr(order), b,
+                    None if due is None else kernels.ptr(due),
+                    kernels.ptr(opos), kernels.stream(order))
+    return opos
+
+
 def audit_lanes_plain(batch: AccessBatch, committed: torch.Tensor,
                       order: torch.Tensor, lvl: torch.Tensor,
                       order_vis: bool, due: torch.Tensor | None = None):
     """Plain K17 lane build, op for op from ``cc/base.py:421-461``: the
     dense serialization rank ``opos`` of ``order`` over the committed
-    txns (stable index tiebreak), banded by ``lvl``, and the doubled lanes
+    txns (`audit_rank_plain`), banded by ``lvl``, and the doubled lanes
     (keys int64, positions int32, txn ids int32), read lanes first.
     ``due`` is the kernel's gate; these lanes feed only stages that
     apply it."""
@@ -381,10 +417,7 @@ def audit_lanes_plain(batch: AccessBatch, committed: torch.Tensor,
     rm = cm & batch.is_read
     wm = cm & batch.is_write
     ident = combine_key(batch.table_ids, batch.keys)
-    okey = torch.where(committed, order, INT32_MAX)
-    perm = torch.argsort(okey, stable=True)
-    opos = torch.zeros(b, dtype=torch.int32, device=dev)
-    opos[perm] = torch.arange(b, dtype=torch.int32, device=dev)
+    opos = audit_rank_plain(committed, order)
     band = lvl * (b + 2)
     wpos = (band + 1 + opos) * 2 + 1
     rpos = (band + 1 + opos) * 2 if order_vis else band * 2
@@ -401,10 +434,9 @@ def audit_lanes(batch: AccessBatch, committed: torch.Tensor,
                 order: torch.Tensor, lvl: torch.Tensor, order_vis: bool,
                 due: torch.Tensor | None = None):
     """K17, first launch (``dt_audit_lanes``): the counting rank of the
-    committed txns' ``order`` (each thread counts the keys below its own
-    over shared-memory tiles), then one thread per access writes its read
-    and write lane.  Dead lanes take position 0, which no output reads;
-    with ``due`` False it returns at once."""
+    committed txns' ``order`` (as `audit_rank`), then one thread per
+    access writes its read and write lane.  Dead lanes take position 0,
+    which no output reads; with ``due`` False it returns at once."""
     if kernels.on_cpu(batch.keys, committed, order, lvl):
         return audit_lanes_plain(batch, committed, order, lvl, order_vis,
                                  due)

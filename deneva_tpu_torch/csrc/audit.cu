@@ -39,19 +39,34 @@
 //
 // K17 replaces cc/base.py:414 _audit_observe_impl around K15a's sort and
 // K15c, in two entry points.  dt_audit_lanes: the dense serialization rank
-// opos of `order` over the committed txns (stable index tiebreak) as a
-// counting rank over shared-memory tiles, then one thread per access
-// writes its read and write lane (key, banded position, txn id); dead
-// lanes take position 0, which no output reads, so K15a's packing bound
-// holds for the live lanes alone.  dt_audit_observe: one pass over the
-// sorted lanes digests the epoch-start reads against the PRE-update
-// stamps (rdig; under MVCC the ring entry version_select picks by the
-// reader's ts, the first of equal maxima) and scatter-maxes the writers'
-// positions + 1 per audit bucket; a second pass scatter-maxes the ids of
-// the writers at that position; a pass over the buckets writes the new
-// stamps in place, digests them (vdig) and pushes the MVCC rings.  The
-// uint32 sums wrap as uint32_t; they are sums, so their order is free.
-//   Bound: bytes (the lanes, the stamp tables read and written once).
+// opos of `order` over the committed txns (stable index tiebreak; also
+// alone as dt_audit_rank, :434-437's argsort and scatter of arange), then
+// one thread per access writes its read and write lane (key, banded
+// position, txn id); dead lanes take position 0, which no output reads,
+// so K15a's packing bound holds for the live lanes alone.
+//   The rank is a counting rank over the whole grid.  Each block owns
+// kRankRows rows, holds their keys in registers, and its threads stride
+// over all B keys with 16-byte loads; a key before the block's rows
+// counts where it is <= a row's key, one after them where it is <, one
+// inside them by the full rule, so a pair costs a compare and an add.
+// Each row's count is reduced by warp shuffles and one shared-memory sum
+// and written once: no atomics, no memset, and B / 16 blocks (128 at B =
+// 2,048, one wave of the 132 SMs).  The function is bound by its bytes
+// (9 B a txn); the count's B^2 compares keep it far above that bound as
+// B grows.  A radix sort of the keys would do four passes over B words,
+// but on the H100 it was the faster only from about 13,700 txns, and the
+// audit takes at most 16,384, where the count still beats a stable
+// argsort (PERF.md); so the count is the one route.
+//   dt_audit_observe: one pass over the sorted lanes digests the
+// epoch-start reads against the PRE-update stamps (rdig; under MVCC the
+// ring entry version_select picks by the reader's ts, the first of equal
+// maxima) and scatter-maxes the writers' positions + 1 per audit bucket;
+// a second pass scatter-maxes the ids of the writers at that position; a
+// pass over the buckets writes the new stamps in place, digests them
+// (vdig) and pushes the MVCC rings.  The uint32 sums wrap as uint32_t;
+// they are sums, so their order is free.
+//   Bound: bytes (the rank's keys and ranks, the lanes, the stamp tables
+//   read and written once).
 //
 // Every audit entry point takes an optional device flag `due` (the cadence
 // gate): when it is 0 the passes return at once; the compaction writes
@@ -65,7 +80,8 @@ namespace {
 constexpr uint32_t kLanePad = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;          // lanes per scan / compaction block
-constexpr int kRankTile = 256;
+constexpr int kRankRows = 16;        // rows a counting-rank block owns
+constexpr int kRankThreads = 256;
 constexpr uint32_t kM1 = 0x9E3779B9u, kM2 = 0x85EBCA6Bu, kM3 = 0xC2B2AE35u,
                    kM4 = 0x27D4EB2Fu;
 
@@ -153,27 +169,75 @@ __global__ void density_conf_kernel(const int32_t* __restrict__ bkt,
 
 // opos[i] = #{j : key_j < key_i, or key_j == key_i and j < i}, key = order
 // for committed txns and INT32_MAX for the others.
-__global__ void rank_kernel(const uint8_t* __restrict__ committed,
-                            const int32_t* __restrict__ order, int b,
-                            const uint8_t* __restrict__ due,
-                            int32_t* __restrict__ opos) {
-  __shared__ int32_t tile[kRankTile];
+__device__ __forceinline__ int32_t order_key(const uint8_t* committed,
+                                             const int32_t* order, int j) {
+  return committed[j] ? order[j] : INT32_MAX;
+}
+
+// Block x owns rows [16x, 16x + 16).  VEC: `order` is 16-byte and
+// `committed` 4-byte aligned.
+template <bool VEC>
+__global__ void __launch_bounds__(kRankThreads)
+rank_count_kernel(const uint8_t* __restrict__ committed,
+                  const int32_t* __restrict__ order, int b,
+                  const uint8_t* __restrict__ due,
+                  int32_t* __restrict__ opos) {
+  __shared__ int32_t part[kRankThreads / 32][kRankRows];
   if (gated_off(due)) return;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t me = i < b ? (committed[i] ? order[i] : INT32_MAX) : 0;
-  int32_t cnt = 0;
-  for (int t0 = 0; t0 < b; t0 += kRankTile) {
-    const int j = t0 + threadIdx.x;
-    tile[threadIdx.x] = j < b ? (committed[j] ? order[j] : INT32_MAX) : 0;
-    __syncthreads();
-    const int lim = min(kRankTile, b - t0);
-    for (int jj = 0; jj < lim; ++jj) {
-      const int32_t kj = tile[jj];
-      cnt += (kj < me) || (kj == me && t0 + jj < i);
-    }
-    __syncthreads();
+  const int i0 = blockIdx.x * kRankRows;
+  int32_t ki[kRankRows], cnt[kRankRows];
+#pragma unroll
+  for (int r = 0; r < kRankRows; ++r) {
+    ki[r] = i0 + r < b ? order_key(committed, order, i0 + r) : INT32_MAX;
+    cnt[r] = 0;
   }
-  if (i < b) opos[i] = cnt;
+  // groups of 4 keys; i0 is a multiple of 4, so a group lies wholly
+  // before, inside or after the block's rows
+  const int nq = VEC ? b / 4 : 0;
+  for (int q = threadIdx.x; q < nq; q += kRankThreads) {
+    const int4 o = reinterpret_cast<const int4*>(order)[q];
+    const uchar4 c = reinterpret_cast<const uchar4*>(committed)[q];
+    const int32_t k[4] = {c.x ? o.x : INT32_MAX, c.y ? o.y : INT32_MAX,
+                          c.z ? o.z : INT32_MAX, c.w ? o.w : INT32_MAX};
+    const int j0 = 4 * q;
+    if (j0 < i0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < kRankRows; ++r) cnt[r] += k[u] <= ki[r];
+    } else if (j0 >= i0 + kRankRows) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < kRankRows; ++r) cnt[r] += k[u] < ki[r];
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < kRankRows; ++r)
+          cnt[r] += k[u] < ki[r] || (k[u] == ki[r] && j0 + u < i0 + r);
+    }
+  }
+  for (int j = 4 * nq + threadIdx.x; j < b; j += kRankThreads) {
+    const int32_t kj = order_key(committed, order, j);
+#pragma unroll
+    for (int r = 0; r < kRankRows; ++r)
+      cnt[r] += kj < ki[r] || (kj == ki[r] && j < i0 + r);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kRankRows; ++r) {
+    const int32_t v = dt_warp_reduce(cnt[r], SumOp());
+    if (lane == 0) part[warp][r] = v;
+  }
+  __syncthreads();
+  const int i = i0 + threadIdx.x;
+  if (threadIdx.x < kRankRows && i < b) {
+    int32_t s = 0;
+#pragma unroll
+    for (int w = 0; w < kRankThreads / 32; ++w) s += part[w][threadIdx.x];
+    opos[i] = s;
+  }
 }
 
 __global__ void audit_lanes_kernel(
@@ -523,8 +587,36 @@ DT_EXPORT int dt_conflict_density(const int32_t* table_ids,
   return dt_status();
 }
 
-// K17, lanes: 2 * b * a doubled lanes of the committed accesses; `opos`
-// is b int32 of scratch; `order_free` and `due` may be null.
+namespace {
+
+// The counting rank of `order` into opos.
+void launch_rank(const uint8_t* committed, const int32_t* order, int b,
+                 const uint8_t* due, int32_t* opos, cudaStream_t s) {
+  if (b <= 0) return;
+  const int grid = (b + kRankRows - 1) / kRankRows;
+  if (reinterpret_cast<uintptr_t>(order) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(committed) % 4 == 0)
+    rank_count_kernel<true><<<grid, kRankThreads, 0, s>>>(committed, order,
+                                                           b, due, opos);
+  else
+    rank_count_kernel<false><<<grid, kRankThreads, 0, s>>>(committed, order,
+                                                            b, due, opos);
+}
+
+}  // namespace
+
+// K17's rank alone: opos (b int32) of `order` over the committed txns;
+// `due` may be null.
+DT_EXPORT int dt_audit_rank(const uint8_t* committed, const int32_t* order,
+                            int b, const uint8_t* due, int32_t* opos,
+                            void* stream) {
+  launch_rank(committed, order, b, due, opos, dt_stream(stream));
+  return dt_status();
+}
+
+// K17, lanes: the rank (as dt_audit_rank; `opos` is b int32 of scratch),
+// then 2 * b * a doubled lanes of the committed accesses; `order_free`
+// and `due` may be null.
 DT_EXPORT int dt_audit_lanes(const uint8_t* committed, const int32_t* order,
                              const int32_t* lvl, const int32_t* table_ids,
                              const int32_t* keys, const uint8_t* valid,
@@ -534,8 +626,7 @@ DT_EXPORT int dt_audit_lanes(const uint8_t* committed, const int32_t* order,
                              int64_t* keys2, int32_t* pos2, int32_t* tid2,
                              void* stream) {
   cudaStream_t s = dt_stream(stream);
-  rank_kernel<<<dt_blocks(b, kRankTile), kRankTile, 0, s>>>(committed, order,
-                                                            b, due, opos);
+  launch_rank(committed, order, b, due, opos, s);
   audit_lanes_kernel<<<dt_blocks(static_cast<long long>(b) * a, kThreads),
                        kThreads, 0, s>>>(committed, lvl, table_ids, keys,
                                          valid, is_read, is_write, order_free,

@@ -28,10 +28,26 @@
 // a ring table's cursor runs free in int32 and slots take a floor
 // modulo of the capacity, otherwise rows past capacity drop and the
 // cursor clamps; every column's row is written and row_cnt advanced on
-// the device, so the host never syncs.  One block loops over the lanes
-// in chunks of 1024 (the block scan of common.cuh plus a carry).
+// the device, so the host never syncs.
 //   Bound: bytes — the mask read, one row of every column written per
-//   inserted lane, one slot written per lane.
+//   inserted lane, one slot written per lane.  One block scanning every
+//   lane would be serial scans on one SM (ORDER-LINE's 30,720 lanes are
+//   15 tiles), so the lanes form tiles of 2,048, one block each (512
+//   threads, lane u * 512 + t of a tile on thread t, so a warp's loads
+//   and, but at the ring's wrap, its stores are coalesced).
+//   A tile ranks its inserted lanes by warp ballots and a scan of the
+//   64 (item, warp) counts; every column's value of a thread's 4 lanes
+//   is loaded while the block ranks them, so a call waits on one round
+//   of loads whatever its column count.
+//   One tile (n <= 2,048, three of TPC-C's four tables at 64 warehouses)
+//   is one block that reads and writes row_cnt itself.  More tiles take
+//   two launches: a count kernel (16-byte loads, a popc of the non-zero
+//   bytes) writes each tile's count and copies row_cnt to scratch; the
+//   write kernel's block sums the counts of the tiles before it, and only
+//   the last tile writes row_cnt, so no block reads the cursor after it
+//   moves.  No atomics, no memset.  At TPC-C's sizes the bytes take
+//   under 0.2 us; what bounds a call is latency: its launches, one round
+//   of loads, two barriers and the stores (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -139,42 +155,136 @@ __global__ void scatter_add_ordered_kernel(const int32_t* __restrict__ slots,
   }
 }
 
-__global__ void append_kernel(const uint8_t* __restrict__ mask, int n,
-                              int32_t* __restrict__ row_cnt, int capacity,
-                              int ring, Cols c,
-                              int32_t* __restrict__ slots_out) {
-  __shared__ int32_t base_s;
-  if (threadIdx.x == 0) base_s = *row_cnt;
-  __syncthreads();
-  const uint32_t base = static_cast<uint32_t>(base_s);
-  uint32_t carry = 0u;  // inserted lanes before this chunk
-  for (int start = 0; start < n; start += blockDim.x) {
-    const int i = start + threadIdx.x;
-    const uint32_t m = (i < n && mask[i] != 0) ? 1u : 0u;
-    uint32_t total;
-    const uint32_t incl = dt_block_incl_scan(m, AddOp(), 0u, total);
-    if (i < n) {
-      int32_t slot = capacity;
-      if (m) {
-        // row_cnt + offset in wrapping int32, as the reference's cursor
-        const int32_t s = static_cast<int32_t>(base + carry + incl - 1u);
-        if (ring) {
-          int32_t r = s % capacity;
-          slot = r < 0 ? r + capacity : r;
-        } else if (s < capacity) {
-          slot = s;
-        }
-      }
-      slots_out[i] = slot;
-      if (slot < capacity)
-        for (int j = 0; j < c.k; ++j)
-          static_cast<uint32_t*>(c.col[j])[slot] =
-              static_cast<const uint32_t*>(c.val[j])[i];
+constexpr int kAppendThreads = 512;
+constexpr int kAppendItems = 4;                  // lanes a thread holds
+constexpr int kAppendTile = kAppendThreads * kAppendItems;
+constexpr int kAppendWarps = kAppendThreads / 32;
+static_assert(kAppendItems * kAppendWarps == 64, "two counts a lane");
+
+// Non-zero bytes of a word (a bool mask holds 0 or 1; any non-zero byte
+// inserts, as `mask[i] != 0`).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return __popc((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u);
+}
+
+// scratch[t] = inserted lanes of tile t; scratch[tiles] = *row_cnt.
+__global__ void __launch_bounds__(kAppendThreads)
+append_count_kernel(const uint8_t* __restrict__ mask, int n, int vec,
+                    const int32_t* __restrict__ row_cnt,
+                    int32_t* __restrict__ scratch) {
+  const long long t0 = static_cast<long long>(blockIdx.x) * kAppendTile;
+  const int len = static_cast<int>(min(static_cast<long long>(kAppendTile),
+                                       n - t0));
+  uint32_t c = 0u;
+  if (vec && len == kAppendTile) {
+    const uint4* m4 = reinterpret_cast<const uint4*>(mask + t0);
+    for (int q = threadIdx.x; q < kAppendTile / 16; q += kAppendThreads) {
+      const uint4 w = m4[q];
+      c += nonzero_bytes(w.x) + nonzero_bytes(w.y) + nonzero_bytes(w.z) +
+           nonzero_bytes(w.w);
     }
-    carry += total;
+  } else {
+    for (int i = threadIdx.x; i < len; i += kAppendThreads)
+      c += mask[t0 + i] != 0 ? 1u : 0u;
   }
+  c = dt_block_reduce(c, AddOp(), 0u);
   if (threadIdx.x == 0) {
-    int32_t cnt = static_cast<int32_t>(base + carry);
+    scratch[blockIdx.x] = static_cast<int32_t>(c);
+    if (blockIdx.x == 0) scratch[gridDim.x] = *row_cnt;
+  }
+}
+
+// One block a tile.  SINGLE: the only tile, which reads the cursor from
+// row_cnt; otherwise from scratch (append_count_kernel's), with the
+// tiles' counts before it.
+template <bool SINGLE>
+__global__ void __launch_bounds__(kAppendThreads)
+append_write_kernel(const uint8_t* __restrict__ mask, int n,
+                    int32_t* __restrict__ row_cnt,
+                    const int32_t* __restrict__ scratch, int capacity,
+                    int ring, Cols c, int32_t* __restrict__ slots_out) {
+  __shared__ uint32_t off_s[kAppendItems * kAppendWarps];
+  __shared__ uint32_t pre_s, tot_s;
+  __shared__ int32_t base_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kAppendTile;
+  long long at[kAppendItems];
+#pragma unroll
+  for (int u = 0; u < kAppendItems; ++u) at[u] = t0 + u * kAppendThreads + t;
+  // every column's value of the thread's lanes, loaded beside the mask
+  // and consumed after the rank: one round of loads (the lanes that
+  // insert nothing load too; their values go nowhere)
+  uint32_t v[kMaxCols][kAppendItems];
+#pragma unroll
+  for (int j = 0; j < kMaxCols; ++j)
+#pragma unroll
+    for (int u = 0; u < kAppendItems; ++u)
+      if (j < c.k && at[u] < n)
+        v[j][u] = __ldg(static_cast<const uint32_t*>(c.val[j]) + at[u]);
+  // item-major lane order: (item u, warp w) counts, then their scan
+  uint32_t bal[kAppendItems];
+  bool m[kAppendItems];
+#pragma unroll
+  for (int u = 0; u < kAppendItems; ++u) {
+    m[u] = at[u] < n && mask[at[u]] != 0;
+    bal[u] = __ballot_sync(0xffffffffu, m[u]);
+    if (lane == 0) off_s[u * kAppendWarps + warp] = __popc(bal[u]);
+  }
+  // the tile's base: the cursor, and the inserted lanes of the tiles
+  // before it
+  if (SINGLE) {
+    if (t == 0) {
+      pre_s = 0u;
+      base_s = *row_cnt;
+    }
+  } else {
+    uint32_t pre = 0u;
+    for (int q = t; q < static_cast<int>(blockIdx.x); q += kAppendThreads)
+      pre += static_cast<uint32_t>(scratch[q]);
+    pre = dt_block_reduce(pre, AddOp(), 0u);
+    if (t == 0) {
+      pre_s = pre;
+      base_s = scratch[gridDim.x];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t a = off_s[2 * lane], b = off_s[2 * lane + 1];
+    uint32_t incl = a + b;
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
+    }
+    off_s[2 * lane] = incl - a - b;
+    off_s[2 * lane + 1] = incl - b;
+    if (lane == 31) tot_s = incl;
+  }
+  __syncthreads();
+  const uint32_t base = static_cast<uint32_t>(base_s) + pre_s;
+  const uint32_t below = (1u << lane) - 1u;
+#pragma unroll
+  for (int u = 0; u < kAppendItems; ++u) {
+    int32_t slot = capacity;
+    if (m[u]) {
+      // row_cnt + offset in wrapping int32, as the reference's cursor
+      const int32_t s = static_cast<int32_t>(
+          base + off_s[u * kAppendWarps + warp] + __popc(bal[u] & below));
+      if (ring) {
+        const int32_t r = s % capacity;
+        slot = r < 0 ? r + capacity : r;
+      } else if (s < capacity) {
+        slot = s;
+      }
+    }
+    if (at[u] < n) slots_out[at[u]] = slot;
+    if (static_cast<uint32_t>(slot) < static_cast<uint32_t>(capacity)) {
+#pragma unroll
+      for (int j = 0; j < kMaxCols; ++j)
+        if (j < c.k) static_cast<uint32_t*>(c.col[j])[slot] = v[j][u];
+    }
+  }
+  if (t == 0 && blockIdx.x == gridDim.x - 1) {
+    int32_t cnt = static_cast<int32_t>(base + tot_s);
     if (!ring && cnt > capacity) cnt = capacity;
     *row_cnt = cnt;
   }
@@ -243,14 +353,28 @@ DT_EXPORT int dt_scatter_add(const int32_t* slots, const uint8_t* mask, int n,
 // K14d: append the rows of the n masked lanes (k 4-byte columns) at
 // prefix-sum slots from *row_cnt; writes each lane's slot (capacity where
 // nothing was written) and advances *row_cnt, all on the device.
+// `scratch` holds `scratch_len` int32, at least a count a tile and one
+// more when n > kAppendTile (else it may be null).
 DT_EXPORT int dt_append(const uint8_t* mask, int n, int32_t* row_cnt,
                         int capacity, int ring, int k, void* const* cols,
-                        const void* const* vals, int32_t* slots,
-                        void* stream) {
+                        const void* const* vals, int32_t* scratch,
+                        int scratch_len, int32_t* slots, void* stream) {
   Cols c;
-  if (capacity <= 0 || fill_cols(c, k, cols, vals, nullptr) != 0)
+  if (capacity <= 0 || n < 0 || fill_cols(c, k, cols, vals, nullptr) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  append_kernel<<<1, 1024, 0, dt_stream(stream)>>>(mask, n, row_cnt, capacity,
-                                                   ring, c, slots);
+  const cudaStream_t s = dt_stream(stream);
+  const int tiles = (n + kAppendTile - 1) / kAppendTile;
+  if (tiles <= 1) {
+    append_write_kernel<true><<<1, kAppendThreads, 0, s>>>(
+        mask, n, row_cnt, nullptr, capacity, ring, c, slots);
+    return dt_status();
+  }
+  if (scratch == nullptr || scratch_len < tiles + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  append_count_kernel<<<tiles, kAppendThreads, 0, s>>>(mask, n, vec, row_cnt,
+                                                       scratch);
+  append_write_kernel<false><<<tiles, kAppendThreads, 0, s>>>(
+      mask, n, row_cnt, scratch, capacity, ring, c, slots);
   return dt_status();
 }

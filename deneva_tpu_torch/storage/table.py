@@ -35,6 +35,8 @@ TPC-C's two batched writes are kernels (``csrc/table.cu``):
   from the device-resident ``row_cnt`` (a ring table's cursor runs free
   and slots take ``% capacity``; otherwise rows past capacity drop and
   the cursor clamps), every column's row written, the cursor advanced.
+  One block a tile of 2,048 lanes; a call of more tiles first counts
+  each tile and copies the cursor to scratch.
 
 Masked and out-of-range lanes of both write nothing.  The reference
 steers them onto its trash row, whose value it leaves unspecified; the
@@ -299,9 +301,15 @@ class DeviceTable:
         kernels.check("row_cnt", self.row_cnt, torch.int32, (), dev)
         cols, vals = self._word_columns(rows, n)
         slots = torch.empty(n, dtype=torch.int32, device=dev)
+        tiles = -(-n // APPEND_TILE)
+        # more than one tile: each tile's count and a copy of the cursor
+        scratch = torch.empty(tiles + 1, dtype=torch.int32, device=dev) \
+            if tiles > 1 else None
         K14D_APPEND.launch(kernels.ptr(mask), n, kernels.ptr(self.row_cnt),
                            self.capacity, int(self.ring), len(cols),
                            _ptr_array(cols), _ptr_array(vals),
+                           None if scratch is None else kernels.ptr(scratch),
+                           0 if scratch is None else scratch.numel(),
                            kernels.ptr(slots), kernels.stream(mask))
         return self, slots
 
@@ -425,7 +433,10 @@ K14C_SCATTER_ADD = kernels.Kernel("dt_scatter_add", [
     kernels.P, kernels.P, kernels.P])
 K14D_APPEND = kernels.Kernel("dt_append", [
     kernels.P, kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.I32,
-    kernels.P, kernels.P, kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P])
+# lanes a K14d block takes (csrc/table.cu kAppendTile, which refuses a
+# scratch shorter than its tiles + 1)
+APPEND_TILE = 2048
 
 K12D_PUSH = kernels.Kernel("dt_version_push", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.I32,

@@ -37,8 +37,9 @@ from deneva_tpu.cc import get_backend as j_backend
 from deneva_tpu.config import Config as JConfig
 from deneva_tpu_torch.cc import (AUDIT_RW, AUDIT_WR, AUDIT_WW, AccessBatch,
                                  audit_init, audit_mutate_verdict,
-                                 audit_observe, build_conflict_incidence,
-                                 depgraph, get_backend)
+                                 audit_observe, base,
+                                 build_conflict_incidence, depgraph,
+                                 get_backend)
 from deneva_tpu_torch.config import Config
 
 BASE = dict(audit=True, audit_cadence=1, audit_buckets=1024,
@@ -350,6 +351,70 @@ def test_random_batches_match_reference(seed, b, a, n_keys, order_vis, levels,
         lvl = np.where(committed, rng.integers(0, levels, b), 0)
         order = rng.integers(0, b // 2, b).astype(np.int32)   # ties too
         au.observe(arr, committed, lvl, order_vis, epoch=e, order=order)
+
+
+RANK_EDGES = ["equal_orders", "negative_orders", "committed_int32_max",
+              "none_committed", "all_committed", "ragged_b"]
+
+
+def _rank_case(case, rng):
+    """(arr, committed, order) of one of K17's rank edge cases, at B = 37:
+    no multiple of any tile of the kernel's (``ragged_b`` is the plain
+    random case)."""
+    b = 37
+    arr = _random(rng, b, 3, 15)
+    committed = arr["active"] & (rng.random(b) < 0.7)
+    order = rng.integers(0, b // 4, b).astype(np.int32)
+    if case == "equal_orders":
+        order[:] = 5
+    elif case == "negative_orders":
+        order = rng.integers(-4, 4, b).astype(np.int32)
+        order[rng.random(b) < 0.2] = -2**31
+    elif case == "committed_int32_max":
+        # ties the uncommitted txns' key: ordered among them by index
+        order[rng.random(b) < 0.4] = 2**31 - 1
+    elif case == "none_committed":
+        committed[:] = False
+    elif case == "all_committed":
+        arr["active"][:] = True
+        committed[:] = True
+    return arr, committed, order
+
+
+@pytest.mark.parametrize("case", RANK_EDGES)
+def test_rank_edge_cases_match_reference(case):
+    """K17's rank where it is easy to get wrong, through the whole audit
+    (forwarding visibility, so every read's position carries the rank)
+    against the reference, and the rank alone against numpy's stable
+    argsort."""
+    rng = np.random.default_rng(RANK_EDGES.index(case))
+    arr, committed, order = _rank_case(case, rng)
+    b = order.shape[0]
+    au = Audit(cc_alg="TPU_BATCH", epoch_batch=64, audit_edges_max=4096)
+    au.observe(arr, committed, None, True, epoch=1, order=order)
+    key = np.where(committed, order, 2**31 - 1)
+    want = np.empty(b, np.int32)
+    want[np.argsort(key, kind="stable")] = np.arange(b)
+    have = base.audit_rank(torch.from_numpy(committed),
+                           torch.from_numpy(order))
+    np.testing.assert_array_equal(have.numpy(), want)
+
+
+def test_rank_at_the_audits_largest_batch():
+    """The rank at the largest ``epoch_batch`` the audit takes (16,384),
+    with many ties and committed txns at ``INT32_MAX``, against numpy's
+    stable argsort."""
+    rng = np.random.default_rng(16384)
+    b = 16384
+    committed = rng.random(b) < 0.8
+    order = rng.integers(-64, 64, b).astype(np.int32)
+    order[rng.random(b) < 0.05] = 2**31 - 1
+    key = np.where(committed, order, 2**31 - 1)
+    want = np.empty(b, np.int32)
+    want[np.argsort(key, kind="stable")] = np.arange(b)
+    have = base.audit_rank(torch.from_numpy(committed),
+                           torch.from_numpy(order))
+    np.testing.assert_array_equal(have.numpy(), want)
 
 
 def test_refuses_cuda_without_a_card():

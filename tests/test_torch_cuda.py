@@ -732,6 +732,121 @@ def test_append_matches_plain(dev, ring, cap, n, start):
         assert torch.equal(a.columns[c][:cap], b.columns[c][:cap]), c
 
 
+def _wide_table_pair(dev, cap, ring, k):
+    """Two empty tables of ``k`` int32 columns."""
+    from deneva_tpu_torch.storage.catalog import parse_schema
+    from deneva_tpu_torch.storage.table import DeviceTable
+    sch = parse_schema("TABLE=T\n" + "".join(
+        f"\t8,int64_t,C{j}\n" for j in range(k))).table("T")
+    a = DeviceTable.create(sch, cap, dev, ring=ring)
+    return a, copy.deepcopy(a)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 2048, 2049, 30720,
+                               1 << 20])
+@pytest.mark.parametrize("where", ["ring_end", "int32_wrap", "fills_up"])
+def test_append_tiles_match_plain(dev, n, where):
+    """K14d in one tile and in many (2,048 lanes a tile): across a ring's
+    end, across the int32 wrap of a ring's cursor, and on a plain table
+    that fills up inside the call.  Slots, cursor and every row, pad and
+    trash rows included; ten columns, so three rounds of loads."""
+    ring = where != "fills_up"
+    # a power-of-two ring of at least n rows: the slots run on across the
+    # int32 wrap, and no call writes a slot twice
+    cap = max(1024, 1 << (n - 1).bit_length()) if ring else n // 2 + 3
+    start = {"ring_end": cap - n // 3, "int32_wrap": 2**31 - 1 - n // 3,
+             "fills_up": cap // 3}[where]
+    a, b = _wide_table_pair(dev, cap, ring, 10)
+    a.row_cnt.fill_(start)
+    b.row_cnt.fill_(start)
+    g = torch.Generator().manual_seed(n + len(where))
+    mask = (torch.rand(n, generator=g) < 0.7).to(dev)
+    rows = {c: torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                             dtype=torch.int32).to(dev) for c in a.columns}
+    _, sa = a.append(rows, mask)
+    _, sb = b.append_plain(rows, mask)
+    assert torch.equal(sa, sb) and torch.equal(a.row_cnt, b.row_cnt)
+    for c in a.columns:
+        assert torch.equal(a.columns[c], b.columns[c]), c
+
+
+def test_append_refuses_a_short_scratch(dev):
+    """K14d refuses a multi-tile call whose scratch holds fewer than a
+    count a tile and the cursor, and one with none."""
+    from deneva_tpu_torch import kernels
+    from deneva_tpu_torch.storage import table as tmod
+    a, _ = _wide_table_pair(dev, 1 << 14, True, 1)
+    n = 3 * tmod.APPEND_TILE
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    col = next(iter(a.columns.values()))
+    val = torch.zeros(n, dtype=col.dtype, device=dev)
+    slots = torch.empty(n, dtype=torch.int32, device=dev)
+    short = torch.empty(3, dtype=torch.int32, device=dev)
+    for scratch, length in ((short, 3), (None, 0)):
+        with pytest.raises(RuntimeError, match="dt_append"):
+            tmod.K14D_APPEND.launch(
+                kernels.ptr(mask), n, kernels.ptr(a.row_cnt), a.capacity, 1,
+                1, tmod._ptr_array([col]), tmod._ptr_array([val]),
+                None if scratch is None else kernels.ptr(scratch), length,
+                kernels.ptr(slots), kernels.stream(mask))
+
+
+@pytest.mark.parametrize("n,k", [(5000, 1), (5000, 16), (30720, 4)])
+def test_append_unaligned_mask_matches_plain(dev, n, k):
+    """K14d's count kernel on a mask that does not start on 16 bytes (its
+    byte loads), at one column and at the most it takes (16)."""
+    a, b = _wide_table_pair(dev, 1 << 16, True, k)
+    g = torch.Generator().manual_seed(n + k)
+    mask = (torch.rand(n + 1, generator=g) < 0.5).to(dev)[1:]
+    rows = {c: torch.randint(0, 1000, (n,), generator=g,
+                             dtype=torch.int32).to(dev) for c in a.columns}
+    for _ in range(3):            # the cursor carries across calls
+        _, sa = a.append(rows, mask)
+        _, sb = b.append_plain(rows, mask)
+        assert torch.equal(sa, sb) and torch.equal(a.row_cnt, b.row_cnt)
+    for c in a.columns:
+        assert torch.equal(a.columns[c], b.columns[c]), c
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 257, 2048, 16383, 16384,
+                               16385, 65536])
+def test_audit_rank_matches_plain(dev, b):
+    """K17's counting rank against its plain version (a stable argsort
+    and a scatter): ties, negative orders, committed txns at INT32_MAX;
+    from aligned tensors (16-byte loads) and from tensors one element in
+    (scalar loads); up to the audit's largest batch (16,384) and past
+    it."""
+    from deneva_tpu_torch.cc import base
+    g = torch.Generator().manual_seed(b)
+    committed = (torch.rand(b + 1, generator=g) < 0.7).to(dev)
+    order = torch.randint(-b, b + 1, (b + 1,), generator=g,
+                          dtype=torch.int32)
+    order[torch.rand(b + 1, generator=g) < 0.05] = BIG
+    order[torch.rand(b + 1, generator=g) < 0.02] = -2**31
+    order = order.to(dev)
+    for lo in (0, 1):
+        c, o = committed[lo:lo + b], order[lo:lo + b]
+        assert torch.equal(base.audit_rank(c, o),
+                           base.audit_rank_plain(c, o)), lo
+
+
+def test_audit_rank_due_gate(dev):
+    """Off the cadence the rank returns at once; the next rank on the
+    stream is exact."""
+    from deneva_tpu_torch.cc import base
+    g = torch.Generator().manual_seed(0)
+    committed = (torch.rand(9000, generator=g) < 0.5).to(dev)
+    order = torch.randint(0, 50, (9000,), generator=g,
+                          dtype=torch.int32).to(dev)
+    want = base.audit_rank_plain(committed, order)
+    for due in (True, False, True):
+        d = torch.tensor(due, device=dev)
+        got = base.audit_rank(committed, order, due=d)
+        torch.cuda.synchronize()
+        if due:
+            assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("path,flags", [
     ("TPCC_CHAINED", ["--cc_alg=TPU_BATCH", "--num_wh=1"]),
     ("TPCC_CHAINED", ["--cc_alg=CALVIN", "--tpcc_full_schema=true",

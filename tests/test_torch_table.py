@@ -133,3 +133,32 @@ def test_append_ring_cursor_wraps_at_int32():
     np.testing.assert_array_equal(tslots.numpy(), np.asarray(jslots))
     assert int(t.row_cnt) == int(j.row_cnt) < 0
     _same_rows(j, t, cap)
+
+
+@pytest.mark.parametrize("case,ring", [
+    ("none_inserted", False), ("none_inserted", True),
+    ("all_inserted", False), ("all_inserted", True),
+    ("one_lane", False), ("one_lane", True), ("fills_up", False)])
+def test_append_edge_cases_match_reference(case, ring):
+    """A mask with no lane set, with every lane set, a single lane, and
+    a plain table that fills up inside one call: slots, ``row_cnt`` and
+    rows as the reference's."""
+    rng = np.random.default_rng(len(case) + ring)
+    cap = 37
+    j, t = _tables(cap, ring=ring)
+    start = {"fills_up": 30, "one_lane": 36}.get(case, 20)
+    j = j._replace(row_cnt=jnp.int32(start))
+    t.row_cnt.fill_(start)
+    n = 1 if case == "one_lane" else 16
+    mask = np.full(n, case != "none_inserted")
+    rows = {"F": rng.uniform(0, 1, n).astype(np.float32),
+            "I": rng.integers(0, 100, n).astype(np.int32)}
+    j, jslots = j.append({k: jnp.asarray(v) for k, v in rows.items()},
+                         jnp.asarray(mask))
+    t, tslots = t.append({k: torch.from_numpy(v) for k, v in rows.items()},
+                         torch.from_numpy(mask))
+    np.testing.assert_array_equal(tslots.numpy(), np.asarray(jslots))
+    assert int(t.row_cnt) == int(j.row_cnt)
+    _same_rows(j, t, cap)
+    if case == "fills_up":     # 7 rows fit, 9 drop, the cursor clamps
+        assert int(t.row_cnt) == cap and (tslots.numpy() == cap).sum() == 9
