@@ -111,15 +111,22 @@ Phases (any error or mismatch exits non-zero and prints no result):
                extension of P, every survivor on no cycle commits, the
                serial apply in ``order``); the run goes on to 60 epochs
                and counts its closure epochs.  K9b, K11a and K11b on
-               ``ycsb_skew``'s epoch-4 P; K14b over 655,360 probes of the
+               ``ycsb_skew``'s epoch-4 P (K11a's two calls, over live0
+               with and without counts and over the peel's survivors,
+               at each residual group size, and on structured graphs: a
+               ring with chords, a deep DAG, 2- and 3-cycles, a chain of
+               B txns, sparse and empty live sets, the gate off; with
+               the strongly connected set found and the levels each
+               residual group took); K14b over 655,360 probes of the
                2^24-entry index with misses mixed in; K4b with HOT keys,
                ``key_order`` and ``txn_write_perc=0.25`` at 65,536 x 10.
                TPC-C: K19 and K14a on one 64-warehouse epoch's 2,048
                txns (K14a also on 655,360 probes with misses), K14c on
                each table's scatter-add of a real epoch at 64 and at 4
                warehouses (``index_put_(accumulate=True)`` the
-               yardstick), K14d on each appended table's call (ORDER-
-               LINE's 30,720 lanes, 2,048 for HISTORY, ORDER and
+               yardstick) and on Payment's three-table launch against
+               the three one-table calls, K14d on each appended table's
+               call (ORDER-LINE's 30,720 lanes, 2,048 for HISTORY, ORDER and
                NEW-ORDER) across the ring's end.  K20 on one
                ``pps_scaling`` epoch's 2,048 txns (and with spans above
                2^16); K14e's merge on a real 64-warehouse NewOrder
@@ -263,6 +270,17 @@ Phases (any error or mismatch exits non-zero and prints no result):
                ``torch.argsort``, both by CUDA events; ``[K14d]`` each of
                TPC-C's four appended tables.  ``--slice12`` runs only
                these and the wide K15a.
+   Slice 13: ``[K11]`` also K11a on the first MAAT epoch at TPC-C 4
+               warehouses whose closure branch runs.  ``--slice13`` runs
+               only ``[K11]``'s K11a calls and graphs and ``[K14c]``'s
+               cases at 64 and 4 warehouses; with ``--profile`` also the
+               MAAT (``ycsb_skew``, ``ycsb_hot``) and TPC-C (64 wh
+               TPU_BATCH, 4 wh NO_WAIT) profiles, whose launch counts are
+               held to ``PATH_LAUNCHES``; with ``--k11-parent DIR``
+               (``DIR`` an unpacked checkout of another commit, say
+               ``git archive HEAD~1``) ``[K11-parent]`` times that
+               commit's K11a beside this one on the same epochs and
+               graphs, parent, this, this, parent.
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -276,7 +294,10 @@ at 4), of PPS (TPU_BATCH, OCC), of OCC with repair (rounds 2) and of
 DGCC at theta 0.9 and of the audited OCC ``ycsb_skew`` cell (cadence
 1): host and wall time per epoch, device time by kernel and the
 device's idle share; for TPC-C, PPS, repair, DGCC and the audited cell
-also the host syncs in one epoch and the host's hot spots (cProfile).
+also the host syncs in one epoch and the host's hot spots (cProfile);
+for the MAAT and TPC-C cells the profiled epochs' launches held to
+``PATH_LAUNCHES`` and K11a's and K14c's launches and device time an
+epoch.
 
 ``--audit-overhead`` runs only the armed-against-off comparison of OCC
 and CALVIN at ``ycsb_skew``: host milliseconds per epoch off, with the
@@ -512,19 +533,20 @@ PATH_LAUNCHES = {
     "MVCC": {**_TO, "K12c_version_read": 1, "K12d_version_push": 1},
 }
 # TPC-C: generation (K4a, K19, the by-last-name probe K14a); each
-# executed pass adds through K14c five times (W_YTD, D_YTD, the customer,
-# D_NEXT_O_ID, stock) and appends through K14d four times (HISTORY,
-# ORDER, NEW-ORDER, ORDER-LINE).  The chained executor runs
+# executed pass adds through K14c three times (Payment's W_YTD, D_YTD and
+# customer in one launch, D_NEXT_O_ID, stock) and appends through K14d
+# four times (HISTORY, ORDER, NEW-ORDER, ORDER-LINE).  The chained executor
+# runs
 # exec_subrounds = 4 passes and takes no K10; the sweep path one pass.
 _TPCC_GEN = {"K4a_threefry_split": 1, "K19_tpcc_generate": 1,
              "K14a_hash_lookup": 1}
 _TPCC_SWEEP = {**_TPCC_GEN, "K5K6_build_incidence": 1, "K7_overlap": 1,
                "K8_first_fit": 1, "K10_last_writer": 1,
-               "K14c_scatter_add": 5, "K14d_append": 4}
+               "K14c_scatter_add": 3, "K14d_append": 4}
 PATH_LAUNCHES.update({
     "TPCC_CHAINED": {**_TPCC_GEN, "K5K6_build_incidence": 1,
                      "K7_overlap": 1, "K9a_wavefront_levels": 1,
-                     "K14c_scatter_add": 20, "K14d_append": 16},
+                     "K14c_scatter_add": 12, "K14d_append": 16},
     "TPCC_SWEEP": _TPCC_SWEEP,
     "TPCC_TO": {**_TPCC_SWEEP, "K12a_watermark_check": 1,
                 "K12b_commit_watermarks": 1},
@@ -581,7 +603,7 @@ PATH_LAUNCHES.update({
     "DGCC": {"K4a_threefry_split": 1, "K4b_ycsb_generate": 1, **_DGCC,
              "K10_last_writer": DGCC_PASSES},
     "TPCC_DGCC": {**_TPCC_GEN, **_DGCC, "K10_last_writer": DGCC_PASSES,
-                  "K14c_scatter_add": 5 * DGCC_PASSES,
+                  "K14c_scatter_add": 3 * DGCC_PASSES,
                   "K14d_append": 4 * DGCC_PASSES},
 })
 # the metrics plane: K13b once an epoch; the audit plane: K17's lane
@@ -704,6 +726,7 @@ def plain_path(wl):
              (index.HashIndex, "lookup", index.HashIndex.lookup_plain),
              (table.DeviceTable, "scatter_add",
               table.DeviceTable.scatter_add_plain),
+             (table, "scatter_add_many", table.scatter_add_many_plain),
              (table.DeviceTable, "append", table.DeviceTable.append_plain),
              (index.DynamicSortedIndex, "insert",
               index.DynamicSortedIndex.insert_plain),
@@ -1814,9 +1837,9 @@ def maat_points(dev, epochs: int = 60):
         t = time.monotonic()
         gates = []
 
-        def counted(p, live, gate):
+        def counted(p, live, gate, *args, **kwargs):
             gates.append(gate.any())
-            return real(p, live, gate)
+            return real(p, live, gate, *args, **kwargs)
         eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
         maat.reach_stats = counted
         try:
@@ -1853,6 +1876,199 @@ def closure_library(p, live, k: int):
         f = r.to(torch.bfloat16)
         r = r | (torch.matmul(f, f) > 0)
     return torch.diagonal(r) & live, r.sum(dim=0, dtype=torch.int32)
+
+
+def k11_call(p, live, gate, b: int, label: str, card: str,
+             counts: bool = True):
+    """One K11a call checked against ``reach_stats_plain`` and the bf16
+    ``torch.matmul`` closure at each residual group size, and timed
+    beside them; prints the strongly connected set the candidates found
+    and the levels each residual group took.  Returns the kernel's
+    (self_reach, anc) and its largest difference from plain over the
+    group sizes (the diagonal, and the counts where they are made)."""
+    from deneva_tpu_torch.cc import maat
+    srp, ancp = maat.reach_stats_plain(p, live, gate, counts)
+    k = max(1, (b - 1).bit_length())
+    sl, al = closure_library(p, live, k)
+    if not bool(gate.any()):
+        sl, al = torch.zeros_like(sl), torch.zeros_like(al)
+    g0 = maat.reach_group(b)
+    times, out, err = {}, None, 0
+    for group in (g for g in (32, 16) if g <= g0):
+        lv = torch.zeros(-(-b // group), dtype=torch.int32, device=p.device)
+        st = torch.zeros(4, dtype=torch.int32, device=p.device)
+        sr, anc = maat.reach_stats(p, live, gate, counts, group=group,
+                                   levels=lv, stats=st)
+        err = max(err, max_abs(sr, srp),
+                  max_abs(anc, ancp) if counts else 0)
+        if not (torch.equal(sr, srp) and torch.equal(sr, sl)):
+            fail(f"K11a {label} (group {group}): the diagonal differs from "
+                 "plain or from the bf16 torch.matmul closure")
+        if counts and not (torch.equal(anc, ancp) and torch.equal(anc, al)):
+            fail(f"K11a {label} (group {group}): the counts differ from "
+                 "plain or from the bf16 torch.matmul closure")
+        times[group] = cuda_ms(lambda: maat.reach_stats(
+            p, live, gate, counts, group=group))
+        if group == g0:
+            out = (sr, anc)
+            levels, stats = lv.tolist(), st.tolist()
+    lib = cuda_ms(lambda: closure_library(p, live, k), iters=5)
+    busy = [x for x in levels if x]
+    print(f"[K11] K11a {label}: B={b} live={int(live.sum())} "
+          f"gate={int(gate.sum())} "
+          f"edges={int((p & live[:, None] & live[None, :]).sum())} "
+          f"self_reach={int(out[0].sum())} "
+          f"reach_bits={int(ancp.sum()) if counts else 'not counted'}; "
+          f"candidate {stats[0]}: strongly connected set {stats[1]}, its "
+          f"search {stats[3]} levels; residual {stats[2]} txns in "
+          f"{len(busy)} groups of {g0}, levels {busy}; ms by group: "
+          + ", ".join(f"{g} {t:.4f}" for g, t in times.items())
+          + f"; bf16 torch.matmul {lib:.4f} (card {card})", flush=True)
+    return (*out, err)
+
+
+def k11_graphs(b: int, seed: int = 0) -> dict:
+    """Structured graphs for K11a over B = ``b`` txns (bool P, live,
+    gate, on the CPU): a ring with chords (one strongly connected set), a
+    DAG of chains 100 deep (past ``sweep_rounds``) with forward edges,
+    disjoint 2- and 3-cycles, a chain of all B txns, a sparse live set, an
+    empty one, and the gate off."""
+    g = np.random.default_rng(seed)
+    i = np.arange(b)
+    gate = np.zeros(b, bool)
+    gate[b // 2] = True
+    out = {}
+    ring = np.zeros((b, b), bool)
+    ring[i, (i + 1) % b] = True
+    ring[i[::5], (i[::5] + 7) % b] = True
+    out["ring"] = ring
+    dag = np.zeros((b, b), bool)
+    ch = i[:-1][(i[:-1] + 1) % 100 != 0]
+    dag[ch, ch + 1] = True
+    fw = g.random((b, b)) < min(0.5, 2.0 / b)
+    dag |= np.triu(fw, 1)
+    out["dag"] = dag
+    cyc = np.zeros((b, b), bool)
+    for j in range(0, b - 4, 5):
+        cyc[j, j + 1] = cyc[j + 1, j] = True
+        cyc[j + 2, j + 3] = cyc[j + 3, j + 4] = cyc[j + 4, j + 2] = True
+    out["cycles23"] = cyc
+    chain = np.zeros((b, b), bool)
+    chain[i[:-1], i[:-1] + 1] = True
+    out["chain"] = chain
+    rnd = g.random((b, b)) < min(0.5, 3.0 / b)
+    np.fill_diagonal(rnd, False)
+    res = {nm: (torch.from_numpy(m), torch.ones(b, dtype=torch.bool),
+                torch.from_numpy(gate)) for nm, m in out.items()}
+    res["sparse_live"] = (torch.from_numpy(rnd),
+                          torch.from_numpy(g.random(b) < 0.05),
+                          torch.from_numpy(gate))
+    res["empty_live"] = (torch.from_numpy(rnd),
+                         torch.zeros(b, dtype=torch.bool),
+                         torch.from_numpy(gate))
+    res["gate_off"] = (torch.from_numpy(rnd), torch.ones(b, dtype=torch.bool),
+                       torch.zeros(b, dtype=torch.bool))
+    return res
+
+
+def k11_structured(dev, card: str, b: int = SKEW_BATCH) -> None:
+    """K11a on `k11_graphs` at B = ``b``: each group size against plain
+    and the bf16 closure, timed, with the levels each group took."""
+    for nm, (p, live, gate) in k11_graphs(b).items():
+        k11_call(p.to(dev), live.to(dev), gate.to(dev), b, f"graph {nm}",
+                 card)
+
+
+def tpcc_maat_reach(dev, card: str, epochs: int = 60) -> dict:
+    """K11a's two calls of the first epoch, in ``epochs`` of MAAT at the
+    ``tpcc_escrow`` point of 4 warehouses from a fresh state, whose level
+    gate is set, each checked and timed by `k11_call`.  Returns those
+    calls' (p, live, gate) by label, or none when the closure branch ran
+    in no epoch."""
+    from deneva_tpu_torch.cc import maat
+    real, calls = maat.reach_stats, []
+
+    def grab(p, live, gate, *args, **kwargs):
+        calls.append((p, live, gate))
+        return real(p, live, gate, *args, **kwargs)
+    eng = tpcc_engine(dev, tpcc_config(4, "MAAT"))
+    maat.reach_stats = grab
+    try:
+        eng.run(eng.init_state(), epochs)
+    finally:
+        maat.reach_stats = real
+    # two calls per epoch, both on the epoch's gate
+    hits = [e for e in range(epochs) if bool(calls[2 * e][2].any())]
+    print(f"[K11] MAAT at tpcc 4wh: the closure branch ran in {len(hits)} "
+          f"of {epochs} epochs from a fresh state", flush=True)
+    out = {}
+    if hits:
+        e = hits[0]
+        for j, what in ((0, "first call, over live0"),
+                        (1, "second call, over live0 & ~aborted")):
+            p, live, gate = calls[2 * e + j]
+            label = f"tpcc 4wh epoch {e + 1} {what}"
+            k11_call(p, live, gate, p.shape[0], label, card)
+            out[label] = (p, live, gate)
+    del eng, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def k11_vs_parent(inputs: dict, root: str, card: str) -> None:
+    """K11a of the checkout at ``root`` (the parent commit) beside this
+    tree's on the same inputs, in the order parent, this, this, parent.
+    The parent runs in a child process that imports its own package
+    (``--k11-child``); every call makes the counts, as the parent's
+    kernel always does."""
+    import os
+    import tempfile
+    from deneva_tpu_torch.cc import maat
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as d:
+        f = os.path.join(d, "k11_inputs.pt")
+        torch.save({k: tuple(t.cpu() for t in v)
+                    for k, v in inputs.items()}, f)
+
+        def parent():
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--k11-child", root, f],
+                               capture_output=True, text=True, timeout=900)
+            if r.returncode != 0:
+                fail(f"K11a of the parent at {root}: {r.stderr[-2000:]}")
+            return json.loads(r.stdout.strip().splitlines()[-1])
+
+        def this():
+            return {k: cuda_ms(lambda: maat.reach_stats(p, live, gate))
+                    for k, (p, live, gate) in inputs.items()}
+        runs = [parent(), this(), this(), parent()]
+    for k in inputs:
+        a, b, c, e = (r[k] for r in runs)
+        print(f"[K11-parent] {k}: ms parent {a:.4f}, this {b:.4f}, this "
+              f"{c:.4f}, parent {e:.4f} (card {card})", flush=True)
+
+
+def k11_child(root: str, path: str) -> int:
+    """``--k11-child``: K11a of the package at ``root`` on the inputs at
+    ``path``, each checked against that package's plain version and
+    timed; prints the times by label as one JSON line."""
+    import os
+    sys.path.insert(0, os.path.abspath(root))
+    from deneva_tpu_torch.cc import maat
+    if not maat.__file__.startswith(os.path.abspath(root)):
+        fail(f"--k11-child imported {maat.__file__}, not the tree at {root}")
+    dev = torch.device("cuda", 0)
+    out = {}
+    for k, v in torch.load(path).items():
+        p, live, gate = (t.to(dev) for t in v)
+        got = maat.reach_stats(p, live, gate)
+        want = maat.reach_stats_plain(p, live, gate)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"K11a of the tree at {root} differs from its plain "
+                 f"version on {k}")
+        out[k] = cuda_ms(lambda: maat.reach_stats(p, live, gate))
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
@@ -1918,25 +2134,19 @@ def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
         plain_ms=cuda_ms(lambda: conflict.precedence_levels_plain(
             p, live0, rounds), iters=5), library_ms=None)
     bound(rec["K9b_precedence_levels"], b * b + 6 * b, 2 * sub)
-    sr, anc = maat.reach_stats(p, live0, un)
-    srp, ancp = maat.reach_stats_plain(p, live0, un)
-    if not (torch.equal(sr, srp) and torch.equal(anc, ancp)):
-        fail("K11a differs from plain")
-    k = max(1, (b - 1).bit_length())
-    sl, al = closure_library(p, live0, k)
-    if not (torch.equal(sl, sr) and torch.equal(al, anc)):
-        fail("K11a differs from the bf16 torch.matmul closure")
+    sr, anc, err = k11_call(p, live0, un, b, "first call, over live0", card)
+    err = max(err, k11_call(p, live0, un, b, "first call, over live0, no "
+                            "counts", card, counts=False)[2])
     reach_bits = int(anc.sum())
+    k = max(1, (b - 1).bit_length())
     rec["K11a_maat_reach"].update(
-        max_abs_err=max(max_abs(sr, srp), max_abs(anc, ancp)),
-        ms=cuda_ms(lambda: maat.reach_stats(p, live0, un)),
+        max_abs_err=err, ms=cuda_ms(lambda: maat.reach_stats(p, live0, un)),
         plain_ms=cuda_ms(lambda: maat.reach_stats_plain(p, live0, un),
                          iters=5),
         library_ms=cuda_ms(lambda: closure_library(p, live0, k), iters=5))
-    # P, live and gate in, the flags and counts out; the searches OR one
-    # row word per reached txn and word
-    bound(rec["K11a_maat_reach"], b * b + 2 * b + 5 * b,
-          reach_bits * (-(-b // 32)))
+    # the function's bytes: P read once, live and gate in, the flags and
+    # counts out (a bit search does no arithmetic to count)
+    bound(rec["K11a_maat_reach"], b * b + 2 * b + 5 * b, 0)
     ab = maat.peel(p, live0, sr, rank, rounds, peel_rounds, un)
     abp = maat.peel_plain(p, live0, sr, rank, rounds, peel_rounds, un)
     if not torch.equal(ab, abp):
@@ -1951,7 +2161,10 @@ def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
     # P, the three flag vectors and the ranks in, the aborts out; each
     # sweep relaxes every live edge at least once
     bound(rec["K11b_maat_peel"], b * b + 3 * b + 4 * b + b, 2 * sub)
-    left, _ = maat.reach_stats(p, live0 & ~ab, un)
+    left, _, err = k11_call(p, live0 & ~ab, un, b,
+                            "second call, over live0 & ~aborted", card)
+    rec["K11a_maat_reach"]["max_abs_err"] = max(
+        rec["K11a_maat_reach"]["max_abs_err"], err)
     v = cap["verdict"]
     print(f"[K11] ycsb_skew epoch 4: live0={int(live0.sum())} "
           f"edges={sub} unstable={int(un.sum())} on_cycle={int(sr.sum())} "
@@ -1961,6 +2174,8 @@ def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
           f"{int(v.defer.sum())}", flush=True)
     del cap, p, live0
     torch.cuda.empty_cache()
+    k11_structured(dev, card)
+    tpcc_maat_reach(dev, card)
 
     # K14b over one forwarding epoch's lanes on the 2^24-entry index
     n = BATCH * REQ
@@ -2228,11 +2443,15 @@ def table_clone(tab, cols=None):
 
 
 def capture_writes(eng, state):
-    """One kernel epoch, keeping the arguments of every ``scatter_add``
-    and ``append`` call (table name, slots or mask, values), cloned."""
+    """One kernel epoch, keeping the arguments of every ``scatter_add``,
+    ``scatter_add_many`` and ``append`` call (table name, slots or mask,
+    values), cloned.  A ``scatter_add_many`` call is kept as ("many",
+    [(table name, slots, values), ...], mask)."""
+    from deneva_tpu_torch.storage import table
     from deneva_tpu_torch.storage.table import DeviceTable
     calls = []
     real_add, real_app = DeviceTable.scatter_add, DeviceTable.append
+    real_many = table.scatter_add_many
 
     def add(tab, slots, updates, mask=None):
         calls.append(("add", tab.name, slots.clone(),
@@ -2240,15 +2459,24 @@ def capture_writes(eng, state):
                       {c: v.clone() for c, v in updates.items()}))
         return real_add(tab, slots, updates, mask)
 
+    def many(adds, mask=None):
+        calls.append(("many", [(tab.name, slots.clone(),
+                                {c: v.clone() for c, v in up.items()})
+                               for tab, slots, up in adds],
+                      None if mask is None else mask.clone()))
+        return real_many(adds, mask)
+
     def app(tab, rows, mask, anchor=None):
         calls.append(("append", tab.name, None, mask.clone(),
                       {c: v.clone() for c, v in rows.items()}))
         return real_app(tab, rows, mask, anchor)
     DeviceTable.scatter_add, DeviceTable.append = add, app
+    table.scatter_add_many = many
     try:
         state = eng.step(state)
     finally:
         DeviceTable.scatter_add, DeviceTable.append = real_add, real_app
+        table.scatter_add_many = real_many
     torch.cuda.synchronize()
     return state, calls
 
@@ -2333,15 +2561,52 @@ def phase_tpcc_kernels(dev, rec: dict, card: str) -> None:
         print_kernel(nm, rec[nm], card)
 
 
+def k14c_bytes(slots, mask, vals, cap) -> tuple[int, int, int, int]:
+    """(bytes, operations, live lanes, touched rows) of one table's adds:
+    slot and mask of every lane in, the values of live lanes only, each
+    touched row read and written once per column."""
+    live = (mask if mask is not None else torch.ones_like(
+        slots, dtype=torch.bool)) & (slots >= 0) & (slots < cap)
+    nl = int(live.sum())
+    rows = int(torch.unique(slots[live]).numel())
+    k = len(vals)
+    return slots.numel() * 5 + 4 * nl * k + rows * 8 * k, nl * k, nl, rows
+
+
+def same_cols(a, p, vals, cap, what: str) -> int:
+    """Rows [0, cap) of each added column equal, floats as bits; the pad
+    rows too.  Returns the max abs difference (0)."""
+    err = 0
+    for c in vals:
+        x, y = a.columns[c], p.columns[c]
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not (torch.equal(x[:cap], y[:cap])
+                and torch.equal(x[cap + 1:], y[cap + 1:])):
+            fail(f"{what}: column {c} differs")
+        err = max(err, max_abs(x[:cap], y[:cap]))
+    return err
+
+
 def k14c_cases(dev, state, calls, rec, card, label) -> None:
     """Each table's first scatter-add of the epoch (level 0) replayed on
     clones through K14c and its plain version; the DISTRICT D_YTD call at
     64 warehouses is the kernel's record, with ``index_put_(accumulate=
-    True)`` on the live lanes as the one-call yardstick."""
+    True)`` on the live lanes as the one-call yardstick.  Then the
+    epoch's first Payment launch (``scatter_add_many``, three tables)
+    against its plain version, against the three one-table calls, and
+    against ``index_put_`` per column."""
+    from deneva_tpu_torch.storage import table
+    ones = []
+    for c in calls:
+        if c[0] == "add":
+            ones.append(c[1:])
+        elif c[0] == "many":
+            ones += [(nm, sl, c[2], v) for nm, sl, v in c[1]]
     seen = set()
-    for kind, name, slots, mask, vals in calls:
+    for name, slots, mask, vals in ones:
         tag = (name, tuple(vals))
-        if kind != "add" or tag in seen:
+        if tag in seen:
             continue
         seen.add(tag)
         tab = state.db[name]
@@ -2349,19 +2614,11 @@ def k14c_cases(dev, state, calls, rec, card, label) -> None:
         a.scatter_add(slots, vals, mask=mask)
         p.scatter_add_plain(slots, vals, mask=mask)
         cap = tab.capacity
-        err = 0
-        for c in vals:
-            x, y = a.columns[c][:cap], p.columns[c][:cap]
-            if x.dtype == torch.float32:
-                x, y = x.view(torch.int32), y.view(torch.int32)
-            if not torch.equal(x, y):
-                fail(f"K14c ({label} {name} {c}) differs from plain")
-            err = max(err, max_abs(x, y))
+        err = same_cols(a, p, vals, cap, f"K14c ({label} {name})")
         live = (mask if mask is not None else torch.ones_like(slots,
                 dtype=torch.bool)) & (slots >= 0) & (slots < cap)
         s_live = slots[live].long()
         v_live = {c: v[live] for c, v in vals.items()}
-        rows = int(torch.unique(s_live).numel())
         seg = int(torch.bincount(s_live).max()) if s_live.numel() else 0
         r = {"max_abs_err": err,
              "ms": cuda_ms(lambda: a.scatter_add(slots, vals, mask=mask)),
@@ -2371,19 +2628,57 @@ def k14c_cases(dev, state, calls, rec, card, label) -> None:
                  a.columns[c].index_put_((s_live,), v_live[c],
                                          accumulate=True)
                  for c in vals])}
-        n, nl = slots.numel(), int(live.sum())
-        # slot and mask of every lane in, the values of live lanes only;
-        # each touched row read and written once per column
-        bound(r, n * 5 + 4 * nl * len(vals) + rows * 8 * len(vals),
-              nl * len(vals))
-        print(f"[K14c] {label} {name} {'+'.join(vals)}: lanes={n} "
-              f"live={nl} rows={rows} longest_segment={seg} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"index_put_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}; card {card})",
-              flush=True)
+        nb, ops, nl, rows = k14c_bytes(slots, mask, vals, cap)
+        bound(r, nb, ops)
+        print(f"[K14c] {label} {name} {'+'.join(vals)}: lanes="
+              f"{slots.numel()} live={nl} rows={rows} longest_segment={seg}"
+              f" passes={-(-cap.bit_length() // 8)} ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} index_put_ms="
+              f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.6f} "
+              f"({r['bound_by']}; card {card})", flush=True)
         if rec is not None and tag == ("DISTRICT", ("D_YTD",)):
             rec["K14c_scatter_add"].update(r)
+    _, adds, mask = next(c for c in calls if c[0] == "many")
+    tabs = {nm: state.db[nm] for nm, _, _ in adds}
+    ka = {nm: table_clone(t, v) for (nm, _, v), t in zip(adds, tabs.values())}
+    kp = {nm: table_clone(t, v) for (nm, _, v), t in zip(adds, tabs.values())}
+    ko = {nm: table_clone(t, v) for (nm, _, v), t in zip(adds, tabs.values())}
+    table.scatter_add_many([(ka[nm], sl, v) for nm, sl, v in adds], mask)
+    table.scatter_add_many_plain([(kp[nm], sl, v) for nm, sl, v in adds],
+                                 mask)
+    for nm, sl, v in adds:
+        ko[nm].scatter_add(sl, v, mask=mask)
+    for nm, _, v in adds:
+        cap = tabs[nm].capacity
+        same_cols(ka[nm], kp[nm], v, cap, f"K14c {label} many {nm} vs plain")
+        same_cols(ka[nm], ko[nm], v, cap,
+                  f"K14c {label} many {nm} vs one-table calls")
+    lib = []
+    for nm, sl, v in adds:
+        cap = tabs[nm].capacity
+        live = mask & (sl >= 0) & (sl < cap)
+        lib += [(ka[nm].columns[c], sl[live].long(), x[live])
+                for c, x in v.items()]
+    many_ms = cuda_ms(lambda: table.scatter_add_many(
+        [(ka[nm], sl, v) for nm, sl, v in adds], mask))
+    ones_ms = cuda_ms(lambda: [ko[nm].scatter_add(sl, v, mask=mask)
+                               for nm, sl, v in adds])
+    lib_ms = cuda_ms(lambda: [c.index_put_((s,), x, accumulate=True)
+                              for c, s, x in lib])
+    plain_ms = cuda_ms(lambda: table.scatter_add_many_plain(
+        [(kp[nm], sl, v) for nm, sl, v in adds], mask), iters=3)
+    r = {}
+    bound(r, sum(k14c_bytes(sl, mask, v, tabs[nm].capacity)[0]
+                 for nm, sl, v in adds),
+          sum(k14c_bytes(sl, mask, v, tabs[nm].capacity)[1]
+              for nm, sl, v in adds))
+    print(f"[K14c] {label} scatter_add_many "
+          f"{'+'.join(nm for nm, _, _ in adds)} (one launch): "
+          f"ms={many_ms:.4f} three one-table calls={ones_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} index_put_ms={lib_ms:.4f} "
+          f"({len(lib)} calls) bound_ms={r['bound_ms']:.6f} "
+          f"({r['bound_by']}; card {card}); exact against plain and the "
+          f"one-table calls", flush=True)
 
 
 K14D_TABLES = ("HISTORY", "ORDER", "NEW-ORDER", "ORDER-LINE")
@@ -3458,13 +3753,16 @@ def host_hot_spots(run, st, mode: str, n: int = 20):
     return st
 
 
-def phase_profile(dev, cfg, mode: str, knobs_of=None) -> None:
+def phase_profile(dev, cfg, mode: str, knobs_of=None,
+                  path: str | None = None) -> None:
     """Where an epoch's time goes (``--profile`` only): host enqueue time
     and wall time per epoch, device time by kernel, and the device's idle
     share.  The profiler slows the host, so the idle share is taken
     against the unprofiled wall time per epoch; the share against the
     profiled window is printed beside it.  ``knobs_of(cfg)`` routes
-    every epoch under those knobs (`Engine.run_ctrl`)."""
+    every epoch under those knobs (`Engine.run_ctrl`).  With ``path``,
+    the profiled epochs' launch counts are held to its
+    ``PATH_LAUNCHES``, and K11a's and K14c's device launches printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3492,8 +3790,7 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        st = run(st, m)
-        torch.cuda.synchronize()
+        st, counts = counted(lambda: run(st, m))
         window = time.perf_counter() - t
     by_name: dict[str, list] = {}
     for e in prof.events():
@@ -3531,6 +3828,18 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None) -> None:
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile]   {v[0] / m:9.2f} us/epoch  {v[1] / m:5.1f}x  "
               f"{k[:90]}", flush=True)
+    if path is not None:
+        check_launches(counts, path, m, f"profile {mode}")
+        for nm, key in (("K11a_maat_reach", "reach_"),
+                        ("K14c_scatter_add", "scatter_add_")):
+            dev_n = sum(v[1] for k, v in by_name.items() if key in k)
+            dev_us = sum(v[0] for k, v in by_name.items() if key in k)
+            if counts.get(nm):
+                print(f"[profile] {mode}: {nm} {counts[nm] / m:.1f} "
+                      f"launches/epoch (PATH_LAUNCHES {path}: "
+                      f"{PATH_LAUNCHES[path].get(nm, 0)}), {dev_n / m:.1f} "
+                      f"device kernels/epoch, {dev_us / m:.2f} us/epoch",
+                      flush=True)
 
 
 def order_index_window(dev, card: str) -> None:
@@ -5067,11 +5376,74 @@ def phase_slice12(dev, card: str) -> None:
     k15a_wide(dev, card)
 
 
+SLICE13_PROFILES = (("MAAT fingerprint", "MAAT", "skew"),
+                    ("MAAT ycsb_hot", "MAAT", "hot"),
+                    ("TPCC TPU_BATCH 64wh", "TPCC_CHAINED", "tpcc64"),
+                    ("TPCC NO_WAIT 4wh", "TPCC_SWEEP", "tpcc4"))
+
+
+def slice13_profile_cfg(which: str):
+    return {"skew": lambda: skew_config(False, "MAAT"),
+            "hot": lambda: hot_config(False),
+            "tpcc64": lambda: tpcc_config(64),
+            "tpcc4": lambda: tpcc_config(4, "NO_WAIT")}[which]()
+
+
+def phase_slice13(dev, card: str) -> None:
+    """K11a's two calls on the ``ycsb_skew`` MAAT epoch 4 (over live0 with
+    and without counts, over the survivors of the peel with counts), on
+    the structured graphs and on a TPC-C 4 wh MAAT epoch, at each group
+    size (with ``--k11-parent DIR``, each also beside the kernel of the
+    checkout at DIR); K14c one table at
+    a time and Payment's three tables in one launch at 64 and 4
+    warehouses (``--slice13`` runs only these, and with ``--profile``
+    the MAAT and TPC-C cells' profiles)."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.ops import conflict
+    cfg, cap, p, live0 = maat_points(dev, epochs=4)
+    b = SKEW_BATCH
+    _, un = conflict.precedence_levels(p, live0, cfg.sweep_rounds)
+    sr = k11_call(p, live0, un, b, "first call, over live0", card)[0]
+    k11_call(p, live0, un, b, "first call, over live0, no counts", card,
+             counts=False)
+    ab = maat.peel(p, live0, sr, cap["batch"].rank, cfg.sweep_rounds,
+                   cfg.maat_peel_rounds, un)
+    k11_call(p, live0 & ~ab, un, b, "second call, over live0 & ~aborted",
+             card)
+    inputs = {"ycsb_skew epoch 4 first call, over live0": (p, live0, un),
+              "ycsb_skew epoch 4 second call, over live0 & ~aborted":
+              (p, live0 & ~ab, un)}
+    del cap
+    k11_structured(dev, card)
+    inputs.update(tpcc_maat_reach(dev, card))
+    if "--k11-parent" in sys.argv:
+        inputs.update({f"graph {nm}": tuple(t.to(dev) for t in v)
+                       for nm, v in k11_graphs(b).items()})
+        k11_vs_parent(inputs, sys.argv[sys.argv.index("--k11-parent") + 1],
+                      card)
+    del inputs, p, live0
+    torch.cuda.empty_cache()
+    for wh in (64, 4):
+        eng = tpcc_engine(dev, tpcc_config(wh))
+        state, calls = capture_writes(eng, eng.run(eng.init_state(), 2))
+        k14c_cases(dev, state, calls, {"K14c_scatter_add": {}}, card,
+                   f"{wh}wh")
+        del eng, state, calls
+        torch.cuda.empty_cache()
+    if "--profile" in sys.argv:
+        for label, path, which in SLICE13_PROFILES:
+            phase_profile(dev, slice13_profile_cfg(which), label, path=path)
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if "--k11-child" in sys.argv:
+        i = sys.argv.index("--k11-child")
+        return k11_child(sys.argv[i + 1], sys.argv[i + 2])
     import deneva_tpu_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -5084,6 +5456,10 @@ def main() -> int:
         return 0
     if "--audit-overhead" in sys.argv:
         audit_overhead(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
+    if "--slice13" in sys.argv:
+        phase_slice13(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
         return 0
     if "--slice12" in sys.argv:
@@ -5342,7 +5718,9 @@ def main() -> int:
                            ("mesh 2^27 D=8", mesh_config(8)),
                            ("part_cnt 4 forwarding fingerprint",
                             part_cfg(config, False, metrics=True))):
-            phase_profile(dev, cfg, label)
+            phase_profile(dev, cfg, label,
+                          path={lb: pt for lb, pt, _ in SLICE13_PROFILES}
+                          .get(label))
             torch.cuda.empty_cache()
         from deneva_tpu_torch.cc.router import knobs_from_decision
         phase_profile(dev, router_cfg(), "router mixed [0,1,2,2]",

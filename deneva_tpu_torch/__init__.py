@@ -36,7 +36,8 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/``):
 * K14a, K14b — hash and sorted index probes
   (`storage.index.HashIndex.lookup`, `storage.index.SortedIndex.lookup`)
 * K14c, K14d — escrow scatter-add, ring append
-  (`storage.table.DeviceTable.scatter_add`, `DeviceTable.append`)
+  (`storage.table.DeviceTable.scatter_add`, `scatter_add_many`,
+  `DeviceTable.append`)
 * K14e — the dynamic index's merge and its count / range probes
   (`storage.index.DynamicSortedIndex.insert`,
   `SortedIndex.lookup_count`, `range_slots`, `range_between`)

@@ -38,8 +38,11 @@ from deneva_tpu_torch.cc.base import (AccessBatch, Incidence, Verdict,
 from deneva_tpu_torch.ops import conflict
 
 K11A_REACH = kernels.Kernel("dt_maat_reach", [
-    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P,
-    kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
+    kernels.P, kernels.I64, kernels.P, kernels.P, kernels.P, kernels.P,
+    kernels.P])
+REACH_SMEM = 200 * 1024     # K11a's shared-memory budget (bits.cuh kSmemMax)
+REACH_PIVOTS = 4            # K11a's candidates (csrc/maat.cu kPivots)
 K11B_PEEL = kernels.Kernel("dt_maat_peel", [
     kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32,
     kernels.I32, kernels.I32, kernels.P, kernels.P, kernels.P])
@@ -72,41 +75,77 @@ def must_precede(cfg, inc: Incidence, b: int) -> torch.Tensor:
 # -- K11a: closure, diagonal, ancestor counts ------------------------------
 
 def reach_stats_plain(p: torch.Tensor, live: torch.Tensor,
-                      gate: torch.Tensor):
+                      gate: torch.Tensor, counts: bool = True):
     """``reach_of(live)`` of ``deneva_tpu/cc/maat.py:178-187`` with its
     two reductions (``:196``, ``:216-220``): (self-reachable & live
-    bool[B], ancestor count int32[B]); zeros when ``gate`` has no set
-    flag (the fast branch).  The closure is ``max(1, (B-1).bit_length())``
-    boolean squarings; f32 products of 0/1 counts are exact."""
+    bool[B], ancestor count int32[B], or None without ``counts``); zeros
+    when ``gate`` has no set flag (the fast branch).  The closure is
+    ``max(1, (B-1).bit_length())`` boolean squarings; f32 products of 0/1
+    counts are exact."""
     b = p.shape[0]
     if not bool(gate.any()):
         return (torch.zeros_like(live),
-                torch.zeros(b, dtype=torch.int32, device=p.device))
+                torch.zeros(b, dtype=torch.int32, device=p.device)
+                if counts else None)
     r = p & live[:, None] & live[None, :]
     for _ in range(max(1, (b - 1).bit_length())):
         f = r.to(torch.float32)
         r = r | (torch.matmul(f, f) > 0)
-    return torch.diagonal(r) & live, r.sum(dim=0, dtype=torch.int32)
+    anc = r.sum(dim=0, dtype=torch.int32) if counts else None
+    return torch.diagonal(r) & live, anc
 
 
-def reach_stats(p: torch.Tensor, live: torch.Tensor, gate: torch.Tensor):
-    """K11a: the transitive closure of ``P`` over ``live`` as bit rows,
-    one breadth-first search per source, then the diagonal and the
-    column counts; skipped on the device when ``gate`` is all false."""
+def reach_group(b: int) -> int:
+    """K11a's residual sources per block at B = ``b``: 32 where three
+    32-bit words a txn fit its shared memory, else 16 (two txns a
+    word)."""
+    sets = 3 * -(-b // 32) * 4                    # live, C and F bits
+    for s, per_word in ((32, 1), (16, 2)):
+        # front, next and seen: three words of a txn's bits
+        if 3 * -(-b // per_word) * 4 + sets <= REACH_SMEM:
+            return s
+    raise ValueError(f"K11a: B = {b} does not fit one block's shared "
+                     "memory")
+
+
+def reach_stats(p: torch.Tensor, live: torch.Tensor, gate: torch.Tensor,
+                counts: bool = True, *, group: int | None = None,
+                levels: torch.Tensor | None = None,
+                stats: torch.Tensor | None = None):
+    """K11a: the transitive closure of ``P`` over ``live`` on bits: the
+    largest strongly connected set C that one of `REACH_PIVOTS`
+    candidates' two searches find, whose txns all reach the candidate's
+    set F, and a multi-source search (a block per ``group`` of 32 or 16
+    sources, `reach_group` by default) from every other live txn; then the
+    diagonal and, with ``counts``, the column counts (else None).
+    Skipped on the device when ``gate`` is all false.  ``levels`` (int32,
+    one entry a group) gets the levels each group took; ``stats`` (int32
+    [4]) the chosen candidate, |C|, the residual's size and the
+    candidate's levels."""
     if kernels.on_cpu(p, live, gate):
-        return reach_stats_plain(p, live, gate)
+        return reach_stats_plain(p, live, gate, counts)
     b = live.shape[0]
     dev = live.device
     kernels.check("p", p, torch.bool, (b, b), dev)
     kernels.check("live", live, torch.bool, (b,), dev)
     kernels.check("gate", gate, torch.bool, (b,), dev)
+    group = reach_group(b) if group is None else group
+    if levels is not None:
+        kernels.check("levels", levels, torch.int32, (-(-b // group),), dev)
+    if stats is not None:
+        kernels.check("stats", stats, torch.int32, (4,), dev)
     words = -(-b // 32)
-    bits = torch.empty((b, words), dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * b * words + 2 * REACH_PIVOTS * words
+                          + 4 * REACH_PIVOTS, dtype=torch.int32, device=dev)
     self_reach = torch.empty(b, dtype=torch.bool, device=dev)
-    anc = torch.empty(b, dtype=torch.int32, device=dev)
+    anc = torch.empty(b, dtype=torch.int32, device=dev) if counts else None
     K11A_REACH.launch(kernels.ptr(p), kernels.ptr(live), kernels.ptr(gate),
-                      b, kernels.ptr(bits), kernels.ptr(self_reach),
-                      kernels.ptr(anc), kernels.stream(live))
+                      b, group, int(counts), kernels.ptr(scratch),
+                      scratch.numel(), kernels.ptr(self_reach),
+                      None if anc is None else kernels.ptr(anc),
+                      None if levels is None else kernels.ptr(levels),
+                      None if stats is None else kernels.ptr(stats),
+                      kernels.stream(live))
     return self_reach, anc
 
 
@@ -182,7 +221,7 @@ def validate_maat(cfg, state, batch: AccessBatch, inc: Incidence):
     # then (on the device, where it is set) closure, peel, closure
     live0 = batch.active & ~closed & ~defer
     lv_f, un_f0 = conflict.precedence_levels(p, live0, cfg.sweep_rounds)
-    on_cycle0, _ = reach_stats(p, live0, un_f0)
+    on_cycle0, _ = reach_stats(p, live0, un_f0, counts=False)
     aborted = peel(p, live0, on_cycle0, batch.rank, cfg.sweep_rounds,
                    cfg.maat_peel_rounds, un_f0)
     defer2, anc = reach_stats(p, live0 & ~aborted, un_f0)

@@ -1,27 +1,38 @@
 // K14c + K14d: the batched table writes of TPC-C's executor.
 //
 // K14c replaces deneva_tpu/storage/table.py:126 DeviceTable.scatter_add:
-// many lanes add into many columns of one table (W_YTD, D_YTD, the
+// many lanes add into many columns of a table (W_YTD, D_YTD, the
 // customer's balance / YTD / count, D_NEXT_O_ID, S_REMOTE_CNT), exact
 // under duplicate slots; a masked lane, or a slot outside [0, capacity),
-// adds nothing (the reference steers it onto its trash row).
-// Design: a call with only int32 columns takes one thread per lane and
-// atomicAdd — integer addition is exact in any order.  A float32 column
-// must match the reference's scatter-add, which on the CPU adds a slot's
-// lanes one after another in lane order onto the old value; no float
-// atomic and no tree sum gives that rounding.  So a call with a float
-// column runs in one block: (slot, lane) keys bitonic-sorted in shared
-// memory, the values staged there in sorted order, and one thread per
-// slot segment adds its lanes in order (__fadd_rn, so nvcc contracts
-// nothing).  Int32 columns of the same call add in that walk too.  A
-// call with more lanes than one block's shared memory holds (8,192 for
-// three columns) runs as chunks of lanes, one launch after another on
-// the stream; each chunk adds onto what the chunks before it left, so
-// every slot still sums its lanes in lane order.
+// adds nothing (the reference steers it onto its trash row).  One launch
+// takes up to three tables (TPC-C's Payment: WAREHOUSE, DISTRICT and
+// CUSTOMER), one block each; the tables are disjoint, so the blocks are
+// independent.
+// Design: a one-table call with only int32 columns takes one thread per
+// lane and atomicAdd — integer addition is exact in any order.  A float32
+// column must match the reference's scatter-add, which on the CPU adds a
+// slot's lanes one after another in lane order onto the old value; no
+// float atomic and no tree sum gives that rounding.  So such a call groups
+// its lanes by slot with a stable LSD radix sort in one block: 32-bit keys
+// (the slot, or capacity for a lane that adds nothing), one pass per 8
+// bits of capacity's width (1 at 64 warehouses' WAREHOUSE, 2 for DISTRICT,
+// 3 for CUSTOMER's 1,920,000 rows), each pass a warp rank by eight
+// ballots, one scan of the 256 digits' warp counts and a scatter
+// in shared memory; the lane order comes from the sort's stability.  The
+// lanes sit in registers, warp-striped, IPT a thread.  Then every column's
+// value is staged in sorted order with its row's old value (one round of
+// loads for up to four columns), the segments' heads are listed in order
+// (warp ballots), and one thread a head adds its lanes in order onto the
+// old value and writes the row once (__fadd_rn, so nvcc contracts
+// nothing; int32 columns of the call add in the same walk).  A call with
+// more lanes than a block holds (4,096 up to 5 columns, 2,048 up to 11,
+// else 1,024) runs as chunks of lanes, one launch after another on the
+// stream; each chunk adds onto what the chunks before it left, so every
+// slot still sums its lanes in lane order.
 //   Bound: bytes — each lane's slot, mask and values read once, each
 //   touched row read and written once.  The ordered path is latency-
-//   bound instead: its longest segment (all payments of one warehouse)
-//   is a serial chain of shared-memory adds.
+//   bound instead: a few barriers a pass, and its longest segment (all
+//   payments of one warehouse) is a serial chain of adds.
 //
 // K14d replaces :137 DeviceTable.append: an exclusive scan of the insert
 // mask from the device-resident row_cnt gives each inserted row its slot;
@@ -53,8 +64,6 @@
 namespace {
 
 constexpr int kMaxCols = 16;
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the H100's per-block limit
-constexpr unsigned long long kNoKey = ~0ull;
 
 struct Cols {
   void* col[kMaxCols];
@@ -89,70 +98,219 @@ __global__ void scatter_add_atomic_kernel(const int32_t* __restrict__ slots,
   }
 }
 
-// One block.  Shared memory: np2 sort keys, then c.k rows of np2 values.
-__global__ void scatter_add_ordered_kernel(const int32_t* __restrict__ slots,
-                                           const uint8_t* __restrict__ mask,
-                                           int n, int np2, int capacity,
-                                           Cols c) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* key = smem;
-  uint32_t* sval = reinterpret_cast<uint32_t*>(smem + np2);
-  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
-    int32_t s = 0;
-    const bool ok = i < n && live_slot(slots, mask, i, capacity, s);
-    key[i] = ok ? (static_cast<unsigned long long>(static_cast<uint32_t>(s))
-                   << 32) | static_cast<uint32_t>(i)
-                : kNoKey;
+constexpr int kMaxTabs = 3;
+constexpr int kAddThreads = 256;
+constexpr int kAddWarps = kAddThreads / 32;
+constexpr int kBins = 256;                     // 8-bit digits
+constexpr int kStageCols = 4;                  // columns staged at once
+constexpr size_t kAddSmem = 200 * 1024;        // dynamic shared, ordered path
+static_assert(kAddThreads == kBins, "one digit per thread");
+
+struct AddTab {
+  const int32_t* slots;
+  int capacity;
+  int passes;                                  // 8-bit digit passes
+  Cols c;
+};
+
+struct AddTabs {
+  AddTab t[kMaxTabs];
+};
+
+// One block a table (blockIdx.x), lanes [off, off + 256 IPT) of n.
+// Shared: keys and lanes of the chunk in sorted order (the lanes' words
+// then hold the segments' heads), then each column's values in that
+// order, then each column's old row values.
+// The lanes of the warp whose 8-bit digit equals d: eight ballots, which
+// cost the same whatever the digits (__match_any_sync slows with the
+// number of distinct values).
+__device__ __forceinline__ uint32_t same_digit(uint32_t d) {
+  uint32_t peers = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const uint32_t v = __ballot_sync(0xffffffffu, (d >> b) & 1u);
+    peers &= ((d >> b) & 1u) ? v : ~v;
   }
-  __syncthreads();
-  // bitonic sort, ascending: (slot, lane), dropped lanes last
-  for (int size = 2; size <= np2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (np2 >> 1); t += blockDim.x) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const unsigned long long a = key[lo], b = key[hi];
-        if ((a > b) == up) {
-          key[lo] = b;
-          key[hi] = a;
-        }
-      }
-      __syncthreads();
+  return peers;
+}
+
+template <int IPT>
+__global__ void __launch_bounds__(kAddThreads)
+scatter_add_ordered_kernel(const uint8_t* __restrict__ mask, int off, int n,
+                           int kmax, const __grid_constant__ AddTabs tabs) {
+  constexpr int kChunk = kAddThreads * IPT;
+  constexpr int kSpan = 32 * IPT;              // positions of a warp
+  extern __shared__ uint32_t sm[];
+  uint32_t* skey = sm;
+  uint32_t* slane = sm + kChunk;              // kChunk + 1 words
+  uint32_t* sval = sm + 2 * kChunk + 1;
+  uint32_t* sold = sval + static_cast<size_t>(kmax) * kChunk;
+  __shared__ uint32_t wcnt[kAddWarps][kBins];
+  __shared__ uint32_t dstart[kBins];
+  const AddTab& tb = tabs.t[blockIdx.x];
+  const Cols& c = tb.c;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t cap = static_cast<uint32_t>(tb.capacity);
+  const int m = min(kChunk, n - off);
+  // every lane's slot and mask loaded at once (a pad lane reads lane 0)
+  uint32_t key[IPT], ln[IPT];
+  int32_t sl[IPT];
+  uint8_t mk[IPT];
+#pragma unroll
+  for (int u = 0; u < IPT; ++u) {
+    const int pos = warp * kSpan + u * 32 + lane;
+    const int i = off + (pos < m ? pos : 0);
+    sl[u] = tb.slots[i];
+    mk[u] = mask == nullptr ? 1 : mask[i];
+    ln[u] = pos;
+  }
+#pragma unroll
+  for (int u = 0; u < IPT; ++u) {
+    const bool ok = ln[u] < m && mk[u] != 0 && sl[u] >= 0 &&
+                    sl[u] < tb.capacity;
+    key[u] = ok ? static_cast<uint32_t>(sl[u]) : cap;  // cap: adds nothing
+  }
+  for (int p = 0; p < tb.passes; ++p) {
+    const int shift = 8 * p;
+    for (int d = lane; d < kBins; d += 32) wcnt[warp][d] = 0u;
+    __syncwarp();
+    uint32_t dg[IPT], rk[IPT], peers[IPT];
+#pragma unroll
+    for (int u = 0; u < IPT; ++u) {
+      dg[u] = (key[u] >> shift) & (kBins - 1);
+      peers[u] = same_digit(dg[u]);
+    }
+    // stable rank inside the warp, positions in (item, lane) order: the
+    // highest lane of a digit's peers adds their count to the warp's (the
+    // warp issues item u's adds before item u + 1's)
+#pragma unroll
+    for (int u = 0; u < IPT; ++u) {
+      const int leader = 31 - __clz(peers[u]);
+      uint32_t before = 0u;
+      if (lane == leader)
+        before = atomicAdd(&wcnt[warp][dg[u]], __popc(peers[u]));
+      before = __shfl_sync(0xffffffffu, before, leader);
+      rk[u] = before + __popc(peers[u] & ((1u << lane) - 1u));
+    }
+    __syncthreads();
+    // thread t owns digit t: its warps' offsets, then the digits' starts
+    uint32_t cnt = 0u;
+#pragma unroll
+    for (int w = 0; w < kAddWarps; ++w) {
+      const uint32_t x = wcnt[w][tid];
+      wcnt[w][tid] = cnt;
+      cnt += x;
+    }
+    uint32_t unused;
+    dstart[tid] = dt_block_incl_scan(cnt, AddOp(), 0u, unused) - cnt;
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < IPT; ++u) {
+      const uint32_t at = dstart[dg[u]] + wcnt[warp][dg[u]] + rk[u];
+      skey[at] = key[u];
+      slane[at] = ln[u];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < IPT; ++u) {
+      const int pos = warp * kSpan + u * 32 + lane;
+      key[u] = skey[pos];
+      ln[u] = slane[pos];
     }
   }
-  // stage every column's value in sorted order
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    const unsigned long long kk = key[p];
-    if (kk == kNoKey) continue;
-    const uint32_t lane = static_cast<uint32_t>(kk);
-    for (int j = 0; j < c.k; ++j)
-      sval[j * np2 + p] = static_cast<const uint32_t*>(c.val[j])[lane];
+  // each column's value of every lane in sorted order, and its row's old
+  // value (a dropped or pad lane reads lane 0 and the row at capacity, the
+  // trash row, and uses neither): a round of loads for kStageCols columns
+  for (int j0 = 0; j0 < c.k; j0 += kStageCols) {
+    uint32_t v[kStageCols][IPT], o[kStageCols][IPT];
+#pragma unroll
+    for (int jj = 0; jj < kStageCols; ++jj) {
+      if (j0 + jj >= c.k) break;
+      const uint32_t* val = static_cast<const uint32_t*>(c.val[j0 + jj]);
+      const uint32_t* col = static_cast<const uint32_t*>(c.col[j0 + jj]);
+#pragma unroll
+      for (int u = 0; u < IPT; ++u) {
+        v[jj][u] = val[off + (ln[u] < m ? ln[u] : 0)];
+        o[jj][u] = col[key[u]];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kStageCols; ++jj) {
+      if (j0 + jj >= c.k) break;
+#pragma unroll
+      for (int u = 0; u < IPT; ++u) {
+        const int pos = warp * kSpan + u * 32 + lane;
+        sval[(j0 + jj) * kChunk + pos] = v[jj][u];
+        sold[(j0 + jj) * kChunk + pos] = o[jj][u];
+      }
+    }
+  }
+  // the segments' heads in position order, into `heads` (over the lanes,
+  // no longer needed); heads[n_heads] = the live lanes, so a segment ends
+  // where the next begins
+  uint32_t* heads = slane;
+  uint32_t wh[IPT];
+  uint32_t n_head = 0u, n_live = 0u;
+#pragma unroll
+  for (int u = 0; u < IPT; ++u) {
+    const int pos = warp * kSpan + u * 32 + lane;
+    const bool live = key[u] != cap;
+    const bool head = live && (pos == 0 || skey[pos - 1] != key[u]);
+    const uint32_t hb = __ballot_sync(0xffffffffu, head);
+    wh[u] = head ? n_head + __popc(hb & ((1u << lane) - 1u)) : ~0u;
+    n_head += __popc(hb);
+    n_live += __popc(__ballot_sync(0xffffffffu, live));
+  }
+  if (lane == 0) {
+    wcnt[0][warp] = n_head;
+    wcnt[1][warp] = n_live;
   }
   __syncthreads();
-  // one thread per slot segment: its lanes in lane order onto the row
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    const unsigned long long kk = key[p];
-    if (kk == kNoKey) continue;
-    const uint32_t s = static_cast<uint32_t>(kk >> 32);
-    if (p > 0 && static_cast<uint32_t>(key[p - 1] >> 32) == s) continue;
-    int end = p + 1;
-    while (end < n && static_cast<uint32_t>(key[end] >> 32) == s) ++end;
+  uint32_t base = 0u, total = 0u, live_total = 0u;
+  for (int w = 0; w < kAddWarps; ++w) {
+    base += w < warp ? wcnt[0][w] : 0u;
+    total += wcnt[0][w];
+    live_total += wcnt[1][w];
+  }
+#pragma unroll
+  for (int u = 0; u < IPT; ++u)
+    if (wh[u] != ~0u) heads[base + wh[u]] = warp * kSpan + u * 32 + lane;
+  if (tid == 0) heads[total] = live_total;
+  __syncthreads();
+  // a head's thread adds its segment's lanes in order onto the old value
+  for (uint32_t h = tid; h < total; h += kAddThreads) {
+    const uint32_t pos = heads[h], end = heads[h + 1];
+    const uint32_t s = skey[pos];
     for (int j = 0; j < c.k; ++j) {
-      const uint32_t* v = sval + j * np2;
+      const uint32_t* v = sval + j * kChunk;
+      uint32_t acc = sold[j * kChunk + pos];
       if (c.is_float[j]) {
-        float* col = static_cast<float*>(c.col[j]);
-        float acc = col[s];
-        for (int q = p; q < end; ++q) acc = __fadd_rn(acc, __uint_as_float(v[q]));
-        col[s] = acc;
+        float a = __uint_as_float(acc);
+        for (uint32_t q = pos; q < end; ++q)
+          a = __fadd_rn(a, __uint_as_float(v[q]));
+        acc = __float_as_uint(a);
       } else {
-        uint32_t* col = static_cast<uint32_t*>(c.col[j]);
-        uint32_t acc = col[s];
-        for (int q = p; q < end; ++q) acc += v[q];
-        col[s] = acc;
+        for (uint32_t q = pos; q < end; ++q) acc += v[q];
       }
+      static_cast<uint32_t*>(c.col[j])[s] = acc;
     }
   }
+}
+
+template <int IPT>
+int launch_ordered(const uint8_t* mask, int n, int tabs, int kmax,
+                   const AddTabs& at, cudaStream_t s) {
+  constexpr int kChunk = kAddThreads * IPT;
+  const size_t smem = (static_cast<size_t>(2 + 2 * kmax) * kChunk + 1) * 4;
+  // dynamic and static shared memory together may pass the default 48 KB
+  if (cudaFuncSetAttribute(scatter_add_ordered_kernel<IPT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return dt_status();
+  for (int off = 0; off < n; off += kChunk)
+    scatter_add_ordered_kernel<IPT><<<tabs, kAddThreads, smem, s>>>(
+        mask, off, n, kmax, at);
+  return dt_status();
 }
 
 constexpr int kAppendThreads = 512;
@@ -304,50 +462,51 @@ int fill_cols(Cols& c, int k, void* const* cols, const void* const* vals,
 
 }  // namespace
 
-// K14c: n lanes (slot, optional mask) add vals[j][lane] into cols[j][slot]
-// for k columns, each int32 (is_float[j] == 0) or float32.  `cols`, `vals`
-// and `is_float` are host arrays of k entries.
-DT_EXPORT int dt_scatter_add(const int32_t* slots, const uint8_t* mask, int n,
-                             int capacity, int k, void* const* cols,
+// K14c: n lanes add, for each of `tabs` tables (at most kMaxTabs, with
+// disjoint columns), vals[j][lane] into cols[j][slots_t[lane]] for its
+// k[t] columns, each int32 (is_float[j] == 0) or float32, unless the
+// shared mask (or null) drops the lane or the slot lies outside
+// [0, capacity[t]).  `slots`, `capacity` and `k` are host arrays of `tabs`
+// entries; `cols`, `vals` and `is_float` host arrays of sum(k) entries,
+// table by table.
+DT_EXPORT int dt_scatter_add(int tabs, const int32_t* const* slots,
+                             const uint8_t* mask, int n, const int* capacity,
+                             const int* k, void* const* cols,
                              const void* const* vals, const int* is_float,
                              void* stream) {
-  Cols c;
-  if (k < 1 || fill_cols(c, k, cols, vals, is_float) != 0)
+  if (tabs < 1 || tabs > kMaxTabs)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return dt_status();
+  AddTabs at;
   bool any_float = false;
-  for (int j = 0; j < k; ++j) any_float = any_float || c.is_float[j] != 0;
+  int kmax = 0;
+  for (int t = 0, j0 = 0; t < tabs; j0 += k[t], ++t) {
+    AddTab& tb = at.t[t];
+    if (k[t] < 1 || capacity[t] < 1 ||
+        fill_cols(tb.c, k[t], cols + j0, vals + j0, is_float + j0) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    tb.slots = slots[t];
+    tb.capacity = capacity[t];
+    int bits = 0;                              // keys in [0, capacity]
+    while (bits < 31 && (capacity[t] >> bits) != 0) ++bits;
+    tb.passes = (bits + 7) / 8;
+    for (int j = 0; j < k[t]; ++j) any_float = any_float || tb.c.is_float[j];
+    kmax = k[t] > kmax ? k[t] : kmax;
+  }
+  if (n <= 0) return dt_status();
   const cudaStream_t s = dt_stream(stream);
-  if (!any_float) {
-    scatter_add_atomic_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(slots, mask, n,
-                                                                capacity, c);
+  if (tabs == 1 && !any_float) {
+    scatter_add_atomic_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(
+        slots[0], mask, n, capacity[0], at.t[0].c);
     return dt_status();
   }
-  // lanes per launch: the largest power of two whose sort keys and
-  // staged values fit one block's shared memory
-  const size_t lane_bytes = 8 + 4 * static_cast<size_t>(k);
-  int chunk = 1;
-  while (2 * static_cast<size_t>(chunk) * lane_bytes <= kMaxSmem) chunk <<= 1;
-  int np2 = 1;
-  while (np2 < n && np2 < chunk) np2 <<= 1;
-  const size_t smem = static_cast<size_t>(np2) * lane_bytes;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(scatter_add_ordered_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  for (int off = 0; off < n; off += chunk) {
-    const int m = n - off < chunk ? n - off : chunk;
-    int p2 = 1;
-    while (p2 < m) p2 <<= 1;
-    Cols cc = c;
-    for (int j = 0; j < k; ++j)
-      cc.val[j] = static_cast<const uint32_t*>(c.val[j]) + off;
-    scatter_add_ordered_kernel<<<1, 1024, static_cast<size_t>(p2) * lane_bytes,
-                                 s>>>(slots + off,
-                                      mask == nullptr ? nullptr : mask + off,
-                                      m, p2, capacity, cc);
-  }
-  return dt_status();
+  // the fewest lanes a thread that hold the call, while the chunk's keys,
+  // lanes, values and old values fit the block's shared memory
+  const size_t lane_bytes = 4 * (2 + 2 * static_cast<size_t>(kmax));
+  if (n <= kAddThreads * 4 || lane_bytes * kAddThreads * 8 > kAddSmem)
+    return launch_ordered<4>(mask, n, tabs, kmax, at, s);
+  if (n <= kAddThreads * 8 || lane_bytes * kAddThreads * 16 > kAddSmem)
+    return launch_ordered<8>(mask, n, tabs, kmax, at, s);
+  return launch_ordered<16>(mask, n, tabs, kmax, at, s);
 }
 
 // K14d: append the rows of the n masked lanes (k 4-byte columns) at

@@ -29,8 +29,10 @@ TPC-C's two batched writes are kernels (``csrc/table.cu``):
   under duplicate slots.  Integer columns add in any order; float
   columns add each slot's lanes **in lane order onto the old value**,
   as the reference's scatter-add does on the CPU, so float32 rows match
-  it bit for bit (such a call sorts its lanes in one block's shared
-  memory, in chunks of up to 8,192 lanes launched one after another);
+  it bit for bit (such a call groups its lanes by slot with a stable
+  radix sort over the capacity's bits in one block, in chunks of up to
+  4,096 lanes launched one after another); `scatter_add_many` takes up
+  to three tables in one launch, a block each (TPC-C's Payment);
 * **K14d** `DeviceTable.append` — replaces ``:137``: prefix-sum slots
   from the device-resident ``row_cnt`` (a ring table's cursor runs free
   and slots take ``% capacity``; otherwise rows past capacity drop and
@@ -240,22 +242,14 @@ class DeviceTable:
         call's columns."""
         if kernels.on_cpu(slots, self.row_cnt):
             return self.scatter_add_plain(slots, updates, mask)
-        n = slots.numel()
-        dev = self.row_cnt.device
-        slots = slots.reshape(-1)
-        kernels.check("slots", slots, torch.int32, (n,), dev)
-        if mask is not None:
-            mask = mask.reshape(-1)
-            kernels.check("mask", mask, torch.bool, (n,), dev)
-        cols, vals = self._word_columns(updates, n)
-        k = len(cols)
-        K14C_SCATTER_ADD.launch(
-            kernels.ptr(slots), None if mask is None else kernels.ptr(mask),
-            n, self.capacity, k, _ptr_array(cols), _ptr_array(vals),
-            ctypes.cast((ctypes.c_int * k)(*[int(c.dtype == torch.float32)
-                                             for c in cols]),
-                        ctypes.c_void_p), kernels.stream(slots))
+        _scatter_add_kernel([(self, slots, updates)], mask)
         return self
+
+    def write_target(self, slots: torch.Tensor
+                     ) -> tuple["DeviceTable", torch.Tensor]:
+        """(table, slots) that a write of ``slots`` through this table
+        lands at: itself (`workloads.mc.McTableView` maps to its block)."""
+        return self, slots
 
     def append_plain(self, rows: dict[str, torch.Tensor], mask: torch.Tensor,
                      anchor: torch.Tensor | None = None
@@ -392,6 +386,67 @@ def fill_columns(tab: DeviceTable, n: int, cols: dict) -> DeviceTable:
     return tab
 
 
+def scatter_add_many_plain(calls, mask: torch.Tensor | None = None) -> None:
+    """Plain `scatter_add_many`: `DeviceTable.scatter_add_plain` per
+    table, in the order given."""
+    for tab, slots, updates in calls:
+        tab, slots = tab.write_target(slots)
+        tab.scatter_add_plain(slots, updates, mask)
+
+
+def scatter_add_many(calls, mask: torch.Tensor | None = None) -> None:
+    """K14c over several tables in one launch, one block a table:
+    ``calls`` is up to three ``(table, slots, updates)`` whose columns are
+    disjoint (TPC-C's Payment: WAREHOUSE, DISTRICT, CUSTOMER), every
+    ``slots`` one lane per entry of the shared ``mask``.  Tables may be
+    `DeviceTable` or `workloads.mc.McTableView` (through
+    ``write_target``).  The same result as the tables' ``scatter_add``
+    calls in any order."""
+    calls = [(*tab.write_target(slots), updates)
+             for tab, slots, updates in calls]
+    if len(calls) > MAX_ADD_TABLES:
+        raise ValueError(f"scatter_add_many: at most {MAX_ADD_TABLES} "
+                         f"tables per launch, got {len(calls)}")
+    cols = [tab.columns[c].data_ptr() for tab, _, up in calls for c in up]
+    if len(set(cols)) != len(cols):
+        raise ValueError("scatter_add_many: a column appears twice")
+    if kernels.on_cpu(*[slots for _, slots, _ in calls],
+                      *[tab.row_cnt for tab, _, _ in calls]):
+        scatter_add_many_plain(calls, mask)
+        return
+    _scatter_add_kernel(calls, mask)
+
+
+def _scatter_add_kernel(calls, mask: torch.Tensor | None) -> None:
+    """One K14c launch over ``calls`` (``(DeviceTable, slots, updates)``,
+    the slots of one length)."""
+    n = calls[0][1].numel()
+    dev = calls[0][0].row_cnt.device
+    if mask is not None:
+        mask = mask.reshape(-1)
+        kernels.check("mask", mask, torch.bool, (n,), dev)
+    slot_ts, caps, ks, cols, vals = [], [], [], [], []
+    for tab, slots, updates in calls:
+        slots = slots.reshape(-1)
+        kernels.check(f"{tab.name} slots", slots, torch.int32, (n,), dev)
+        c, v = tab._word_columns(updates, n)
+        if any(col.shape[0] <= tab.capacity for col in c):
+            # the kernel reads the trash row at `capacity` for dropped lanes
+            raise ValueError(f"{tab.name}: K14c needs a row at capacity")
+        slot_ts.append(slots)
+        caps.append(tab.capacity)
+        ks.append(len(c))
+        cols += c
+        vals += v
+    t = len(calls)
+    K14C_SCATTER_ADD.launch(
+        t, _ptr_array(slot_ts), None if mask is None else kernels.ptr(mask),
+        n, _int_array(caps), _int_array(ks), _ptr_array(cols),
+        _ptr_array(vals),
+        _int_array([int(c.dtype == torch.float32) for c in cols]),
+        kernels.stream(slot_ts[0]))
+
+
 def _rank_in_slot(s: torch.Tensor) -> torch.Tensor:
     """Each lane's position among the lanes of its slot, in lane order."""
     n = s.numel()
@@ -412,6 +467,12 @@ def _ptr_array(ts: list[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
+def _int_array(xs: list[int]) -> ctypes.c_void_p:
+    """A host array of ints (the cast keeps it alive)."""
+    arr = (ctypes.c_int * max(len(xs), 1))(*xs)
+    return ctypes.cast(arr, ctypes.c_void_p)
+
+
 def _sanitize(slots: torch.Tensor, capacity: int,
               mask: torch.Tensor | None = None) -> torch.Tensor:
     slots = slots.to(torch.int32)
@@ -427,10 +488,11 @@ def to_numpy_column(t: torch.Tensor, ref_dtype: str) -> np.ndarray:
     return a.view(np.uint32) if ref_dtype == "uint32" else a
 
 
-MAX_KERNEL_COLS = 16      # columns one K14c / K14d call takes
+MAX_KERNEL_COLS = 16      # columns one K14c / K14d call takes per table
+MAX_ADD_TABLES = 3        # tables one K14c launch takes (csrc kMaxTabs)
 K14C_SCATTER_ADD = kernels.Kernel("dt_scatter_add", [
-    kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.P,
-    kernels.P, kernels.P, kernels.P])
+    kernels.I32, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P,
+    kernels.P, kernels.P, kernels.P, kernels.P])
 K14D_APPEND = kernels.Kernel("dt_append", [
     kernels.P, kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.I32,
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P])

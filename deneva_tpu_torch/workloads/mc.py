@@ -74,9 +74,15 @@ class McTableView:
         return self
 
     def scatter_add(self, slots, updates, mask=None) -> "McTableView":
-        loc, _ = self._loc(slots)
-        self.local.scatter_add(loc, updates, mask=mask)
+        tab, loc = self.write_target(slots)
+        tab.scatter_add(loc, updates, mask=mask)
         return self
+
+    def write_target(self, slots) -> tuple[DeviceTable, torch.Tensor]:
+        """(block, block-local rows) a write of ``slots`` lands at, as
+        `storage.table.scatter_add_many` takes it."""
+        loc, _ = self._loc(slots)
+        return self.local, loc
 
     def append(self, rows, mask, anchor=None):
         """Rows whose ``anchor`` this shard owns, appended at its block's

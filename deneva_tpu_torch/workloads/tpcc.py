@@ -22,7 +22,8 @@ keys flattened to dense int32 slots.  An epoch is four functions:
   customer rows (escrow, ``order_free``) and up to ``max_items_per_txn``
   stock rows; ITEM reads are left out (the table is never written);
 * ``execute`` — payments add into W_YTD / D_YTD / the customer through
-  K14c (`DeviceTable.scatter_add`, exact and in lane order), NewOrders
+  K14c (`DeviceTable.scatter_add`, exact and in lane order; Payment's
+  three tables in one `storage.table.scatter_add_many` launch), NewOrders
   take ``D_NEXT_O_ID + rank`` (the rank among the district's committed
   NewOrders in serialization order: three stable sorts and a cummax of
   glue), apply the stock quantity rule through the last writer (K10, or
@@ -54,6 +55,7 @@ from deneva_tpu_torch import kernels
 from deneva_tpu_torch.config import Config
 from deneva_tpu_torch.ops import prng, scatter
 from deneva_tpu_torch.ops.hashing import mul32, u32
+from deneva_tpu_torch.storage import table
 from deneva_tpu_torch.storage.catalog import parse_schema
 from deneva_tpu_torch.storage.index import DynamicSortedIndex, HashIndex
 from deneva_tpu_torch.storage.table import (DeviceTable, fill_columns,
@@ -649,18 +651,18 @@ class TPCCWorkload:
 
     def _exec_payment(self, db, q: TPCCQuery, m: torch.Tensor, stats):
         """run_payment_0..5 (``tpcc.py:692``): YTD / balance updates are
-        commutative, so K14c applies them exactly; the HISTORY row goes
-        through K14d."""
+        commutative, so K14c applies them exactly, the three tables in one
+        launch; the HISTORY row goes through K14d."""
         amt = torch.where(m, q.h_amount, 0.0)
+        adds = [(db["DISTRICT"], self.dist_slot(q.w_id, q.d_id),
+                 {"D_YTD": amt}),
+                (db["CUSTOMER"], self.cust_slot(q.c_w_id, q.c_d_id, q.c_id),
+                 {"C_BALANCE": -amt, "C_YTD_PAYMENT": amt,
+                  "C_PAYMENT_CNT": m.to(torch.int32)})]
         if self.cfg.wh_update:
-            db["WAREHOUSE"].scatter_add(self.wh_slot(q.w_id),
-                                        {"W_YTD": amt}, mask=m)
-        db["DISTRICT"].scatter_add(self.dist_slot(q.w_id, q.d_id),
-                                   {"D_YTD": amt}, mask=m)
-        db["CUSTOMER"].scatter_add(
-            self.cust_slot(q.c_w_id, q.c_d_id, q.c_id),
-            {"C_BALANCE": -amt, "C_YTD_PAYMENT": amt,
-             "C_PAYMENT_CNT": m.to(torch.int32)}, mask=m)
+            adds.insert(0, (db["WAREHOUSE"], self.wh_slot(q.w_id),
+                            {"W_YTD": amt}))
+        table.scatter_add_many(adds, mask=m)
         hist_row = {"H_C_ID": q.c_id, "H_C_D_ID": q.c_d_id,
                     "H_C_W_ID": q.c_w_id, "H_D_ID": q.d_id,
                     "H_W_ID": q.w_id, "H_AMOUNT": q.h_amount}

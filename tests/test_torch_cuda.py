@@ -27,11 +27,12 @@ allowance of test_torch_sampling.py is for XLA's f32 pow only).
 
 import copy
 
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PATH_LAUNCHES, differing_leaf, mesh_launches,
-                        plain_path)
+from chip_smoke import (PATH_LAUNCHES, differing_leaf, k11_graphs,
+                        mesh_launches, plain_path)
 from deneva_tpu_torch.cc import maat
 from deneva_tpu_torch.ops import conflict, forward, prng, scatter
 from deneva_tpu_torch.storage.index import SortedIndex
@@ -559,6 +560,85 @@ def test_maat_closure_and_peel_match_plain(dev, b, density, gate_on):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("b", [16, 100, 1024, 2048, 8192])
+@pytest.mark.parametrize("graph", ["ring", "dag", "cycles23", "chain",
+                                   "sparse_live", "empty_live", "gate_off"])
+@pytest.mark.parametrize("counts", [False, True])
+def test_maat_reach_structured_matches_plain(dev, b, graph, counts):
+    """K11a at each residual group size that fits B against
+    ``reach_stats_plain``: one strongly connected ring with chords, a DAG
+    deeper than ``sweep_rounds``, disjoint 2- and 3-cycles, a chain of B
+    txns, sparse and empty ``live``, the gate off."""
+    p, live, gate = (t.to(dev) for t in k11_graphs(b)[graph])
+    srp, ancp = maat.reach_stats_plain(p, live, gate, counts)
+    for group in (32, 16):
+        if group > maat.reach_group(b):
+            continue
+        levels = torch.full((-(-b // group),), -1, dtype=torch.int32,
+                            device=dev)
+        stats = torch.full((4,), -2, dtype=torch.int32, device=dev)
+        sr, anc = maat.reach_stats(p, live, gate, counts, group=group,
+                                   levels=levels, stats=stats)
+        assert torch.equal(sr, srp), group
+        if counts:
+            assert torch.equal(anc, ancp), group
+        else:
+            assert anc is None
+        assert bool((levels >= 0).all()), group
+        on = bool(gate.any())
+        if graph == "ring" and on:
+            # one strongly connected set: no residual search
+            assert stats[1:3].tolist() == [b, 0] and not levels.any()
+        if graph == "chain" and on:
+            # no cycle: every txn a residual source, in index order;
+            # group g's first source reaches the chain's end
+            assert stats[1:3].tolist() == [0, b]
+            first = torch.arange(0, b, group, device=dev)
+            assert torch.equal(levels, (b - first).to(torch.int32))
+
+
+def test_maat_reach_picks_the_largest_set(dev):
+    """Two strongly connected sets (a ring of 3/4 of the txns and one of
+    the rest): the candidate on the larger one is chosen, and the other
+    ring runs as residual sources."""
+    b = 1024
+    p = torch.zeros(b, b, dtype=torch.bool)
+    big = 3 * b // 4
+    i = torch.arange(big)
+    p[i, (i + 1) % big] = True
+    j = torch.arange(big, b)
+    p[j, big + (j - big + 1) % (b - big)] = True
+    p[big - 1, big] = True               # the big ring reaches the small
+    p, live = p.to(dev), torch.ones(b, dtype=torch.bool, device=dev)
+    gate = live.clone()
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    sr, anc = maat.reach_stats(p, live, gate, stats=stats)
+    srp, ancp = maat.reach_stats_plain(p, live, gate)
+    assert torch.equal(sr, srp) and torch.equal(anc, ancp)
+    assert stats[1:3].tolist() == [big, b - big]
+
+
+def test_maat_reach_refuses_a_short_scratch(dev):
+    """K11a refuses a scratch one word short of its packed rows, columns
+    and candidates, and a group size it has no kernel for, before any
+    launch."""
+    from deneva_tpu_torch import kernels
+    b = 100
+    words = -(-b // 32)
+    need = 2 * b * words + 2 * maat.REACH_PIVOTS * words \
+        + 4 * maat.REACH_PIVOTS
+    p = torch.zeros(b, b, dtype=torch.bool, device=dev)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    out = torch.empty(b, dtype=torch.bool, device=dev)
+    for length, group in ((need - 1, 32), (need, 8)):
+        scratch = torch.empty(length, dtype=torch.int32, device=dev)
+        with pytest.raises(RuntimeError, match="dt_maat_reach"):
+            maat.K11A_REACH.launch(
+                kernels.ptr(p), kernels.ptr(live), kernels.ptr(live), b,
+                group, 1, kernels.ptr(scratch), length, kernels.ptr(out),
+                None, None, None, kernels.stream(live))
+
+
 @pytest.mark.parametrize("n,span,m", [(0, 10, 100), (1, 3, 50),
                                       (1000, 300, 10000),
                                       (1 << 20, 1 << 21, 655360)])
@@ -712,6 +792,116 @@ def test_scatter_add_matches_plain(dev, n, cap, cols):
     for c in a.columns:
         assert torch.equal(a.columns[c][:cap], b.columns[c][:cap]), c
         assert torch.equal(a.columns[c][cap + 1:], b.columns[c][cap + 1:])
+
+
+def _same_tables(a, b, cap):
+    for c in a.columns:
+        x, y = a.columns[c], b.columns[c]
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x[:cap], y[:cap]), c
+        assert torch.equal(x[cap + 1:], y[cap + 1:]), c
+
+
+@pytest.mark.parametrize("kind", ["one_slot", "wh4", "wh64", "cap_21_bits",
+                                  "chunks", "chunks_12_cols"])
+def test_scatter_add_ordered_cases_match_plain(dev, kind):
+    """K14c's ordered path against plain, floats as bits: all 2,048 lanes
+    on one slot, the 4- and 64-warehouse Payment shapes of the customer
+    table, a capacity of 1,920,000 (21 bits), and more lanes than one
+    block holds (3 columns: chunks of 4,096; 12 columns: of 2,048)."""
+    from deneva_tpu_torch.storage.catalog import parse_schema
+    from deneva_tpu_torch.storage.table import DeviceTable
+    n, cap, k = {"one_slot": (2048, 64, 3), "wh4": (2048, 120000, 3),
+                 "wh64": (2048, 1920000, 3), "cap_21_bits": (4096, 1920000, 1),
+                 "chunks": (10000, 640, 3),
+                 "chunks_12_cols": (5000, 64, 12)}[kind]
+    cols = [f"C{j}" for j in range(k)]
+    sch = parse_schema("TABLE=T\n" + "".join(
+        f"\t8,{'int64_t' if j == 2 else 'double'},{c}\n"
+        for j, c in enumerate(cols))).table("T")
+    g = np.random.default_rng(n + k)
+    a = DeviceTable.create(sch, cap, dev)
+    for c in a.columns.values():
+        c[:cap] = torch.from_numpy(g.uniform(0, 3e5, cap)).to(
+            c.dtype).to(dev)
+    b = copy.deepcopy(a)
+    if kind == "one_slot":
+        slots = np.full(n, 37, np.int32)
+        mask = np.ones(n, bool)
+    elif kind in ("wh4", "wh64"):
+        wh = 4 if kind == "wh4" else 64
+        w, d = g.integers(0, wh, n), g.integers(0, 10, n)
+        slots = ((w * 10 + d) * 3000 + g.integers(0, 3000, n)).astype(
+            np.int32)
+        mask = g.random(n) < 0.43
+    else:
+        slots = g.integers(-3, cap + 3, n).astype(np.int32)
+        mask = g.random(n) < 0.8
+    vals = {c: torch.from_numpy(g.uniform(1, 5000, n)).to(
+        a.columns[c].dtype).to(dev) for c in cols}
+    slots, mask = torch.from_numpy(slots).to(dev), torch.from_numpy(mask).to(dev)
+    a.scatter_add(slots, vals, mask=mask)
+    b.scatter_add_plain(slots, vals, mask=mask)
+    _same_tables(a, b, cap)
+
+
+@pytest.mark.parametrize("wh", [4, 64])
+@pytest.mark.parametrize("wh_update", [True, False])
+def test_scatter_add_many_matches_plain(dev, wh, wh_update):
+    """Payment's three tables in one K14c launch against the three plain
+    calls and against three one-table launches, floats as bits."""
+    from deneva_tpu_torch.storage import table
+    from deneva_tpu_torch.storage.catalog import parse_schema
+    from deneva_tpu_torch.storage.table import DeviceTable
+    sch = parse_schema("TABLE=WAREHOUSE\n\t8,double,W_YTD\n"
+                       "TABLE=DISTRICT\n\t8,double,D_YTD\n"
+                       "\t8,int64_t,D_NEXT_O_ID\n"
+                       "TABLE=CUSTOMER\n\t8,double,C_BALANCE\n"
+                       "\t8,double,C_YTD_PAYMENT\n\t8,int64_t,"
+                       "C_PAYMENT_CNT\n")
+    n = 2048
+    g = np.random.default_rng(wh)
+    caps = {"WAREHOUSE": wh, "DISTRICT": wh * 10, "CUSTOMER": wh * 30000}
+    tabs = {}
+    for nm, cap in caps.items():
+        t = DeviceTable.create(sch.table(nm), cap, dev)
+        for c in t.columns.values():
+            c[:cap] = torch.from_numpy(g.uniform(0, 3e5, cap)).to(
+                c.dtype).to(dev)
+        tabs[nm] = t
+    w, d = g.integers(0, wh, n), g.integers(0, 10, n)
+    c = g.integers(0, 3000, n)
+    mask = torch.from_numpy(g.random(n) < 0.43).to(dev)
+    amt = torch.from_numpy(g.uniform(1, 5000, n).astype(np.float32)).to(dev)
+    amt = torch.where(mask, amt, 0.0)
+
+    def adds(ts):
+        out = [(ts["DISTRICT"], torch.from_numpy(
+                    (w * 10 + d).astype(np.int32)).to(dev), {"D_YTD": amt}),
+               (ts["CUSTOMER"], torch.from_numpy(
+                   ((w * 10 + d) * 3000 + c).astype(np.int32)).to(dev),
+                {"C_BALANCE": -amt, "C_YTD_PAYMENT": amt,
+                 "C_PAYMENT_CNT": mask.to(torch.int32)})]
+        if wh_update:
+            out.insert(0, (ts["WAREHOUSE"], torch.from_numpy(
+                w.astype(np.int32)).to(dev), {"W_YTD": amt}))
+        return out
+    many = {nm: copy.deepcopy(t) for nm, t in tabs.items()}
+    ones = {nm: copy.deepcopy(t) for nm, t in tabs.items()}
+    plain = {nm: copy.deepcopy(t) for nm, t in tabs.items()}
+    k14c = table.K14C_SCATTER_ADD
+    before = k14c.launches
+    table.scatter_add_many(adds(many), mask)
+    assert k14c.launches == before + 1
+    for t, sl, up in adds(ones):
+        t.scatter_add(sl, up, mask=mask)
+    table.scatter_add_many_plain(adds(plain), mask)
+    for nm, cap in caps.items():
+        _same_tables(many[nm], plain[nm], cap)
+        _same_tables(many[nm], ones[nm], cap)
+    with pytest.raises(ValueError):
+        table.scatter_add_many(adds(many) + adds(many)[:1], mask)
 
 
 @pytest.mark.parametrize("ring,cap,n,start", [

@@ -169,9 +169,9 @@ def _count_branches(monkeypatch):
     seen = []
     real = maat.reach_stats
 
-    def counted(p, live, gate):
+    def counted(p, live, gate, *args, **kwargs):
         seen.append(bool(gate.any()))
-        return real(p, live, gate)
+        return real(p, live, gate, *args, **kwargs)
     monkeypatch.setattr(maat, "reach_stats", counted)
     return seen
 

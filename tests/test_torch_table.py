@@ -162,3 +162,132 @@ def test_append_edge_cases_match_reference(case, ring):
     _same_rows(j, t, cap)
     if case == "fills_up":     # 7 rows fit, 9 drop, the cursor clamps
         assert int(t.row_cnt) == cap and (tslots.numpy() == cap).sum() == 9
+
+
+# -- scatter_add_many: Payment's three tables in one K14c launch -------------
+
+PAYMENT = ("TABLE=WAREHOUSE\n\t8,double,W_YTD\n"
+           "TABLE=DISTRICT\n\t8,double,D_YTD\n\t8,int64_t,D_NEXT_O_ID\n"
+           "TABLE=CUSTOMER\n\t8,double,C_BALANCE\n\t8,double,C_YTD_PAYMENT\n"
+           "\t8,int64_t,C_PAYMENT_CNT\n")
+# rows per warehouse: 1, 10 districts, 10 x 3 customers (few, so the
+# customer slots repeat)
+PAY_ROWS = {"WAREHOUSE": 1, "DISTRICT": 10, "CUSTOMER": 30}
+
+
+def _payment_tables(wh, rng, striped=False):
+    js, ts = {}, {}
+    for name, per in PAY_ROWS.items():
+        cap = wh * per
+        j = JTable.create(j_parse(PAYMENT).table(name), cap)
+        t = DeviceTable.create(parse_schema(PAYMENT).table(name), cap, "cpu",
+                               striped=striped)
+        init = {c: (np.full(cap, 300000.0, np.float32) if c != "C_BALANCE"
+                    else rng.uniform(-50, 50, cap).astype(np.float32))
+                if np.asarray(j.columns[c]).dtype == np.float32
+                else rng.integers(0, 1000, cap).astype(np.int32)
+                for c in j.columns}
+        js[name] = j._replace(columns={**j.columns, **{
+            c: j.columns[c].at[:cap].set(jnp.asarray(v))
+            for c, v in init.items()}})
+        ts[name] = fill_columns(t, cap, {c: torch.from_numpy(v)
+                                         for c, v in init.items()})
+    return js, ts
+
+
+def _payment_lanes(wh, n, rng):
+    """Slots of each table (a few negative, past capacity, or the trash
+    row), the mask and the added values, Payment's columns."""
+    w = rng.integers(0, wh, n)
+    dk = w * 10 + rng.integers(0, 10, n)
+    slots = {"WAREHOUSE": w, "DISTRICT": dk,
+             "CUSTOMER": dk * 3 + rng.integers(0, 3, n)}
+    for name, s in slots.items():
+        cap = wh * PAY_ROWS[name]
+        odd = rng.random(n)
+        s = np.where(odd < 0.02, -1, np.where(odd < 0.04, cap + 2,
+                     np.where(odd < 0.06, cap, s)))
+        slots[name] = s.astype(np.int32)
+    mask = rng.random(n) < 0.6
+    amt = rng.uniform(1, 5000, n).astype(np.float32)
+    amt = np.where(mask, amt, 0).astype(np.float32)
+    vals = {"WAREHOUSE": {"W_YTD": amt}, "DISTRICT": {"D_YTD": amt},
+            "CUSTOMER": {"C_BALANCE": -amt, "C_YTD_PAYMENT": amt,
+                         "C_PAYMENT_CNT": mask.astype(np.int32)}}
+    return slots, mask, vals
+
+
+@pytest.mark.parametrize("wh,n,seed,tables,striped", [
+    (1, 2048, 0, ("WAREHOUSE", "DISTRICT", "CUSTOMER"), False),
+    (4, 2048, 1, ("WAREHOUSE", "DISTRICT", "CUSTOMER"), False),
+    (4, 300, 2, ("DISTRICT", "CUSTOMER"), False),
+    (64, 2048, 3, ("WAREHOUSE", "DISTRICT", "CUSTOMER"), True)])
+def test_scatter_add_many_matches_reference_calls(wh, n, seed, tables,
+                                                  striped):
+    """`scatter_add_many`'s plain route against the reference's
+    `DeviceTable.scatter_add` per table (W, D, C order) under duplicate
+    slots: rows [0, capacity) exact, float bits included, and the trash
+    and pad rows untouched."""
+    from deneva_tpu_torch.storage import table
+    rng = np.random.default_rng(seed)
+    js, ts = _payment_tables(wh, rng, striped)
+    slots, mask, vals = _payment_lanes(wh, n, rng)
+    for name in tables:
+        js[name] = js[name].scatter_add(
+            jnp.asarray(slots[name]),
+            {c: jnp.asarray(v) for c, v in vals[name].items()},
+            mask=jnp.asarray(mask))
+    table.scatter_add_many(
+        [(ts[name], torch.from_numpy(slots[name]),
+          {c: torch.from_numpy(v) for c, v in vals[name].items()})
+         for name in tables], torch.from_numpy(mask))
+    for name in tables:
+        cap = ts[name].capacity
+        _same_rows(js[name], ts[name], cap)
+        assert not any(v[cap].any() for v in ts[name].columns.values())
+
+
+def test_scatter_add_many_through_mesh_views():
+    """Through `McTableView` (four owner-major blocks): each shard's
+    launch adds its own rows, and the stacked rows equal the reference's
+    three one-table adds."""
+    from deneva_tpu_torch.storage import table
+    from deneva_tpu_torch.storage.table import mc_stacked_rows, to_mc_layout
+    from deneva_tpu_torch.workloads.mc import McTableView
+    wh, d, n = 4, 4, 1024
+    rng = np.random.default_rng(5)
+    js, ts = _payment_tables(wh, rng)
+    slots, mask, vals = _payment_lanes(wh, n, rng)
+    tm = {name: to_mc_layout(t, d, PAY_ROWS[name]) for name, t in ts.items()}
+    for name in PAY_ROWS:
+        js[name] = js[name].scatter_add(
+            jnp.asarray(slots[name]),
+            {c: jnp.asarray(v) for c, v in vals[name].items()},
+            mask=jnp.asarray(mask))
+    for me in range(d):
+        table.scatter_add_many(
+            [(McTableView(tm[name], me), torch.from_numpy(slots[name]),
+              {c: torch.from_numpy(v) for c, v in vals[name].items()})
+             for name in PAY_ROWS], torch.from_numpy(mask))
+    for name in PAY_ROWS:
+        at = mc_stacked_rows(tm[name])
+        for c, col in js[name].columns.items():
+            want = np.asarray(col)[:tm[name].capacity]
+            have = tm[name].columns[c][at].numpy()
+            np.testing.assert_array_equal(have.view(np.int32),
+                                          want.view(np.int32), err_msg=c)
+
+
+def test_scatter_add_many_refuses_four_tables_and_shared_columns():
+    from deneva_tpu_torch.storage import table
+    rng = np.random.default_rng(9)
+    _, ts = _payment_tables(2, rng)
+    slots, mask, vals = _payment_lanes(2, 64, rng)
+    calls = [(ts[name], torch.from_numpy(slots[name]),
+              {c: torch.from_numpy(v) for c, v in vals[name].items()})
+             for name in PAY_ROWS]
+    with pytest.raises(ValueError, match="at most 3"):
+        table.scatter_add_many(calls + calls[:1], torch.from_numpy(mask))
+    with pytest.raises(ValueError, match="twice"):
+        table.scatter_add_many(calls[:2] + calls[1:2],
+                               torch.from_numpy(mask))
