@@ -281,6 +281,24 @@ Phases (any error or mismatch exits non-zero and prints no result):
                ``git archive HEAD~1``) ``[K11-parent]`` times that
                commit's K11a beside this one on the same epochs and
                graphs, parent, this, this, parent.
+   Slice 14: ``[K8]`` K8 also at B = 2,048 on ``ycsb_skew``'s
+               conflicts (its own row of the kernels line), each ``[K8]``
+               line with the rounds the sweep ran before its fixpoint.
+               ``--slice14`` runs only K8 at both sizes and ``[K16]``,
+               K16 on the ``dgcc_contention`` epochs at theta 0.6, 0.9
+               and 0.99 at clusters of 1, 2, 4 and 8 CTAs; with
+               ``--profile`` also the OCC comparator's, ``ycsb_skew``
+               NO_WAIT's, DGCC theta 0.9's and the routed cell's
+               profiles (launches held to ``PATH_LAUNCHES``, K8's and
+               K16's device time an epoch); with ``--k14-parent DIR``
+               ``[K14-parent]`` times that commit's K8 and K16 beside
+               this one's on the same inputs, parent, this, this, parent.
+               ``--cluster-costs`` builds and runs
+               ``deneva_tpu_torch/probes/cluster_costs.cu`` (not in the
+               kernel library): a cluster barrier's device time
+               in four forms and back-to-back launches, plain, as a
+               cluster and as a pair with and without programmatic
+               dependent launch (``[cluster-costs]``).
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -297,7 +315,7 @@ device's idle share; for TPC-C, PPS, repair, DGCC and the audited cell
 also the host syncs in one epoch and the host's hot spots (cProfile);
 for the MAAT and TPC-C cells the profiled epochs' launches held to
 ``PATH_LAUNCHES`` and K11a's and K14c's launches and device time an
-epoch.
+epoch (K8's and K16's too under ``--slice14``).
 
 ``--audit-overhead`` runs only the armed-against-off comparison of OCC
 and CALVIN at ``ycsb_skew``: host milliseconds per epoch off, with the
@@ -1141,11 +1159,92 @@ def k7_case(ins, r: dict, card: str) -> torch.Tensor:
     return uw
 
 
+def k8_row(nm: str, b: int) -> str:
+    """The kernels line's row of a launch: K8's at B = 2,048 apart."""
+    return f"{nm}[B=2048]" if nm == "K8_first_fit" and b == SKEW_BATCH \
+        else nm
+
+
+def sweep_conflicts(dev, cfg, b: int, seed: int) -> tuple:
+    """K7's inputs at a sweep comparator's shape: both families' union
+    and write count rows of ``b`` txns generated from ``seed``."""
+    from deneva_tpu_torch.ops import conflict, prng
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    wl = YCSBWorkload(cfg, device=dev)
+    q = wl.generate(prng.split(prng.key_from_seed(seed, dev))[1], b)
+    (g1, g2), _ = conflict.hashed_incidence(
+        torch.zeros_like(q.keys), q.keys, ~q.is_write, q.is_write,
+        torch.ones_like(q.is_write),
+        torch.ones(b, dtype=torch.bool, device=dev), None, BUCKETS, 2,
+        ("u", "w"))
+    return g1["u"], g1["w"], g2["u"], g2["w"]
+
+
+def skew_conflicts(dev) -> tuple:
+    """K7's inputs at the sweep backends' ``ycsb_skew`` shape (B =
+    2,048)."""
+    return sweep_conflicts(dev, skew_config(False, "OCC"), SKEW_BATCH, 17)
+
+
+def sweep_rounds_run(uw, rank, active, rounds: int) -> int:
+    """The rounds K8 runs on these inputs: the reference's Jacobi rounds
+    up to and including the first that changes nothing (or ``rounds``)."""
+    from deneva_tpu_torch.ops import conflict
+    e = conflict.earlier_edges(uw, rank, active).to(torch.float32)
+    win = torch.zeros_like(active)
+    lose = torch.zeros_like(active)
+    for r in range(rounds):
+        pending = active & ~win & ~lose
+        new_win = pending & ~((e @ (~lose).to(torch.float32)) > 0)
+        new_lose = pending & ((e @ win.to(torch.float32)) > 0) & ~new_win
+        if not bool((new_win | new_lose).any()):
+            return r + 1
+        win, lose = win | new_win, lose | new_lose
+    return rounds
+
+
+def k8_inputs(uw) -> tuple:
+    """K8's (conflict, rank, active) on a conflict matrix, as the sweep
+    comparators take them: every txn active, ranks in lane order."""
+    b = uw.shape[0]
+    return (uw, 1 + torch.arange(b, dtype=torch.int32, device=uw.device),
+            torch.ones(b, dtype=torch.bool, device=uw.device))
+
+
+def k8_case(uw, rounds: int, r: dict, card: str):
+    """K8 on one conflict matrix against its plain version, timed into
+    ``r``; returns (win, lose, undecided)."""
+    from deneva_tpu_torch.ops import conflict
+    c, rank, active = k8_inputs(uw)
+    b = c.shape[0]
+    ff = conflict.first_fit(c, rank, active, rounds)
+    ff_p = conflict.first_fit_plain(c, rank, active, rounds)
+    for x, y in zip(ff, ff_p):
+        if not torch.equal(x, y):
+            fail(f"K8 at B = {b} differs from plain")
+    edges = int(conflict.earlier_edges(c, rank, active).sum())
+    r.update(max_abs_err=max(max_abs(x, y) for x, y in zip(ff, ff_p)),
+             ms=cuda_ms(lambda: conflict.first_fit(c, rank, active, rounds)),
+             plain_ms=cuda_ms(lambda: conflict.first_fit_plain(
+                 c, rank, active, rounds), iters=5), library_ms=None)
+    # one sequential pass over the edges decides the lex-first MIS
+    bound(r, b * b + 5 * b + 3 * b, 2 * edges)
+    ctas, in_smem, _ = conflict.first_fit_layout(b)
+    print(f"[K8] B={b}: win={int(ff[0].sum())} lose={int(ff[1].sum())} "
+          f"undecided={int(ff[2].sum())} edges={edges} rounds run "
+          f"{sweep_rounds_run(c, rank, active, rounds)} of {rounds}; "
+          f"cluster of {ctas} CTA(s), rows in "
+          f"{'shared memory' if in_smem else 'L2'}; {r['ms']:.4f} ms "
+          f"(card {card})", flush=True)
+    return ff
+
+
 def phase_sweep_kernels(dev, rec: dict, card: str) -> None:
     """K5+K6, K7, K8 and K10 against their plain versions at the OCC
     comparator's shapes: B = 1024 txns of 10 zipf-0.9 requests, K = 8192,
-    both families; K10 over the epoch's committed write lanes, and once
-    in the arena regime (N >= capacity)."""
+    both families (K7 and K8 also at ``ycsb_skew``'s B = 2,048); K10 over
+    the epoch's committed write lanes, and once in the arena regime (N >=
+    capacity)."""
     from deneva_tpu_torch.ops import conflict, prng, scatter
     from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
     b, k = OCC_BATCH, BUCKETS
@@ -1183,33 +1282,13 @@ def phase_sweep_kernels(dev, rec: dict, card: str) -> None:
     # K7 at this shape into the kernels line, and at the sweep backends'
     ins = (f1["u"], f1["w"], f2["u"], f2["w"])
     uw = k7_case(ins, rec["K7_overlap"], card)
-    wl2 = YCSBWorkload(skew_config(False, "OCC"), device=dev)
-    q2 = wl2.generate(prng.split(prng.key_from_seed(17, dev))[1], SKEW_BATCH)
-    (g1, g2), _ = conflict.hashed_incidence(
-        torch.zeros_like(q2.keys), q2.keys, ~q2.is_write, q2.is_write,
-        torch.ones_like(q2.is_write),
-        torch.ones(SKEW_BATCH, dtype=torch.bool, device=dev), None, k, 2,
-        ("u", "w"))
-    k7_case((g1["u"], g1["w"], g2["u"], g2["w"]), {}, card)
-    del wl2, q2, g1, g2
+    uw2 = k7_case(skew_conflicts(dev), {}, card)
 
-    # K8 on that conflict matrix, at the config's 24 rounds
+    # K8 on both conflict matrices, at the config's 24 rounds
     rounds = occ_config(False).sweep_rounds
-    ff = conflict.first_fit(uw, rank, active, rounds)
-    ff_p = conflict.first_fit_plain(uw, rank, active, rounds)
-    for x, y, nm in zip(ff, ff_p, ("win", "lose", "undecided")):
-        if not torch.equal(x, y):
-            fail(f"K8 {nm} differs from plain")
-    edges = int(conflict.earlier_edges(uw, rank, active).sum())
-    rec["K8_first_fit"].update(
-        max_abs_err=max(max_abs(x, y) for x, y in zip(ff, ff_p)),
-        ms=cuda_ms(lambda: conflict.first_fit(uw, rank, active, rounds)),
-        plain_ms=cuda_ms(lambda: conflict.first_fit_plain(
-            uw, rank, active, rounds), iters=5), library_ms=None)
-    # one sequential pass over the edges decides the lex-first MIS
-    bound(rec["K8_first_fit"], b * b + 5 * b + 3 * b, 2 * edges)
-    print(f"[K8] win={int(ff[0].sum())} lose={int(ff[1].sum())} "
-          f"undecided={int(ff[2].sum())} edges={edges}", flush=True)
+    ff = k8_case(uw, rounds, rec["K8_first_fit"], card)
+    k8_case(uw2, rounds, rec["K8_first_fit[B=2048]"], card)
+    del uw2
 
     # K10 over the committed write lanes, and in the arena regime
     wmask = (q.is_write & ff[0][:, None]).reshape(-1)
@@ -1242,7 +1321,7 @@ def phase_sweep_kernels(dev, rec: dict, card: str) -> None:
         library_ms=cuda_ms(lambda: lw_library(sl, od, mk, cp)))
     bound(rec["K10_last_writer"], 10 * n, 4 * n)
     for nm in ("K5K6_build_incidence", "K7_overlap", "K8_first_fit",
-               "K10_last_writer"):
+               "K8_first_fit[B=2048]", "K10_last_writer"):
         print_kernel(nm, rec[nm], card)
 
 
@@ -2015,58 +2094,71 @@ def tpcc_maat_reach(dev, card: str, epochs: int = 60) -> dict:
     return out
 
 
-def k11_vs_parent(inputs: dict, root: str, card: str) -> None:
-    """K11a of the checkout at ``root`` (the parent commit) beside this
-    tree's on the same inputs, in the order parent, this, this, parent.
-    The parent runs in a child process that imports its own package
-    (``--k11-child``); every call makes the counts, as the parent's
-    kernel always does."""
+def _port_calls() -> dict:
+    """kind -> (the kernel's wrapper, its plain version), from whichever
+    ``deneva_tpu_torch`` is on the path."""
+    from deneva_tpu_torch.cc import dgcc, maat
+    from deneva_tpu_torch.ops import conflict
+    return {"K11a": (maat.reach_stats, maat.reach_stats_plain),
+            "K8": (conflict.first_fit, conflict.first_fit_plain),
+            "K16": (dgcc.relax, dgcc.relax_plain)}
+
+
+def vs_parent(inputs: dict, root: str, card: str, tag: str) -> None:
+    """The kernels of the checkout at ``root`` (the parent commit) beside
+    this tree's on the same inputs (label -> (kind, args)), in the order
+    parent, this, this, parent.  The parent runs in a child process that
+    imports its own package (``--parent-child``)."""
     import os
     import tempfile
-    from deneva_tpu_torch.cc import maat
+    calls = _port_calls()
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as d:
-        f = os.path.join(d, "k11_inputs.pt")
-        torch.save({k: tuple(t.cpu() for t in v)
-                    for k, v in inputs.items()}, f)
+        f = os.path.join(d, "parent_inputs.pt")
+        torch.save({k: (kind, tuple(t.cpu() if torch.is_tensor(t) else t
+                                    for t in args))
+                    for k, (kind, args) in inputs.items()}, f)
 
         def parent():
             r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--k11-child", root, f],
+                                "--parent-child", root, f],
                                capture_output=True, text=True, timeout=900)
             if r.returncode != 0:
-                fail(f"K11a of the parent at {root}: {r.stderr[-2000:]}")
+                fail(f"the kernels of the parent at {root}: "
+                     f"{r.stderr[-2000:]}")
             return json.loads(r.stdout.strip().splitlines()[-1])
 
         def this():
-            return {k: cuda_ms(lambda: maat.reach_stats(p, live, gate))
-                    for k, (p, live, gate) in inputs.items()}
+            return {k: cuda_ms(lambda fn=calls[kind][0], a=args: fn(*a))
+                    for k, (kind, args) in inputs.items()}
         runs = [parent(), this(), this(), parent()]
     for k in inputs:
         a, b, c, e = (r[k] for r in runs)
-        print(f"[K11-parent] {k}: ms parent {a:.4f}, this {b:.4f}, this "
+        print(f"[{tag}-parent] {k}: ms parent {a:.4f}, this {b:.4f}, this "
               f"{c:.4f}, parent {e:.4f} (card {card})", flush=True)
 
 
-def k11_child(root: str, path: str) -> int:
-    """``--k11-child``: K11a of the package at ``root`` on the inputs at
-    ``path``, each checked against that package's plain version and
-    timed; prints the times by label as one JSON line."""
+def parent_child(root: str, path: str) -> int:
+    """``--parent-child``: the kernels of the package at ``root`` on the
+    inputs at ``path``, each checked against that package's plain version
+    and timed; prints the times by label as one JSON line."""
     import os
     sys.path.insert(0, os.path.abspath(root))
-    from deneva_tpu_torch.cc import maat
-    if not maat.__file__.startswith(os.path.abspath(root)):
-        fail(f"--k11-child imported {maat.__file__}, not the tree at {root}")
+    calls = _port_calls()
+    from deneva_tpu_torch import kernels
+    if not kernels.__file__.startswith(os.path.abspath(root)):
+        fail(f"--parent-child imported {kernels.__file__}, not the tree at "
+             f"{root}")
     dev = torch.device("cuda", 0)
     out = {}
-    for k, v in torch.load(path).items():
-        p, live, gate = (t.to(dev) for t in v)
-        got = maat.reach_stats(p, live, gate)
-        want = maat.reach_stats_plain(p, live, gate)
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            fail(f"K11a of the tree at {root} differs from its plain "
+    for k, (kind, v) in torch.load(path).items():
+        args = tuple(t.to(dev) if torch.is_tensor(t) else t for t in v)
+        fn, plain = calls[kind]
+        if not all(torch.equal(x, y) for x, y in zip(fn(*args),
+                                                     plain(*args))):
+            fail(f"{kind} of the tree at {root} differs from its plain "
                  f"version on {k}")
-        out[k] = cuda_ms(lambda: maat.reach_stats(p, live, gate))
+        out[k] = cuda_ms(lambda: fn(*args))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -3323,6 +3415,32 @@ def grab_calls(mod, name: str, calls: list):
         setattr(mod, name, real)
 
 
+def dgcc_epoch_lanes(dev, theta: float):
+    """(cfg, K15a's arguments) of epoch 11 of ``dgcc_contention`` DGCC at
+    ``theta`` from a fresh state: the doubled lanes and the txn count."""
+    from deneva_tpu_torch.cc import depgraph
+    from deneva_tpu_torch.engine.step import Engine
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    cfg = dgcc_config(theta)
+    eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
+    st = eng.run(eng.init_state(), 10)
+    calls: list = []
+    with grab_calls(depgraph, "lane_sort", calls):
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    return cfg, calls[0]
+
+
+def relax_inputs(dev, theta: float) -> tuple:
+    """K16's (head, sid, sw, live, b, rounds) on that epoch's lanes."""
+    from deneva_tpu_torch.cc import depgraph
+    cfg, (keys, pos, tid, n_txn) = dgcc_epoch_lanes(dev, theta)
+    sk, sp, sid = depgraph.lane_sort(keys, pos, tid, n_txn)
+    head = depgraph.census(sk, sp, sid)[0]
+    return (head, sid, (sp & 1) == 1, sk != depgraph.LANE_PAD, n_txn,
+            cfg.dgcc_levels)
+
+
 def phase_slice7_kernels(dev, rec: dict, card: str) -> None:
     """K13a on the inputs of a real OCC repair epoch at ``repair_ablation``'s
     YCSB shape (both sub-rounds checked, the first timed); K15a, K15b and
@@ -3377,15 +3495,9 @@ def phase_slice7_kernels(dev, rec: dict, card: str) -> None:
     print_kernel("K13a_repair_frontier", r, card)
     del eng, st, calls
     torch.cuda.empty_cache()
+    k15a = depgraph.lane_sort
     for theta in (0.6, 0.9, 0.99):
-        cfg = dgcc_config(theta)
-        eng = Engine(cfg, YCSBWorkload(cfg, device=dev))
-        st = eng.run(eng.init_state(), 10)
-        calls = []
-        with grab_calls(depgraph, "lane_sort", calls) as k15a:
-            st = eng.step(st)
-        torch.cuda.synchronize()
-        keys, pos, tid, n_txn = calls[0]
+        cfg, (keys, pos, tid, n_txn) = dgcc_epoch_lanes(dev, theta)
         srt = k15a(keys, pos, tid, n_txn)
         srt_p = depgraph.lane_sort_plain(keys, pos, tid)
         cen = depgraph.census(*srt)
@@ -3434,7 +3546,6 @@ def phase_slice7_kernels(dev, rec: dict, card: str) -> None:
               f"deferred={int((rel[0] >= cfg.dgcc_levels).sum())} "
               f"relax_rounds={iters}: " + "; ".join(line)
               + f" (card {card})", flush=True)
-        del eng, st, calls
         torch.cuda.empty_cache()
     for nm in ("K15a_lane_sort", "K15b_seg_scans", "K16_dgcc_relax"):
         print_kernel(nm, rec[nm], card)
@@ -3830,10 +3941,13 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None,
               f"{k[:90]}", flush=True)
     if path is not None:
         check_launches(counts, path, m, f"profile {mode}")
-        for nm, key in (("K11a_maat_reach", "reach_"),
-                        ("K14c_scatter_add", "scatter_add_")):
-            dev_n = sum(v[1] for k, v in by_name.items() if key in k)
-            dev_us = sum(v[0] for k, v in by_name.items() if key in k)
+        for nm, keys in (("K11a_maat_reach", ("reach_",)),
+                         ("K14c_scatter_add", ("scatter_add_",)),
+                         ("K8_first_fit", ("pack_edges", "first_fit")),
+                         ("K16_dgcc_relax", ("relax_kernel",))):
+            ks = [k for k in by_name if any(x in k for x in keys)]
+            dev_n = sum(by_name[k][1] for k in ks)
+            dev_us = sum(by_name[k][0] for k in ks)
             if counts.get(nm):
                 print(f"[profile] {mode}: {nm} {counts[nm] / m:.1f} "
                       f"launches/epoch (PATH_LAUNCHES {path}: "
@@ -5419,8 +5533,8 @@ def phase_slice13(dev, card: str) -> None:
     if "--k11-parent" in sys.argv:
         inputs.update({f"graph {nm}": tuple(t.to(dev) for t in v)
                        for nm, v in k11_graphs(b).items()})
-        k11_vs_parent(inputs, sys.argv[sys.argv.index("--k11-parent") + 1],
-                      card)
+        vs_parent({k: ("K11a", v) for k, v in inputs.items()},
+                  sys.argv[sys.argv.index("--k11-parent") + 1], card, "K11")
     del inputs, p, live0
     torch.cuda.empty_cache()
     for wh in (64, 4):
@@ -5436,14 +5550,101 @@ def phase_slice13(dev, card: str) -> None:
             torch.cuda.empty_cache()
 
 
+def cluster_costs(card: str) -> None:
+    """``--cluster-costs``: build and run ``probes/cluster_costs.cu`` (a
+    stand-alone probe, not in the kernel library): device time of a
+    cluster barrier in four forms and of back-to-back launches."""
+    from deneva_tpu_torch import kernels
+    src = kernels.CSRC.parent / "probes" / "cluster_costs.cu"
+    exe = kernels.BUILD_DIR / "cluster_costs"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([kernels._nvcc(), kernels.ARCH, "-O3", "-std=c++17",
+                        str(src), "-o", str(exe)], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cluster_costs.cu: {r.stdout[-1000:]}{r.stderr[-1000:]}")
+    r = subprocess.run([str(exe)], capture_output=True, text=True,
+                       timeout=300)
+    print(r.stdout.rstrip() + f" (card {card})", flush=True)
+    if r.returncode != 0:
+        fail(f"cluster_costs: exit {r.returncode}: {r.stderr[-1000:]}")
+
+
+SLICE14_PROFILES = (("OCC fingerprint", "OCC", "occ"),
+                    ("NO_WAIT fingerprint", "NO_WAIT", "nowait"),
+                    ("DGCC theta 0.9", "DGCC", "dgcc"))
+
+
+def slice14_profile_cfg(which: str):
+    return {"occ": lambda: occ_config(False),
+            "nowait": lambda: skew_config(False, "NO_WAIT"),
+            "dgcc": lambda: dgcc_config(0.9)}[which]()
+
+
+def phase_slice14(dev, card: str) -> None:
+    """K8 on the OCC comparator's conflicts (B = 1,024) and on
+    ``ycsb_skew``'s (B = 2,048), K16 on the ``dgcc_contention`` epochs at
+    theta 0.6, 0.9 and 0.99 at each cluster size, each exact against its
+    plain version and timed (``--slice14`` runs only these); with
+    ``--k14-parent DIR`` each beside the kernels of the checkout at DIR,
+    and with ``--profile`` the OCC comparator's, ``ycsb_skew`` NO_WAIT's,
+    DGCC theta 0.9's and the routed cell's profiles."""
+    from deneva_tpu_torch.cc import dgcc
+    from deneva_tpu_torch.ops import conflict
+    rounds = occ_config(False).sweep_rounds
+    inputs = {}
+    for b, ins in ((OCC_BATCH, sweep_conflicts(dev, occ_config(False),
+                                               OCC_BATCH, 13)),
+                   (SKEW_BATCH, skew_conflicts(dev))):
+        uw = conflict.overlap(*ins)
+        r: dict = {}
+        k8_case(uw, rounds, r, card)
+        print_kernel(f"K8_first_fit[B={b}]", r, card)
+        inputs[f"K8 B={b}"] = ("K8", k8_inputs(uw) + (rounds,))
+        del ins
+    for theta in (0.6, 0.9, 0.99):
+        args = relax_inputs(dev, theta)
+        want = dgcc.relax_plain(*args)
+        ms = {}
+        n, b = args[1].numel(), args[4]
+        for top in (1, 2, 4, 8):
+            c = dgcc.relax_layout(n, b, top)[0]
+            got = dgcc._relax(*args, top)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                fail(f"K16 theta {theta}, C = {c}: differs from plain")
+            ms[c] = cuda_ms(lambda top=top: dgcc._relax(*args, top))
+        its = int(want[2])
+        print(f"[K16] dgcc_contention theta {theta} epoch 11: lanes={n} "
+              f"live={int(args[3].sum())} txns={b} rounds run={its}: "
+              + ", ".join(f"C={c} {t:.4f} ms ({t / its * 1e3:.2f} us a "
+                          "round)" for c, t in ms.items())
+              + f"; the library's C={dgcc.relax_layout(n, b)[0]} (card "
+              f"{card})", flush=True)
+        inputs[f"K16 theta {theta}"] = ("K16", args)
+    if "--k14-parent" in sys.argv:
+        vs_parent(inputs, sys.argv[sys.argv.index("--k14-parent") + 1], card,
+                  "K14")
+    del inputs
+    torch.cuda.empty_cache()
+    if "--profile" in sys.argv:
+        for label, path, which in SLICE14_PROFILES:
+            phase_profile(dev, slice14_profile_cfg(which), label, path=path)
+            torch.cuda.empty_cache()
+        from deneva_tpu_torch.cc.router import knobs_from_decision
+        phase_profile(dev, router_cfg(), "router mixed [0,1,2,2]",
+                      lambda c: knobs_from_decision(
+                          c, [0, 1, 2, 2], [0, 2, 0, 0], 1, 2, dev),
+                      path="ROUTED_MIXED")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    if "--k11-child" in sys.argv:
-        i = sys.argv.index("--k11-child")
-        return k11_child(sys.argv[i + 1], sys.argv[i + 2])
+    if "--parent-child" in sys.argv:
+        i = sys.argv.index("--parent-child")
+        return parent_child(sys.argv[i + 1], sys.argv[i + 2])
     import deneva_tpu_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -5456,6 +5657,15 @@ def main() -> int:
         return 0
     if "--audit-overhead" in sys.argv:
         audit_overhead(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
+    if "--cluster-costs" in sys.argv:
+        cluster_costs(info["card"])
+        if "--slice14" not in sys.argv:
+            print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+            return 0
+    if "--slice14" in sys.argv:
+        phase_slice14(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
         return 0
     if "--slice13" in sys.argv:
@@ -5478,7 +5688,8 @@ def main() -> int:
                              "K3_forward_execute[full_row]",
                              "K4a_threefry_split", "K4b_ycsb_generate",
                              "K5K6_build_incidence", "K7_overlap",
-                             "K8_first_fit", "K10_last_writer",
+                             "K8_first_fit", "K8_first_fit[B=2048]",
+                             "K10_last_writer",
                              "K12a_watermark_check", "K12b_commit_watermarks",
                              "K12c_version_read", "K12d_version_push",
                              "K4b_ycsb_generate[hot]",
@@ -5534,13 +5745,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches: dict[str, int] = {}
     # slice 11: the partitioned cells, the routed epochs and the armed
-    # controller's run; their kernel runs count on the main path
+    # controller's run; their kernel runs count on the main path (their
+    # sweeps at the ycsb_skew batch of 2,048)
     for counts in (phase_part(dev, info["card"]),
                    phase_router(dev, info["card"]),
                    phase_ctrl_simulate(dev, info["card"])):
         for nm, c in counts.items():
-            if nm in rec:
-                launches[nm] = launches.get(nm, 0) + c
+            key = k8_row(nm, SKEW_BATCH)
+            if key in rec:
+                launches[key] = launches.get(key, 0) + c
     torch.cuda.empty_cache()
     tput = {}
     fields_of: dict[str, dict] = {}
@@ -5681,6 +5894,7 @@ def main() -> int:
                 key = f"{nm}[{mode}]"
             elif nm == "K4b_ycsb_generate" and cfg.skew_method == "HOT":
                 key = f"{nm}[hot]"
+            key = k8_row(key, cfg.epoch_batch)
             launches[key] = launches.get(key, 0) + c
         torch.cuda.empty_cache()
     print(f"[vs_baseline] TPU_BATCH / OCC committed txn/s (fingerprint) = "

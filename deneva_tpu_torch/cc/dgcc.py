@@ -21,8 +21,9 @@ Escrow (``order_free``) lanes contribute no lanes and commit in wave 0.
 The kernels: K15a sorts the doubled lanes, K15b finds the segments and
 counts the edges (`cc.depgraph`), and **K16** `relax` (``csrc/
 depgraph.cu``, beside its plain version) runs the whole relaxation in one
-launch — replacing ``dgcc.py:127-154`` — so the round count and the
-changed flag stay on the device and the epoch never syncs the host.  It
+launch of a thread-block cluster — replacing ``dgcc.py:127-154`` — so the
+round count and the changed flag stay on the device and the epoch never
+syncs the host.  It
 is Jacobi, as the reference: each round reads the previous round's
 levels, so a run cut by the budget ends where the reference's does.
 The arrival order ``dpos`` (``:94-97``) is torch glue (one stable argsort
@@ -46,8 +47,18 @@ MASK32 = 0xFFFFFFFF
 
 K16_RELAX = kernels.Kernel("dt_dgcc_relax", [
     kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
-    kernels.I32, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
-    kernels.P])
+    kernels.I32, kernels.I32, kernels.I32, kernels.P, kernels.I64, kernels.P,
+    kernels.P, kernels.P, kernels.P])
+
+
+def relax_layout(n: int, b: int, max_ctas: int = 0) -> tuple[int, bool, int]:
+    """K16's launch over ``n`` lanes and ``b`` txns as the kernel library
+    chooses it (CUDA only): (CTAs of its cluster, lane words in shared
+    memory rather than scratch, int32 words of scratch).  ``max_ctas``
+    (1, 2, 4 or 8) caps the cluster; 0 takes the library's choice."""
+    ctas, shared, words = kernels.layout("dt_dgcc_relax_layout", n, b,
+                                         max_ctas)
+    return ctas, bool(shared), words
 
 
 def relax_plain(head: torch.Tensor, sid: torch.Tensor, sw: torch.Tensor,
@@ -79,8 +90,16 @@ def relax_plain(head: torch.Tensor, sid: torch.Tensor, sw: torch.Tensor,
 def relax(head: torch.Tensor, sid: torch.Tensor, sw: torch.Tensor,
           live: torch.Tensor, b: int, rounds: int):
     """K16: the relaxation to its fixpoint or ``2 * rounds + 4`` rounds in
-    one single-block launch; returns (lv, changed, rounds run) on the
-    device."""
+    one launch of a thread-block cluster (`relax_layout`); returns (lv,
+    changed, rounds run) on the device.  The lanes are those of
+    `depgraph.census`: the live ones a prefix (dead lanes sort last), lane
+    0 a segment head."""
+    return _relax(head, sid, sw, live, b, rounds, 0)
+
+
+def _relax(head, sid, sw, live, b: int, rounds: int, max_ctas: int):
+    """`relax` in a cluster of at most ``max_ctas`` CTAs (0: the library's
+    choice); other sizes are for measuring them against each other."""
     if kernels.on_cpu(head, sid, sw, live):
         return relax_plain(head, sid, sw, live, b, rounds)
     n = sid.shape[0]
@@ -93,13 +112,15 @@ def relax(head: torch.Tensor, sid: torch.Tensor, sw: torch.Tensor,
         raise ValueError("K16 takes 1 <= rounds <= 256, under 2^21 lanes "
                          "and the levels of at most 25,600 txns in shared "
                          "memory")
-    meta = torch.empty(n, dtype=torch.int32, device=dev)
+    words = relax_layout(n, b, max_ctas)[2]
+    meta = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
     lv = torch.empty(b, dtype=torch.int32, device=dev)
     changed = torch.empty((), dtype=torch.bool, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     K16_RELAX.launch(kernels.ptr(head), kernels.ptr(sid), kernels.ptr(sw),
                      kernels.ptr(live), n, b, rounds, 2 * rounds + 4,
-                     kernels.ptr(meta), kernels.ptr(lv), kernels.ptr(changed),
+                     max_ctas, kernels.ptr(meta), meta.numel(),
+                     kernels.ptr(lv), kernels.ptr(changed),
                      kernels.ptr(iters), kernels.stream(sid))
     return lv, changed, iters
 

@@ -16,6 +16,22 @@ static inline cudaStream_t dt_stream(void* s) {
 
 static inline int dt_status() { return static_cast<int>(cudaGetLastError()); }
 
+// The dynamic shared memory a block of `kernel` may take on the current
+// device: the per-block opt-in limit less the kernel's static shared
+// memory (a launch asking for more is refused).  0 where a query fails.
+template <typename F>
+static inline size_t dt_smem_room(F* kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes a = {};
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&a, kernel) != cudaSuccess)
+    return 0;
+  const size_t lim = static_cast<size_t>(optin);
+  return a.sharedSizeBytes < lim ? lim - a.sharedSizeBytes : 0;
+}
+
 // Blocks for one thread per element (at least one block).
 static inline int dt_blocks(long long n, int threads) {
   const long long b = (n + threads - 1) / threads;

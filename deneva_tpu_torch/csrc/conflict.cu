@@ -42,21 +42,37 @@
 //   is clear.  A dense row (many buckets) loops longer and stays exact.
 //
 // K8 dt_first_fit replaces deneva_tpu/ops/conflict.py:78 earlier_edges
-// fused into :96 greedy_first_fit.  A first launch packs
-// E[i, j] = conflict[i, j] & active[i] & active[j] & (rank, lane)_j <
-// (rank, lane)_i into bits, one warp ballot per 32 columns.  The sweep
-// runs in one block: win / lose / active are bit sets in shared memory,
-// each thread owns rows, and a round is one Jacobi step (every row reads
-// the previous round's sets; the new bits land in separate sets and are
-// merged after a barrier), exactly the reference's update order.  A round
-// that changes nothing leaves every later round unchanged, so the loop
-// stops there.  The edge bits sit in shared memory when they fit
-// (B = 1024: 128 KB) and are read from global memory (L2) otherwise.
+// fused into :96 greedy_first_fit.  Two launches.
+//   (1) The pack: E[i, j] = conflict[i, j] & active[i] & active[j] &
+//       (rank, lane)_j < (rank, lane)_i as bits, and each row's edge
+//       count, over a grid of 32 x 256 tiles: 16-byte loads of `conflict`
+//       into shared memory beside the tile's ranks and flags, one ballot
+//       per 32 columns.
+//   (2) The sweep, in one thread-block cluster of C CTAs, launched to
+//       overlap the pack's tail: CTA r owns a slice of the rows and holds
+//       their edge bits in shared memory (one bulk asynchronous copy
+//       behind an mbarrier; C = 1 up to B = 1,280, C = 2, 4, 8 up to
+//       1,792, 2,688, 3,712; past that C = 8 reads the rows from L2),
+//       with full copies of the win / lose / active sets.  A round is one
+//       Jacobi step, exactly the reference's update order.  Round 0 reads
+//       no row (a row wins iff it has no edge); later rounds list the
+//       pending rows (active, not yet won or lost) and give each a lane
+//       that ORs the row against the round's sets 16 bytes a step (W
+//       padded to a multiple of 4 words).  The verdicts
+//       land in the next sets, and every CTA stores its words into the
+//       others through distributed shared memory (st.async, counted on
+//       the receiver's mbarrier: no cluster-wide barrier a round).  A
+//       round that changes nothing leaves every later round unchanged,
+//       so the loop stops there, in every CTA at once.
 //   Bound: bytes — reading the B x B bool conflict matrix once.
+#include "cluster.cuh"
 #include "common.cuh"
 #include "hashing.cuh"
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -293,100 +309,366 @@ overlap_rows_kernel(const __nv_bfloat16* __restrict__ a1,
 
 // ---- K8 -------------------------------------------------------------
 
-__global__ void pack_edges_kernel(const uint8_t* __restrict__ conflict,
-                                  const int32_t* __restrict__ rank,
-                                  const uint8_t* __restrict__ active, int B,
-                                  int W, uint32_t* __restrict__ bits) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (i >= B) return;
-  const bool ai = active[i] != 0;
-  const int32_t ri = rank[i];
-  for (int w = 0; w < W; ++w) {
-    const int j = w * 32 + lane;
-    bool e = false;
-    if (ai && j < B && conflict[static_cast<size_t>(i) * B + j] &&
-        active[j]) {
-      const int32_t rj = rank[j];
-      e = rj < ri || (rj == ri && j < i);
+constexpr int kPackRows = 32;      // rows of one pack tile (one per word)
+constexpr int kPackCols = 256;     // columns of one pack tile (8 words)
+constexpr int kFfThreads = 1024;
+constexpr int kMaxCtas = 8;        // the portable cluster size
+constexpr uint32_t kBulkChunk = 32768;
+
+// Words of a sweep CTA's shared memory: when they sit there, the owned
+// rows' edge words (32 own rows of W words) and the list of a round's
+// pending owned rows (32 own; else in global scratch); then win[2][W],
+// lose[2][W], act[W], flags[2][kMaxCtas], two list counters and three
+// 8-byte mbarriers (the copy's and a round's exchange by parity) with
+// their alignment slack.  W is a multiple of 4, so the sets start 16-byte
+// aligned.
+__host__ __device__ __forceinline__ size_t ff_smem_words(int W, int own,
+                                                         int in_smem) {
+  const size_t tile = in_smem ? 32 * static_cast<size_t>(own) * (W + 1) : 0;
+  return tile + 5 * static_cast<size_t>(W) + 2 * kMaxCtas + 10;
+}
+
+// bits[i * W + w] bit l = E[i, 32 w + l] for i < 32 W (rows past B are
+// zero), and cnt[x][i] = row i's edges among columns [256 x, 256 x +
+// 256).  grid (ceil(W / 8), W), 256 threads: the block stages a 32 x 256
+// byte tile of `conflict` with 16-byte loads (`vec`: B % 16 == 0 and an
+// aligned base) and the tile's ranks and active flags; warp k ballots
+// rows k, k + 8, k + 16, k + 24, eight words each, and lane q keeps the
+// q-th ballot (a select, no shifted insert: ROADMAP watch item 35), so
+// each row's eight words leave as one 32-byte store; eight lanes then sum
+// their row's popcounts.
+__global__ void __launch_bounds__(256)
+pack_edges_kernel(const uint8_t* __restrict__ conflict,
+                  const int32_t* __restrict__ rank,
+                  const uint8_t* __restrict__ active, int B, int W, int vec,
+                  uint32_t* __restrict__ bits, int32_t* __restrict__ cnt) {
+  __shared__ __align__(16) uint8_t tile[kPackRows][kPackCols];
+  __shared__ int32_t rk[kPackCols];
+  __shared__ uint8_t ac[kPackCols];
+  const int c0 = blockIdx.x * kPackCols, r0 = blockIdx.y * kPackRows;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  // the sweep may launch now; it waits for this grid before the bits
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  for (int e = t; e < kPackRows * kPackCols / 16; e += blockDim.x) {
+    const int rr = e / (kPackCols / 16), cc = (e % (kPackCols / 16)) * 16;
+    const int i = r0 + rr, j = c0 + cc;
+    const uint8_t* src = conflict + static_cast<size_t>(i) * B + j;
+    if (vec) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (i < B && j < B) v = *reinterpret_cast<const uint4*>(src);
+      *reinterpret_cast<uint4*>(&tile[rr][cc]) = v;
+    } else {
+      for (int k = 0; k < 16; ++k)
+        tile[rr][cc + k] = i < B && j + k < B ? src[k] : 0;
     }
-    const unsigned word = __ballot_sync(0xffffffffu, e);
-    if (lane == 0) bits[static_cast<size_t>(i) * W + w] = word;
   }
+  for (int c = t; c < kPackCols; c += blockDim.x) {
+    const int j = c0 + c;
+    rk[c] = j < B ? rank[j] : 0;
+    ac[c] = j < B ? active[j] : 0;
+  }
+  bool ai[4];
+  int32_t ri[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int i = r0 + warp + 8 * h;
+    ai[h] = i < B && active[i];
+    ri[h] = i < B ? rank[i] : 0;
+  }
+  __syncthreads();
+  uint32_t out = 0u;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int h = q >> 3, rr = warp + 8 * h, cc = 32 * (q & 7) + lane;
+    const int i = r0 + rr, j = c0 + cc;
+    const int32_t rj = rk[cc];
+    const bool e = ai[h] && tile[rr][cc] && ac[cc] &&
+                   (rj < ri[h] || (rj == ri[h] && j < i));
+    const unsigned word = __ballot_sync(0xffffffffu, e);
+    if (lane == q) out = word;
+  }
+  const int w = blockIdx.x * (kPackCols / 32) + (lane & 7);
+  const int row = r0 + warp + 8 * (lane >> 3);
+  if (w < W) bits[static_cast<size_t>(row) * W + w] = out;
+  int n = w < W ? __popc(out) : 0;
+  for (int off = 1; off < 8; off <<= 1)
+    n += __shfl_xor_sync(0xffffffffu, n, off);
+  if ((lane & 7) == 0)
+    cnt[static_cast<size_t>(blockIdx.x) * 32 * W + row] = n;
 }
 
 __device__ __forceinline__ bool bit(const uint32_t* s, int i) {
   return (s[i >> 5] >> (i & 31)) & 1u;
 }
 
-__global__ void __launch_bounds__(1024)
+// The edge tile's bulk copy (thread 0): `bytes` on barrier `bar`.
+__device__ __forceinline__ void bulk_tile(uint32_t* dst, const uint32_t* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  mbar_expect(bar, bytes);
+  const char* s = reinterpret_cast<const char*>(src);
+  char* d = reinterpret_cast<char*>(dst);
+  for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
+    const uint32_t n = min(kBulkChunk, bytes - off);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(d + off)),
+        "l"(s + off), "r"(n), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// One cluster of C CTAs (C = 1 included).  CTA r owns words [r own,
+// (r + 1) own) of the B-bit sets, i.e. rows [32 r own, 32 (r + 1) own),
+// and keeps a full copy of win / lose (two of each: the round's sets and
+// the next) and of act.  Round 0 needs no row: with nothing won or lost
+// yet a row wins exactly when it has no edge, which the pack counted.
+// Every later round lists the owned pending rows (active, not yet won or
+// lost): with the rows in shared memory a lane ORs a listed row against
+// the round's sets, 16 bytes a step (W is padded to 4 words), starting at
+// chunk (lane mod W / 4) so that a quarter warp's loads hit distinct
+// banks; with the rows in L2 a warp reads one listed row at a time, its
+// words one coalesced load, and votes.  Verdicts land in the next sets.
+// A CTA's next words then go to every other CTA with its changed flag by
+// remote stores that count on the receiver's mbarrier (cluster.cuh), and
+// the round ends when a CTA holds all of them (C = 1: at the block
+// barrier that ORs the flag).  Every CTA ORs the same flags, so all leave in the
+// same round.  The launch may overlap the pack's tail (programmatic
+// dependent launch): everything before the copy reads only `active`.
+template <bool kSmem>
+__global__ void __launch_bounds__(kFfThreads, 1)
 first_fit_kernel(const uint32_t* __restrict__ edges_g,
+                 const int32_t* __restrict__ cnt, int parts,
+                 int32_t* __restrict__ list_g,
                  const uint8_t* __restrict__ active, int B, int W,
-                 int rounds, int edges_in_smem, uint8_t* __restrict__ win_o,
+                 int rounds, int own, uint8_t* __restrict__ win_o,
                  uint8_t* __restrict__ lose_o, uint8_t* __restrict__ und_o) {
-  extern __shared__ uint32_t sm[];
-  uint32_t* win = sm;
-  uint32_t* lose = sm + W;
-  uint32_t* nwin = sm + 2 * W;
-  uint32_t* nlose = sm + 3 * W;
-  uint32_t* act = sm + 4 * W;
-  const uint32_t* edges = edges_g;
-  const int tid = threadIdx.x, lane = tid & 31, bd = blockDim.x;
-  for (int w = tid; w < W; w += bd) win[w] = lose[w] = 0u;
-  for (int i0 = 0; i0 < B; i0 += bd) {
+  extern __shared__ __align__(128) uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int cr = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int w0 = min(cr * own, W), nown = min(own, W - w0);
+  const int row0 = 32 * w0;
+  const size_t tile_rows = 32 * static_cast<size_t>(own);
+  uint32_t* edges_s = sm;
+  int32_t* list = kSmem ? reinterpret_cast<int32_t*>(sm + tile_rows * W)
+                        : list_g + static_cast<size_t>(cr) * tile_rows;
+  uint32_t* const sets = sm + (kSmem ? tile_rows * (W + 1) : 0);
+  uint32_t* act = sets + 4 * W;          // sets: win[0], win[1], lose[0..1]
+  int32_t* flags = reinterpret_cast<int32_t*>(sets + 5 * W);
+  int32_t* cnt_s = flags + 2 * kMaxCtas;
+  const size_t at = (static_cast<size_t>(cnt_s + 2 -
+                                         reinterpret_cast<int32_t*>(sm)) +
+                     1) & ~static_cast<size_t>(1);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + at);   // copy, x[2]
+
+  mbar_init(bar, 3);
+  if (tid == 0) cnt_s[0] = cnt_s[1] = 0;
+  for (int w = tid; w < W; w += blockDim.x) sets[w] = sets[2 * W + w] = 0u;
+  for (int i0 = 0; i0 < 32 * W; i0 += blockDim.x) {
     const int i = i0 + tid;
     const unsigned a = __ballot_sync(0xffffffffu, i < B && active[i]);
-    if (lane == 0 && (i >> 5) < W) act[i >> 5] = a;
-  }
-  if (edges_in_smem) {
-    uint32_t* se = sm + 5 * W;
-    const size_t n = static_cast<size_t>(B) * W;
-    for (size_t x = tid; x < n; x += bd) se[x] = edges_g[x];
-    edges = se;
+    if (lane == 0 && i < 32 * W) act[i >> 5] = a;
   }
   __syncthreads();
+  grid_dependency_wait();   // the pack's bits and counts are complete
+  if (kSmem && tid == 0)
+    bulk_tile(edges_s, edges_g + static_cast<size_t>(row0) * W,
+              static_cast<uint32_t>(32u * nown * W * sizeof(uint32_t)), bar);
+  // round 0's verdicts, into win[1]: an active row without edges wins
+  for (int t = warp; t < nown; t += nwarps) {
+    const int i = row0 + 32 * t + lane;
+    int n = 0;
+    for (int x = 0; x < parts; ++x)
+      n += cnt[static_cast<size_t>(x) * 32 * W + i];
+    const uint32_t bw = __ballot_sync(0xffffffffu, n == 0);
+    if (lane == 0) sets[W + w0 + t] = act[w0 + t] & bw;
+  }
+  if (kSmem) mbar_wait(bar, 0);
+  __syncthreads();
+  if (C > 1) cluster_start();
+  // bytes a round receives: the other CTAs' next words and flags
+  uint32_t rx = 0;
+  for (int q = 0; q < C; ++q)
+    if (q != cr) rx += 4u * (2 * min(own, W - min(q * own, W)) + 1);
+
+  int fin = 0;
   for (int r = 0; r < rounds; ++r) {
-    int changed = 0;
-    for (int i0 = 0; i0 < B; i0 += bd) {
-      const int i = i0 + tid;
-      bool nw = false, nl = false;
-      if (i < B && bit(act, i) && !bit(win, i) && !bit(lose, i)) {
-        bool blocked = false, hit = false;
-        const uint32_t* row = edges + static_cast<size_t>(i) * W;
-        for (int w = 0; w < W; ++w) {
-          const uint32_t e = row[w];
-          blocked |= (e & ~lose[w]) != 0u;
-          hit |= (e & win[w]) != 0u;
+    const int par = r & 1;
+    const uint32_t* wc = sets + par * W;
+    const uint32_t* lc = sets + (2 + par) * W;
+    uint32_t* wn = sets + (par ^ 1) * W;
+    uint32_t* ln = sets + (2 + (par ^ 1)) * W;
+    int dec = 0;
+    if (r == 0) {
+      // the next sets' owned words were written above; lose stays empty
+      for (int t = tid; t < nown; t += blockDim.x) {
+        ln[w0 + t] = 0u;
+        dec |= wn[w0 + t] != 0u;
+      }
+    } else {
+      // list the owned pending rows; carry the owned words to the next
+      for (int t = warp; t < nown; t += nwarps) {
+        const int w = w0 + t;
+        const uint32_t a = wc[w], l = lc[w];
+        const uint32_t pend = act[w] & ~a & ~l;
+        if (lane == 0) {
+          wn[w] = a;
+          ln[w] = l;
         }
-        nw = !blocked;
-        nl = hit && !nw;
+        if (pend == 0u) continue;
+        int base = 0;
+        if (lane == 0) base = atomicAdd(&cnt_s[par], __popc(pend));
+        base = __shfl_sync(0xffffffffu, base, 0);
+        if ((pend >> lane) & 1u)
+          list[base + __popc(pend & ((1u << lane) - 1u))] = 32 * t + lane;
       }
-      const unsigned bw = __ballot_sync(0xffffffffu, nw);
-      const unsigned bl = __ballot_sync(0xffffffffu, nl);
-      if (lane == 0 && (i >> 5) < W) {
-        nwin[i >> 5] = bw;
-        nlose[i >> 5] = bl;
+      __syncthreads();
+      const int n = cnt_s[par];
+      if (tid == 0) cnt_s[par ^ 1] = 0;
+      if (kSmem) {
+        // a lane a listed row, 16 bytes a step from chunk (lane mod W / 4)
+        // on: a quarter warp's loads hit distinct banks
+        const int q = W >> 2;
+        for (int x0 = 32 * warp; x0 < n; x0 += 32 * nwarps) {
+          const int x = x0 + lane;
+          const int k = x < n ? list[x] : list[x0];
+          const uint4* row = reinterpret_cast<const uint4*>(
+              edges_s + static_cast<size_t>(k) * W);
+          uint32_t blk = 0u, hit = 0u;
+          int c = lane % q;
+          for (int d = 0; d < q; ++d) {
+            const uint4 e = row[c];
+            const uint4 l = reinterpret_cast<const uint4*>(lc)[c];
+            const uint4 v = reinterpret_cast<const uint4*>(wc)[c];
+            blk |= (e.x & ~l.x) | (e.y & ~l.y) | (e.z & ~l.z) | (e.w & ~l.w);
+            hit |= (e.x & v.x) | (e.y & v.y) | (e.z & v.z) | (e.w & v.w);
+            c = c + 1 == q ? 0 : c + 1;
+          }
+          const bool nw = x < n && blk == 0u;
+          const bool nl = x < n && !nw && hit != 0u;
+          if (nw) atomicOr(&wn[w0 + (k >> 5)], 1u << (k & 31));
+          if (nl) atomicOr(&ln[w0 + (k >> 5)], 1u << (k & 31));
+          dec |= nw || nl;
+        }
+      } else {
+        // rows from L2: a warp a row, its words one coalesced read
+        for (int x = warp; x < n; x += nwarps) {
+          const int k = list[x];
+          const uint32_t* row = edges_g + static_cast<size_t>(row0 + k) * W;
+          bool blocked = false, hit = false;
+          for (int ww = lane; ww < W; ww += 32) {
+            const uint32_t e = row[ww];
+            blocked |= (e & ~lc[ww]) != 0u;
+            hit |= (e & wc[ww]) != 0u;
+          }
+          const bool nw = !__any_sync(0xffffffffu, blocked);
+          const bool nl = !nw && __any_sync(0xffffffffu, hit);
+          if (lane == 0 && nw) atomicOr(&wn[w0 + (k >> 5)], 1u << (k & 31));
+          if (lane == 0 && nl) atomicOr(&ln[w0 + (k >> 5)], 1u << (k & 31));
+          dec |= nw || nl;
+        }
       }
-      changed |= (bw | bl) != 0u;
     }
-    const int any = __syncthreads_or(changed);
-    for (int w = tid; w < W; w += bd) {
-      win[w] |= nwin[w];
-      lose[w] |= nlose[w];
+    int any = __syncthreads_or(dec);
+    if (C > 1) {
+      // the owned next words and the flag into every other CTA; then the
+      // others' into this one
+      uint64_t* xb = bar + 1 + par;
+      if (tid == 0) mbar_expect(xb, rx);
+      const int per_q = 2 * nown + 1;
+      for (int e = tid; e < per_q * C; e += blockDim.x) {
+        const int q = e / per_q, k = e % per_q;
+        if (q == cr) continue;
+        const uint32_t* at_w = k == 2 * nown
+                                   ? reinterpret_cast<const uint32_t*>(
+                                         flags + par * kMaxCtas + cr)
+                                   : ((k & 1) ? ln : wn) + w0 + (k >> 1);
+        const uint32_t v = k == 2 * nown ? static_cast<uint32_t>(any) : *at_w;
+        st_remote(remote(at_w, q), v, remote(xb, q));
+      }
+      mbar_wait(xb, (r >> 1) & 1);
+      for (int q = 0; q < C; ++q)
+        if (q != cr) any |= flags[par * kMaxCtas + q];
     }
-    __syncthreads();
+    fin = par ^ 1;
     if (!any) break;
   }
-  for (int i = tid; i < B; i += bd) {
-    const bool wi = bit(win, i), li = bit(lose, i);
+  const uint32_t* wf = sets + fin * W;
+  const uint32_t* lf = sets + (2 + fin) * W;
+  const int end = min(B, row0 + 32 * nown);
+  for (int i = row0 + tid; i < end; i += blockDim.x) {
+    const bool wi = bit(wf, i), li = bit(lf, i);
     win_o[i] = wi;
     lose_o[i] = li;
     und_o[i] = bit(act, i) && !wi && !li;
   }
 }
 
-constexpr int kFirstFitThreads = 1024;
-constexpr size_t kSmemMax = 200 * 1024;
+// K8's layout at B txns: W words a row (B rounded up to 128 columns, so
+// the sweep reads 16 bytes a lane), the fewest CTAs (1, 2, 4 or 8) whose
+// shares of the edge rows fit their shared memory beside the sets, else 8
+// CTAs reading the rows from L2; the scratch (int32 words): the bits,
+// each row's edge counts by column tile and, with the rows in L2, each
+// CTA's list of pending rows.  False where not even the sets fit.
+struct FfLayout {
+  int W, parts, ctas, own, in_smem;
+  size_t smem;
+  long long scratch;
+};
+
+bool first_fit_layout(int B, FfLayout& l) {
+  const int W = 4 * ((B + 127) / 128);
+  const int parts = (W + kPackCols / 32 - 1) / (kPackCols / 32);
+  const long long bits = 32LL * W * (W + parts);
+  const size_t room = dt_smem_room(first_fit_kernel<true>);
+  for (int c = 1; c <= kMaxCtas; c *= 2) {
+    const int own = (W + c - 1) / c;
+    const size_t smem = ff_smem_words(W, own, 1) * sizeof(uint32_t);
+    if (smem <= room) {
+      l = {W, parts, c, own, 1, smem, bits};
+      return true;
+    }
+  }
+  const int own = (W + kMaxCtas - 1) / kMaxCtas;
+  const size_t smem = ff_smem_words(W, own, 0) * sizeof(uint32_t);
+  l = {W, parts, kMaxCtas, own, 0, smem, bits + 32LL * kMaxCtas * own};
+  return smem <= dt_smem_room(first_fit_kernel<false>);
+}
+
+template <bool kSmem>
+int launch_first_fit(const uint32_t* edges, const int32_t* cnt, int32_t* list,
+                     const uint8_t* active, int B, int rounds,
+                     const FfLayout& l, uint8_t* win, uint8_t* lose,
+                     uint8_t* und, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      first_fit_kernel<kSmem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(l.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(l.ctas);
+  cfg.blockDim = dim3(kFfThreads);
+  cfg.dynamicSmemBytes = l.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = l.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, first_fit_kernel<kSmem>, edges, cnt, l.parts,
+                           list, active, B, l.W, rounds, l.own, win, lose,
+                           und);
+  return static_cast<int>(err);
+}
 
 }  // namespace
 
@@ -429,23 +711,43 @@ DT_EXPORT int dt_overlap(const __nv_bfloat16* a1, const __nv_bfloat16* b1,
   return dt_status();
 }
 
+// K8's layout at B txns: out[0] the cluster's CTAs, out[1] 1 where the
+// edge rows sit in shared memory, out[2] the int32 words of scratch
+// dt_first_fit needs.  Launches nothing.
+DT_EXPORT int dt_first_fit_layout(int B, long long* out) {
+  FfLayout l;
+  if (B < 1 || !first_fit_layout(B, l)) return 1;
+  out[0] = l.ctas;
+  out[1] = l.in_smem;
+  out[2] = l.scratch;
+  return 0;
+}
+
+// K8: the pack, then the sweep in the cluster dt_first_fit_layout
+// chooses.  edge_bits is `scratch_len` int32 words of scratch (at least
+// what the layout reports; a shorter one is refused before any launch).
+// A cluster launch the card refuses returns its error: there is no other
+// route.
 DT_EXPORT int dt_first_fit(const uint8_t* conflict, const int32_t* rank,
                            const uint8_t* active, int B, int rounds,
-                           uint32_t* edge_bits, uint8_t* win, uint8_t* lose,
-                           uint8_t* und, void* stream) {
-  const int W = (B + 31) / 32;
+                           uint32_t* edge_bits, long long scratch_len,
+                           uint8_t* win, uint8_t* lose, uint8_t* und,
+                           void* stream) {
+  FfLayout l;
+  if (B < 1 || rounds < 0 || !first_fit_layout(B, l) ||
+      scratch_len < l.scratch)
+    return 1;
   const cudaStream_t s = dt_stream(stream);
-  pack_edges_kernel<<<dt_blocks(B, 8), 256, 0, s>>>(conflict, rank, active, B,
-                                                    W, edge_bits);
-  const size_t sets = 5 * static_cast<size_t>(W) * sizeof(uint32_t);
-  const size_t edges = static_cast<size_t>(B) * W * sizeof(uint32_t);
-  const int in_smem = sets + edges <= kSmemMax;
-  const size_t smem = sets + (in_smem ? edges : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      first_fit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  first_fit_kernel<<<1, kFirstFitThreads, smem, s>>>(
-      edge_bits, active, B, W, rounds, in_smem, win, lose, und);
-  return dt_status();
+  const int vec = B % 16 == 0 && reinterpret_cast<uintptr_t>(conflict) % 16 == 0;
+  const size_t rows = 32 * static_cast<size_t>(l.W);
+  int32_t* cnt = reinterpret_cast<int32_t*>(edge_bits + rows * l.W);
+  int32_t* list = cnt + l.parts * rows;
+  pack_edges_kernel<<<dim3(l.parts, l.W), 256, 0, s>>>(
+      conflict, rank, active, B, l.W, vec, edge_bits, cnt);
+  const int err = dt_status();
+  if (err != 0) return err;
+  return l.in_smem ? launch_first_fit<true>(edge_bits, cnt, list, active, B,
+                                            rounds, l, win, lose, und, s)
+                   : launch_first_fit<false>(edge_bits, cnt, list, active, B,
+                                             rounds, l, win, lose, und, s);
 }

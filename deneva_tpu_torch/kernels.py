@@ -35,7 +35,7 @@ SOURCES = ("prng.cu", "forward.cu", "ycsb.cu",
            "pps.cu", "frontier.cu", "depgraph.cu", "audit.cu", "mc.cu",
            "router.cu")
 HEADERS = ("common.cuh", "threefry.cuh", "hashing.cuh", "value_law.cuh",
-           "bits.cuh", "radix.cuh")
+           "bits.cuh", "radix.cuh", "cluster.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -151,6 +151,20 @@ I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 F64 = ctypes.c_double
+
+
+def layout(symbol: str, *args: int) -> tuple[int, ...]:
+    """Ask the kernel library how a kernel lays out a launch at the given
+    sizes: its host-only entry point ``symbol`` (int arguments, then a
+    pointer to three int64) fills in the three numbers, launches nothing
+    and counts no launch.  Raises where the kernel takes no such size."""
+    out = (ctypes.c_longlong * 3)()
+    fn = getattr(library(), symbol)
+    fn.argtypes = [I32] * len(args) + [P]
+    fn.restype = ctypes.c_int
+    if fn(*args, ctypes.cast(out, P)) != 0:
+        raise ValueError(f"{symbol}: no layout for sizes {args}")
+    return tuple(out)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

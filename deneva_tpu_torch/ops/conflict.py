@@ -20,7 +20,10 @@ its plain PyTorch version, written op for op from the reference:
   row, the bitmaps of its positive buckets (each input read once), with
   the AND of the second family.
 * **K8** `first_fit` — replaces ``ops/conflict.py:78`` `earlier_edges`
-  fused into ``:96`` `greedy_first_fit`.
+  fused into ``:96`` `greedy_first_fit`: the edges packed to bits, then
+  the Jacobi rounds in one thread-block cluster whose CTAs share out the
+  rows, read only the pending ones, and exchange each round's verdicts
+  in distributed shared memory.
 
 Two more carry the level sweeps (``csrc/levels.cu``), one max-plus
 relaxation in two orientations:
@@ -59,7 +62,7 @@ K7_OVERLAP = kernels.Kernel("dt_overlap", [
     kernels.I32, kernels.P, kernels.P, kernels.P])
 K8_FIRST_FIT = kernels.Kernel("dt_first_fit", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
-    kernels.P, kernels.P, kernels.P, kernels.P])
+    kernels.I64, kernels.P, kernels.P, kernels.P, kernels.P])
 K9A_WAVEFRONT = kernels.Kernel("dt_wavefront_levels", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
     kernels.P, kernels.P, kernels.P])
@@ -236,9 +239,18 @@ def first_fit_plain(conflict, rank, active, rounds: int):
                             rounds)
 
 
+def first_fit_layout(b: int) -> tuple[int, bool, int]:
+    """K8's launch at ``b`` txns as the kernel library chooses it (CUDA
+    only): (CTAs of its cluster, edge rows in shared memory rather than
+    L2, int32 words of scratch)."""
+    ctas, in_smem, words = kernels.layout("dt_first_fit_layout", b)
+    return ctas, bool(in_smem), words
+
+
 def first_fit(conflict: torch.Tensor, rank: torch.Tensor,
               active: torch.Tensor, rounds: int):
-    """K8: `earlier_edges` packed to bits, then the sweep in one block."""
+    """K8: `earlier_edges` packed to bits with each row's edge count, then
+    the sweep in one cluster of CTAs (`first_fit_layout`)."""
     if kernels.on_cpu(conflict, rank, active):
         return first_fit_plain(conflict, rank, active, rounds)
     b = active.shape[0]
@@ -246,16 +258,16 @@ def first_fit(conflict: torch.Tensor, rank: torch.Tensor,
     kernels.check("conflict", conflict, torch.bool, (b, b), dev)
     kernels.check("rank", rank, torch.int32, (b,), dev)
     kernels.check("active", active, torch.bool, (b,), dev)
-    words = -(-b // 32)
-    if 5 * words * 4 > 200 * 1024:
+    if 5 * -(-b // 32) * 4 > 200 * 1024:
         raise ValueError("K8 keeps five B-bit sets in shared memory: "
                          f"B = {b} is too large")
-    bits = torch.empty((b, words), dtype=torch.int32, device=dev)
+    words = first_fit_layout(b)[2]
+    bits = torch.empty(words, dtype=torch.int32, device=dev)
     win, lose, und = (torch.empty(b, dtype=torch.bool, device=dev)
                       for _ in range(3))
     K8_FIRST_FIT.launch(kernels.ptr(conflict), kernels.ptr(rank),
                         kernels.ptr(active), b, rounds, kernels.ptr(bits),
-                        kernels.ptr(win), kernels.ptr(lose),
+                        words, kernels.ptr(win), kernels.ptr(lose),
                         kernels.ptr(und), kernels.stream(active))
     return win, lose, und
 

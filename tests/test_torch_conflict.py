@@ -1,7 +1,11 @@
 """Hashing, incidence, overlap and the first-fit sweep of ``deneva_tpu_torch``
 against ``deneva_tpu`` on the CPU: the plain versions of K5+K6, K7 and K8
-on the same numpy-seeded inputs.  Every comparison is exact (bucket ids,
-bf16 count bits, booleans)."""
+on the same numpy-seeded inputs, K8 also at the sweep backends' B =
+2,048.  Every comparison is exact (bucket ids, bf16 count bits,
+booleans).  A numpy model of K8's sweep as its cluster of CTAs runs it
+(each CTA's rows and copy of the sets, round 0 from the rows' edge
+counts, the per-round exchange of words) is held against the plain
+version at 1, 2, 4 and 8 CTAs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -183,6 +187,104 @@ def test_earlier_edges_and_first_fit_exact(rounds, b):
     assert not (win & lose).any() and ((win | lose | und) == active).all()
     if rounds == 1:
         assert und.any()    # a loss needs a win of an earlier round
+
+
+def test_first_fit_matches_reference_at_skew_shape():
+    """B = 2,048 (``ycsb_skew``'s batch) at the config's 24 rounds, a
+    conflict density near that shape's (~2% of pairs), rank ties."""
+    rng = np.random.default_rng(2048)
+    b = 2048
+    conflict_m = rng.random((b, b)) < 0.02
+    rank = rng.integers(0, b // 2, b).astype(np.int32)
+    active = rng.random(b) < 0.95
+    je = jconflict.earlier_edges(jnp.asarray(conflict_m), jnp.asarray(rank),
+                                 jnp.asarray(active))
+    want = jconflict.greedy_first_fit(je, jnp.asarray(active), 24)
+    got = conflict.first_fit(torch.from_numpy(conflict_m),
+                             torch.from_numpy(rank), torch.from_numpy(active),
+                             24)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].any() and got[1].any()
+
+
+def k8_cluster_model(conflict_m, rank, active, rounds: int, ctas: int):
+    """K8's sweep as ``csrc/conflict.cu`` runs it in a cluster of ``ctas``
+    CTAs, in numpy: CTA r owns row words [r own, (r + 1) own) and keeps
+    its own copy of the win / lose sets; round 0 wins the active rows
+    without edges (the pack's counts); a later round reads each pending
+    owned row against the CTA's copy; each CTA's owned words and changed
+    flag are then stored into every other CTA's copy.  Returns (win,
+    lose, undecided)."""
+    b = active.shape[0]
+    words = 4 * -(-b // 128)   # W of conflict.cu: B to 128 columns
+    own = -(-words // ctas)
+    n = 32 * words
+    e = np.zeros((n, n), bool)
+    e[:b, :b] = conflict.earlier_edges(torch.from_numpy(conflict_m),
+                                       torch.from_numpy(rank),
+                                       torch.from_numpy(active)).numpy()
+    act = np.zeros(n, bool)
+    act[:b] = active
+    cta = []
+    for r in range(ctas):
+        w0 = min(r * own, words)
+        cta.append(dict(rows=np.arange(32 * w0,
+                                       32 * (w0 + min(own, words - w0))),
+                        win=np.zeros(n, bool), lose=np.zeros(n, bool),
+                        flags=np.zeros(ctas, bool)))
+    for rnd in range(rounds):
+        for c in cta:
+            rows = c["rows"]
+            if rnd == 0:
+                nw = act[rows] & ~e[rows].any(1)
+                nl = np.zeros(rows.size, bool)
+            else:
+                p = act[rows] & ~c["win"][rows] & ~c["lose"][rows]
+                blocked = (e[rows] & ~c["lose"]).any(1)
+                hit = (e[rows] & c["win"]).any(1)
+                nw = p & ~blocked
+                nl = p & ~nw & hit
+            c["next"] = (c["win"][rows] | nw, c["lose"][rows] | nl)
+            c["any"] = bool((nw | nl).any())
+        for r, c in enumerate(cta):
+            for q, o in enumerate(cta):
+                o["win"][c["rows"]], o["lose"][c["rows"]] = c["next"]
+                o["flags"][r] = c["any"]
+        go = {bool(c["flags"].any()) for c in cta}
+        assert len(go) == 1             # every CTA leaves in one round
+        if not go.pop():
+            break
+    win = cta[0]["win"][:b]
+    lose = cta[0]["lose"][:b]
+    return win, lose, active & ~win & ~lose
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,kind", [(100, "random"), (1000, "random"),
+                                    (2048, "random"), (300, "chain"),
+                                    (257, "dense"), (64, "none_active")])
+def test_first_fit_cluster_model_matches_plain(ctas, b, kind):
+    rng = np.random.default_rng(b + ctas)
+    i = np.arange(b)
+    if kind == "chain":
+        conflict_m = np.abs(i[:, None] - i[None, :]) == 1
+        rank = i.astype(np.int32)
+    elif kind == "dense":
+        conflict_m = i[:, None] != i[None, :]
+        rank = rng.integers(0, 5, b).astype(np.int32)
+    else:
+        conflict_m = rng.random((b, b)) < min(0.2, 20.0 / b)
+        rank = rng.integers(0, max(b // 3, 1), b).astype(np.int32)
+    active = rng.random(b) < 0.9 if kind != "none_active" \
+        else np.zeros(b, bool)
+    for rounds in (3, 24):
+        want = conflict.first_fit_plain(torch.from_numpy(conflict_m),
+                                        torch.from_numpy(rank),
+                                        torch.from_numpy(active), rounds)
+        got = k8_cluster_model(conflict_m, rank, active, rounds, ctas)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g, w.numpy())
 
 
 @pytest.mark.parametrize("order_free", [False, True])

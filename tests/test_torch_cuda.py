@@ -277,6 +277,77 @@ def test_first_fit_matches_plain(dev, b, rounds):
         assert torch.equal(x, y)
 
 
+def _first_fit_size(size):
+    """K8's cluster edges: the largest B one CTA holds (as the kernel
+    library lays it out) and one either side, the cluster at 2,048 and
+    rows from L2 at 4,096."""
+    if isinstance(size, int):
+        return size
+    top = max(b for b in range(128, 4096, 128)
+              if conflict.first_fit_layout(b)[:2] == (1, True))
+    assert conflict.first_fit_layout(top + 1)[0] > 1
+    return top + {"top-1": -1, "top": 0, "top+1": 1}[size]
+
+
+@pytest.mark.parametrize("size", ["top-1", "top", "top+1", 2048, 4096])
+@pytest.mark.parametrize("rounds", [3, 24])
+def test_first_fit_cluster_sizes_match_plain(dev, size, rounds):
+    b = _first_fit_size(size)
+    g = torch.Generator().manual_seed(b + rounds)
+    c = torch.rand(b, b, generator=g) < 10.0 / b
+    c = (c | c.T).to(dev)
+    rank = torch.randint(0, b, (b,), generator=g, dtype=torch.int32).to(dev)
+    active = (torch.rand(b, generator=g) < 0.9).to(dev)
+    got = conflict.first_fit(c, rank, active, rounds)
+    want = conflict.first_fit_plain(c, rank, active, rounds)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_first_fit_refuses_a_short_scratch(dev):
+    """K8 refuses a scratch one word short of what its layout reports,
+    before any launch."""
+    from deneva_tpu_torch import kernels
+    for b in (1024, 4096):
+        words = conflict.first_fit_layout(b)[2]
+        c = torch.zeros(b, b, dtype=torch.bool, device=dev)
+        rank = torch.zeros(b, dtype=torch.int32, device=dev)
+        act = torch.ones(b, dtype=torch.bool, device=dev)
+        bits = torch.empty(words - 1, dtype=torch.int32, device=dev)
+        with pytest.raises(RuntimeError, match="dt_first_fit"):
+            conflict.K8_FIRST_FIT.launch(
+                kernels.ptr(c), kernels.ptr(rank), kernels.ptr(act), b, 24,
+                kernels.ptr(bits), words - 1, kernels.ptr(act),
+                kernels.ptr(act), kernels.ptr(act), kernels.stream(act))
+
+
+@pytest.mark.parametrize("b", [1024, 2048, 4096])
+@pytest.mark.parametrize("kind", ["chain", "dense", "none_active"])
+def test_first_fit_structured_match_plain(dev, b, kind):
+    """A chain (one txn settles a round: all 24 rounds run, and 3 leave
+    most undecided), every pair in conflict, and no active txn."""
+    i = torch.arange(b)
+    if kind == "chain":
+        c = (i[:, None] - i[None, :]).abs() == 1
+    else:
+        c = i[:, None] != i[None, :]
+    rank = i.to(torch.int32).to(dev)
+    active = torch.full((b,), kind != "none_active", dtype=torch.bool,
+                        device=dev)
+    c = c.to(dev)
+    for rounds in (3, 24):
+        got = conflict.first_fit(c, rank, active, rounds)
+        want = conflict.first_fit_plain(c, rank, active, rounds)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        if kind == "chain":
+            assert int(got[2].sum()) > 0
+        if kind == "dense":
+            assert int(got[0].sum()) == 1 and int(got[2].sum()) == 0
+        if kind == "none_active":
+            assert not bool(torch.cat(got).any())
+
+
 @pytest.mark.parametrize("n,n_slots,capacity", [
     (10240, 4000, 1 << 24), (200, 30, 30), (4096, 500, 600), (1, 1, 1),
     (100000, 1000, 1 << 20)])
@@ -1277,6 +1348,142 @@ def test_dgcc_relax_matches_plain(dev, b, a, n_keys, levels, monkeypatch):
     outp = dgcc.dgcc_levels(cfg, batch)
     for x, y in zip(out, outp):
         assert torch.equal(x, y)
+
+
+def _relax_case(kind, dev):
+    """(head, sid, sw, live, b, levels) of one structured K16 input."""
+    from dataclasses import replace
+
+    from deneva_tpu_torch.cc import AccessBatch, depgraph, dgcc
+    levels = 32
+    if kind == "chain":
+        # txn 1 reads txn 0's write (wave 1); txn i >= 2 writes key i - 1
+        # after txn i - 1 and key i before txn i + 1: a chain of blind
+        # writes that carries wave 1 one txn a round, so the 2 * levels +
+        # 4 budget cuts it (changed at exit)
+        b, levels = 2048, 4
+        i = torch.arange(b, dtype=torch.int32, device=dev)
+        keys = torch.stack([(i - 1).clamp(min=0), i], 1)
+        isw = torch.ones(b, 2, dtype=torch.bool, device=dev)
+        isw[1, 0] = False
+        valid = torch.ones_like(isw)
+        valid[0, 1] = False
+        batch = AccessBatch(
+            table_ids=torch.zeros_like(keys), keys=keys, is_read=~isw,
+            is_write=isw, valid=valid, ts=i + 1, rank=i,
+            active=torch.ones(b, dtype=torch.bool, device=dev))
+    else:
+        b, a, n_keys = {"no_live": (2048, 10, 500),
+                        "all_live": (2048, 10, 3000),
+                        "hot_key": (2048, 10, 1),
+                        "b_11616": (11616, 2, 17424),
+                        "b_19368": (19368, 2, 29052),
+                        "b_25600": (25600, 2, 40000),
+                        "n_2e20": (25600, 20, 1 << 20)}[kind]
+        batch = _rand_batch(b, a, n_keys, dev, b + a)
+        if kind == "no_live":
+            batch = replace(batch, active=torch.zeros_like(batch.active))
+        if kind == "all_live":
+            ones = torch.ones_like(batch.valid)
+            batch = replace(batch, valid=ones, is_read=ones, is_write=ones,
+                            active=torch.ones_like(batch.active))
+    sk, sp, sid = depgraph.lane_sort(*dgcc.lanes(batch), b)
+    head, *_ = depgraph.census(sk, sp, sid)
+    return head, sid, (sp & 1) == 1, sk != depgraph.LANE_PAD, b, levels
+
+
+@pytest.mark.parametrize("kind", ["no_live", "all_live", "hot_key", "chain",
+                                  "b_11616", "b_19368", "b_25600",
+                                  "n_2e20"])
+@pytest.mark.parametrize("ctas", [0, 1, 2, 4, 8])
+def test_dgcc_relax_clusters_match_plain(dev, kind, ctas):
+    """K16 on structured inputs in the cluster the library picks (ctas =
+    0, the path's launch) and capped at 1, 2, 4 and 8 CTAs; b = 11,616
+    and 19,368 sit where the levels of 4 and 2 CTAs leave less room than
+    the kernel's static shared memory needs."""
+    from deneva_tpu_torch.cc import dgcc
+    head, sid, sw, live, b, levels = _relax_case(kind, dev)
+    got = (dgcc.relax(head, sid, sw, live, b, levels) if ctas == 0 else
+           dgcc._relax(head, sid, sw, live, b, levels, ctas))
+    want = dgcc.relax_plain(head, sid, sw, live, b, levels)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    n_live = int(live.sum())
+    assert (n_live == 0) == (kind == "no_live")
+    if kind == "all_live":
+        assert n_live == live.numel()
+    if kind == "chain":
+        assert bool(got[1]) and int(got[2]) == 2 * levels + 4
+    if kind == "n_2e20":
+        assert live.numel() > 1 << 19
+
+
+def _pad_lanes(head, sid, sw, live, n):
+    """The lanes padded to n in all with dead lanes, which continue the
+    dead lanes' segment (LANE_PAD sorts last) or start it."""
+    k = n - live.numel()
+    dev = live.device
+    h = torch.zeros(k, dtype=torch.bool, device=dev)
+    h[0] = live[-1]
+    return (torch.cat([head, h]),
+            torch.cat([sid, torch.zeros(k, dtype=torch.int32, device=dev)]),
+            torch.cat([sw, torch.zeros(k, dtype=torch.bool, device=dev)]),
+            torch.cat([live, torch.zeros(k, dtype=torch.bool, device=dev)]))
+
+
+@pytest.mark.parametrize("edge", ["ctas", "lanes"])
+def test_dgcc_relax_layout_edges_match_plain(dev, edge):
+    """K16 either side of the library's two choices: the largest b whose
+    levels a cluster of 4 holds and the next b (2 CTAs), and, at b =
+    2,048, the most lanes whose words fit in shared memory beside the
+    levels and one lane more (words in scratch)."""
+    from deneva_tpu_torch.cc import dgcc
+    if edge == "ctas":
+        top = max(b for b in range(8, 25601, 8)
+                  if dgcc.relax_layout(4096, b)[0] == 4)
+        top = max(b for b in range(top, top + 8)
+                  if dgcc.relax_layout(4096, b)[0] == 4)
+        assert dgcc.relax_layout(4096, top + 1)[0] == 2
+        cases = [(top, 2, None), (top + 1, 2, None)]
+    else:
+        ns = [n for n in range(4096, 1 << 21, 4096)
+              if dgcc.relax_layout(n, 2048)[1]]
+        top = max(n for n in range(ns[-1], ns[-1] + 4096)
+                  if dgcc.relax_layout(n, 2048)[1])
+        assert dgcc.relax_layout(top, 2048)[0] == 4
+        assert not dgcc.relax_layout(top + 1, 2048)[1]
+        cases = [(2048, 10, top), (2048, 10, top + 1)]
+    from deneva_tpu_torch.cc import depgraph
+    for b, a, n in cases:
+        batch = _rand_batch(b, a, 3 * b // 2, dev, b + a)
+        sk, sp, sid = depgraph.lane_sort(*dgcc.lanes(batch), b)
+        head, *_ = depgraph.census(sk, sp, sid)
+        args = (head, sid, (sp & 1) == 1, sk != depgraph.LANE_PAD)
+        if n is not None:
+            args = _pad_lanes(*args, n)
+        got = dgcc.relax(*args, b, 32)
+        want = dgcc.relax_plain(*args, b, 32)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_dgcc_relax_refuses_a_short_scratch(dev):
+    """K16 refuses a scratch one word short of what its layout reports,
+    before any launch."""
+    from deneva_tpu_torch import kernels
+    from deneva_tpu_torch.cc import dgcc
+    n, b = 1 << 20, 25600
+    ctas, shared, words = dgcc.relax_layout(n, b)
+    assert not shared and words > 0
+    z = torch.zeros(n, dtype=torch.bool, device=dev)
+    sid = torch.zeros(n, dtype=torch.int32, device=dev)
+    meta = torch.empty(words - 1, dtype=torch.int32, device=dev)
+    out = torch.empty(b, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="dt_dgcc_relax"):
+        dgcc.K16_RELAX.launch(
+            kernels.ptr(z), kernels.ptr(sid), kernels.ptr(z), kernels.ptr(z),
+            n, b, 32, 68, 0, kernels.ptr(meta), words - 1, kernels.ptr(out),
+            kernels.ptr(z), kernels.ptr(sid), kernels.stream(z))
 
 
 REPAIR_YCSB = ["--epoch_batch=2048", "--max_txn_in_flight=8192",

@@ -10,6 +10,14 @@
   lanes, a key that combines to ``LANE_PAD`` (ROADMAP.md watch item 23:
   it must be dead, not sorted first), a hot chain deeper than ``dgcc_levels``,
   and ``dgcc_levels=1``.
+* ``dgcc_levels`` at ``dgcc_contention``'s shape (B = 2,048, 10
+  requests, 90% writes, zipf 0.9 from one numpy bank) against the
+  reference's.
+* A numpy model of K16 as its cluster runs it (each thread's run of the
+  lanes up to the last live one, the segment ids by a prefix count of
+  heads, each CTA's block scan and the carry from the lower CTAs, each
+  CTA's candidates merged over every CTA's copy) held against the plain
+  version at 1, 2, 4 and 8 CTAs of 4, 32 and 1,024 threads.
 * The reference's scripted cases (``tests/test_dgcc.py:37-122``) through
   both packages, with the reference's assertions on the port's verdict.
 * The refusal of the CUDA path without a card, and of a device that is
@@ -142,6 +150,158 @@ def test_dgcc_levels_match_reference(case):
     assert int(edges) == int(jedges)
     if seed == 2:
         assert ov.any() and (lv >= levels).any()   # saturation defers
+
+
+def _contention_batch(b=2048, a=10, theta=0.9, n_rows=1 << 20, seed=9):
+    """A ``dgcc_contention``-shaped batch: ``a`` requests a txn, 90%
+    writes, keys from numpy's zipf law at ``theta``, every txn active."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_rows + 1, dtype=np.float64) ** theta
+    keys = rng.choice(n_rows, size=(b, a), p=p / p.sum()).astype(np.int32)
+    w = rng.random((b, a)) < 0.9
+    return dict(table_ids=np.zeros((b, a), np.int32), keys=keys,
+                is_read=~w, is_write=w, valid=np.ones((b, a), bool),
+                ts=np.arange(1, b + 1, dtype=np.int32),
+                rank=np.arange(b, dtype=np.int32),
+                active=np.ones(b, bool), order_free=None)
+
+
+def test_dgcc_levels_match_reference_at_contention_shape():
+    cfg = SimpleNamespace(dgcc_levels=Config().dgcc_levels)
+    jb, tb = _both(_contention_batch())
+    jlv, jov, jedges = j_dgcc_levels(cfg, jb)
+    lv, ov, edges = dgcc.dgcc_levels(cfg, tb)
+    np.testing.assert_array_equal(lv.numpy(), np.asarray(jlv))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(jov))
+    assert int(edges) == int(jedges)
+    assert int(lv.max()) > 4 and ov.any()       # deep chains, saturation
+
+
+def _run_excl_max(vals, run, start):
+    """Exclusive running max of ``vals`` (>= -1) inside each run (``run``
+    ascending, one id a lane), each run starting from ``start[run]``."""
+    if run.size == 0:
+        return vals
+    z = run.astype(np.int64) << 32 | (vals + 1)
+    incl = np.maximum.accumulate(z)
+    excl = np.concatenate([[-1], incl[:-1]])
+    prev = np.where((excl >> 32) == run, (excl & 0xFFFFFFFF) - 1, -1)
+    prev[np.r_[True, run[1:] != run[:-1]]] = -1
+    return np.maximum(prev, start[run])
+
+
+def k16_cluster_model(head, sid, sw, live, b: int, rounds: int, ctas: int,
+                      threads: int):
+    """K16 as ``csrc/depgraph.cu`` runs it in a cluster of ``ctas`` CTAs of
+    ``threads`` threads, in numpy: the lanes up to the last live one split
+    into equal contiguous runs, a run a thread; segment ids from a prefix
+    count of heads (each thread's heads, scanned over the block, plus the
+    lower CTAs' totals); per round, each run's writer / reader maxima of
+    seg << 10 | lv + 1, a block exclusive max-scan with the lower CTAs'
+    totals as carry, the candidates into the CTA's own nxt, then the max
+    over every CTA's copy.  Returns (lv, changed, rounds run)."""
+    head, sid, sw, live = (np.asarray(x) for x in (head, sid, sw, live))
+    n_end = int(np.nonzero(live)[0].max()) + 1 if live.any() else 0
+    nthr = ctas * threads
+    per = max(-(-n_end // nthr), 1)
+    lane = np.arange(n_end)
+    run = lane // per                     # the thread holding the lane
+    cta = run // threads
+    head, sid, sw, live = head[:n_end], sid[:n_end], sw[:n_end], live[:n_end]
+    # a thread's heads, its block's inclusive scan, the lower CTAs' totals
+    h = np.bincount(run, weights=head, minlength=nthr).astype(np.int64)
+    incl = np.cumsum(h.reshape(ctas, threads), axis=1)
+    carry = np.concatenate([[0], np.cumsum(incl[:, -1])[:-1]])
+    s_base = (carry[:, None] + incl).reshape(-1) - h - 1
+    cs = np.cumsum(head)                  # heads through each lane of a run
+    first = run * per
+    seg = s_base[run] + cs - cs[first] + head[first]
+
+    def thread_max(x):
+        m = np.full(nthr, -1, np.int64)
+        np.maximum.at(m, run, x)
+        return m
+
+    def block_carry(m):
+        """Exclusive max over the threads of each CTA, then the lower
+        CTAs' totals."""
+        m = m.reshape(ctas, threads)
+        excl = np.concatenate([np.full((ctas, 1), -1), np.maximum.accumulate(
+            m, axis=1)[:, :-1]], axis=1)
+        tot = m.max(axis=1)
+        carry = np.concatenate([[-1], np.maximum.accumulate(tot)[:-1]])
+        return np.maximum(excl, carry[:, None]).reshape(-1)
+    lv = np.zeros(b, np.int64)
+    changed, it = True, 0
+    while changed and it < 2 * rounds + 4:
+        e = np.where(live, seg << 10 | (lv[sid] + 1), -1)
+        cw = block_carry(thread_max(np.where(sw, e, -1)))
+        cr = block_carry(thread_max(np.where(~sw, e, -1)))
+        lw = _run_excl_max(np.where(sw, e, -1), run, cw)
+        lr = _run_excl_max(np.where(~sw, e, -1), run, cr)
+        s = e >> 10
+        exw = np.where(lw >> 10 == s, (lw & 1023) - 1, -1)
+        exr = np.where(lr >> 10 == s, (lr & 1023) - 1, -1)
+        cand = np.minimum(np.where(sw, np.maximum(np.maximum(exw, exr), 0),
+                                   np.where(exw >= 0, exw + 1, 0)), rounds)
+        copies = np.repeat(lv[None], ctas, axis=0)
+        for c in range(ctas):
+            m = live & (cta == c)
+            np.maximum.at(copies[c], sid[m], cand[m])
+        merged = copies.max(axis=0)
+        changed = bool((merged != lv).any())
+        lv, it = merged, it + 1
+    return lv, changed, it
+
+
+def _blind_chain(b):
+    """Txn 1 reads txn 0's write (wave 1); txn i >= 2 writes key i - 1
+    after txn i - 1 and key i before txn i + 1: blind writes that carry
+    wave 1 one txn a round, past any budget under b rounds."""
+    i = np.arange(b, dtype=np.int32)
+    w = np.ones((b, 2), bool)
+    w[1, 0] = False
+    valid = np.ones((b, 2), bool)
+    valid[0, 1] = False
+    return dict(table_ids=np.zeros((b, 2), np.int32),
+                keys=np.stack([np.maximum(i - 1, 0), i], 1), is_read=~w,
+                is_write=w, valid=valid, ts=i + 1, rank=i,
+                active=np.ones(b, bool), order_free=None)
+
+
+def _relax_inputs(arr, levels):
+    _, tb = _both(arr)
+    sk, sp, sid = depgraph.lane_sort(*dgcc.lanes(tb), tb.shape[0])
+    head, *_ = depgraph.census(sk, sp, sid)
+    return head, sid, (sp & 1) == 1, sk != depgraph.LANE_PAD
+
+
+RELAX_MODEL_CASES = {
+    "random": lambda: (_np_batch(np.random.default_rng(3), 200, 6, 50),
+                       32),
+    "hot_key": lambda: (_np_batch(np.random.default_rng(4), 150, 4, 1), 32),
+    "no_live": lambda: (dict(_np_batch(np.random.default_rng(5), 64, 4, 9),
+                             active=np.zeros(64, bool)), 4),
+    "budget_cut": lambda: (_blind_chain(128), 2),
+    "contention": lambda: (_contention_batch(b=512, a=10), 32),
+}
+
+
+@pytest.mark.parametrize("threads", [4, 32, 1024])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(RELAX_MODEL_CASES))
+def test_relax_cluster_model_matches_plain(case, ctas, threads):
+    arr, levels = RELAX_MODEL_CASES[case]()
+    b = arr["active"].shape[0]
+    head, sid, sw, live = _relax_inputs(arr, levels)
+    want = dgcc.relax_plain(head, sid, sw, live, b, levels)
+    got = k16_cluster_model(head.numpy(), sid.numpy().astype(np.int64),
+                            sw.numpy(), live.numpy(), b, levels, ctas,
+                            threads)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    assert got[1] == bool(want[1]) and got[2] == int(want[2])
+    if case == "budget_cut":
+        assert got[1]       # the 2 * levels + 4 budget cut it
 
 
 def test_sentinel_key_is_dead():
