@@ -95,7 +95,9 @@ Phases (any error or mismatch exits non-zero and prints no result):
                1024 generated zipf-0.9 txns and K = 8192 (K7 also at the
                sweep backends' B = 2048, both against two
                ``torch.matmul``), K10 over the
-               committed write lanes and once at N >= capacity.  Times by
+               committed write lanes of the comparator's epoch and of a
+               ``ycsb_skew`` epoch (20,480 lanes, its own row) and once
+               at N >= capacity.  Times by
                CUDA events, beside the plain version's, the bound and a
                one-call PyTorch yardstick where there is one.
                K12a-d at the ``ycsb_skew`` shapes (B = 2048 txns x 10
@@ -299,6 +301,28 @@ Phases (any error or mismatch exits non-zero and prints no result):
                in four forms and back-to-back launches, plain, as a
                cluster and as a pair with and without programmatic
                dependent launch (``[cluster-costs]``).
+   Slice 15: ``--slice15`` runs only K3's probe (``[K3-probe]``:
+               ``deneva_tpu_torch/probes/k3_costs.cu``, not in the kernel
+               library, built into its own shared library: the slice-1
+               K3's gather with and without its per-block atomics, its
+               memset and store, empty and cooperative launches with 0,
+               1 and 9 grid barriers at 256-1,024 threads a block), K3
+               in both table modes on the main path's plan, a
+               ``ycsb_skew`` plan and a ``ycsb_hot`` plan (``[K3]``, and
+               ``[K3-phases]``: the main path's plan without stores,
+               without gathers, without both), and K10 on the OCC
+               comparator's (10,240 lanes) and a ``ycsb_skew`` epoch's
+               (20,480) committed writes, a TPC-C stock batch (30,720)
+               and the arena (65,536 and 131,072) (``[K10]``: the
+               library's layout, then 1-128 CTAs and the global table;
+               ``[K10-phases]``),
+               each exact against its plain version; with ``--profile``
+               also the forwarding cells' (both modes), ``ycsb_skew``
+               NO_WAIT's and DGCC theta 0.9's profiles, K3's and K10's
+               launches and device time an epoch; with ``--k15-parent
+               DIR`` ``[K15-parent]`` times that commit's K3 and K10
+               beside this one's on the same inputs, parent, this, this,
+               parent.
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -1089,10 +1113,6 @@ def phase_kernels(dev, rec: dict, card: str) -> None:
             fail(f"K3 ({'full row' if full else 'fingerprint'}) differs "
                  "from plain")
         err = max(max_abs(f0, f0p), abs(int(cks) - int(cksp)))
-        row = f0.shape[1] if full else 4
-        gathered = plan.is_read & (plan.fwd < 0)
-        n_rows_read = int(torch.unique(slots[gathered]).numel())
-        nbytes = 19 * n + row * (n_rows_read + int(plan.win.sum())) + 8
         name = f"K3_forward_execute[{'full_row' if full else 'fingerprint'}]"
         rec[name].update(
             max_abs_err=err,
@@ -1101,12 +1121,25 @@ def phase_kernels(dev, rec: dict, card: str) -> None:
             plain_ms=cuda_ms(lambda: ycsb._forward_execute_f0_plain(
                 f0p, plan_p, slots, tab.capacity, mono=True), iters=5),
             library_ms=None)
-        bound(rec[name], nbytes, n * 12 * (row // 4))
+        bound(rec[name], *k3_work(plan, slots, f0.shape[1] if full else 0))
         del f0, f0p, tab, wlm
         torch.cuda.empty_cache()
     for nm, v in rec.items():
         if v:
             print_kernel(nm, v, card)
+
+
+def k3_work(plan, slots, tup: int) -> tuple[int, int]:
+    """(bytes, operations) of K3 on a plan: the plan's 19 bytes a lane
+    (keys, rank, fwd, slots, three flags) read once, one row read for each
+    distinct slot a non-forwarded read gathers and one written for each
+    winner, 8 bytes of totals; 12 integer operations a 4-byte word."""
+    row = tup or 4
+    gathered = plan.is_read & (plan.fwd < 0)
+    n_rows_read = int(torch.unique(slots[gathered]).numel())
+    n = plan.keys.numel()
+    return (19 * n + row * (n_rows_read + int(plan.win.sum())) + 8,
+            n * 12 * (row // 4))
 
 
 def lw_library(slots, order, mask, capacity):
@@ -1163,6 +1196,14 @@ def k8_row(nm: str, b: int) -> str:
     """The kernels line's row of a launch: K8's at B = 2,048 apart."""
     return f"{nm}[B=2048]" if nm == "K8_first_fit" and b == SKEW_BATCH \
         else nm
+
+
+def k10_row(nm: str, cfg) -> str:
+    """The kernels line's row of a run's launches: K10's in YCSB cells of
+    20,480 lanes (B = 2,048 txns of 10 requests) apart."""
+    return f"{nm}[N=20480]" if nm == "K10_last_writer" \
+        and cfg.workload.name == "YCSB" \
+        and cfg.epoch_batch * cfg.req_per_query == 20480 else nm
 
 
 def sweep_conflicts(dev, cfg, b: int, seed: int) -> tuple:
@@ -1290,39 +1331,83 @@ def phase_sweep_kernels(dev, rec: dict, card: str) -> None:
     k8_case(uw2, rounds, rec["K8_first_fit[B=2048]"], card)
     del uw2
 
-    # K10 over the committed write lanes, and in the arena regime
+    # K10 over the committed write lanes (the comparator's 10,240 and
+    # ycsb_skew's 20,480), and in the arena regime
     wmask = (q.is_write & ff[0][:, None]).reshape(-1)
     cases = {"epoch": (q.keys.reshape(-1).contiguous(),
                        rank[:, None].expand(b, REQ).reshape(-1), wmask,
-                       ROWS)}
-    g = torch.Generator(device=dev).manual_seed(3)
-    na, cap = 1 << 17, 1 << 16
-    cases["arena"] = (
-        torch.randint(0, cap + 1, (na,), generator=g, device=dev,
-                      dtype=torch.int32),
-        torch.randint(-2**31, 2**31 - 1, (na,), generator=g, device=dev,
-                      dtype=torch.int32) // 4096,
-        torch.rand(na, generator=g, device=dev) < 0.7, cap)
-    err = 0
+                       ROWS),
+             "ycsb_skew epoch": k10_epoch(dev, skew_config(False, "OCC"),
+                                          SKEW_BATCH, 17),
+             "arena": k10_arena(dev)}
+    err = {}
     for nm, (sl, od, mk, cp) in cases.items():
-        w = scatter.last_writer(sl, od, mk, cp)
-        for other, fn in (("plain", scatter.last_writer_plain),
-                          ("sort yardstick", lw_library)):
-            if not torch.equal(w, fn(sl, od, mk, cp)):
-                fail(f"K10 ({nm}) differs from {other}")
-        err = max(err, max_abs(w, scatter.last_writer_plain(sl, od, mk, cp)))
+        w = k10_check(nm, sl, od, mk, cp)
+        err[nm] = max_abs(w, scatter.last_writer_plain(sl, od, mk, cp))
         print(f"[K10] {nm}: N={sl.numel()} capacity={cp} "
               f"winners={int(w.sum())}", flush=True)
-    sl, od, mk, cp = cases["epoch"]
-    rec["K10_last_writer"].update(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: scatter.last_writer(sl, od, mk, cp)),
-        plain_ms=cuda_ms(lambda: scatter.last_writer_plain(sl, od, mk, cp)),
-        library_ms=cuda_ms(lambda: lw_library(sl, od, mk, cp)))
-    bound(rec["K10_last_writer"], 10 * n, 4 * n)
+    for nm, row in (("epoch", "K10_last_writer"),
+                    ("ycsb_skew epoch", "K10_last_writer[N=20480]")):
+        sl, od, mk, cp = cases[nm]
+        rec[row].update(
+            max_abs_err=err[nm],
+            ms=cuda_ms(lambda: scatter.last_writer(sl, od, mk, cp)),
+            plain_ms=cuda_ms(lambda: scatter.last_writer_plain(
+                sl, od, mk, cp)),
+            library_ms=cuda_ms(lambda: lw_library(sl, od, mk, cp)))
+        bound(rec[row], 10 * sl.numel(), 4 * sl.numel())
     for nm in ("K5K6_build_incidence", "K7_overlap", "K8_first_fit",
-               "K8_first_fit[B=2048]", "K10_last_writer"):
+               "K8_first_fit[B=2048]", "K10_last_writer",
+               "K10_last_writer[N=20480]"):
         print_kernel(nm, rec[nm], card)
+
+
+def k10_check(label: str, sl, od, mk, cp) -> torch.Tensor:
+    """K10 on one input against its plain version and the sort yardstick,
+    exactly; returns the kernel's flags."""
+    from deneva_tpu_torch.ops import scatter
+    w = scatter.last_writer(sl, od, mk, cp)
+    for other, fn in (("plain", scatter.last_writer_plain),
+                      ("sort yardstick", lw_library)):
+        if not torch.equal(w, fn(sl, od, mk, cp)):
+            fail(f"K10 ({label}) differs from {other}")
+    return w
+
+
+def k10_epoch(dev, cfg, b: int, seed: int) -> tuple:
+    """K10's (slots, order, mask, capacity) on a sweep epoch of ``b`` txns
+    generated under ``cfg`` from ``seed``: the write lanes of the txns K8
+    commits on the epoch's conflicts (K5+K6, K7), ranks in txn order, at
+    2^24 rows."""
+    from deneva_tpu_torch.ops import conflict, prng
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    wl = YCSBWorkload(cfg, device=dev)
+    q = wl.generate(prng.split(prng.key_from_seed(seed, dev))[1], b)
+    (g1, g2), _ = conflict.hashed_incidence(
+        torch.zeros_like(q.keys), q.keys, ~q.is_write, q.is_write,
+        torch.ones_like(q.is_write),
+        torch.ones(b, dtype=torch.bool, device=dev), None, BUCKETS, 2,
+        ("u", "w"))
+    uw = conflict.overlap(g1["u"], g1["w"], g2["u"], g2["w"])
+    win = conflict.first_fit(*k8_inputs(uw), cfg.sweep_rounds)[0]
+    req = q.keys.shape[1]
+    rank = 1 + torch.arange(b, dtype=torch.int32, device=dev)
+    return (q.keys.reshape(-1).contiguous(),
+            rank[:, None].expand(b, req).reshape(-1),
+            (q.is_write & win[:, None]).reshape(-1), ROWS)
+
+
+def k10_arena(dev, na: int = 1 << 17) -> tuple:
+    """K10's arena case: ``na`` lanes (131,072) over na / 2 + 1 slots (N >=
+    capacity, the reference's scatter-max regime), orders spread over
+    int32."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    cap = na // 2
+    return (torch.randint(0, cap + 1, (na,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.randint(-2**31, 2**31 - 1, (na,), generator=g, device=dev,
+                          dtype=torch.int32) // 4096,
+            torch.rand(na, generator=g, device=dev) < 0.7, cap)
 
 
 def print_kernel(nm: str, v: dict, card: str) -> None:
@@ -2097,11 +2182,53 @@ def tpcc_maat_reach(dev, card: str, epochs: int = 60) -> dict:
 def _port_calls() -> dict:
     """kind -> (the kernel's wrapper, its plain version), from whichever
     ``deneva_tpu_torch`` is on the path."""
+    import functools
     from deneva_tpu_torch.cc import dgcc, maat
-    from deneva_tpu_torch.ops import conflict
+    from deneva_tpu_torch.ops import conflict, scatter
     return {"K11a": (maat.reach_stats, maat.reach_stats_plain),
             "K8": (conflict.first_fit, conflict.first_fit_plain),
-            "K16": (dgcc.relax, dgcc.relax_plain)}
+            "K16": (dgcc.relax, dgcc.relax_plain),
+            "K3": (k3_run, functools.partial(k3_run, plain=True)),
+            "K10": (scatter.last_writer, scatter.last_writer_plain)}
+
+
+# keywords of a kind's check call: K3 writes its table in place, so its
+# kernel and plain version each start from a fresh copy of the table
+_CHECK_KW = {"K3": {"fresh": True}}
+
+
+def _outputs(r) -> tuple:
+    return (r,) if torch.is_tensor(r) else tuple(r)
+
+
+_K3_TABLES: dict = {}
+
+
+def k3_table(full: int, dev, fresh: bool = False) -> tuple:
+    """(F0 column, capacity) of the 2^24-row table as the loader makes it
+    (fingerprint or full rows): one working copy per mode that timed calls
+    write, or with ``fresh`` a new copy of the loaded table."""
+    from deneva_tpu_torch.workloads.ycsb import TABLE, YCSBWorkload
+    if full not in _K3_TABLES:
+        tab = YCSBWorkload(config(bool(full), field_per_tuple=1),
+                           device=dev).load()[TABLE]
+        f0 = tab.columns["F0"]
+        _K3_TABLES[full] = (f0, f0.clone(), tab.capacity)
+    loaded, work, cap = _K3_TABLES[full]
+    return (loaded.clone() if fresh else work), cap
+
+
+def k3_run(full: int, keys, rank, is_read, is_write, fwd, win, slots,
+           plain: bool = False, fresh: bool = False):
+    """K3 (or its plain version) on a sorted plan's fields over the
+    2^24-row table of ``k3_table``, as the forwarding path calls it."""
+    from deneva_tpu_torch.ops.forward import ForwardPlan
+    from deneva_tpu_torch.workloads import ycsb
+    f0, cap = k3_table(full, keys.device, fresh)
+    p = ForwardPlan(keys=keys, rank=rank, is_read=is_read, is_write=is_write,
+                    fwd=fwd, win=win, perm=None)
+    fn = ycsb._forward_execute_f0_plain if plain else ycsb._forward_execute_f0
+    return fn(f0, p, slots, cap, mono=True)
 
 
 def vs_parent(inputs: dict, root: str, card: str, tag: str) -> None:
@@ -2154,8 +2281,9 @@ def parent_child(root: str, path: str) -> int:
     for k, (kind, v) in torch.load(path).items():
         args = tuple(t.to(dev) if torch.is_tensor(t) else t for t in v)
         fn, plain = calls[kind]
-        if not all(torch.equal(x, y) for x, y in zip(fn(*args),
-                                                     plain(*args))):
+        kw = _CHECK_KW.get(kind, {})
+        if not all(torch.equal(x, y) for x, y in zip(
+                _outputs(fn(*args, **kw)), _outputs(plain(*args, **kw)))):
             fail(f"{kind} of the tree at {root} differs from its plain "
                  f"version on {k}")
         out[k] = cuda_ms(lambda: fn(*args))
@@ -3914,10 +4042,10 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None,
               flush=True)
         return
     busy = sum(v[0] for v in by_name.values())
-    ours = ("radix_", "pack_kernel", "scan_", "plan_kernel", "read_fp",
-            "write_fp", "read_row", "write_row", "generate_kernel",
+    ours = ("radix_", "pack_kernel", "scan_", "plan_kernel",
+            "generate_kernel",
             "threefry_split", "incidence_kernel", "overlap_",
-            "pack_edges", "first_fit", "insert_kernel", "mark_kernel",
+            "pack_edges", "first_fit",
             "watermark_check", "commit_max", "commit_ring", "version_read",
             "version_push", "pack_rows", "pack_cols", "earlier_edges",
             "wavefront_kernel",
@@ -3927,7 +4055,8 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None,
             "pps_generate", "wrote_kernel", "lanes_kernel", "lane_pack",
             "lane_unpack", "census_", "relax_kernel", "density_",
             "rank_kernel", "compact_", "observe_", "order_kernel",
-            "count_kernel", "defer_kernel", "place_kernel", "fill_kernel")
+            "count_kernel", "defer_kernel", "place_kernel", "fill_kernel",
+            "forward_exec", "last_writer")
     mine = sum(v[0] for k, v in by_name.items()
                if any(o in k for o in ours))
     print(f"[profile] {mode}: device busy {busy / m / 1e3:.4f} ms/epoch "
@@ -3944,7 +4073,9 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None,
         for nm, keys in (("K11a_maat_reach", ("reach_",)),
                          ("K14c_scatter_add", ("scatter_add_",)),
                          ("K8_first_fit", ("pack_edges", "first_fit")),
-                         ("K16_dgcc_relax", ("relax_kernel",))):
+                         ("K16_dgcc_relax", ("relax_kernel",)),
+                         ("K3_forward_execute", ("forward_exec",)),
+                         ("K10_last_writer", ("last_writer",))):
             ks = [k for k in by_name if any(x in k for x in keys)]
             dev_n = sum(by_name[k][1] for k in ks)
             dev_us = sum(by_name[k][0] for k in ks)
@@ -5637,6 +5768,281 @@ def phase_slice14(dev, card: str) -> None:
                       path="ROUTED_MIXED")
 
 
+def fwd_plan(dev, cfg, batch: int, seed: int) -> tuple:
+    """(plan, slots) of a forwarding epoch: ``batch`` txns generated under
+    ``cfg`` from ``seed`` (ranks 1..batch, as the pool stamps them), sorted
+    and scanned by K1 and K2, slots from the 2^24-row index."""
+    from deneva_tpu_torch.ops import forward, prng
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    wl = YCSBWorkload(cfg, device=dev)
+    q = wl.generate(prng.split(prng.key_from_seed(seed, dev))[1], batch)
+    r = (1 + torch.arange(batch, dtype=torch.int32, device=dev)
+         ).repeat_interleave(q.keys.shape[1])
+    plan = forward.plan_scans(forward.sort_lanes(
+        q.keys.reshape(-1).contiguous(), r,
+        q.is_write.reshape(-1).contiguous()))
+    return plan, wl.index.lookup(plan.keys)
+
+
+def k3_probe(dev, plan, slots, card: str) -> None:
+    """``--slice15``'s first step: the slice-1 K3 taken apart on the main
+    path's plan.  ``probes/k3_costs.cu`` (not in the kernel library) is
+    built into its own shared library; its copy of the slice-1 gather is
+    timed with and without its per-block atomics, beside the checksum
+    memset, the winners' store and the three together, in both table
+    modes; then an empty launch and a cooperative launch of the occupancy
+    grid with 0, 1 and 9 grid barriers."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    from deneva_tpu_torch.workloads import ycsb
+    src = kernels.CSRC.parent / "probes" / "k3_costs.cu"
+    so = kernels.BUILD_DIR / "k3_costs.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([kernels._nvcc(), kernels.ARCH, "-O3", "-std=c++17",
+                        "-Xcompiler", "-fPIC", "-shared",
+                        f"-I{kernels.CSRC}", str(src), "-o", str(so)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"k3_costs.cu: {r.stdout[-1000:]}{r.stderr[-1000:]}")
+    lib = ctypes.CDLL(str(so))
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    for nm, a in (("k3p_gather_blocks", [i_, i_]),
+                  ("k3p_gather", [p_, i_, p_, p_, p_, p_, p_, i_, p_, i_,
+                                  p_]),
+                  ("k3p_memset", [p_, p_]),
+                  ("k3p_store", [p_, i_, p_, p_, p_, p_, i_, i_, p_]),
+                  ("k3p_empty", [i_, p_]), ("k3p_coop_grid", [i_]),
+                  ("k3p_grid_sync", [i_, i_, i_, p_])):
+        getattr(lib, nm).argtypes = a
+        getattr(lib, nm).restype = i_
+
+    def call(nm, *a):
+        e = getattr(lib, nm)(*a)
+        if e != 0:
+            fail(f"{nm}: CUDA error {e}")
+    n = plan.keys.numel()
+    ptr, st = kernels.ptr, kernels.stream(plan.keys)
+    pk = [ptr(t) for t in (plan.keys, plan.is_read, plan.is_write, plan.fwd,
+                           slots)]
+    for full in (0, 1):
+        f0, cap = k3_table(full, dev, fresh=True)
+        tup = f0.shape[1] if full else 0
+        blocks = lib.k3p_gather_blocks(n, tup)
+        acc = torch.zeros(2 + 2 * blocks, dtype=torch.int32, device=dev)
+
+        def gather(atomics, f0=f0, tup=tup, acc=acc):
+            call("k3p_gather", ptr(f0), tup, *pk, n, ptr(acc), atomics, st)
+
+        def store(f0=f0, tup=tup):
+            call("k3p_store", ptr(f0), tup, ptr(plan.keys), ptr(plan.rank),
+                 ptr(plan.win), ptr(slots), n, cap, st)
+
+        def memset(acc=acc):
+            call("k3p_memset", ptr(acc), st)
+        # the probe's copy computes the plain version's totals, with its
+        # atomics and from its partials
+        gather(1)
+        gather(0)
+        torch.cuda.synchronize()
+        tot = acc.to(torch.int64) & MASK32
+        parts = tot[2:].reshape(-1, 2).sum(0) & MASK32
+        _, cks, wcnt = ycsb._forward_execute_f0_plain(
+            f0.clone(), plan, slots, cap, mono=True)
+        if [int(tot[0]), int(tot[1])] != [int(cks), int(wcnt)] or \
+                [int(parts[0]), int(parts[1])] != [int(cks), int(wcnt)]:
+            fail(f"k3_costs gather ({'full row' if full else 'fingerprint'})"
+                 " differs from the plain version's totals")
+        t = {"gather": cuda_ms(lambda: gather(1)),
+             "gather, no atomics": cuda_ms(lambda: gather(0)),
+             "memset": cuda_ms(memset), "store": cuda_ms(store),
+             "memset + gather + store": cuda_ms(
+                 lambda: (memset(), gather(1), store()))}
+        print(f"[K3-probe] main path, {'full row' if full else 'fingerprint'}"
+              f": {n} lanes, gather grid {blocks} x 256 ({2 * blocks} "
+              f"same-address atomics a call); " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in t.items())
+              + f"; the atomics {t['gather'] - t['gather, no atomics']:.4f} "
+              f"ms (card {card})", flush=True)
+        del f0, acc
+        torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for threads, blocks in ((256, 0), (512, 0), (1024, 0), (1024, sms)):
+        grid = blocks or lib.k3p_coop_grid(threads)
+        t = {} if threads != 256 else {
+            "empty launch": cuda_ms(lambda: call("k3p_empty", grid, st))}
+        for k in (0, 1, 9):
+            t[f"cooperative, {k} grid barriers"] = cuda_ms(
+                lambda k=k: call("k3p_grid_sync", grid, threads, k, st))
+        per = (t["cooperative, 9 grid barriers"]
+               - t["cooperative, 1 grid barriers"]) / 8
+        print(f"[K3-probe] launches of {grid} x {threads} threads"
+              f"{'' if blocks else ' (the occupancy grid)'}: " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in t.items())
+              + f"; {per * 1e3:.2f} us a grid barrier (card {card})",
+              flush=True)
+
+
+K3_SHAPES = (("main path", lambda: config(False), BATCH, 11),
+             ("ycsb_skew", lambda: skew_config(False, "CALVIN"), SKEW_BATCH,
+              17),
+             ("ycsb_hot", lambda: hot_config(False, "CALVIN"), SKEW_BATCH,
+              19))
+
+
+def k3_cases(dev, card: str) -> dict:
+    """K3 in both table modes on the main path's plan (655,360 lanes, zipf
+    0.9), a ``ycsb_skew`` plan (20,480 lanes) and a ``ycsb_hot`` plan
+    (20,480 lanes, 90% of them on 100 keys), each exact against its plain
+    version (table bytes, checksum, write count) from a fresh table, then
+    timed; the probe first, on the main path's plan.  Returns the inputs
+    by label for ``vs_parent``."""
+    inputs = {}
+    for label, cfg_fn, batch, seed in K3_SHAPES:
+        plan, slots = fwd_plan(dev, cfg_fn(), batch, seed)
+        if label == "main path":
+            k3_probe(dev, plan, slots, card)
+        n = plan.keys.numel()
+        hottest = int(torch.unique_consecutive(
+            plan.keys, return_counts=True)[1].max())
+        for full in (0, 1):
+            mode = "full row" if full else "fingerprint"
+            args = (full, plan.keys, plan.rank, plan.is_read, plan.is_write,
+                    plan.fwd, plan.win, slots)
+            f0k, ck, wk = k3_run(*args, fresh=True)
+            f0p, cp, wp = k3_run(*args, plain=True, fresh=True)
+            if not (torch.equal(f0k, f0p) and int(ck) == int(cp)
+                    and int(wk) == int(wp)):
+                fail(f"K3 ({label}, {mode}) differs from plain")
+            del f0k, f0p
+            r = {"ms": cuda_ms(lambda: k3_run(*args))}
+            bound(r, *k3_work(plan, slots, k3_table(full, dev)[0].shape[1]
+                              if full else 0))
+            print(f"[K3] {label}, {mode}: lanes={n} "
+                  f"reads={int(plan.is_read.sum())} forwarded="
+                  f"{int((plan.is_read & (plan.fwd >= 0)).sum())} "
+                  f"winners={int(plan.win.sum())} hottest key {hottest} "
+                  f"lanes; {r['ms']:.4f} ms, bound {r['bound_ms']:.6f} "
+                  f"({r['bound_by']}) (card {card})", flush=True)
+            inputs[f"K3 {label} {mode}"] = ("K3", args)
+            if label == "main path":
+                k3_phases(args, r["ms"], card)
+        torch.cuda.empty_cache()
+    return inputs
+
+
+def k3_phases(args: tuple, ms: float, card: str) -> None:
+    """K3's phases by its inputs: the same plan with no winner (no
+    stores), with no read (no gathers) and with neither (the launch, the
+    plan's loads and the grid barrier), each timed."""
+    full, keys, rank, rd, wr, fwd, win, slots = args
+    none_r, none_w = torch.zeros_like(rd), torch.zeros_like(win)
+    t = {nm: cuda_ms(lambda a=a: k3_run(full, keys, rank, a[0], wr, fwd,
+                                        a[1], slots))
+         for nm, a in (("no stores", (rd, none_w)),
+                       ("no gathers", (none_r, win)),
+                       ("neither", (none_r, none_w)))}
+    print(f"[K3-phases] main path, {'full row' if full else 'fingerprint'}: "
+          f"all {ms:.4f} ms, " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in t.items())
+          + f"; gathers ~{t['no stores'] - t['neither']:.4f}, stores "
+          f"~{t['no gathers'] - t['neither']:.4f} (card {card})", flush=True)
+
+
+def k10_tpcc_stock(dev) -> tuple:
+    """K10's inputs on a TPC-C stock batch: epoch 3's call of a
+    4-warehouse NO_WAIT run (2,048 txns x 15 items = 30,720 lanes)."""
+    from deneva_tpu_torch.ops import scatter
+    eng = tpcc_engine(dev, tpcc_config(4, "NO_WAIT"))
+    st = eng.run(eng.init_state(), 2)
+    calls: list = []
+    with grab_calls(scatter, "last_writer", calls):
+        eng.step(st)
+    torch.cuda.synchronize()
+    return max(calls, key=lambda a: a[0].numel())
+
+
+def k10_cases(dev, card: str) -> dict:
+    """K10 at the OCC comparator's 10,240 lanes, ``ycsb_skew``'s 20,480 (an
+    epoch's committed writes), TPC-C's stock batch of 30,720 and the
+    arena's 131,072 (and 65,536), each exact against its plain version
+    and the sort yardstick, timed as the library lays it out, at each
+    CTA count and in the global-table regime.  Returns the inputs by
+    label for ``vs_parent``."""
+    from deneva_tpu_torch.ops import scatter
+    cases = {"OCC comparator epoch": k10_epoch(dev, occ_config(False),
+                                               OCC_BATCH, 13),
+             "ycsb_skew epoch": k10_epoch(dev, skew_config(False, "OCC"),
+                                          SKEW_BATCH, 17),
+             "TPC-C stock batch": k10_tpcc_stock(dev),
+             "arena, 65,536 lanes": k10_arena(dev, 1 << 16),
+             "arena": k10_arena(dev)}
+    inputs = {}
+    for label, (sl, od, mk, cp) in cases.items():
+        k10_check(label, sl, od, mk, cp)
+        n = sl.numel()
+        r = {"ms": cuda_ms(lambda: scatter.last_writer(sl, od, mk, cp)),
+             "library_ms": cuda_ms(lambda: lw_library(sl, od, mk, cp))}
+        bound(r, 10 * n, 4 * n)
+        forms = ""
+        if hasattr(scatter, "last_writer_layout"):
+            want = scatter.last_writer_plain(sl, od, mk, cp)
+            ms = []
+            for ctas in (1, 2, 4, 8, 16, 32, 64, 128, -1):
+                if not torch.equal(scatter._last_writer(sl, od, mk, ctas),
+                                   want):
+                    fail(f"K10 ({label}) at {ctas} CTAs differs from plain")
+                ms.append(f"{f'C={ctas}' if ctas > 0 else 'global table'} "
+                          + f"{cuda_ms(lambda c=ctas: scatter._last_writer(sl, od, mk, c)):.4f}")
+            c, t, g = scatter.last_writer_layout(n, sl.device)
+            forms = (f"; the library's layout: " + (
+                f"global table of {g} entries" if g else
+                f"{c} CTAs of {t} entries") + "; by layout: " + ", ".join(ms))
+        if label == "ycsb_skew epoch":
+            none = torch.zeros_like(mk)
+            one = [t[:1] for t in (sl, od, mk)]
+            print(f"[K10-phases] {label}: all {r['ms']:.4f} ms, no masked "
+                  f"lane {cuda_ms(lambda: scatter.last_writer(sl, od, none, cp)):.4f}"
+                  f", one lane {cuda_ms(lambda: scatter.last_writer(*one, cp)):.4f}"
+                  f" (card {card})", flush=True)
+        masked = mk.nonzero().squeeze(1)
+        print(f"[K10] {label}: N={n} masked={masked.numel()} distinct slots="
+              f"{int(torch.unique(sl[masked]).numel())} "
+              f"winners={int(scatter.last_writer_plain(sl, od, mk, cp).sum())};"
+              f" {r['ms']:.4f} ms (sort yardstick {r['library_ms']:.4f}; "
+              f"bound {r['bound_ms']:.6f}, {r['bound_by']}){forms} "
+              f"(card {card})", flush=True)
+        inputs[f"K10 {label} N={n}"] = ("K10", (sl, od, mk, cp))
+    return inputs
+
+
+SLICE15_PROFILES = (("fingerprint", "TPU_BATCH", lambda: config(False)),
+                    ("full_row", "TPU_BATCH", lambda: config(True)),
+                    ("NO_WAIT fingerprint", "NO_WAIT",
+                     lambda: skew_config(False, "NO_WAIT")),
+                    ("DGCC theta 0.9", "DGCC", lambda: dgcc_config(0.9)))
+
+
+def phase_slice15(dev, card: str) -> None:
+    """K3's probe, then K3 and K10 at their shapes (``k3_cases``,
+    ``k10_cases``), each exact against its plain version and timed
+    (``--slice15`` runs only these); with ``--k15-parent DIR`` each
+    beside the kernels of the checkout at DIR on the same inputs, and
+    with ``--profile`` the forwarding cells' (both modes), ``ycsb_skew``
+    NO_WAIT's and DGCC theta 0.9's profiles."""
+    inputs = k3_cases(dev, card)
+    inputs.update(k10_cases(dev, card))
+    if "--k15-parent" in sys.argv:
+        vs_parent(inputs, sys.argv[sys.argv.index("--k15-parent") + 1], card,
+                  "K15")
+    del inputs
+    _K3_TABLES.clear()
+    torch.cuda.empty_cache()
+    if "--profile" in sys.argv:
+        for label, path, cfg_fn in SLICE15_PROFILES:
+            phase_profile(dev, cfg_fn(), label, path=path)
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5664,6 +6070,10 @@ def main() -> int:
         if "--slice14" not in sys.argv:
             print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
             return 0
+    if "--slice15" in sys.argv:
+        phase_slice15(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     if "--slice14" in sys.argv:
         phase_slice14(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
@@ -5689,7 +6099,7 @@ def main() -> int:
                              "K4a_threefry_split", "K4b_ycsb_generate",
                              "K5K6_build_incidence", "K7_overlap",
                              "K8_first_fit", "K8_first_fit[B=2048]",
-                             "K10_last_writer",
+                             "K10_last_writer", "K10_last_writer[N=20480]",
                              "K12a_watermark_check", "K12b_commit_watermarks",
                              "K12c_version_read", "K12d_version_push",
                              "K4b_ycsb_generate[hot]",
@@ -5894,7 +6304,7 @@ def main() -> int:
                 key = f"{nm}[{mode}]"
             elif nm == "K4b_ycsb_generate" and cfg.skew_method == "HOT":
                 key = f"{nm}[hot]"
-            key = k8_row(key, cfg.epoch_batch)
+            key = k10_row(k8_row(key, cfg.epoch_batch), cfg)
             launches[key] = launches.get(key, 0) + c
         torch.cuda.empty_cache()
     print(f"[vs_baseline] TPU_BATCH / OCC committed txn/s (fingerprint) = "

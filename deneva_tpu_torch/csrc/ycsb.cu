@@ -7,19 +7,42 @@
 // key's final writer (win) stores f(key, rank) — only at a slot below cap:
 // under part_cnt > 1 the winners of keys another partition owns carry the
 // trash slot, and the trash row is never written (its gathers read the
-// loader's 0).  A read with fwd < 0 must
-// see the epoch-start value of a slot the same epoch's winner overwrites,
-// so the gather + checksum launch completes before the winners' store
-// launch runs (stream order).  Each key has exactly one winner, so the
-// store is a duplicate-free direct scatter (the reference's `mono`
-// cummax trick only spares XLA a sort inside its scatter).
-//   Bound: bytes — the plan's 19 B/lane plus one F0 row per non-forwarded
-//   read and per winner.  Fingerprint mode is one thread per lane;
-//   full-row mode (uint8[rows, tup]) is one thread per 4-byte word of a
-//   lane's row, so a row moves as tup/4 coalesced 32-bit accesses
-//   (tup = 100 is not a multiple of 16, so 16-byte vectors do not align).
-//   The checksum is integer and order-free: a block reduction plus one
-//   atomicAdd per block is exact.
+// loader's 0).  Each key has exactly one winner, so the store is a
+// duplicate-free direct scatter (the reference's `mono` cummax trick only
+// spares XLA a sort inside its scatter).
+//   One cooperative launch of the occupancy grid (1,024-thread blocks per
+// SM x SMs, at most a block per 256 lanes; a grid barrier over 264 such
+// blocks costs 1.41 µs on the card, over 1,056 of 256 threads 2.23)
+// striding over the lanes, its warps interleaved over the blocks so that
+// a small plan spreads over the SMs: every block gathers and sums its lanes'
+// checksum and write count in registers, reduces them once and stores
+// the pair to its own word of the scratch acc[2 + b]; one grid barrier;
+// then the winners store, and block 0 adds the blocks' pairs into
+// acc[0], acc[1] as int64 (the wrapper's results, with no conversion
+// launch).  No memset, no atomic, no ticket: the scratch is the
+// caller's, a word per block.  A lane's plan fields load together, one
+// round trip, before its row or value; in fingerprint mode a thread's
+// first 4 lanes (all of them on the main path) keep their store in
+// registers across the barrier, so the plan is read once.
+//   The order rests on a precondition: below cap, distinct keys have
+// distinct slots, and the trash slot (cap) is never stored.  So the only
+// store that can meet a gather is its own key's winner, and a read with
+// fwd < 0 (a lane before its key's first write) must see the epoch-start
+// row that winner overwrites — whichever blocks hold the two lanes, and
+// however long the key's segment (zipf 0.9's hottest key holds ~2% of
+// the main path's lanes).  The grid barrier orders every gather before
+// every store.
+//   Fingerprint mode is a thread per lane.  Full-row mode (uint8[rows,
+// tup], tup % 4 == 0) gives a warp 32 lanes at a time: each lane loads
+// its own plan fields, the warp lists its reading (or storing) lanes by
+// ballot, and walks their rows' 4-byte words over its 32 threads (25 of
+// a 100-byte row's words on one step, the next row's first words on the
+// rest), the row's fields by shuffle, the word's place by a running
+// (row, word) pair, no division; a gather issues 8 steps' loads before
+// it sums them.  Forwarded words are computed in registers (word_law);
+// 16-byte vectors would not align (tup = 100).
+//   Bound: bytes — the plan's 19 B/lane plus one F0 row per distinct
+// gathered slot and per winner.
 //
 // K4b replaces deneva_tpu/workloads/ycsb.py:277 generate with
 // deneva_tpu/ops/sampling.py:54 Zipfian.sample and :70 HotSet.sample:
@@ -43,6 +66,8 @@
 //   req_per_query (<= 64) keys in registers.
 //   Bound: operations — up to six 20-round threefry hashes (or two and a
 //   pow) per element against 5 output bytes.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "threefry.cuh"
 #include "value_law.cuh"
@@ -55,101 +80,215 @@ struct AddOp {
   }
 };
 
-__device__ __forceinline__ void flush(uint32_t s, uint32_t wc,
-                                      uint32_t* acc) {
+constexpr int kExecThreads = 1024;
+constexpr int kExecBatch = 8;     // a warp's row-word steps in flight
+constexpr int kExecCarry = 4;     // lanes a thread carries to its stores
+constexpr unsigned kWarpAll = 0xffffffffu;
+
+// A block's checksum and write count, reduced once, into its own word
+// acc[2 + b] (write count high, checksum low).
+__device__ __forceinline__ void exec_partials(uint32_t s, uint32_t wc,
+                                              unsigned long long* acc) {
+  s = dt_block_reduce(s, AddOp(), 0u);
+  wc = dt_block_reduce(wc, AddOp(), 0u);
+  if (threadIdx.x == 0)
+    acc[2 + blockIdx.x] = static_cast<unsigned long long>(wc) << 32 | s;
+}
+
+// Block 0, after the grid barrier: the blocks' words summed into acc[0]
+// (checksum) and acc[1] (write count), each a wrapping uint32 widened to
+// 64 bits; read past L1, as other SMs wrote them.
+__device__ __forceinline__ void exec_totals(unsigned long long* acc) {
+  uint32_t s = 0u, wc = 0u;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x) {
+    const unsigned long long w = __ldcg(acc + 2 + b);
+    s += static_cast<uint32_t>(w);
+    wc += static_cast<uint32_t>(w >> 32);
+  }
   s = dt_block_reduce(s, AddOp(), 0u);
   wc = dt_block_reduce(wc, AddOp(), 0u);
   if (threadIdx.x == 0) {
-    atomicAdd(&acc[0], s);
-    atomicAdd(&acc[1], wc);
+    acc[0] = s;
+    acc[1] = wc;
   }
 }
 
-__global__ void read_fp_kernel(const uint32_t* __restrict__ f0,
-                               const int32_t* __restrict__ keys,
-                               const uint8_t* __restrict__ is_read,
-                               const uint8_t* __restrict__ is_write,
-                               const int32_t* __restrict__ fwd,
-                               const int32_t* __restrict__ slots, int n,
-                               uint32_t* __restrict__ acc) {
-  uint32_t s = 0u, wc = 0u;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    if (is_read[i]) {
-      const int32_t f = fwd[i];
-      s += f >= 0 ? fp_law(static_cast<uint32_t>(keys[i]),
-                           static_cast<uint32_t>(f))
-                  : f0[slots[i]];
-    }
-    wc += is_write[i];
+// A warp's list of its lanes set in `rows`, in lane order; returns how
+// many.
+__device__ __forceinline__ int warp_list(unsigned rows, uint8_t* list) {
+  const int lane = threadIdx.x & 31;
+  if (rows >> lane & 1u)
+    list[__popc(rows & ((1u << lane) - 1u))] = static_cast<uint8_t>(lane);
+  __syncwarp();
+  return __popc(rows);
+}
+
+// One step of a warp's walk over the 4-byte words of its listed rows:
+// warp lane l holds word u of the r-th listed row, r * words + u running
+// over the steps in 32s (q, rem = 32 / words, 32 % words: no division).
+__device__ __forceinline__ void walk_step(int& r, int& u, int words, int q,
+                                          int rem) {
+  r += q;
+  u += rem;
+  if (u >= words) {
+    u -= words;
+    ++r;
   }
-  flush(s, wc, acc);
 }
 
-__global__ void write_fp_kernel(uint32_t* __restrict__ f0,
-                                const int32_t* __restrict__ keys,
-                                const int32_t* __restrict__ rank,
-                                const uint8_t* __restrict__ win,
-                                const int32_t* __restrict__ slots, int n,
-                                int cap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && win[i] && slots[i] < cap)
-    f0[slots[i]] = fp_law(static_cast<uint32_t>(keys[i]),
-                          static_cast<uint32_t>(rank[i]));
-}
-
-__global__ void read_row_kernel(const uint8_t* __restrict__ f0, int tup,
-                                const int32_t* __restrict__ keys,
-                                const uint8_t* __restrict__ is_read,
-                                const uint8_t* __restrict__ is_write,
-                                const int32_t* __restrict__ fwd,
-                                const int32_t* __restrict__ slots, int n,
-                                uint32_t* __restrict__ acc) {
+template <bool kRow>
+__global__ void __launch_bounds__(kExecThreads)
+    forward_exec_kernel(void* f0v, int tup, const int32_t* __restrict__ keys,
+                        const int32_t* __restrict__ rank,
+                        const uint8_t* __restrict__ is_read,
+                        const uint8_t* __restrict__ is_write,
+                        const int32_t* __restrict__ fwd,
+                        const uint8_t* __restrict__ win,
+                        const int32_t* __restrict__ slots, int n, int cap,
+                        unsigned long long* acc) {
+  __shared__ uint8_t lists[kExecThreads / 32][32];
+  uint8_t* list = lists[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
   const int words = tup >> 2;
-  const long long total = static_cast<long long>(n) * words;
+  const int q = kRow ? 32 / words : 0, rem = kRow ? 32 % words : 0;
+  // warps interleave over the blocks (warp w of block b takes lanes
+  // 32 (w * blocks + b) + ...), so a small plan spreads over every SM
+  const int tid = ((threadIdx.x >> 5) * gridDim.x + blockIdx.x) * 32 + lane;
+  const int stride = gridDim.x * blockDim.x;
   uint32_t s = 0u, wc = 0u;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < total; t += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int i = static_cast<int>(t / words);
-    const int u = static_cast<int>(t - static_cast<long long>(i) * words);
-    if (u == 0) wc += is_write[i];
-    if (is_read[i]) {
-      const int32_t f = fwd[i];
-      uint32_t x;
-      if (f >= 0) {
-        x = word_law(fp_law(static_cast<uint32_t>(keys[i]),
-                            static_cast<uint32_t>(f)),
-                     4u * static_cast<uint32_t>(u));
-      } else {
-        x = *reinterpret_cast<const uint32_t*>(
-            f0 + static_cast<size_t>(slots[i]) * tup + 4 * u);
+  // a lane's plan fields load together (one round trip; the plan is
+  // small and usually in L2 from K2), then its row or value
+  // fingerprint mode: a thread's first kExecCarry lanes keep their store
+  // (slot, or -1, and value) in registers across the barrier
+  int32_t carry_slot[kExecCarry];
+  uint32_t carry_val[kExecCarry];
+  if (!kRow) {
+    const uint32_t* f0 = static_cast<const uint32_t*>(f0v);
+    auto gather = [&](int i) {
+      const bool rd = is_read[i];
+      const int32_t f = fwd[i], k = keys[i], sl = slots[i];
+      wc += is_write[i];
+      if (rd)
+        s += f >= 0 ? fp_law(static_cast<uint32_t>(k),
+                             static_cast<uint32_t>(f))
+                    : f0[sl];
+    };
+#pragma unroll
+    for (int c = 0; c < kExecCarry; ++c) {
+      const int i = tid + c * stride;
+      carry_slot[c] = -1;
+      if (i < n) {
+        gather(i);
+        const int32_t sl = slots[i];
+        if (win[i] && sl < cap) {
+          carry_slot[c] = sl;
+          carry_val[c] = fp_law(static_cast<uint32_t>(keys[i]),
+                                static_cast<uint32_t>(rank[i]));
+        }
       }
-      s += byte_sum(x);
+    }
+#pragma unroll 4
+    for (int i = tid + kExecCarry * stride; i < n; i += stride) gather(i);
+  } else {
+    const uint8_t* f0 = static_cast<const uint8_t*>(f0v);
+    for (int base = tid - lane; base < n; base += stride) {
+      const int i = base + lane;
+      bool rd = false;
+      int32_t f = -1, sl = 0;
+      uint32_t fp = 0u;
+      if (i < n) {
+        rd = is_read[i] != 0;
+        f = fwd[i];
+        sl = slots[i];
+        fp = fp_law(static_cast<uint32_t>(keys[i]), static_cast<uint32_t>(f));
+        wc += is_write[i];
+      }
+      const int total = warp_list(__ballot_sync(kWarpAll, rd), list) * words;
+      int r = lane / words, u = lane - r * words;
+      for (int t0 = 0; t0 < total; t0 += 32 * kExecBatch) {
+        // kExecBatch steps' words in flight before they are summed
+        uint32_t x[kExecBatch];
+#pragma unroll
+        for (int b = 0; b < kExecBatch; ++b) {
+          const bool act = t0 + 32 * b + lane < total;
+          const int j = act ? static_cast<int>(list[r]) : 0;
+          const int32_t fj = __shfl_sync(kWarpAll, f, j);
+          const int32_t sj = __shfl_sync(kWarpAll, sl, j);
+          const uint32_t pj = __shfl_sync(kWarpAll, fp, j);
+          x[b] = !act ? 0u
+                 : fj >= 0 ? word_law(pj, 4u * static_cast<uint32_t>(u))
+                           : reinterpret_cast<const uint32_t*>(
+                                 f0 + static_cast<size_t>(sj) * tup)[u];
+          walk_step(r, u, words, q, rem);
+        }
+#pragma unroll
+        for (int b = 0; b < kExecBatch; ++b) s += byte_sum(x[b]);
+      }
+      __syncwarp();
     }
   }
-  flush(s, wc, acc);
+  exec_partials(s, wc, acc);
+  cooperative_groups::this_grid().sync();
+  if (blockIdx.x == 0) exec_totals(acc);
+  if (!kRow) {
+    uint32_t* f0 = static_cast<uint32_t*>(f0v);
+#pragma unroll
+    for (int c = 0; c < kExecCarry; ++c)
+      if (carry_slot[c] >= 0) f0[carry_slot[c]] = carry_val[c];
+#pragma unroll 4
+    for (int i = tid + kExecCarry * stride; i < n; i += stride) {
+      const bool w = win[i];
+      const int32_t sl = slots[i], k = keys[i], v = rank[i];
+      if (w && sl < cap)
+        f0[sl] = fp_law(static_cast<uint32_t>(k), static_cast<uint32_t>(v));
+    }
+  } else {
+    uint8_t* f0 = static_cast<uint8_t*>(f0v);
+    for (int base = tid - lane; base < n; base += stride) {
+      const int i = base + lane;
+      bool st = false;
+      int32_t sl = 0;
+      uint32_t fp = 0u;
+      if (i < n) {
+        sl = slots[i];
+        st = win[i] && sl < cap;
+        fp = fp_law(static_cast<uint32_t>(keys[i]),
+                    static_cast<uint32_t>(rank[i]));
+      }
+      const int total = warp_list(__ballot_sync(kWarpAll, st), list) * words;
+      int r = lane / words, u = lane - r * words;
+      for (int t0 = 0; t0 < total; t0 += 32) {
+        const bool act = t0 + lane < total;
+        const int j = act ? static_cast<int>(list[r]) : 0;
+        const int32_t sj = __shfl_sync(kWarpAll, sl, j);
+        const uint32_t pj = __shfl_sync(kWarpAll, fp, j);
+        if (act)
+          reinterpret_cast<uint32_t*>(f0 + static_cast<size_t>(sj) * tup)[u] =
+              word_law(pj, 4u * static_cast<uint32_t>(u));
+        walk_step(r, u, words, q, rem);
+      }
+      __syncwarp();
+    }
+  }
 }
 
-__global__ void write_row_kernel(uint8_t* __restrict__ f0, int tup,
-                                 const int32_t* __restrict__ keys,
-                                 const int32_t* __restrict__ rank,
-                                 const uint8_t* __restrict__ win,
-                                 const int32_t* __restrict__ slots, int n,
-                                 int cap) {
-  const int words = tup >> 2;
-  const long long total = static_cast<long long>(n) * words;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int i = static_cast<int>(t / words);
-  const int u = static_cast<int>(t - static_cast<long long>(i) * words);
-  if (!win[i] || slots[i] >= cap) return;
-  *reinterpret_cast<uint32_t*>(f0 + static_cast<size_t>(slots[i]) * tup +
-                               4 * u) =
-      word_law(fp_law(static_cast<uint32_t>(keys[i]),
-                      static_cast<uint32_t>(rank[i])),
-               4u * static_cast<uint32_t>(u));
+// The occupancy grid of K3's launch on the current device (blocks per SM
+// x SMs), asked once per device; 0 where a query fails.
+template <bool kRow>
+int exec_grid() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, forward_exec_kernel<kRow>, kExecThreads, 0) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = per_sm * sms;
+  return per_sm * sms;
 }
 
 __global__ void generate_kernel(const int64_t* __restrict__ gen_key,
@@ -232,32 +371,30 @@ __global__ void sort_rows_kernel(int32_t* __restrict__ keys, int n, int req) {
 }  // namespace
 
 // K3: tup == 0 -> fingerprint table (uint32 F0); else uint8[rows, tup]
-// with tup % 4 == 0.  acc receives (checksum, write lanes).  Winners store
-// only at slots < cap (the trash slot).
+// with tup % 4 == 0.  acc (acc_len >= 3 int64 words, the caller's
+// scratch) receives (checksum, write lanes) in [0, 2^32) in its first two
+// words; the grid takes at most acc_len - 2 blocks.  Winners store only
+// at slots < cap (the trash slot).
 DT_EXPORT int dt_forward_execute(void* f0, int tup, const int32_t* keys,
                                  const int32_t* rank, const uint8_t* is_read,
                                  const uint8_t* is_write, const int32_t* fwd,
                                  const uint8_t* win, const int32_t* slots,
-                                 int n, int cap, uint32_t* acc,
-                                 void* stream) {
-  cudaStream_t s = dt_stream(stream);
-  cudaMemsetAsync(acc, 0, 2 * sizeof(uint32_t), s);
-  if (tup == 0) {
-    auto* tab = static_cast<uint32_t*>(f0);
-    read_fp_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(tab, keys, is_read,
-                                                     is_write, fwd, slots, n,
-                                                     acc);
-    write_fp_kernel<<<dt_blocks(n, 256), 256, 0, s>>>(tab, keys, rank, win,
-                                                      slots, n, cap);
-  } else {
-    auto* tab = static_cast<uint8_t*>(f0);
-    const long long total = static_cast<long long>(n) * (tup >> 2);
-    read_row_kernel<<<dt_blocks(total, 256), 256, 0, s>>>(
-        tab, tup, keys, is_read, is_write, fwd, slots, n, acc);
-    write_row_kernel<<<dt_blocks(total, 256), 256, 0, s>>>(
-        tab, tup, keys, rank, win, slots, n, cap);
-  }
-  return dt_status();
+                                 int n, int cap, unsigned long long* acc,
+                                 int acc_len, void* stream) {
+  const bool row = tup != 0;
+  const int fit = row ? exec_grid<true>() : exec_grid<false>();
+  const int room = acc_len - 2;
+  if (fit < 1 || room < 1 || n < 0 || (row && (tup < 4 || tup % 4 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = min(min(fit, room), dt_blocks(n, 256));
+  void* args[] = {&f0,  &tup, &keys,  &rank, &is_read, &is_write,
+                  &fwd, &win, &slots, &n,    &cap,     &acc};
+  const void* kernel =
+      row ? reinterpret_cast<const void*>(forward_exec_kernel<true>)
+          : reinterpret_cast<const void*>(forward_exec_kernel<false>);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kExecThreads), args, 0, dt_stream(stream));
+  return e != cudaSuccess ? static_cast<int>(e) : dt_status();
 }
 
 // K4b: n txns of req draws into keys int32 / is_write bool [n, req].

@@ -8,11 +8,16 @@ batch analogue of the reference applying writes serially under latches
 **K10** `last_writer` (``csrc/scatter.cu``) replaces
 ``ops/scatter.py:33``.  The reference takes a sort tournament below
 capacity and a scatter-max arena at or above it; both compute one
-function, which the kernel computes in O(N) through an open-addressing
-table keyed by slot.  `last_writer_plain` ports both regimes op for op.
+function, which the kernel computes in O(N) through open-addressing
+tables keyed by slot: up to 32,768 lanes in one launch of CTAs that each
+own the slots of one hash class in their shared memory, beyond that in
+one global table (`last_writer_layout`).  `last_writer_plain` ports both
+of the reference's regimes op for op.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,8 +26,24 @@ from deneva_tpu_torch import kernels
 INT32_MIN = -2**31
 
 K10_LAST_WRITER = kernels.Kernel("dt_last_writer", [
-    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.P, kernels.P,
-    kernels.I32, kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
+    kernels.I64, kernels.P, kernels.P])
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(n: int, ctas: int, device: int) -> tuple[int, int, int]:
+    with torch.cuda.device(device):
+        return kernels.layout("dt_last_writer_layout", n, ctas)
+
+
+def last_writer_layout(n: int, device, ctas: int = 0
+                       ) -> tuple[int, int, int]:
+    """K10's launch for ``n`` lanes as the library lays it out: (CTAs,
+    table entries a CTA, 0) in the shared-memory regime, (0, 0, global
+    table entries) in the global one.  ``ctas`` > 0 asks for that many
+    CTAs (a power of two up to 128), -1 for the global table, 0 for the
+    library's choice by ``n``."""
+    return _layout(n, ctas, torch.device(device).index)
 
 
 def _lex_sort(keys: list[torch.Tensor]) -> torch.Tensor:
@@ -76,19 +97,26 @@ def last_writer(slots: torch.Tensor, order: torch.Tensor,
     """K10 (``slots`` in [0, capacity], int32 ``order``)."""
     if kernels.on_cpu(slots, order, mask):
         return last_writer_plain(slots, order, mask, capacity)
+    return _last_writer(slots, order, mask, 0)
+
+
+def _last_writer(slots: torch.Tensor, order: torch.Tensor,
+                 mask: torch.Tensor, ctas: int) -> torch.Tensor:
+    """K10 on the card, laid out as ``last_writer_layout(n, ., ctas)``
+    says; only the global regime takes scratch."""
     n = slots.shape[0]
     dev = slots.device
     kernels.check("slots", slots, torch.int32, (n,), dev)
     kernels.check("order", order, torch.int32, (n,), dev)
     kernels.check("mask", mask, torch.bool, (n,), dev)
-    size = 32
-    while size < 2 * n:
-        size *= 2
-    tkeys = torch.empty(size, dtype=torch.int32, device=dev)
-    tvals = torch.empty(size, dtype=torch.int64, device=dev)
+    size = last_writer_layout(n, dev, ctas)[2]
+    # the global table's words and keys (int32, two to a word)
+    scratch = torch.empty(size + size // 2, dtype=torch.int64, device=dev) \
+        if size else None
     win = torch.empty(n, dtype=torch.bool, device=dev)
     K10_LAST_WRITER.launch(kernels.ptr(slots), kernels.ptr(order),
-                           kernels.ptr(mask), n, kernels.ptr(tkeys),
-                           kernels.ptr(tvals), size, kernels.ptr(win),
+                           kernels.ptr(mask), n, ctas,
+                           None if scratch is None else kernels.ptr(scratch),
+                           size + size // 2, kernels.ptr(win),
                            kernels.stream(slots))
     return win

@@ -13,9 +13,9 @@ Three kernels carry it on the card:
 * **K3** `_forward_execute_f0` (``csrc/ycsb.cu``) — replaces
   ``deneva_tpu/workloads/ycsb.py:78``: read lanes gather F0 (forwarded
   reads take ``f(key, fwd)``), a wrapping uint32 checksum folds over
-  them, and each key's final writer stores ``f(key, rank)``.  The gather
-  and the checksum finish in one launch before the winners' stores run
-  in a second, so no read sees a value written in its own epoch.
+  them, and each key's final writer stores ``f(key, rank)``.  One
+  cooperative launch: every gather, a grid barrier, then the winners'
+  stores, so no read sees a value written in its own epoch.
 * **K4b** `YCSBWorkload.generate` (``csrc/ycsb.cu``) — replaces
   ``deneva_tpu/workloads/ycsb.py:277`` with ``ops/sampling.py:54,70``:
   the threefry draws, the zipfian quantile or the HOT draw (a Bernoulli
@@ -81,7 +81,11 @@ FP_MUL_VER = 0x9E3779B9
 K3_EXEC = kernels.Kernel("dt_forward_execute", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
-    kernels.P])
+    kernels.I32, kernels.P])
+# K3's int64 scratch: the two totals, then a block's (checksum, write
+# count) pair in a word each; the library sizes its grid to the card and
+# to this room
+K3_SCRATCH = 2 + 2048
 K12C_READ = kernels.Kernel("dt_version_read", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.I32, kernels.P, kernels.I32, kernels.I32, kernels.P, kernels.P])
@@ -185,13 +189,12 @@ def _forward_execute_f0(f0, p, slots, trash, mono: bool = False):
                         ("win", p.win, torch.bool),
                         ("slots", slots, torch.int32)):
         kernels.check(name, t, dt, (n,), dev)
-    acc = torch.empty(2, dtype=torch.int32, device=dev)
+    acc = torch.empty(K3_SCRATCH, dtype=torch.int64, device=dev)
     K3_EXEC.launch(kernels.ptr(f0), tup, kernels.ptr(p.keys),
                    kernels.ptr(p.rank), kernels.ptr(p.is_read),
                    kernels.ptr(p.is_write), kernels.ptr(p.fwd),
                    kernels.ptr(p.win), kernels.ptr(slots), n, int(trash),
-                   kernels.ptr(acc), kernels.stream(f0))
-    acc = acc.to(torch.int64) & MASK32
+                   kernels.ptr(acc), K3_SCRATCH, kernels.stream(f0))
     return f0, acc[0], acc[1]
 
 

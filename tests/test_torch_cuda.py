@@ -12,8 +12,12 @@ positions, K15c and K17 alone and as ``audit_observe``; armed epochs of
 OCC, OCC with ``audit_mutate`` and with repair, CALVIN, MVCC, TIMESTAMP
 off and on the cadence, DGCC, and TPC-C), and of the partitioned
 keyspace and the router (K3 leaving the trash row alone at
-``part_cnt = 4``, K21 alone, routed mixed epochs).  Marked ``cuda``;
-without a CUDA device every test skips.
+``part_cnt = 4``, K21 alone, routed mixed epochs).  K3's one cooperative
+launch and K10's shared tables also on their edge inputs (a hot key over
+every block, reads only after writes, ragged lane counts; one slot, no
+masked lane, INT32_MIN / INT32_MAX orders, the arena, slots against the
+hash, each CTA count and the global regime).  Marked ``cuda``; without a
+CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
 without the conftest:
@@ -361,6 +365,154 @@ def test_last_writer_matches_plain(dev, n, n_slots, capacity):
     s, o, m = slots.to(dev), order.to(dev), mask.to(dev)
     assert torch.equal(scatter.last_writer(s, o, m, capacity),
                        scatter.last_writer_plain(s, o, m, capacity))
+
+
+def _k10_edge(kind, n, dev):
+    """(slots, order, mask, capacity) of a K10 edge case."""
+    g = torch.Generator().manual_seed(n)
+    cap = 1 << 20
+    slots = torch.randint(0, max(n // 4, 1), (n,), generator=g,
+                          dtype=torch.int32)
+    order = torch.randint(0, 6, (n,), generator=g, dtype=torch.int32)
+    mask = torch.rand(n, generator=g) < 0.5
+    if kind == "one_slot":
+        slots[:] = 3
+        mask[:] = True
+    elif kind == "no_mask":
+        mask[:] = False
+    elif kind == "extremes":
+        order = torch.where(torch.rand(n, generator=g) < 0.5, -2**31,
+                            2**31 - 1).to(torch.int32)
+    elif kind == "arena":
+        cap = max(n // 8, 1)
+        slots = torch.randint(0, cap + 1, (n,), generator=g,
+                              dtype=torch.int32)
+    if kind == "misaligned":    # views one element in: the lane-wise walk
+        return (slots.to(dev)[1:], order.to(dev)[1:], mask.to(dev)[1:],
+                cap)
+    return slots.to(dev), order.to(dev), mask.to(dev), cap
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("random", 1023), ("random", 1025), ("random", 20480),
+    ("random", 30720), ("one_slot", 20480), ("no_mask", 10240),
+    ("extremes", 8193), ("arena", 4097), ("arena", 131072), ("random", 1),
+    ("misaligned", 20481)])
+@pytest.mark.parametrize("ctas", [0, 1, 2, 8, 32, -1])
+def test_last_writer_edges_match_plain(dev, kind, n, ctas):
+    """K10 at the library's layout, at 1, 2, 8 and 32 CTAs and in the
+    global-table regime, on every lane one slot, no masked lane, N off
+    the block width, orders at INT32_MIN / INT32_MAX, N >= capacity and
+    inputs off the 16-byte alignment of the vector loads."""
+    s, o, m, cap = _k10_edge(kind, n, dev)
+    want = scatter.last_writer_plain(s, o, m, cap)
+    before = scatter.K10_LAST_WRITER.launches
+    got = scatter._last_writer(s, o, m, ctas) if ctas else \
+        scatter.last_writer(s, o, m, cap)
+    assert scatter.K10_LAST_WRITER.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_last_writer_spills_exactly(dev):
+    """Slots chosen against the hash, every one owned by one CTA of the
+    library's layout, past half its table: it splits them over
+    sub-rounds and the flags stay exact."""
+    n = 30720
+    c, t, _ = scatter.last_writer_layout(n, dev)
+    pool = np.arange(n * c * 2, dtype=np.int64)
+    owner = (pool * 2654435761 & 0xFFFFFFFF) >> (32 - (c.bit_length() - 1))
+    s = torch.from_numpy(pool[owner == c - 1][:n].astype(np.int32)).to(dev)
+    assert s.numel() == n and n > t // 2
+    g = torch.Generator().manual_seed(5)
+    o = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                      dtype=torch.int32).to(dev)
+    m = torch.ones(n, dtype=torch.bool, device=dev)
+    assert torch.equal(scatter.last_writer(s, o, m, 1 << 19),
+                       scatter.last_writer_plain(s, o, m, 1 << 19))
+
+
+def test_last_writer_layout_regimes(dev):
+    """Every path's N (up to TPC-C's 30,720 stock lanes) takes the shared
+    regime, with no scratch, up to 32,768 lanes; past them (the arena's
+    65,536 and 131,072) the global table; a CTA count not a power of two
+    is refused."""
+    for n in (1, 10240, 20480, 30720, 32768):
+        c, t, g = scatter.last_writer_layout(n, dev)
+        assert g == 0 and c * t >= 2 * n and t <= 8192
+    for n in (32769, 65536, 131072):
+        assert scatter.last_writer_layout(n, dev)[2] >= 2 * n
+    with pytest.raises(ValueError):
+        scatter.last_writer_layout(1000, dev, 3)
+
+
+def _k3_edge(kind, dev):
+    """(plan, slots, cap) of a K3 edge case."""
+    cap = 5000
+    g = torch.Generator().manual_seed(7)
+    if kind == "hot":        # one key on 2/3 of 300,000 lanes
+        k, r, w = _lanes(300000, cap, dev, seed=3)
+        k = torch.where(torch.rand(300000, generator=g).to(dev) < 0.67,
+                        torch.full_like(k, 17), k)
+    elif kind == "forwarded":    # every read after its key's first write
+        n = 40000
+        k = torch.randint(0, 300, (n,), generator=g, dtype=torch.int32)
+        r = 1 + torch.arange(n, dtype=torch.int32)
+        w = torch.rand(n, generator=g) < 0.3
+        first = torch.full((300,), n, dtype=torch.int64).scatter_reduce_(
+            0, k.long(), torch.arange(n), "amin")
+        w[first[first < n]] = True
+        k, r, w = k.to(dev), r.to(dev), w.to(dev)
+    else:                    # ragged lane counts
+        n = {"one": 1, "warp_off": 33, "block_off": 1025}[kind]
+        k, r, w = _lanes(n, cap, dev, seed=n)
+    plan = forward.plan_scans(forward.sort_lanes(k, r, w))
+    slots = torch.where(plan.keys < cap, plan.keys,
+                        torch.full_like(plan.keys, cap))
+    if kind == "forwarded":
+        rd = plan.is_read
+        assert bool(rd.any()) and bool((plan.fwd[rd] >= 0).all())
+    return plan, slots, cap
+
+
+@pytest.mark.parametrize("kind", ["hot", "forwarded", "one", "warp_off",
+                                  "block_off"])
+@pytest.mark.parametrize("width", [0, 100, 8, 200])
+def test_forward_execute_edges_match_plain(dev, kind, width):
+    """K3 in one cooperative launch on a hot key whose segment spans
+    every block, keys read only after their first write, and lane counts
+    off the warp and the block; full rows narrower and wider than a warp
+    of words."""
+    plan, slots, cap = _k3_edge(kind, dev)
+    rows = -(-(cap + 1) // 64) * 64
+    g = torch.Generator().manual_seed(width)
+    if width:
+        f0 = torch.randint(0, 256, (rows, width), generator=g,
+                           dtype=torch.uint8).to(dev)
+    else:
+        f0 = torch.randint(-2**31, 2**31 - 1, (rows,), generator=g,
+                           dtype=torch.int32).to(dev)
+    f0p = f0.clone()
+    _, cks, wc = ycsb._forward_execute_f0(f0, plan, slots, cap, mono=True)
+    _, cksp, wcp = ycsb._forward_execute_f0_plain(f0p, plan, slots, cap,
+                                                  mono=True)
+    assert torch.equal(f0, f0p)
+    assert int(cks) == int(cksp) and int(wc) == int(wcp)
+
+
+def test_forward_execute_refuses_a_short_scratch(dev):
+    """The launch checks its scratch: fewer than three int64 words (the
+    totals and one block's pair) are refused with an error, not run."""
+    from deneva_tpu_torch import kernels
+    plan, slots, cap = _k3_edge("block_off", dev)
+    f0 = torch.zeros(cap + 64, dtype=torch.int32, device=dev)
+    acc = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError):
+        ycsb.K3_EXEC.launch(
+            kernels.ptr(f0), 0, kernels.ptr(plan.keys),
+            kernels.ptr(plan.rank), kernels.ptr(plan.is_read),
+            kernels.ptr(plan.is_write), kernels.ptr(plan.fwd),
+            kernels.ptr(plan.win), kernels.ptr(slots), plan.keys.numel(),
+            cap, kernels.ptr(acc), 2, kernels.stream(f0))
 
 
 @pytest.mark.parametrize("alg,full", [("OCC", False), ("OCC", True),

@@ -1,5 +1,8 @@
 """Port parity: YCSB's value law and forward-execute (K3 plain version)
-against ``deneva_tpu.workloads.ycsb`` on the same numpy-seeded inputs.
+against ``deneva_tpu.workloads.ycsb`` on the same numpy-seeded inputs,
+and a numpy model of K3's one cooperative launch (``csrc/ycsb.cu``: the
+grid-stride gathers and block partials, the grid barrier, the winners'
+stores, full rows walked a warp at a time) held to both.
 
 All integer results are exact: table bytes, the uint32 read checksum
 and ``write_cnt``.  Two rows are outside the comparison where the
@@ -225,3 +228,163 @@ def test_hot_generated_epochs_match_reference(alg, pool, extra):
     js, ts = jeng.jit_run(js, 5), teng.run(ts, 5)
     _assert_same(js, ts, tcfg.synth_table_size)
     assert int(ts.stats["total_txn_commit_cnt"]) > 0
+
+
+# -- a numpy model of K3's cooperative launch (csrc/ycsb.cu) ---------------
+
+M32 = 0xFFFFFFFF
+
+
+def _np_fp(k, v):
+    k = k.astype(np.int64) & M32
+    v = v.astype(np.int64) & M32
+    return (((k * ty.FP_MUL_KEY) & M32) ^ ((v * ty.FP_MUL_VER) & M32)) | 1
+
+
+def _np_word(fp, u):
+    """Bytes 4u .. 4u + 3 of the payload of fingerprint fp (value_law.cuh
+    word_law), as four uint8."""
+    b = 4 * u[:, None] + np.arange(4)
+    coef = (b * ty.FP_MUL_KEY + ty.FP_MUL_VER) & M32
+    return ((((fp[:, None] * coef) & M32) >> 13) & 0xFF).astype(np.uint8)
+
+
+def _warp_walk(listed, words):
+    """The (row, word) pairs a warp's steps visit for its listed rows
+    (``row_words``): a running (r, u) per warp lane, r * words + u
+    advancing 32 a step, no division after the first."""
+    q, rem = divmod(32, words)
+    lane = np.arange(32)
+    r, u = lane // words, lane % words
+    total = len(listed) * words
+    for t0 in range(0, total, 32):
+        act = t0 + lane < total
+        yield listed[r[act]], u[act]
+        r, u = r + q, u + rem
+        wrap = u >= words
+        r, u = r + wrap, u - words * wrap
+
+
+def k3_model(f0, plan, slots, cap, grid, threads=1024):
+    """K3 as its one cooperative launch runs it: ``grid`` blocks of
+    ``threads`` striding over the lanes (full rows: a warp 32 lanes at a
+    time, its reading lanes' rows walked word by word); each block's
+    (checksum, write count) pair; the grid barrier, so every gather sees
+    the epoch-start table; the winners' stores below ``cap``; block 0's
+    wrapping sums.  Asserts each listed row's words are visited once."""
+    keys, rank, rd, wr, fwd, win = (np.asarray(getattr(plan, f)) for f in (
+        "keys", "rank", "is_read", "is_write", "fwd", "win"))
+    n, stride = keys.size, grid * threads
+    start = f0.copy()
+    parts = np.zeros((grid, 2), np.int64)
+    lanes = np.arange(n)
+    # warp w of block b takes lanes 32 (w * grid + b) + ..., every stride
+    block = (lanes // 32) % (stride // 32) % grid
+    np.add.at(parts[:, 1], block, wr)
+    row = f0.ndim == 2
+    if not row:
+        vals = np.where(fwd >= 0, _np_fp(keys, fwd),
+                        start[slots].astype(np.int64) & M32)
+        np.add.at(parts[:, 0], block[rd], vals[rd])
+    else:
+        words = f0.shape[1] // 4
+        seen = np.zeros((n, words), np.int64)
+        for base in range(0, n, 32):
+            b = block[base]
+            chunk = lanes[base:base + 32]
+            for rows, u in _warp_walk(chunk[rd[chunk]], words):
+                seen[rows, u] += 1
+                got = np.where((fwd[rows] >= 0)[:, None],
+                               _np_word(_np_fp(keys[rows], fwd[rows]), u),
+                               start[slots[rows][:, None],
+                                     4 * u[:, None] + np.arange(4)])
+                parts[b, 0] += int(got.astype(np.int64).sum())
+        np.testing.assert_array_equal(seen, np.repeat(rd[:, None], words, 1))
+    out = start.copy()
+    st = win & (slots < cap)
+    if not row:
+        out[slots[st]] = _np_fp(keys[st], rank[st]).astype(np.uint32)
+    else:
+        stored = np.zeros((n, words), np.int64)
+        for base in range(0, n, 32):
+            chunk = lanes[base:base + 32]
+            for rows, u in _warp_walk(chunk[st[chunk]], words):
+                stored[rows, u] += 1
+                out[slots[rows][:, None], 4 * u[:, None] + np.arange(4)] = \
+                    _np_word(_np_fp(keys[rows], rank[rows]), u)
+        np.testing.assert_array_equal(stored, np.repeat(st[:, None], words,
+                                                        1))
+    return out, int(parts[:, 0].sum()) & M32, int(parts[:, 1].sum()) & M32
+
+
+def _k3_case(kind, tab=256):
+    """(jax plan, port plan, slots, trash) for a model case: ``mixed`` the
+    plan inputs above (heavy duplication, the trash slot for invalid
+    lanes); ``hot`` one key on 1,500 of 2,048 lanes, its segment over
+    every block of every grid; ``forwarded`` keys whose reads all follow
+    their first write; ``part4`` the slots of node 0 at ``part_cnt = 4``
+    (keys of the other partitions on the trash slot)."""
+    if kind == "mixed":
+        jp, tp, slots = _plan_inputs(11, tab=tab)
+        return jp, tp, slots, tab
+    rng = np.random.default_rng(5)
+    n = 2048
+    rank = np.repeat(1 + np.arange(n // 4, dtype=np.int32), 4)
+    if kind == "hot":
+        keys = np.where(rng.random(n) < 0.73, 7,
+                        rng.integers(0, tab, n)).astype(np.int32)
+        w = rng.random(n) < 0.5
+    elif kind == "forwarded":
+        rank = 1 + np.arange(n, dtype=np.int32)     # a txn a lane
+        keys = rng.integers(0, 40, n).astype(np.int32)
+        w = rng.random(n) < 0.3
+        _, first = np.unique(keys, return_index=True)
+        w[first] = True                     # each key's first lane writes
+    else:
+        keys = rng.integers(0, 4 * tab, n).astype(np.int32)
+        w = rng.random(n) < 0.5
+    jp = jf.forward_plan_flat(jnp.asarray(keys), jnp.asarray(rank),
+                              jnp.asarray(w))
+    tp = ForwardPlan(**{f: torch.from_numpy(np.array(getattr(jp, f)))
+                        for f in ("keys", "rank", "is_read", "is_write",
+                                  "fwd", "win")}, perm=None)
+    pk = np.asarray(jp.keys)
+    if kind == "part4":
+        slots = np.where(pk % 4 == 0, pk // 4, tab)
+    else:
+        slots = np.where(pk < tab, pk, tab)
+    if kind == "forwarded":
+        p_rd, p_fwd = np.asarray(jp.is_read), np.asarray(jp.fwd)
+        assert p_rd.any() and (p_fwd[p_rd] >= 0).all()
+    return jp, tp, slots.astype(np.int32), tab
+
+
+@pytest.mark.parametrize("kind", ["mixed", "hot", "forwarded", "part4"])
+@pytest.mark.parametrize("width", [0, 100, 24, 8, 4, 200])
+@pytest.mark.parametrize("grid", [1, 3, 8])
+def test_forward_execute_model_matches_plain_and_reference(kind, width,
+                                                           grid):
+    jp, tp, slots, tab = _k3_case(kind)
+    rng = np.random.default_rng(width + grid)
+    rows = -(-(tab + 1) // 64) * 64
+    if width:
+        f0 = rng.integers(0, 256, (rows, width), dtype=np.uint8)
+        tf0 = torch.from_numpy(f0.copy())
+    else:
+        f0 = rng.integers(0, 2**32, rows, dtype=np.uint64).astype(np.uint32)
+        tf0 = torch.from_numpy(f0.view(np.int32).copy())
+    if kind == "hot":
+        assert np.bincount(np.asarray(jp.keys)[np.asarray(jp.keys) < tab]
+                           ).max() > 3 * 256
+    mono = kind != "part4"      # the striped layout's calls take mono=False
+    got, cks, wcnt = k3_model(f0, tp, slots, tab, grid)
+    pf0, pcks, pw = ty._forward_execute_f0_plain(
+        tf0, tp, torch.from_numpy(slots), tab, mono=mono)
+    pf0 = pf0.numpy() if width else pf0.numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, pf0)
+    assert (cks, wcnt) == (int(pcks), int(pw))
+    jf0, jcks, jw = jy._forward_execute_f0(jnp.asarray(f0), jp,
+                                           jnp.asarray(slots), tab, mono=mono)
+    np.testing.assert_array_equal(got[:tab], np.asarray(jf0)[:tab])
+    np.testing.assert_array_equal(got[tab:], f0[tab:])   # trash, padding
+    assert (cks, wcnt) == (int(jcks), int(jw))
