@@ -323,6 +323,25 @@ Phases (any error or mismatch exits non-zero and prints no result):
                DIR`` ``[K15-parent]`` times that commit's K3 and K10
                beside this one's on the same inputs, parent, this, this,
                parent.
+   Slice 16: ``--slice16`` runs only ``[K11b-rounds]`` (`peel_trace`
+               on ``ycsb_skew``'s epoch 4, a ``ycsb_hot`` closure epoch
+               and an ``operating_points`` MAAT epoch at B = 8,192: per
+               peel round the sweep rounds each way of the one-block
+               design, |F| at their exits, the candidates, the victims
+               and the cluster design's exchanges; this tree's K11b at
+               the path's settings, at one peel round and at one peel
+               round without sweeps), ``[K11b]`` (K11b on the same
+               inputs on K11a's bits, at each cluster size, its counts
+               against the trace), ``[K11b-layout]`` (the largest B
+               K11b's layout takes, beside the one-block kernel's and
+               K11a's) and ``[K2]``
+               (K2 on the main path's, a ``ycsb_skew`` and IDX_BTREE's
+               sorted words), each exact against its plain version; with
+               ``--profile`` also the MAAT ``ycsb_skew``, MAAT
+               ``ycsb_hot`` and forwarding fingerprint profiles; with
+               ``--slice16-parent DIR`` ``[slice16-parent]`` times that
+               commit's K11b, K2 and K11a beside this one's on the same
+               inputs, parent, this, this, parent.
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -762,8 +781,11 @@ def plain_path(wl):
              (conflict, "wavefront", conflict.wavefront_plain),
              (conflict, "precedence_levels",
               conflict.precedence_levels_plain),
-             (maat, "reach_stats", maat.reach_stats_plain),
-             (maat, "peel", maat.peel_plain),
+             # the bits K11a hands K11b on the card mean nothing here
+             (maat, "reach_stats",
+              lambda p, live, gate, counts=True, **kw:
+              maat.reach_stats_plain(p, live, gate, counts)),
+             (maat, "peel", lambda *a, **kw: maat.peel_plain(*a)),
              (index.SortedIndex, "lookup", index.SortedIndex.lookup_plain),
              (index.HashIndex, "lookup", index.HashIndex.lookup_plain),
              (table.DeviceTable, "scatter_add",
@@ -2179,13 +2201,34 @@ def tpcc_maat_reach(dev, card: str, epochs: int = 60) -> dict:
     return out
 
 
+def _peel_on_bits(maat):
+    """K11b as the path runs it: where ``maat.peel`` takes K11a's bits, on
+    those of K11a's call over the input's live0, packed once an input (the
+    cache holds the input, so no other tensor takes its address); an
+    earlier tree's ``maat.peel``, which packs P itself, as it is."""
+    import inspect
+    if "bits" not in inspect.signature(maat.peel).parameters:
+        return maat.peel
+    packed = {}
+
+    def run(p, live0, oc, rank, rounds, peel_rounds, gate):
+        key = (p.data_ptr(), live0.data_ptr(), gate.data_ptr())
+        if key not in packed:
+            packed[key] = (p, live0, gate, k11a_bits(p, live0, gate))
+        return maat.peel(p, live0, oc, rank, rounds, peel_rounds, gate,
+                         bits=packed[key][3])
+    return run
+
+
 def _port_calls() -> dict:
     """kind -> (the kernel's wrapper, its plain version), from whichever
     ``deneva_tpu_torch`` is on the path."""
     import functools
     from deneva_tpu_torch.cc import dgcc, maat
-    from deneva_tpu_torch.ops import conflict, scatter
+    from deneva_tpu_torch.ops import conflict, forward, scatter
     return {"K11a": (maat.reach_stats, maat.reach_stats_plain),
+            "K11b": (_peel_on_bits(maat), maat.peel_plain),
+            "K2": (forward.plan_scans, forward.plan_scans_plain),
             "K8": (conflict.first_fit, conflict.first_fit_plain),
             "K16": (dgcc.relax, dgcc.relax_plain),
             "K3": (k3_run, functools.partial(k3_run, plain=True)),
@@ -2198,6 +2241,8 @@ _CHECK_KW = {"K3": {"fresh": True}}
 
 
 def _outputs(r) -> tuple:
+    if hasattr(r, "fwd"):               # a ForwardPlan
+        return (r.keys, r.rank, r.is_read, r.is_write, r.fwd, r.win)
     return (r,) if torch.is_tensor(r) else tuple(r)
 
 
@@ -2367,20 +2412,18 @@ def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
     # the function's bytes: P read once, live and gate in, the flags and
     # counts out (a bit search does no arithmetic to count)
     bound(rec["K11a_maat_reach"], b * b + 2 * b + 5 * b, 0)
-    ab = maat.peel(p, live0, sr, rank, rounds, peel_rounds, un)
+    ab, ms = k11b_case("ycsb_skew epoch 4",
+                       (p, live0, sr, rank, rounds, peel_rounds, un), card)
     abp = maat.peel_plain(p, live0, sr, rank, rounds, peel_rounds, un)
-    if not torch.equal(ab, abp):
-        fail("K11b differs from plain")
     rec["K11b_maat_peel"].update(
-        max_abs_err=max_abs(ab, abp),
-        ms=cuda_ms(lambda: maat.peel(p, live0, sr, rank, rounds,
-                                     peel_rounds, un), iters=5),
+        max_abs_err=max_abs(ab, abp), ms=ms,
         plain_ms=cuda_ms(lambda: maat.peel_plain(
             p, live0, sr, rank, rounds, peel_rounds, un), iters=2),
         library_ms=None)
-    # P, the three flag vectors and the ranks in, the aborts out; each
-    # sweep relaxes every live edge at least once
-    bound(rec["K11b_maat_peel"], b * b + 3 * b + 4 * b + b, 2 * sub)
+    # K11a's bits of P's rows and columns (K11a's bound counts P), the
+    # three flag vectors and the ranks in, the aborts out; each sweep
+    # relaxes every live edge at least once
+    bound(rec["K11b_maat_peel"], k11b_bytes(b), 2 * sub)
     left, _, err = k11_call(p, live0 & ~ab, un, b,
                             "second call, over live0 & ~aborted", card)
     rec["K11a_maat_reach"]["max_abs_err"] = max(
@@ -4070,7 +4113,9 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None,
               f"{k[:90]}", flush=True)
     if path is not None:
         check_launches(counts, path, m, f"profile {mode}")
-        for nm, keys in (("K11a_maat_reach", ("reach_",)),
+        for nm, keys in (("K2_plan_scans", ("plan_kernel",)),
+                         ("K11a_maat_reach", ("reach_",)),
+                         ("K11b_maat_peel", ("peel_kernel",)),
                          ("K14c_scatter_add", ("scatter_add_",)),
                          ("K8_first_fit", ("pack_edges", "first_fit")),
                          ("K16_dgcc_relax", ("relax_kernel",)),
@@ -5652,7 +5697,7 @@ def phase_slice13(dev, card: str) -> None:
     k11_call(p, live0, un, b, "first call, over live0, no counts", card,
              counts=False)
     ab = maat.peel(p, live0, sr, cap["batch"].rank, cfg.sweep_rounds,
-                   cfg.maat_peel_rounds, un)
+                   cfg.maat_peel_rounds, un, bits=k11a_bits(p, live0, un))
     k11_call(p, live0 & ~ab, un, b, "second call, over live0 & ~aborted",
              card)
     inputs = {"ycsb_skew epoch 4 first call, over live0": (p, live0, un),
@@ -6043,6 +6088,361 @@ def phase_slice15(dev, card: str) -> None:
             torch.cuda.empty_cache()
 
 
+def peel_trace(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int,
+               gate) -> list[dict]:
+    """What K11b's rounds do on one input, from boolean matrices on the
+    input's device: per peel round, the level-sweep rounds each direction
+    runs before its fixpoint or empty-set exit (bits.cuh `level_sweep`,
+    the one-block kernel: the P sweep, then the P^T sweep unless the first
+    leaves no candidate), |F| at each exit, the candidates and the
+    victims; and the exchanges of the cluster kernel, whose two sweeps
+    advance together and stop at their fixpoints or when no candidate is
+    left (``x``).  The aborted set it ends with is checked against
+    ``peel_plain``.  Empty when the gate is off."""
+    from deneva_tpu_torch.cc import maat
+    if not bool(gate.any()):
+        return []
+    sub = p & live0[:, None] & live0[None, :]
+    preds = (sub.T.contiguous(), sub)    # rows: predecessors under P, P^T
+    sym, gt = sub | sub.T, maat.younger(rank)
+    aborted = torch.zeros_like(live0)
+
+    def step(d, f):
+        return f & (preds[d] & f[None, :]).any(dim=1)
+
+    def sweep(d, f):
+        """level_sweep from F: (F at exit, rounds run)."""
+        prev, ran = -1, 0
+        for _ in range(rounds):
+            n = int(f.sum())
+            if n == 0 or n == prev:
+                break
+            prev, ran, f = n, ran + 1, step(d, f)
+        return f, ran
+
+    out = []
+    for _ in range(peel_rounds):
+        f0 = live0 & ~aborted
+        ff, rf = sweep(0, f0)
+        uf = ff & on_cycle0
+        fr, rr = sweep(1, f0) if bool(uf.any()) else (None, 0)
+        cand = uf & fr if fr is not None else uf
+        # the cluster kernel: both sweeps in the same exchanges
+        x, fc, act = 0, [f0, f0], [rounds > 0, rounds > 0]
+        if bool((f0 & on_cycle0).any()):
+            for r in range(rounds):
+                fn = [step(d, fc[d]) if act[d] else fc[d] for d in (0, 1)]
+                x += 1
+                for d in (0, 1):
+                    if act[d] and (torch.equal(fn[d], fc[d])
+                                   or not bool(fn[d].any())
+                                   or r == rounds - 1):
+                        act[d] = False
+                fc = fn
+                if not bool((fn[0] & fn[1] & on_cycle0).any()) or not any(act):
+                    break
+        row = {"sweep_f": rf, "F_f": int(ff.sum()), "sweep_r": rr,
+               "F_r": -1 if fr is None else int(fr.sum()),
+               "candidates": int(cand.sum()), "x": x}
+        if not bool(cand.any()):
+            row["victims"] = 0
+            out.append(row)
+            break
+        nb = sym & cand[:, None] & cand[None, :]
+        victims = cand & ~(nb & gt).any(dim=1)
+        row["victims"] = int(victims.sum())
+        out.append(row)
+        aborted = aborted | victims
+    want = maat.peel_plain(p, live0, on_cycle0, rank, rounds, peel_rounds,
+                           gate)
+    if not torch.equal(aborted, want):
+        fail("peel_trace's aborted set differs from peel_plain")
+    return out
+
+
+# K11b's inputs for --slice16: (label, config, first epoch to take)
+K11B_SHAPES = (("ycsb_skew epoch 4", lambda: skew_config(False, "MAAT"), 4),
+               ("ycsb_hot", lambda: hot_config(False), 4),
+               ("B=8192", lambda: operating_config("MAAT", 8192), 1))
+
+
+def operating_config(alg: str, batch: int, **kw):
+    """An ``operating_points`` cell (``experiments.py:151-162``): the
+    ``ycsb_skew`` settings at theta 0.9 with ``epoch_batch`` = ``batch``
+    over the same pool of 10,000."""
+    return config(False, cc_alg=alg, epoch_batch=batch,
+                  max_txn_in_flight=SKEW_POOL, conflict_buckets=BUCKETS,
+                  conflict_exact=True, watermark_buckets=1 << 20,
+                  mvcc_his_len=4, **kw)
+
+
+def k11b_inputs(dev) -> dict:
+    """K11b's arguments as ``validate_maat`` hands them over: (P, live0,
+    on_cycle0, rank, rounds, peel_rounds, gate) of ``ycsb_skew``'s epoch 4
+    (`maat_points`' epoch, the kernel table's input), of the first
+    ``ycsb_hot`` epoch from epoch 4 on whose level gate is set, and of the
+    first such MAAT epoch at ``operating_points``' B = 8,192 (``paper_base``
+    at theta 0.9), each engine from a fresh state."""
+    from deneva_tpu_torch.cc import maat
+    out = {}
+    for label, cfg_fn, first in K11B_SHAPES:
+        eng = make_engine(dev, cfg_fn())
+        st, calls = eng.init_state(), []
+        with grab_calls(maat, "peel", calls):
+            for e in range(1, 16):
+                st = eng.step(st)
+                if e >= first and bool(calls[-1][6].any()):
+                    break
+            else:
+                fail(f"K11b {label}: no epoch up to 15 set the level gate")
+        torch.cuda.synchronize()
+        out[f"{label}" + ("" if e == first else f" (epoch {e})")] = \
+            tuple(calls[-1][:7])
+        del eng, st, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def k11b_bytes(b: int) -> int:
+    """The bytes K11b must move at B = ``b``: K11a's bits of P's rows and
+    columns (2 b ceil(b / 32) int32 words), live0, on_cycle0 and the gate
+    (1 B a txn each) and the ranks (4 B) in, the aborts (1 B) out."""
+    return 2 * b * -(-b // 32) * 4 + 3 * b + 4 * b + b
+
+
+def k11a_bits(p, live0, gate):
+    """K11a's scratch after its call over ``(p, live0, gate)``: P's rows
+    and columns packed over live0, which `maat.peel` reads."""
+    from deneva_tpu_torch.cc import maat
+    bits = maat.reach_scratch(p.shape[0], p.device)
+    maat.reach_stats(p, live0, gate, False, bits=bits)
+    return bits
+
+
+def k11b_case(label: str, args: tuple, card: str,
+              sizes: bool = False) -> tuple:
+    """K11b on one input exactly against ``peel_plain``, as
+    ``validate_maat`` runs it (on the bits of K11a's call over live0), its
+    counts against `peel_trace`'s, timed; with ``sizes`` also at each
+    cluster size.  Returns (aborted, ms)."""
+    from deneva_tpu_torch.cc import maat
+    p, live0, oc, rank, rounds, peel_rounds, gate = args
+    b = p.shape[0]
+    want = maat.peel_plain(*args)
+    bits = k11a_bits(p, live0, gate)
+    stats = torch.zeros(4, dtype=torch.int32, device=p.device)
+    for got in (maat.peel(*args, bits=bits),
+                maat._peel(*args, bits=bits, stats=stats)):
+        if not torch.equal(got, want):
+            fail(f"K11b ({label}) differs from plain")
+    tr = peel_trace(*args)
+    counts = [sum(1 for r in tr if r["candidates"]),
+              sum(r["x"] for r in tr), sum(r["victims"] for r in tr)]
+    if bool(gate.any()) and stats[:3].tolist() != counts:
+        fail(f"K11b ({label}) counts {stats.tolist()} differ from "
+             f"peel_trace's {counts}")
+    ms = cuda_ms(lambda: maat.peel(*args, bits=bits))
+    lim = {}
+    bound(lim, k11b_bytes(b),
+          2 * int((p & live0[:, None] & live0[None, :]).sum()))
+    c, shared, _ = maat.peel_layout(b)
+    by = ""
+    if sizes:
+        t = {}
+        for top in (1, 2, 4, 8, 16):
+            ct = maat.peel_layout(b, top)[0]
+            if ct in t:
+                continue
+            if not torch.equal(maat._peel(*args, bits=bits, max_ctas=top),
+                               want):
+                fail(f"K11b ({label}) at {ct} CTAs differs from plain")
+            t[ct] = cuda_ms(lambda top=top: maat._peel(*args, bits=bits,
+                                                       max_ctas=top))
+        by = "; by cluster: " + ", ".join(f"C={k} {v:.4f}"
+                                          for k, v in t.items())
+    print(f"[K11b] {label}: B={b} peel rounds with candidates {counts[0]}, "
+          f"sweep exchanges {counts[1]}, victims {counts[2]}; cluster of "
+          f"{c} CTAs, rows in {'shared memory' if shared else 'L2'}; "
+          f"{ms:.4f} ms on K11a's bits ({ms / max(1, counts[0] + counts[1]) * 1e3:.2f}"
+          f" us an exchange), bound {lim['bound_ms']:.6f} ms "
+          f"({lim['bound_by']}, {lim['bytes']} bytes){by} (card {card})",
+          flush=True)
+    return want, ms
+
+
+def k11b_one_block_top() -> int:
+    """The largest B the one-block K11b (PR 4-15) took: its sets, (6
+    ceil(B / 32) + B) int32 words, within 200 KiB of shared memory."""
+    b = 200 * 1024 // 4
+    while 6 * -(-b // 32) + b > 200 * 1024 // 4:
+        b -= 1
+    return b
+
+
+def k11b_layout_top(max_ctas: int = 0) -> int:
+    """The largest B K11b's layout takes (`maat.peel_layout`, by
+    bisection; a larger B raises)."""
+    from deneva_tpu_torch.cc import maat
+
+    def takes(b):
+        try:
+            maat.peel_layout(b, max_ctas)
+        except ValueError:
+            return False
+        return True
+    lo, hi = 1, 1 << 22
+    while lo + 1 < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    return lo
+
+
+def k11b_layout_edges(card: str) -> None:
+    """``[K11b-layout]``: the largest B K11b's layout takes on this card,
+    with its cluster there, beside the one-block kernel's largest B and
+    K11a's (`maat.reach_group`, which raises past it); and the layout at
+    the path's shapes."""
+    from deneva_tpu_torch.cc import maat
+    top = k11b_layout_top()
+    k11a = 1
+    while True:
+        try:
+            maat.reach_group(k11a + 1)
+        except ValueError:
+            break
+        k11a += 1
+    shapes = ", ".join(f"B={b}: {maat.peel_layout(b)[0]} CTAs, rows in "
+                       f"{'shared memory' if maat.peel_layout(b)[1] else 'L2'}"
+                       for b in (16, 2048, 8192, k11b_one_block_top(), top))
+    print(f"[K11b-layout] largest B {top} (the one-block kernel's "
+          f"{k11b_one_block_top()}, K11a's {k11a}); {shapes} (card {card})",
+          flush=True)
+
+
+def k11b_rounds(inputs: dict, card: str) -> None:
+    """``[K11b-rounds]``: `peel_trace` on each input, and the kernel of this
+    tree at the path's settings, at one peel round and at one peel round
+    without sweeps (``rounds`` 0: the launch, staging and one victim
+    pass), by CUDA events: what a peel round and a sweep round
+    cost."""
+    from deneva_tpu_torch.cc import maat
+    for label, args in inputs.items():
+        p, live0, oc, rank, rounds, peel_rounds, gate = args
+        tr = peel_trace(*args)
+        bits = k11a_bits(p, live0, gate)
+        sweeps = sum(r["sweep_f"] + r["sweep_r"] for r in tr)
+        x = sum(r["x"] for r in tr)
+        victims = sum(r["victims"] for r in tr)
+        t = {(r, q): cuda_ms(lambda r=r, q=q: maat.peel(
+                 p, live0, oc, rank, r, q, gate, bits=bits), iters=5)
+             for r, q in ((rounds, peel_rounds), (rounds, 1), (0, 1))}
+        one = tr[0]["sweep_f"] + tr[0]["sweep_r"] if tr else 0
+        per = (t[(rounds, 1)] - t[(0, 1)]) / one * 1e3 if one else 0.0
+        print(f"[K11b-rounds] {label}: B={p.shape[0]} "
+              f"live0={int(live0.sum())} on_cycle0={int(oc.sum())} "
+              f"edges={int((p & live0[:, None] & live0[None, :]).sum())}; "
+              f"{len(tr)} peel rounds ran of {peel_rounds}, one-block "
+              f"sweep rounds {sweeps} in all, cluster exchanges {x} sweep + "
+              f"{sum(1 for r in tr if r['candidates'])} victim, victims "
+              f"{victims}; ms at ({rounds}, {peel_rounds}) "
+              f"{t[(rounds, peel_rounds)]:.4f}, at ({rounds}, 1) "
+              f"{t[(rounds, 1)]:.4f}, at (0, 1) {t[(0, 1)]:.4f}: a sweep "
+              f"round of peel round 1 ~{per:.2f} us (card {card})",
+              flush=True)
+        for i, r in enumerate(tr):
+            print(f"[K11b-rounds]   {label} peel round {i + 1}: P sweep "
+                  f"{r['sweep_f']} rounds, |F| {r['F_f']}; P^T sweep "
+                  f"{r['sweep_r']} rounds, |F| {r['F_r']}; candidates "
+                  f"{r['candidates']}, victims {r['victims']}; cluster "
+                  f"exchanges {r['x']}", flush=True)
+
+
+def k2_inputs(dev) -> dict:
+    """K2's sorted words at its path shapes: the main path's 655,360 lanes,
+    a ``ycsb_skew`` batch's 20,480 and IDX_BTREE's 655,360 (K1's output
+    on a generated batch, ranks 1..B as the pool stamps them)."""
+    from deneva_tpu_torch.ops import forward, prng
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    out = {}
+    for label, cfg_fn, batch, seed in (
+            ("main path", lambda: config(False), BATCH, 11),
+            ("ycsb_skew", lambda: skew_config(False, "CALVIN"), SKEW_BATCH,
+             17),
+            ("IDX_BTREE", btree_config, BATCH, 23)):
+        wl = YCSBWorkload(cfg_fn(), device=dev)
+        q = wl.generate(prng.split(prng.key_from_seed(seed, dev))[1], batch)
+        r = (1 + torch.arange(batch, dtype=torch.int32, device=dev)
+             ).repeat_interleave(q.keys.shape[1])
+        words = forward.sort_lanes(q.keys.reshape(-1).contiguous(), r,
+                                   q.is_write.reshape(-1).contiguous())
+        out[f"{label} N={words.numel()}"] = (words,)
+        del wl
+    return out
+
+
+def k2_case(words, r: dict, label: str, card: str) -> None:
+    """K2 on ``words`` exactly against ``plan_scans_plain``, timed beside
+    it; the bound counts the words read once and the six fields written
+    once (23 bytes a lane)."""
+    from deneva_tpu_torch.ops import forward
+    got, want = forward.plan_scans(words), forward.plan_scans_plain(words)
+    err = 0
+    for f in ("keys", "rank", "is_read", "is_write", "fwd", "win"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            fail(f"K2 ({label}) {f} differs from plain")
+        err = max(err, max_abs(getattr(got, f), getattr(want, f)))
+    n = words.numel()
+    r.update(max_abs_err=err, ms=cuda_ms(lambda: forward.plan_scans(words)),
+             plain_ms=cuda_ms(lambda: forward.plan_scans_plain(words),
+                              iters=5), library_ms=None)
+    bound(r, 23 * n, 8 * n)
+    keys = want.keys
+    hot = int(torch.unique_consecutive(keys, return_counts=True)[1].max())
+    print(f"[K2] {label}: lanes={n} writes={int(want.is_write.sum())} "
+          f"forwarded={int((want.fwd >= 0).sum())} "
+          f"winners={int(want.win.sum())} hottest key {hot} lanes; "
+          f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}; bound "
+          f"{r['bound_ms']:.6f}, {r['bound_by']}) (card {card})", flush=True)
+
+
+SLICE16_PROFILES = (("MAAT fingerprint", "MAAT", lambda: skew_config(
+                        False, "MAAT")),
+                    ("MAAT ycsb_hot", "MAAT", lambda: hot_config(False)),
+                    ("fingerprint", "TPU_BATCH", lambda: config(False)))
+
+
+def phase_slice16(dev, card: str) -> None:
+    """``[K11b-rounds]`` and K11b on its three inputs (`k11b_inputs`), K2
+    at its three shapes (`k2_inputs`), each exact against its plain
+    version and timed (``--slice16`` runs only these); with
+    ``--slice16-parent DIR`` each, and K11a over the same epochs' live0,
+    beside the kernels of the checkout at DIR on the same inputs, and
+    with ``--profile`` the MAAT ``ycsb_skew``, MAAT ``ycsb_hot`` and
+    forwarding fingerprint profiles."""
+    k11b_layout_edges(card)
+    peel_in = k11b_inputs(dev)
+    k11b_rounds(peel_in, card)
+    inputs = {}
+    for label, args in peel_in.items():
+        k11b_case(label, args, card, sizes=True)
+        inputs[f"K11b {label}"] = ("K11b", args)
+        # K11a, whose packed bits K11b now reads, is timed beside its parent
+        inputs[f"K11a {label}, over live0"] = ("K11a", (args[0], args[1],
+                                                        args[6]))
+    for label, args in k2_inputs(dev).items():
+        k2_case(args[0], {}, label, card)
+        inputs[f"K2 {label}"] = ("K2", args)
+    if "--slice16-parent" in sys.argv:
+        vs_parent(inputs, sys.argv[sys.argv.index("--slice16-parent") + 1],
+                  card, "slice16")
+    del inputs, peel_in
+    torch.cuda.empty_cache()
+    if "--profile" in sys.argv:
+        for label, path, cfg_fn in SLICE16_PROFILES:
+            phase_profile(dev, cfg_fn(), label, path=path)
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6070,6 +6470,10 @@ def main() -> int:
         if "--slice14" not in sys.argv:
             print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
             return 0
+    if "--slice16" in sys.argv:
+        phase_slice16(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     if "--slice15" in sys.argv:
         phase_slice15(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)

@@ -20,8 +20,10 @@ The reference chooses the branch with ``lax.cond`` on the device.  The
 port launches K11a twice and K11b once in every epoch; each kernel reads
 the gate (the unstable flags) on the device and returns the fast branch's
 result when it is all false, so the epoch never waits on the host and
-its launch counts do not depend on the data.  The plain versions branch
-in Python.
+its launch counts do not depend on the data.  K11b reads P's rows and
+columns as K11a's first call packs them (over live0) and runs every peel
+round in one launch of a thread-block cluster.  The plain versions
+branch in Python.
 
 Cross-epoch state is unnecessary (``()``).  The repair frontier is the
 generic one (K13a, ``cc/base.py``).
@@ -44,8 +46,9 @@ K11A_REACH = kernels.Kernel("dt_maat_reach", [
 REACH_SMEM = 200 * 1024     # K11a's shared-memory budget (bits.cuh kSmemMax)
 REACH_PIVOTS = 4            # K11a's candidates (csrc/maat.cu kPivots)
 K11B_PEEL = kernels.Kernel("dt_maat_peel", [
-    kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32,
-    kernels.I32, kernels.I32, kernels.P, kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32,
+    kernels.I32, kernels.I32, kernels.P, kernels.I64, kernels.P, kernels.P,
+    kernels.P])
 
 
 def views(cfg) -> tuple[str, ...]:
@@ -108,10 +111,20 @@ def reach_group(b: int) -> int:
                      "memory")
 
 
+def reach_scratch(b: int, dev) -> torch.Tensor:
+    """K11a's scratch at B = ``b`` (int32): P's live rows and columns as
+    bits, ``[2, b, ceil(b / 32)]``, then the candidates' sets, txns and
+    levels.  K11b reads the bits of the first call's."""
+    words = -(-b // 32)
+    return torch.empty(2 * b * words + 2 * REACH_PIVOTS * words
+                       + 4 * REACH_PIVOTS, dtype=torch.int32, device=dev)
+
+
 def reach_stats(p: torch.Tensor, live: torch.Tensor, gate: torch.Tensor,
                 counts: bool = True, *, group: int | None = None,
                 levels: torch.Tensor | None = None,
-                stats: torch.Tensor | None = None):
+                stats: torch.Tensor | None = None,
+                bits: torch.Tensor | None = None):
     """K11a: the transitive closure of ``P`` over ``live`` on bits: the
     largest strongly connected set C that one of `REACH_PIVOTS`
     candidates' two searches find, whose txns all reach the candidate's
@@ -121,7 +134,8 @@ def reach_stats(p: torch.Tensor, live: torch.Tensor, gate: torch.Tensor,
     Skipped on the device when ``gate`` is all false.  ``levels`` (int32,
     one entry a group) gets the levels each group took; ``stats`` (int32
     [4]) the chosen candidate, |C|, the residual's size and the
-    candidate's levels."""
+    candidate's levels.  ``bits`` (`reach_scratch`; None for a new one)
+    is the kernel's scratch, which a caller keeps for `peel`."""
     if kernels.on_cpu(p, live, gate):
         return reach_stats_plain(p, live, gate, counts)
     b = live.shape[0]
@@ -134,9 +148,8 @@ def reach_stats(p: torch.Tensor, live: torch.Tensor, gate: torch.Tensor,
         kernels.check("levels", levels, torch.int32, (-(-b // group),), dev)
     if stats is not None:
         kernels.check("stats", stats, torch.int32, (4,), dev)
-    words = -(-b // 32)
-    scratch = torch.empty(2 * b * words + 2 * REACH_PIVOTS * words
-                          + 4 * REACH_PIVOTS, dtype=torch.int32, device=dev)
+    scratch = reach_scratch(b, dev) if bits is None else bits
+    kernels.check("bits", scratch, torch.int32, None, dev)
     self_reach = torch.empty(b, dtype=torch.bool, device=dev)
     anc = torch.empty(b, dtype=torch.int32, device=dev) if counts else None
     K11A_REACH.launch(kernels.ptr(p), kernels.ptr(live), kernels.ptr(gate),
@@ -182,26 +195,56 @@ def peel_plain(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int,
     return aborted
 
 
-def peel(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int, gate):
-    """K11b: every peel round in one block, ``P`` and ``P.T`` as bit rows;
-    skipped on the device when ``gate`` is all false."""
+def peel_layout(b: int, max_ctas: int = 0) -> tuple[int, bool, int]:
+    """K11b's launch at B = ``b`` as the kernel library chooses it (CUDA
+    only): (CTAs of its cluster, P's rows in shared memory rather than
+    read from L2, int32 words of the bits it reads).  ``max_ctas`` (1, 2,
+    4, 8 or 16) caps the cluster; 0 takes the library's choice."""
+    ctas, shared, words = kernels.layout("dt_maat_peel_layout", b, max_ctas)
+    return ctas, bool(shared), words
+
+
+def peel(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int, gate,
+         *, bits: torch.Tensor | None):
+    """K11b: every peel round in one launch of a thread-block cluster
+    (`peel_layout`) over ``P`` and ``P.T`` as bit rows; skipped on the
+    device when ``gate`` is all false.  ``bits`` is the scratch of
+    `reach_stats`' call over ``(p, live0, gate)``, which holds them
+    packed over ``live0`` (``validate_maat`` hands it over); on the CPU,
+    where the plain version runs, it is None."""
+    return _peel(p, live0, on_cycle0, rank, rounds, peel_rounds, gate,
+                 bits=bits)
+
+
+def _peel(p, live0, on_cycle0, rank, rounds: int, peel_rounds: int, gate,
+          *, bits: torch.Tensor | None, stats: torch.Tensor | None = None,
+          max_ctas: int = 0):
+    """`peel`, and for measuring cluster sizes against each other:
+    ``stats`` (int32 [4]) gets the peel rounds with candidates, the sweep
+    exchanges, the victims and the cluster's CTAs; ``max_ctas`` caps the
+    cluster (`peel_layout`)."""
     if kernels.on_cpu(p, live0, on_cycle0, rank, gate):
         return peel_plain(p, live0, on_cycle0, rank, rounds, peel_rounds,
                           gate)
     b = live0.shape[0]
     dev = live0.device
+    if bits is None:
+        raise ValueError("peel: the bits of reach_stats' call over live0 "
+                         "are needed on the card")
     kernels.check("p", p, torch.bool, (b, b), dev)
     for name, t in (("live0", live0), ("on_cycle0", on_cycle0),
                     ("gate", gate)):
         kernels.check(name, t, torch.bool, (b,), dev)
     kernels.check("rank", rank, torch.int32, (b,), dev)
-    words = -(-b // 32)
-    bits = torch.empty((2, b, words), dtype=torch.int32, device=dev)
+    if stats is not None:
+        kernels.check("stats", stats, torch.int32, (4,), dev)
+    kernels.check("bits", bits, torch.int32, None, dev)
     aborted = torch.empty(b, dtype=torch.bool, device=dev)
-    K11B_PEEL.launch(kernels.ptr(p), kernels.ptr(live0),
-                     kernels.ptr(on_cycle0), kernels.ptr(rank),
-                     kernels.ptr(gate), b, rounds, peel_rounds,
-                     kernels.ptr(bits), kernels.ptr(aborted),
+    K11B_PEEL.launch(kernels.ptr(live0), kernels.ptr(on_cycle0),
+                     kernels.ptr(rank), kernels.ptr(gate), b, rounds,
+                     peel_rounds, max_ctas, kernels.ptr(bits), bits.numel(),
+                     kernels.ptr(aborted),
+                     None if stats is None else kernels.ptr(stats),
                      kernels.stream(live0))
     return aborted
 
@@ -221,9 +264,11 @@ def validate_maat(cfg, state, batch: AccessBatch, inc: Incidence):
     # then (on the device, where it is set) closure, peel, closure
     live0 = batch.active & ~closed & ~defer
     lv_f, un_f0 = conflict.precedence_levels(p, live0, cfg.sweep_rounds)
-    on_cycle0, _ = reach_stats(p, live0, un_f0, counts=False)
+    # K11b reads the bits that K11a's first call packs over live0
+    bits = None if kernels.on_cpu(p) else reach_scratch(b, p.device)
+    on_cycle0, _ = reach_stats(p, live0, un_f0, counts=False, bits=bits)
     aborted = peel(p, live0, on_cycle0, batch.rank, cfg.sweep_rounds,
-                   cfg.maat_peel_rounds, un_f0)
+                   cfg.maat_peel_rounds, un_f0, bits=bits)
     defer2, anc = reach_stats(p, live0 & ~aborted, un_f0)
     ordkey = torch.where(un_f0.any(), anc, lv_f)
 

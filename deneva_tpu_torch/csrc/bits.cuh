@@ -2,10 +2,9 @@
 // K9 (levels.cu) and K11 (maat.cu).
 //
 // A bool [B, B] matrix becomes B rows of W = ceil(B / 32) words, bit l of
-// word w of row x standing for column 32 w + l: `pack_rows` keeps the
-// orientation (a warp ballots 32 bytes of a row at a time),
-// `pack_cols` transposes it through a 32 x 256 byte tile in shared
-// memory (coalesced loads, conflict-free ballots on a padded stride).
+// word w of row x standing for column 32 w + l: `pack_cols` transposes it
+// through a 32 x 256 byte tile in shared memory (coalesced loads,
+// conflict-free ballots on a padded stride).
 //
 // The level sweep.  Both reference sweeps (deneva_tpu/ops/conflict.py:123
 // wavefront_levels, :141 precedence_levels) run Jacobi rounds
@@ -38,20 +37,6 @@ __device__ __forceinline__ bool bit(const uint32_t* s, int i) {
   return (s[i >> 5] >> (i & 31)) & 1u;
 }
 
-// bits[x * W + w] bit l = m[x][32 w + l]; one warp per row.
-__global__ void pack_rows_kernel(const uint8_t* __restrict__ m, int B, int W,
-                                 uint32_t* __restrict__ bits) {
-  const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (x >= B) return;
-  const uint8_t* row = m + static_cast<size_t>(x) * B;
-  for (int w = 0; w < W; ++w) {
-    const int j = w * 32 + lane;
-    const unsigned word = __ballot_sync(0xffffffffu, j < B && row[j]);
-    if (lane == 0) bits[static_cast<size_t>(x) * W + w] = word;
-  }
-}
-
 // bits[j * W + w] bit l = m[32 w + l][j]; 256 threads per tile.
 __global__ void pack_cols_kernel(const uint8_t* __restrict__ m, int B, int W,
                                  uint32_t* __restrict__ bits) {
@@ -69,11 +54,6 @@ __global__ void pack_cols_kernel(const uint8_t* __restrict__ m, int B, int W,
     if (lane == 0 && j0 + c < B)
       bits[static_cast<size_t>(j0 + c) * W + w] = word;
   }
-}
-
-inline void pack_rows(const uint8_t* m, int B, int W, uint32_t* bits,
-                      cudaStream_t s) {
-  pack_rows_kernel<<<dt_blocks(B, 8), 256, 0, s>>>(m, B, W, bits);
 }
 
 inline void pack_cols(const uint8_t* m, int B, int W, uint32_t* bits,

@@ -1,6 +1,7 @@
-// Thread-block cluster primitives shared by K8 (conflict.cu) and K16
-// (depgraph.cu): mbarriers, the cluster's start, and remote stores that
-// signal the receiving CTA's mbarrier.
+// Thread-block cluster primitives shared by K8 (conflict.cu), K11b
+// (maat.cu) and K16 (depgraph.cu): mbarriers, the cluster's start, remote
+// stores that signal the receiving CTA's mbarrier, and bulk copies into
+// shared memory that complete on one.
 //
 // A round of either kernel hands data to the other CTAs of its cluster.
 // cluster.sync() would order that, but its release fence costs ~700 ns
@@ -91,6 +92,26 @@ __device__ __forceinline__ void st_remote4(uint32_t addr, uint4 v,
       "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
       : "memory");
+}
+
+// Bulk asynchronous copies of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global memory into this CTA's shared memory, in
+// chunks of kBulkChunk, completing on mbarrier `bar` (whose expected
+// bytes the caller set).  One thread issues them.
+constexpr uint32_t kBulkChunk = 32768;
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  const char* s = static_cast<const char*>(src);
+  char* d = static_cast<char*>(dst);
+  for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
+    const uint32_t n = min(kBulkChunk, bytes - off);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(d + off)),
+        "l"(s + off), "r"(n), "r"(smem_u32(bar))
+        : "memory");
+  }
 }
 
 }  // namespace

@@ -313,7 +313,6 @@ constexpr int kPackRows = 32;      // rows of one pack tile (one per word)
 constexpr int kPackCols = 256;     // columns of one pack tile (8 words)
 constexpr int kFfThreads = 1024;
 constexpr int kMaxCtas = 8;        // the portable cluster size
-constexpr uint32_t kBulkChunk = 32768;
 
 // Words of a sweep CTA's shared memory: when they sit there, the owned
 // rows' edge words (32 own rows of W words) and the list of a round's
@@ -405,16 +404,7 @@ __device__ __forceinline__ bool bit(const uint32_t* s, int i) {
 __device__ __forceinline__ void bulk_tile(uint32_t* dst, const uint32_t* src,
                                           uint32_t bytes, uint64_t* bar) {
   mbar_expect(bar, bytes);
-  const char* s = reinterpret_cast<const char*>(src);
-  char* d = reinterpret_cast<char*>(dst);
-  for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
-    const uint32_t n = min(kBulkChunk, bytes - off);
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(d + off)),
-        "l"(s + off), "r"(n), "r"(smem_u32(bar))
-        : "memory");
-  }
+  bulk_copy(dst, src, bytes, bar);
 }
 
 __device__ __forceinline__ void grid_dependency_wait() {

@@ -43,21 +43,32 @@
 //   4 B a txn out.  What holds it: the levels of the pivot searches (a
 //   barrier and one round of row loads from L2 each).
 // K11b replaces the peel loop (:201-209): maat_peel_rounds rounds, each
-// two precedence sweeps of sweep_rounds + 1 rounds (over P and over P^T,
-// both restricted to the live txns), the cycle candidates
+// two precedence sweeps of sweep_rounds Jacobi rounds (over P and over
+// P^T, both restricted to the live txns), the cycle candidates
 // candr = un_f & un_r & on_cycle0, and the victims: the candidates with no
 // younger candidate neighbour in P | P^T ("younger": the higher rank, on
-// equal rank the higher lane, :140-142).  One block of 1024 threads runs
-// every round; the sweeps are bits.cuh's frontier sweep (the same Jacobi
-// values), P's rows serve the P^T sweep and P's columns the P sweep.  The
-// victims come from one pass over the edges between candidates: each edge
-// marks its older end.  A round without candidates changes nothing, so
-// the rounds stop there (before the second sweep where the first leaves
-// no cycle member unstable).
-//   Bound: bytes — P read once (4 MB at B = 2048), 2 B + 4 B in, B out;
-//   the up to maat_peel_rounds x 2 x (sweep_rounds + 1) rounds run over
-//   1 MB of bits in L2 (or shared memory where they fit).
+// equal rank the higher lane, :140-142).  One launch of a thread-block
+// cluster of C CTAs (peel_kernel): each owns an equal share of the txns
+// and keeps their rows of P and P^T in shared memory (one bulk copy)
+// where they fit, else reads them from L2; the sets are replicated in
+// every CTA, and the two sweeps of a peel round advance in the same
+// rounds, each CTA testing its own txns' rows and handing its words of
+// both next frontiers to the others by st.async (cluster.cuh): no
+// cluster barrier a round.  The rows are K11a's: its first call packs P
+// over live0, and the peel reads only live0's rows against sets inside
+// live0, so the live mask changes no answer.  A round without
+// candidates changes nothing, so the rounds stop there.
+//   Bound: bytes — K11a's bits of P's rows and columns read once (2 B W
+// words, 1 MiB at B = 2048; K11a's own bound counts P), 3 B of flags and
+// 4 B of ranks in, B out;
+//   what holds it: the exchanges, one a sweep round and one a peel
+//   round, each waiting for the CTA with the most members to scan.
 #include "bits.cuh"
+#include "cluster.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -71,7 +82,6 @@ constexpr int kPivotRows = 4;            // rows a pivot team loads at once
 struct MinI {
   __device__ int operator()(int a, int b) const { return a < b ? a : b; }
 };
-constexpr int kPeelThreads = 1024;
 
 // 32 x 32 bits across a warp: lane r holds word r in, lane c gets bit r
 // of word r's bit c out.
@@ -452,75 +462,459 @@ reach_kernel(const uint32_t* __restrict__ rows,
   if (levels_o != nullptr && tid == 0) levels_o[g] = level;
 }
 
-// Shared layout: L0, OC, AB, UF, F, Fn (W words each), list (B ints),
-// then the staged rows (P's rows, then its columns) where they fit.
-__global__ void __launch_bounds__(kPeelThreads)
-peel_kernel(const uint32_t* __restrict__ bits_g, const uint8_t* __restrict__ live0,
+// ---- K11b ----------------------------------------------------------------
+
+constexpr int kPeelThreads = 1024;
+constexpr int kPeelMaxCtas = 16;   // the non-portable cluster size
+constexpr int kPeelOwnCap = 8;     // owned words a CTA, where rows fit
+constexpr int kPeelWarps = kPeelThreads / 32;
+
+// Shared words of a peel CTA: with the rows in shared memory, its owned
+// txns' P rows and P columns (32 own rows of W words each); then the sets
+// L0, OC, AB, UF, Fin[2] and X[2][2] (W4 = W rounded up to 4 words each,
+// so every set starts 16-byte aligned), flags[2][kPeelMaxCtas], with
+// `ranks` the ranks (B rounded up to 4; else they are read from global
+// memory), the owned txns' witnesses (a predecessor each way, a younger
+// neighbour), the list of members to scan and its count, and three
+// 8-byte mbarriers.
+__host__ __device__ __forceinline__ size_t peel_smem_words(int B, int W,
+                                                           int own,
+                                                           int in_smem,
+                                                           int ranks) {
+  const size_t w4 = (static_cast<size_t>(W) + 3) & ~static_cast<size_t>(3);
+  const size_t rows =
+      in_smem ? 2 * 32 * static_cast<size_t>(own) * W : 0;
+  const size_t b4 =
+      ranks ? (static_cast<size_t>(B) + 3) & ~static_cast<size_t>(3) : 0;
+  return ((rows + 3) & ~static_cast<size_t>(3)) + 10 * w4 +
+         2 * kPeelMaxCtas + b4 + 5 * 32 * static_cast<size_t>(own) + 4 + 8;
+}
+
+// The lowest of the warp's indices (-1: none in any lane), in every lane.
+__device__ __forceinline__ int warp_min(int v) {
+  return static_cast<int>(
+      __reduce_min_sync(0xffffffffu, static_cast<unsigned>(v)));
+}
+
+// A witness for a listed member, a warp a row: the lowest txn of row &
+// set & pref (W words), else of row & set; -1 where the row meets no txn
+// of the set.  Lane l takes the 16-byte chunks (`vec`: W a multiple of
+// 4) or words l, l + 32, ...  A witness on a cycle stays in the frontier
+// through the rounds, so `pref` (on_cycle0) is tried first.
+__device__ __forceinline__ int warp_first(const uint32_t* row,
+                                          const uint32_t* set,
+                                          const uint32_t* pref, int W,
+                                          bool vec) {
+  const int lane = threadIdx.x & 31;
+  int f = -1, g = -1;
+  if (vec) {
+    const uint4* r = reinterpret_cast<const uint4*>(row);
+    const uint4* s = reinterpret_cast<const uint4*>(set);
+    const uint4* o = reinterpret_cast<const uint4*>(pref);
+    for (int c = lane; c < (W >> 2) && f < 0; c += 32) {
+      const uint4 a = r[c], b = s[c], p = o[c];
+      const uint32_t m[4] = {a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w};
+      const uint32_t q[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int k = 3; k >= 0; --k) {
+        if (m[k] & q[k]) f = 32 * (4 * c + k) + __ffs(m[k] & q[k]) - 1;
+        if (m[k] && g < 0) g = 32 * (4 * c + k) + __ffs(m[k]) - 1;
+      }
+    }
+  } else {
+    for (int c = lane; c < W && f < 0; c += 32)
+      if (const uint32_t m = row[c] & set[c]) {
+        if (m & pref[c]) f = 32 * c + __ffs(m & pref[c]) - 1;
+        if (g < 0) g = 32 * c + __ffs(m) - 1;
+      }
+  }
+  f = warp_min(f);
+  return f >= 0 ? f : warp_min(g);
+}
+
+// A younger candidate neighbour of candidate j in P | P^T, a warp a
+// candidate (row and col its row and column of P): the lowest txn i of
+// (row | col) & uf with the higher rank, on equal rank the higher lane
+// (deneva_tpu/cc/maat.py:140-142); -1 where none.
+__device__ __forceinline__ int warp_younger(const uint32_t* row,
+                                            const uint32_t* col,
+                                            const uint32_t* uf,
+                                            const int32_t* rk, int j, int W) {
+  const int lane = threadIdx.x & 31;
+  const int32_t rj = rk[j];
+  int f = -1;
+  for (int c = lane; c < W && f < 0; c += 32)
+    for (uint32_t e = (row[c] | col[c]) & uf[c]; e; e &= e - 1) {
+      const int i = c * 32 + __ffs(e) - 1;
+      const int32_t ri = rk[i];
+      if (ri > rj || (ri == rj && i > j)) {
+        f = i;
+        break;
+      }
+    }
+  return warp_min(f);
+}
+
+// Append the lanes' entries where `need` to list (warp-aggregated on the
+// counter n).  Called by whole warps.
+__device__ __forceinline__ void push(bool need, int entry, int* list,
+                                     int* n) {
+  const unsigned b = __ballot_sync(0xffffffffu, need);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0 && b) base = atomicAdd(n, __popc(b));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (need) list[base + __popc(b & ((1u << lane) - 1u))] = entry;
+}
+
+
+// Send this CTA's owned words [w0, w0 + nown) of the ns sets a, b (ns 1
+// or 2) to every other CTA, and with `flag` its flag fl[cr] (warp 0 wrote
+// it, thread 0 before this arrival), counted on their mbarrier bar; wait
+// for the others'.  Every thread returns the OR of all CTAs' flags; every
+// CTA then holds the whole sets.
+__device__ __forceinline__ uint32_t exchange(uint32_t* a, uint32_t* b, int ns,
+                                             bool flag, uint32_t* fl,
+                                             uint64_t* bar, uint32_t phase,
+                                             int C, int cr, int own, int W) {
+  const int w0 = min(cr * own, W), nown = min(own, W - w0);
+  uint32_t rx = 0u;
+  for (int q = 0; q < C; ++q)
+    if (q != cr) rx += 4u * (ns * min(own, W - min(q * own, W)) + flag);
+  if (threadIdx.x == 0) mbar_expect(bar, rx);
+  const int per = ns * nown;
+  for (int e = threadIdx.x; e < per * C; e += blockDim.x) {
+    const int q = e / per, k = e % per;
+    if (q == cr) continue;
+    uint32_t* at = k < nown ? a + w0 + k : b + w0 + k - nown;
+    st_remote(remote(at, q), *at, remote(bar, q));
+  }
+  const int q = threadIdx.x;
+  if (flag && q < C && q != cr)
+    st_remote(remote(fl + cr, q), fl[cr], remote(bar, q));
+  mbar_wait(bar, phase);
+  uint32_t all = 0u;
+  if (flag)
+    for (int k = 0; k < C; ++k) all |= fl[k];
+  return all;
+}
+
+// K11b: one thread-block cluster of C CTAs (C = 1 included).  CTA r owns
+// the words [r own, (r + 1) own) of the B-bit sets, i.e. txns [32 r own,
+// 32 (r + 1) own), and keeps their rows of P (successors: predecessors
+// under P^T) and of P^T (P's columns: predecessors under P) in shared
+// memory (kSmem, staged by one bulk copy behind an mbarrier) or reads them
+// from L2; every CTA keeps a replica of L0 = live0, OC = on_cycle0, AB =
+// aborted, the candidates UF, each direction's frontier and, where they
+// fit (rk_smem), the ranks.
+// A peel round sets both frontiers to L0 & ~AB and advances them in the
+// same exchanges (F_{r+1} = the members of F_r with a predecessor in F_r,
+// bits.cuh's Jacobi rounds on the frontier).  Each owned member keeps a
+// witness, a predecessor found in F earlier: where it is still in F the
+// member stays without a look at its row, else the member is listed and a
+// warp scans its row for a new one (one on a cycle first, as those stay).
+// A CTA then writes its owned words of the next frontiers and a flag
+// (which direction changed, which is non-empty, whether an owned txn is
+// still a candidate of both and on a cycle) and sends them to every
+// other CTA by st.async onto the receiver's mbarrier.  So every CTA holds
+// the same sets after each exchange and takes the same exits: a
+// direction stops at its fixpoint (no change, or empty) or after
+// `rounds`; the peel round's sweeps stop when no candidate is left (the
+// candidates only shrink) and the peel when a round has none.  The victim
+// pass is local and works the same way: a candidate whose younger witness
+// is still a candidate stays, a warp scans each other's row and column
+// for a younger candidate neighbour, and one without is a victim; one
+// exchange of the owned victim words updates AB everywhere.  Exchange x
+// writes the buffer pair X[(x + 1) & 1] and reads X[x & 1]; a CTA sends
+// exchange x + 1 only after every CTA's exchange x arrived, so no store
+// meets a read (cluster.cuh).  stats (or null): the peel rounds with
+// candidates, the sweep exchanges, the victims, C.
+template <bool kSmem>
+__global__ void __launch_bounds__(kPeelThreads, 1)
+peel_kernel(const uint32_t* __restrict__ rows_g,
+            const uint32_t* __restrict__ cols_g,
+            const uint8_t* __restrict__ live0,
             const uint8_t* __restrict__ on_cycle0,
             const int32_t* __restrict__ rank, const uint8_t* __restrict__ gate,
-            int B, int W, int rounds, int peel_rounds, int rows_in_smem,
-            uint8_t* __restrict__ aborted) {
-  extern __shared__ uint32_t sm[];
-  uint32_t* L0 = sm;
-  uint32_t* OC = sm + W;
-  uint32_t* AB = sm + 2 * W;
-  uint32_t* UF = sm + 3 * W;
-  uint32_t* F = sm + 4 * W;
-  uint32_t* Fn = sm + 5 * W;
-  int* list = reinterpret_cast<int*>(sm + 6 * W);
-  const int tid = threadIdx.x, bd = blockDim.x;
+            int B, int W, int own, int rk_smem, int rounds,
+            int peel_rounds, uint8_t* __restrict__ aborted,
+            int32_t* __restrict__ stats) {
+  extern __shared__ __align__(128) uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int cr = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w0 = min(cr * own, W), nown = min(own, W - w0);
+  const int row0 = 32 * w0, nt = 32 * nown;
+  const int nrows = max(0, min(B, row0 + nt) - row0);
+  const int w4 = (W + 3) & ~3;
+  const bool vec = (W & 3) == 0;
+  const size_t tile = kSmem ? 32 * static_cast<size_t>(own) * W : 0;
+  uint32_t* prow_s = sm;
+  uint32_t* pcol_s = sm + tile;
+  uint32_t* L0 = sm + ((2 * tile + 3) & ~static_cast<size_t>(3));
+  uint32_t* OC = L0 + w4;
+  uint32_t* AB = OC + w4;
+  uint32_t* UF = AB + w4;
+  uint32_t* X0 = UF + 3 * w4;             // X[par][d] = X0 + (2 par + d) w4
+  uint32_t* flags = X0 + 4 * w4;          // [2][kPeelMaxCtas]
+  int32_t* rk_s = reinterpret_cast<int32_t*>(flags + 2 * kPeelMaxCtas);
+  const int32_t* rk = rk_smem ? rk_s : rank;
+  int* wit = rk_s + (rk_smem ? (B + 3) & ~3 : 0);  // [2][nt]: a predecessor
+  int* ywit = wit + 64 * own;             // [nt]: a younger neighbour
+  int* list = ywit + 32 * own;            // [2 nt]: members to scan
+  int* nlist = list + 64 * own;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(nlist + 4);  // x[2], copy
+  const int end = min(B, row0 + nt);
+  // X[par][d] and direction d's frontier once its sweep ended
+  auto xset = [&](int par, int d) { return X0 + (2 * par + d) * w4; };
+  auto fin = [&](int d) { return UF + (1 + d) * w4; };
   if (!any_set(gate, B)) {
-    for (int j = tid; j < B; j += bd) aborted[j] = 0;
+    for (int j = row0 + tid; j < end; j += blockDim.x) aborted[j] = 0;
     return;
   }
-  const size_t n = static_cast<size_t>(B) * W;
-  const uint32_t* rows = stage_rows(
-      bits_g, 2 * B, W, reinterpret_cast<uint32_t*>(list + B), rows_in_smem);
-  const uint32_t* prow = rows;        // P's rows: predecessors under P^T
-  const uint32_t* pcol = rows + n;    // P's columns: predecessors under P
+  mbar_init(bar, 3);
+  for (int w = tid; w < 10 * w4; w += blockDim.x) L0[w] = 0u;
+  if (rk_smem)
+    for (int i = tid; i < B; i += blockDim.x) rk_s[i] = rank[i];
+  for (int t = tid; t < 96 * own; t += blockDim.x) wit[t] = -1;
+  if (tid == 0) *nlist = 0;
+  __syncthreads();
+  if (kSmem && nrows > 0) {
+    const size_t off = static_cast<size_t>(row0) * W;
+    const uint32_t bytes = static_cast<uint32_t>(nrows) * W * 4u;
+    if (vec && reinterpret_cast<uintptr_t>(rows_g) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(cols_g) % 16 == 0) {
+      if (tid == 0) {
+        mbar_expect(bar + 2, 2 * bytes);
+        bulk_copy(prow_s, rows_g + off, bytes, bar + 2);
+        bulk_copy(pcol_s, cols_g + off, bytes, bar + 2);
+      }
+    } else {
+      for (size_t e = tid; e < bytes / 4; e += blockDim.x) {
+        prow_s[e] = rows_g[off + e];
+        pcol_s[e] = cols_g[off + e];
+      }
+      if (tid == 0) mbar_expect(bar + 2, 0u);
+    }
+  }
   load_set(live0, B, W, L0);
   load_set(on_cycle0, B, W, OC);
-  for (int w = tid; w < W; w += bd) AB[w] = 0u;
-  const int team = tid / kTeam, tl = tid % kTeam, teams = bd / kTeam;
+  if (kSmem && nrows > 0) mbar_wait(bar + 2, 0);
+  __syncthreads();
+  if (C > 1) cluster_start();
+  // the predecessor rows of an owned txn (local index jl), by direction:
+  // d = 0 sweeps P (P's columns), d = 1 sweeps P^T (P's rows)
+  auto row_of = [&](int d, int jl) -> const uint32_t* {
+    if (kSmem) return (d ? prow_s : pcol_s) + static_cast<size_t>(jl) * W;
+    return (d ? rows_g : cols_g) + static_cast<size_t>(row0 + jl) * W;
+  };
+  uint32_t x = 0;                 // exchanges so far
+  int n_peel = 0, n_sweep = 0;
   for (int pr = 0; pr < peel_rounds; ++pr) {
-    for (int w = tid; w < W; w += bd) F[w] = L0[w] & ~AB[w];
-    __syncthreads();
-    level_sweep(pcol, B, W, rounds, F, Fn, list, nullptr);
+    // both frontiers start at L0 & ~AB; no candidate there, none later
     int any = 0;
-    for (int w = tid; w < W; w += bd) {
-      UF[w] = F[w] & OC[w];
-      F[w] = L0[w] & ~AB[w];
-      any |= UF[w] != 0u;
-    }
-    if (!__syncthreads_or(any)) break;  // no candidate: nothing changes
-    level_sweep(prow, B, W, rounds, F, Fn, list, nullptr);
-    any = 0;
-    for (int w = tid; w < W; w += bd) {
-      UF[w] &= F[w];                    // the candidates
-      Fn[w] = 0u;                       // their older ends
-      any |= UF[w] != 0u;
+    for (int w = tid; w < W; w += blockDim.x) {
+      const uint32_t f = L0[w] & ~AB[w];
+      xset(x & 1, 0)[w] = xset(x & 1, 1)[w] = f;
+      if (rounds == 0) fin(0)[w] = fin(1)[w] = f;
+      any |= (f & OC[w]) != 0u;
     }
     if (!__syncthreads_or(any)) break;
-    const int m = compact(UF, W, list);
-    for (int x = team; x < m; x += teams) {
-      const int j = list[x];
-      const int32_t rj = rank[j];
-      const uint32_t* row = prow + static_cast<size_t>(j) * W;
-      for (int c = tl; c < W; c += kTeam) {
-        for (uint32_t e = row[c] & UF[c]; e; e &= e - 1) {
-          const int i = c * 32 + __ffs(e) - 1;
-          const int32_t ri = rank[i];
-          const bool i_younger = ri > rj || (ri == rj && i > j);
-          const int older = i_younger ? j : i;
-          atomicOr(&Fn[older >> 5], 1u << (older & 31));
+    int am = rounds > 0 ? 3 : 0;        // bit d: direction d still runs
+    bool cand = true;
+    for (int r = 0; r < rounds && am; ++r) {
+      const int par = x & 1;
+      // direction d's frontier this round and next (fin(d) once it ran)
+      auto cur = [&](int d) {
+        return (am >> d) & 1 ? xset(par, d) : fin(d);
+      };
+      auto nxt = [&](int d) {
+        return (am >> d) & 1 ? xset(par ^ 1, d) : fin(d);
+      };
+      // an owned member stays where its witness is still in F (its owned
+      // words by ballot), else it is listed; a warp scans a listed row
+      for (int e = tid; e < 2 * nt; e += blockDim.x) {
+        const int d = e >= nt, t = e - d * nt, j = row0 + t;
+        if (!((am >> d) & 1)) continue;
+        const bool in = j < B && bit(cur(d), j);
+        const int wv = wit[e];
+        const bool keep = in && wv >= 0 && bit(cur(d), wv);
+        const unsigned kb = __ballot_sync(0xffffffffu, keep);
+        if (lane == 0) nxt(d)[w0 + (t >> 5)] = kb;
+        push(in && !keep, e, list, nlist);
+      }
+      __syncthreads();
+      const int nl = *nlist;
+      for (int at = warp; at < nl; at += kPeelWarps) {
+        const int e = list[at];
+        const int d = e >= nt, t = e - d * nt;
+        const int f = warp_first(row_of(d, t), cur(d), OC, W, vec);
+        if (lane == 0 && f >= 0) {
+          wit[e] = f;
+          atomicOr(&nxt(d)[w0 + (t >> 5)], 1u << (t & 31));
         }
+      }
+      __syncthreads();
+      // this CTA's flag: bit 2d changed, bit 2d + 1 non-empty, bit 4 a
+      // candidate left
+      uint32_t* fl = flags + par * kPeelMaxCtas;
+      if (warp == 0) {
+        uint32_t f = 0u;
+        for (int t = lane; t < nown; t += 32) {
+          const int w = w0 + t;
+#pragma unroll
+          for (int d = 0; d < 2; ++d)
+            if ((am >> d) & 1) {
+              f |= (nxt(d)[w] != cur(d)[w] ? 1u : 0u) << (2 * d);
+              f |= (nxt(d)[w] != 0u ? 1u : 0u) << (2 * d + 1);
+            }
+          f |= ((nxt(0)[w] & nxt(1)[w] & OC[w]) != 0u ? 1u : 0u) << 4;
+        }
+        f = __reduce_or_sync(0xffffffffu, f);
+        if (lane == 0) {
+          fl[cr] = f;
+          *nlist = 0;
+        }
+        __syncwarp();
+      }
+      uint32_t all;
+      if (C > 1) {
+        all = exchange(am & 1 ? nxt(0) : nxt(1), nxt(1), __popc(am), true,
+                       fl, bar + par, (x >> 1) & 1, C, cr, own, W);
+      } else {
+        __syncthreads();
+        all = fl[0];
+      }
+      ++x;
+      ++n_sweep;
+      cand = (all >> 4) & 1u;
+      int done = 0;                     // directions at their end
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+        if (((am >> d) & 1) && (!((all >> (2 * d)) & 1u) ||
+                                !((all >> (2 * d + 1)) & 1u) ||
+                                r == rounds - 1)) {
+          done |= 1 << d;
+          for (int w = tid; w < W; w += blockDim.x) fin(d)[w] = nxt(d)[w];
+        }
+      if (done) __syncthreads();
+      am &= ~done;
+      if (!cand) break;
+    }
+    if (!cand) break;
+    // the candidates, then the victims: a candidate whose younger
+    // witness is still a candidate stays, the others are listed and a
+    // warp scans a listed row and column for a younger candidate
+    // neighbour; one without is a victim
+    for (int w = tid; w < W; w += blockDim.x)
+      UF[w] = fin(0)[w] & fin(1)[w] & OC[w];
+    uint32_t* V = xset((x & 1) ^ 1, 0);
+    __syncthreads();
+    for (int t = tid; t < nt; t += blockDim.x) {
+      const int j = row0 + t;
+      const bool c = j < B && bit(UF, j);
+      const int yv = ywit[t];
+      const bool keep = c && yv >= 0 && bit(UF, yv);
+      if (lane == 0) V[w0 + (t >> 5)] = 0u;
+      push(c && !keep, t, list, nlist);
+    }
+    __syncthreads();
+    const int nl = *nlist;
+    for (int at = warp; at < nl; at += kPeelWarps) {
+      const int t = list[at];
+      const int y = warp_younger(row_of(1, t), row_of(0, t), UF, rk,
+                                 row0 + t, W);
+      if (lane == 0) {
+        if (y >= 0) ywit[t] = y;
+        else atomicOr(&V[w0 + (t >> 5)], 1u << (t & 31));
       }
     }
     __syncthreads();
-    for (int w = tid; w < W; w += bd) AB[w] |= UF[w] & ~Fn[w];
+    if (tid == 0) *nlist = 0;
+    if (C > 1)
+      exchange(V, V, 1, false, flags, bar + (x & 1), (x >> 1) & 1, C, cr,
+               own, W);
+    ++x;
+    ++n_peel;
+    for (int w = tid; w < W; w += blockDim.x) AB[w] |= V[w];
     __syncthreads();
   }
-  for (int j = tid; j < B; j += bd) aborted[j] = bit(AB, j);
+  for (int j = row0 + tid; j < end; j += blockDim.x) aborted[j] = bit(AB, j);
+  if (stats != nullptr && cr == 0 && tid == 0) {
+    int v = 0;
+    for (int w = 0; w < W; ++w) v += __popc(AB[w]);
+    stats[0] = n_peel;
+    stats[1] = n_sweep;
+    stats[2] = v;
+    stats[3] = C;
+  }
+}
+
+// K11b's layout at B txns (W = ceil(B / 32) words a row): the fewest
+// CTAs, at most `top`, whose shares of P's rows and columns fit shared
+// memory beside the sets and the ranks and own at most kPeelOwnCap
+// words (or the top where none owns fewer), else `top` CTAs reading the
+// rows from L2, with the ranks in shared memory where they fit.
+struct PeelLayout {
+  int W, ctas, own, in_smem, ranks;
+  size_t smem;
+};
+
+bool peel_layout(int B, int max_ctas, PeelLayout& l) {
+  if (B < 1 || (max_ctas != 0 && max_ctas != 1 && max_ctas != 2 &&
+                max_ctas != 4 && max_ctas != 8 && max_ctas != 16))
+    return false;
+  const int W = (B + 31) / 32;
+  const int top = max_ctas == 0 ? kPeelMaxCtas : max_ctas;
+  const size_t room = dt_smem_room(peel_kernel<true>);
+  for (int c = 1; c <= top; c *= 2) {
+    const int own = (W + c - 1) / c;
+    if (own > kPeelOwnCap && c < top) continue;
+    const size_t smem = peel_smem_words(B, W, own, 1, 1) * 4;
+    if (smem <= room) {
+      l = {W, c, own, 1, 1, smem};
+      return true;
+    }
+  }
+  const int own = (W + top - 1) / top;
+  const size_t l2_room = dt_smem_room(peel_kernel<false>);
+  const int ranks = peel_smem_words(B, W, own, 0, 1) * 4 <= l2_room;
+  l = {W, top, own, 0, ranks, peel_smem_words(B, W, own, 0, ranks) * 4};
+  return l.smem <= l2_room;
+}
+
+template <bool kSmem>
+int launch_peel(const uint32_t* bits, const uint8_t* live0,
+                const uint8_t* on_cycle0, const int32_t* rank,
+                const uint8_t* gate, int B, int rounds, int peel_rounds,
+                const PeelLayout& l, uint8_t* aborted, int32_t* stats,
+                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      peel_kernel<kSmem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(l.smem));
+  if (err == cudaSuccess && l.ctas > 8)
+    err = cudaFuncSetAttribute(peel_kernel<kSmem>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(l.ctas);
+  cfg.blockDim = dim3(kPeelThreads);
+  cfg.dynamicSmemBytes = l.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = l.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const size_t n = static_cast<size_t>(B) * l.W;
+  err = cudaLaunchKernelEx(&cfg, peel_kernel<kSmem>, bits, bits + n, live0,
+                           on_cycle0, rank, gate, B, l.W, l.own, l.ranks,
+                           rounds, peel_rounds, aborted, stats);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -601,26 +995,44 @@ DT_EXPORT int dt_maat_reach(const uint8_t* p, const uint8_t* live,
   }
 }
 
-// K11b: p bool [B, B], live0, on_cycle0, gate bool [B], rank int32 [B] ->
-// aborted bool [B]; bits is [2, B, W] scratch (P's rows, P's columns).
-DT_EXPORT int dt_maat_peel(const uint8_t* p, const uint8_t* live0,
-                           const uint8_t* on_cycle0, const int32_t* rank,
-                           const uint8_t* gate, int B, int rounds,
-                           int peel_rounds, uint32_t* bits, uint8_t* aborted,
-                           void* stream) {
-  const int W = (B + 31) / 32;
-  const size_t n = static_cast<size_t>(B) * W;
+// K11b's layout at B txns in a cluster of at most `max_ctas` (0: the
+// library's choice; 1, 2, 4, 8 or 16) CTAs: out[0] the cluster's CTAs,
+// out[1] 1 where the rows sit in shared memory, out[2] the int32 words
+// of `bits` dt_maat_peel reads (P's rows, then its columns).  Launches
+// nothing.
+DT_EXPORT int dt_maat_peel_layout(int B, int max_ctas, long long* out) {
+  PeelLayout l;
+  if (!peel_layout(B, max_ctas, l)) return 1;
+  out[0] = l.ctas;
+  out[1] = l.in_smem;
+  out[2] = 2LL * B * l.W;
+  return 0;
+}
+
+// K11b: live0, on_cycle0, gate bool [B], rank int32 [B] -> aborted bool
+// [B] (and stats int32 [4], or null), in one launch of the cluster
+// dt_maat_peel_layout chooses.  bits ([2, B, W], bits_len int32 words, a
+// shorter one refused before any launch) holds P's rows and columns as
+// K11a packs them over live0: its first call's scratch.  The rows of
+// txns outside live0 and their bits in other rows are zero there, which
+// changes nothing: the peel reads only the rows of live0's txns and ANDs
+// them with sets inside live0 (the frontiers start at live0 & ~aborted,
+// the candidates lie in on_cycle0, itself inside live0).  A cluster
+// launch the card refuses returns its error.
+DT_EXPORT int dt_maat_peel(const uint8_t* live0, const uint8_t* on_cycle0,
+                           const int32_t* rank, const uint8_t* gate, int B,
+                           int rounds, int peel_rounds, int max_ctas,
+                           const uint32_t* bits, long long bits_len,
+                           uint8_t* aborted, int32_t* stats, void* stream) {
+  PeelLayout l;
+  if (rounds < 0 || peel_rounds < 0 || !peel_layout(B, max_ctas, l) ||
+      bits_len < 2LL * B * l.W)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = dt_stream(stream);
-  pack_rows(p, B, W, bits, s);
-  pack_cols(p, B, W, bits + n, s);
-  size_t smem;
-  int staged;
-  const cudaError_t err =
-      plan_smem(peel_kernel, (6 * static_cast<size_t>(W) + B) * 4, 2 * n * 4,
-                &smem, &staged);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  peel_kernel<<<1, kPeelThreads, smem, s>>>(bits, live0, on_cycle0, rank, gate,
-                                            B, W, rounds, peel_rounds, staged,
-                                            aborted);
-  return dt_status();
+  return l.in_smem ? launch_peel<true>(bits, live0, on_cycle0, rank, gate, B,
+                                       rounds, peel_rounds, l, aborted, stats,
+                                       s)
+                   : launch_peel<false>(bits, live0, on_cycle0, rank, gate, B,
+                                        rounds, peel_rounds, l, aborted,
+                                        stats, s);
 }

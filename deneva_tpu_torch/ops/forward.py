@@ -20,8 +20,9 @@ Two kernels carry it on the card:
   segmented scans of ``forward_plan_flat`` (``:191`` ``_seg_scan``,
   ``:220`` ``seg_first``, ``:266-288``).  Inside a key segment ranks
   ascend, so ``fwd`` is the rank of the last write lane before the lane's
-  (key, rank) group and ``win`` the last write lane of each key: two
-  global max-scans of lane indices and one gather pass.
+  (key, rank) group and ``win`` the last write lane of each key: one
+  cooperative launch, each block scanning its run of lanes and composing
+  the earlier blocks' summaries across one grid barrier.
 
 The sharded plan of a mesh (``device_parts > 1``, `workloads.ycsb.
 YCSBWorkload.execute_mc`) adds two kernels (``csrc/mc.cu``), run once
@@ -70,7 +71,7 @@ K1_SORT = kernels.Kernel("dt_sort_lanes", [
     kernels.P, kernels.P])
 K2_SCAN = kernels.Kernel("dt_plan_scans", [
     kernels.P, kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P,
-    kernels.P, kernels.P, kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.P, kernels.I64, kernels.P])
 
 K18A_DEFER = kernels.Kernel("dt_mc_defer", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
@@ -81,7 +82,7 @@ K18B_PACK = kernels.Kernel("dt_mc_pack", [
     kernels.P, kernels.P, kernels.P, kernels.P])
 
 SORT_PASSES = 8         # the most 8-bit passes a sort runs (csrc/radix.cuh)
-SCAN_TILE = 1024        # lanes per scan block (csrc/forward.cu)
+SCAN_RUNS = 8 * 1024    # K2's run summaries: 8 words, 1,024 blocks at most
 MC_MAX_PARTS = 8        # the most shards K18a / K18b take (csrc/mc.cu)
 
 
@@ -442,8 +443,15 @@ def plan_scans_plain(words: torch.Tensor, perm=None) -> ForwardPlan:
                        win=win, perm=perm)
 
 
+def plan_scans_layout(n: int) -> tuple[int, int, int]:
+    """K2's launch over ``n`` lanes as the kernel library lays it out
+    (CUDA only): (blocks, lanes a block owns, int32 words of scratch)."""
+    return kernels.layout("dt_plan_scans_layout", n)
+
+
 def plan_scans(words: torch.Tensor) -> ForwardPlan:
-    """K2: sorted int64[N] words -> ForwardPlan (perm None)."""
+    """K2: sorted int64[N] words -> ForwardPlan (perm None), one
+    cooperative launch; its scratch holds a summary a block."""
     if kernels.on_cpu(words):
         return plan_scans_plain(words)
     n = words.shape[0]
@@ -455,14 +463,17 @@ def plan_scans(words: torch.Tensor) -> ForwardPlan:
     is_read = torch.empty(n, dtype=torch.bool, device=dev)
     is_write = torch.empty_like(is_read)
     win = torch.empty_like(is_read)
-    nblk = -(-n // SCAN_TILE)
-    scratch = torch.empty(4 * nblk + 2 * n, dtype=torch.int32, device=dev)
+    plan = ForwardPlan(keys=keys, rank=rank, is_read=is_read,
+                       is_write=is_write, fwd=fwd, win=win, perm=None)
+    if n == 0:
+        return plan
+    scratch = torch.empty(SCAN_RUNS, dtype=torch.int32, device=dev)
     K2_SCAN.launch(kernels.ptr(words), n, kernels.ptr(keys),
                    kernels.ptr(rank), kernels.ptr(is_read),
                    kernels.ptr(is_write), kernels.ptr(fwd), kernels.ptr(win),
-                   kernels.ptr(scratch), kernels.stream(words))
-    return ForwardPlan(keys=keys, rank=rank, is_read=is_read,
-                       is_write=is_write, fwd=fwd, win=win, perm=None)
+                   kernels.ptr(scratch), scratch.numel(),
+                   kernels.stream(words))
+    return plan
 
 
 # -- the plan -------------------------------------------------------------

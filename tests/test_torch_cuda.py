@@ -16,8 +16,13 @@ keyspace and the router (K3 leaving the trash row alone at
 launch and K10's shared tables also on their edge inputs (a hot key over
 every block, reads only after writes, ragged lane counts; one slot, no
 masked lane, INT32_MIN / INT32_MAX orders, the arena, slots against the
-hash, each CTA count and the global regime).  Marked ``cuda``; without a
-CUDA device every test skips.
+hash, each CTA count and the global regime).  K11b's cluster on K11a's
+bits, at every cluster size and in both row regimes, at the largest B
+the one-block kernel took and at K11a's largest, its counts against
+``chip_smoke.peel_trace``, and ``validate_maat`` against the plain
+route; K2's one launch with a hot
+key across blocks and at N around a block's run and a staged tile.
+Marked ``cuda``; without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
 without the conftest:
@@ -36,7 +41,8 @@ import pytest
 import torch
 
 from chip_smoke import (PATH_LAUNCHES, differing_leaf, k11_graphs,
-                        mesh_launches, plain_path)
+                        k11b_layout_top, k11b_one_block_top, mesh_launches,
+                        peel_trace, plain_path)
 from deneva_tpu_torch.cc import maat
 from deneva_tpu_torch.ops import conflict, forward, prng, scatter
 from deneva_tpu_torch.storage.index import SortedIndex
@@ -125,6 +131,58 @@ def test_sort_hot_digits_match_plain(dev, kind, n):
     for _ in range(2):      # the second call reuses freed scratch
         words = forward.sort_lanes(k, r, w)
         assert torch.equal(words, forward.sort_lanes_plain(k, r, w).values)
+
+
+def _plan_equal(words):
+    got, want = forward.plan_scans(words), forward.plan_scans_plain(words)
+    for f in ("keys", "rank", "is_read", "is_write", "fwd", "win"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("writes", ["first", "last", "none", "every"])
+def test_plan_scans_hot_key_across_blocks(dev, writes):
+    """K2 with one key over more than three blocks' runs of lanes, its
+    writes only in the first block it touches, only in the last, in none,
+    and in every one (the fwd and win decided across runs)."""
+    n = 200000
+    blocks, run, _ = forward.plan_scans_layout(n)
+    assert blocks >= 8
+    lo, hi = 3 * run + 77, 6 * run + 500          # past three runs' ends
+    g = torch.Generator().manual_seed(len(writes))
+    k = torch.sort(torch.randint(0, n // 4, (n,), generator=g,
+                                 dtype=torch.int32)).values
+    k[:lo] = torch.clamp(k[:lo], max=999)
+    k[lo:hi] = 1000
+    k[hi:] = torch.clamp(k[hi:], min=1001)
+    r = torch.randint(1, n, (n,), generator=g, dtype=torch.int32)
+    r[lo:hi] = torch.arange(1, hi - lo + 1, dtype=torch.int32)
+    w = torch.rand(n, generator=g) < 0.4
+    seg = torch.arange(hi - lo)
+    w[lo:hi] = {"first": seg < run // 2, "last": seg >= hi - lo - run // 2,
+                "none": torch.zeros(hi - lo, dtype=torch.bool),
+                "every": torch.rand(hi - lo, generator=g) < 0.2}[writes]
+    words = forward.sort_lanes_plain(k.to(dev), r.to(dev), w.to(dev)).values
+    assert bool(((words[lo:hi] >> 32) == 1000).all())
+    _plan_equal(words)
+
+
+@pytest.mark.parametrize("n", ["1", "run-1", "run+1", "tile-1", "tile+1",
+                               "655360", "multi-tile"])
+def test_plan_scans_sizes_match_plain(dev, n):
+    """K2 at N = 1, one less and one more than a block's run and than a
+    staged tile of 8,192 lanes, the main path's 655,360, and an N whose
+    runs span several tiles."""
+    size = {"1": 1, "run-1": 1023, "run+1": 1025, "tile-1": 8191,
+            "tile+1": 8193, "655360": 655360,
+            "multi-tile": 3 * 8192 * forward.plan_scans_layout(1 << 30)[0]
+            }[n]
+    blocks, run, _ = forward.plan_scans_layout(size)
+    if n in ("1", "run-1", "run+1"):
+        assert run == 1024 and blocks == (2 if n == "run+1" else 1)
+    if n == "multi-tile":
+        assert run > 8192
+    k, r, w = _lanes(size, max(2, size // 8), dev, seed=size)
+    _plan_equal(forward.sort_lanes_plain(k, r, w).values)
 
 
 @pytest.mark.parametrize("width", [0, 100, 24])
@@ -774,11 +832,12 @@ def test_maat_closure_and_peel_match_plain(dev, b, density, gate_on):
     p, rank, live = p.to(dev), rank.to(dev), live.to(dev)
     gate = torch.zeros(b, dtype=torch.bool, device=dev)
     gate[b // 2] = gate_on
-    sr, anc = maat.reach_stats(p, live, gate)
+    bits = maat.reach_scratch(b, dev)
+    sr, anc = maat.reach_stats(p, live, gate, bits=bits)
     srp, ancp = maat.reach_stats_plain(p, live, gate)
     assert torch.equal(sr, srp) and torch.equal(anc, ancp)
     for rounds in (1, 24):
-        got = maat.peel(p, live, sr, rank, rounds, 16, gate)
+        got = maat.peel(p, live, sr, rank, rounds, 16, gate, bits=bits)
         want = maat.peel_plain(p, live, sr, rank, rounds, 16, gate)
         assert torch.equal(got, want)
 
@@ -860,6 +919,224 @@ def test_maat_reach_refuses_a_short_scratch(dev):
                 kernels.ptr(p), kernels.ptr(live), kernels.ptr(live), b,
                 group, 1, kernels.ptr(scratch), length, kernels.ptr(out),
                 None, None, None, kernels.stream(live))
+
+
+_GRAPHS: dict = {}
+
+
+def _peel_inputs(dev, b, graph):
+    """A structured graph of `k11_graphs` (cached by B) with tied ranks
+    and its cycle members as K11a's plain side finds them: (p, live0,
+    on_cycle0, rank, gate) on the card."""
+    if b not in _GRAPHS:
+        _GRAPHS[b] = k11_graphs(b)
+    p, live, gate = (t.to(dev) for t in _GRAPHS[b][graph])
+    rank = ((torch.arange(b, dtype=torch.int32) * 7919) % max(b // 8, 1)
+            ).to(dev)
+    oc, _ = maat.reach_stats_plain(p, live, gate, False)
+    return p, live, oc, rank, gate
+
+
+def _peel_counts(args, rounds, peel_rounds):
+    tr = peel_trace(*args[:4], rounds, peel_rounds, args[4])
+    return [sum(1 for r in tr if r["candidates"]), sum(r["x"] for r in tr),
+            sum(r["victims"] for r in tr)]
+
+
+@pytest.mark.parametrize("b", [16, 100, 1024, 2048, 8192])
+@pytest.mark.parametrize("graph", ["ring", "dag", "cycles23", "chain",
+                                   "sparse_live", "empty_live", "gate_off"])
+@pytest.mark.parametrize("rounds,peel_rounds", [(0, 1), (1, 1), (24, 16),
+                                                (24, 0), (1, 16), (0, 16)])
+def test_maat_peel_matches_plain(dev, b, graph, rounds, peel_rounds):
+    """K11b's cluster against ``peel_plain`` on the bits of K11a's call
+    over live0 (the handoff of ``validate_maat``), tied ranks; its counts
+    (peel rounds with candidates, sweep exchanges, victims, CTAs)
+    against `peel_trace`'s.  B = 8,192 reads the rows from L2."""
+    p, live, oc, rank, gate = args = _peel_inputs(dev, b, graph)
+    want = maat.peel_plain(p, live, oc, rank, rounds, peel_rounds, gate)
+    bits = maat.reach_scratch(b, dev)
+    sr, _ = maat.reach_stats(p, live, gate, False, bits=bits)
+    assert torch.equal(sr, oc)
+    stats = torch.full((4,), -1, dtype=torch.int32, device=dev)
+    got = maat._peel(p, live, oc, rank, rounds, peel_rounds, gate,
+                     bits=bits, stats=stats)
+    assert torch.equal(got, want)
+    assert torch.equal(maat.peel(p, live, oc, rank, rounds, peel_rounds,
+                                 gate, bits=bits), want)
+    if bool(gate.any()):
+        assert stats[:3].tolist() == _peel_counts(args, rounds, peel_rounds)
+        assert int(stats[3]) == maat.peel_layout(b)[0]
+    if b == 8192:
+        assert not maat.peel_layout(b)[1]
+
+
+@pytest.mark.parametrize("b", [1024, 2048, 8192])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("density", [3.0, 40.0])
+def test_maat_peel_cluster_sizes_match_plain(dev, b, ctas, density):
+    """K11b at each cluster size (shared-memory rows where a CTA's share
+    fits, else L2) on random digraphs with tied ranks."""
+    p, rank, live = _digraph(b, b + ctas, min(0.5, density / b))
+    p, rank, live = p.to(dev), rank.to(dev), live.to(dev)
+    bits = maat.reach_scratch(b, dev)
+    oc, _ = maat.reach_stats(p, live, live, bits=bits)
+    want = maat.peel_plain(p, live, oc, rank, 24, 16, live)
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    got = maat._peel(p, live, oc, rank, 24, 16, live, bits=bits,
+                     stats=stats, max_ctas=ctas)
+    assert torch.equal(got, want)
+    c, shared, _ = maat.peel_layout(b, ctas)
+    assert int(stats[3]) == c <= ctas
+    assert stats[:3].tolist() == _peel_counts((p, live, oc, rank, live),
+                                              24, 16)
+
+
+def test_maat_peel_layout_regimes(dev):
+    """The library's clusters: one CTA where the rows are few, 8 CTAs of
+    shared-memory rows at B = 2,048, 16 reading L2 at 8,192; its largest
+    B lies past the one-block kernel's and K11a's, and one more is
+    refused."""
+    assert maat.peel_layout(16)[:2] == (1, True)
+    assert maat.peel_layout(2048)[:2] == (8, True)
+    assert maat.peel_layout(8192)[:2] == (16, False)
+    assert maat.peel_layout(2048)[2] == 2 * 2048 * 64
+    top = k11b_layout_top()
+    assert top >= k11b_one_block_top()
+    assert maat.peel_layout(top)[:2] == (16, False)
+    with pytest.raises(ValueError):
+        maat.peel_layout(top + 1)
+
+
+def _packed_bits(p, live0):
+    """P's rows, then its columns, over live0 as K11a packs them (int32
+    [2 B W]: bit l of word w of row v is P[v][32 w + l]), packed here a
+    1,024 rows at a time: K11a itself stops at `reach_group`'s B."""
+    b = p.shape[0]
+    w = -(-b // 32)
+    out = torch.zeros(2, b, w, dtype=torch.int32, device=p.device)
+    shift = torch.arange(32, dtype=torch.int64, device=p.device)
+    for k, m in enumerate((p, p.T)):
+        for r0 in range(0, b, 1024):
+            blk = (m[r0:r0 + 1024] & live0[r0:r0 + 1024, None]
+                   & live0[None, :]).to(torch.int64)
+            blk = torch.nn.functional.pad(blk, (0, 32 * w - b))
+            words = (blk.view(-1, w, 32) << shift).sum(-1)
+            out[k, r0:r0 + 1024] = (words - ((words >> 31) << 32)).to(
+                torch.int32)
+    return out.reshape(-1)
+
+
+def test_maat_peel_test_packer_is_k11as(dev):
+    """`_packed_bits` gives the words of K11a's pack over live0."""
+    b = 1000
+    p, _, live = _digraph(b, 5, 4.0 / b)
+    p, live = p.to(dev), live.to(dev)
+    bits = maat.reach_scratch(b, dev)
+    maat.reach_stats(p, live, live, False, bits=bits)
+    w = -(-b // 32)
+    assert torch.equal(bits[:2 * b * w], _packed_bits(p, live))
+
+
+@pytest.mark.parametrize("where", ["k11a_top", "one_block_top"])
+def test_maat_peel_large_b_matches_plain(dev, where):
+    """K11b at the largest B K11a takes (on K11a's bits, the path's
+    largest; 16 CTAs reading the rows from L2, the ranks in shared
+    memory) and at the largest the one-block kernel took (43,112: past
+    K11a, so the test packs the bits; the ranks read from global memory
+    too).  A ring over a third of the txns, random edges, tied ranks;
+    on_cycle0 a random part of live0 (the peel takes any such set)."""
+    if where == "k11a_top":
+        b = 1
+        while True:
+            try:
+                maat.reach_group(b + 1)
+            except ValueError:
+                break
+            b += 1
+    else:
+        b = k11b_one_block_top()
+    g = torch.Generator(device=dev).manual_seed(b)
+    p = torch.zeros(b, b, dtype=torch.bool, device=dev)
+    src = torch.randint(0, b, (3 * b,), generator=g, device=dev)
+    dst = torch.randint(0, b, (3 * b,), generator=g, device=dev)
+    p[src, dst] = True
+    ring = torch.arange(b // 3, device=dev)
+    p[ring, (ring + 1) % (b // 3)] = True
+    p.fill_diagonal_(False)
+    live = torch.rand(b, generator=g, device=dev) < 0.9
+    oc = live & (torch.rand(b, generator=g, device=dev) < 0.7)
+    rank = torch.randint(0, b // 8, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    if where == "k11a_top":
+        bits = maat.reach_scratch(b, dev)
+        maat.reach_stats(p, live, live, False, bits=bits)
+    else:
+        bits = _packed_bits(p, live)
+    assert maat.peel_layout(b)[:2] == (16, False)
+    for rounds, peel_rounds in ((6, 3), (0, 1)):
+        want = maat.peel_plain(p, live, oc, rank, rounds, peel_rounds, live)
+        got = maat.peel(p, live, oc, rank, rounds, peel_rounds, live,
+                        bits=bits)
+        assert torch.equal(got, want), (rounds, peel_rounds)
+
+
+def test_maat_peel_refuses_a_short_bits(dev):
+    """K11b refuses bits one word short of P's rows and columns, and a
+    cluster size it has no layout for, before any launch; its wrapper
+    refuses a call on the card without K11a's bits."""
+    from deneva_tpu_torch import kernels
+    b = 100
+    need = maat.peel_layout(b)[2]
+    p = torch.zeros(b, b, dtype=torch.bool, device=dev)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    rank = torch.zeros(b, dtype=torch.int32, device=dev)
+    out = torch.empty(b, dtype=torch.bool, device=dev)
+    for length, ctas in ((need - 1, 0), (need, 3)):
+        bits = torch.empty(length, dtype=torch.int32, device=dev)
+        with pytest.raises(RuntimeError, match="dt_maat_peel"):
+            maat.K11B_PEEL.launch(
+                kernels.ptr(live), kernels.ptr(live), kernels.ptr(rank),
+                kernels.ptr(live), b, 24, 16, ctas, kernels.ptr(bits),
+                length, kernels.ptr(out), None, kernels.stream(live))
+    with pytest.raises(ValueError, match="bits"):
+        maat.peel(p, live, live, rank, 24, 16, live, bits=None)
+
+
+def test_validate_maat_matches_plain_route(dev, monkeypatch):
+    """``validate_maat``'s whole verdict on a real MAAT epoch whose level
+    gate is set: through the kernels (K11b reading K11a's bits) and
+    through the plain versions, on the same inputs."""
+    import dataclasses
+
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.engine.step import Engine
+    cfg = Config.from_args([
+        "--epoch_batch=2048", "--max_txn_in_flight=8192",
+        "--synth_table_size=65536", "--zipf_theta=0.9",
+        "--conflict_buckets=8192", "--cc_alg=MAAT"])
+    wl = ycsb.YCSBWorkload(cfg, device=dev)
+    eng = Engine(cfg, wl)
+    calls, gates = [], []
+
+    def grab(*a, **k):
+        calls.append(a)
+        return maat.validate_maat(*a, **k)
+    eng.backend = dataclasses.replace(eng.backend, validate=grab)
+    eng.run(eng.init_state(), 4)
+    real = maat.reach_stats
+
+    def counted(p, live, gate, *a, **k):
+        gates.append(bool(gate.any()))
+        return real(p, live, gate, *a, **k)
+    monkeypatch.setattr(maat, "reach_stats", counted)
+    for a in calls:
+        vk, _ = maat.validate_maat(*a)
+        with plain_path(wl):
+            vp, _ = maat.validate_maat(*a)
+        for f in ("commit", "abort", "defer", "order", "level"):
+            assert torch.equal(getattr(vk, f), getattr(vp, f)), f
+    assert any(gates)
 
 
 @pytest.mark.parametrize("n,span,m", [(0, 10, 100), (1, 3, 50),
