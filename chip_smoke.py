@@ -342,6 +342,31 @@ Phases (any error or mismatch exits non-zero and prints no result):
                ``--slice16-parent DIR`` ``[slice16-parent]`` times that
                commit's K11b, K2 and K11a beside this one's on the same
                inputs, parent, this, this, parent.
+   Slice 17: ``--slice17`` runs only ``[K13b-split]`` and
+               ``[K4b-split]`` (``deneva_tpu_torch/probes/
+               k13b_k4b_costs.cu``, its own shared library: the slice-8
+               K13b's two memsets and two passes each alone and all four;
+               the slice-4 K4b's empty launch, prologue, hashes without
+               the zipf power, power alone, whole kernel and row sort,
+               with static SASS counts by pipe and the dispatch floor they
+               imply), ``[K13b]`` on the forwarding batch, a metered OCC
+               ``ycsb_skew`` epoch and a routed mixed epoch over 2^18
+               buckets (``[K13b-phases]``: the regime the library picks,
+               no valid lane, distinct keys, cooperative launches with 0-2
+               grid barriers) and ``[K4b]`` on the main path's zipf, theta
+               0, ``ycsb_hot``, the HOT row's options, zipf with
+               ``key_order`` and ``txn_write_perc``, and zipf at
+               ``ycsb_skew``'s 2,048 txns and at 16,384, 32,768 and 49,152
+               (either side of the 4-draws-a-thread switch), each exact
+               against its plain version;
+               with ``--profile`` also the audited OCC ``ycsb_skew``,
+               ``part_cnt = 4``, forwarding fingerprint and ``ycsb_hot``
+               profiles; with ``--slice17-parent DIR``
+               ``[slice17-parent]`` times that commit's K13b and K4b
+               beside this one's on the same inputs, parent, this, this,
+               parent, and with ``--profile`` profiles the same cells on
+               that commit's package (``--parent-profile``, a child
+               process; ``[slice17-parent-profile]``).
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -378,6 +403,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1215,9 +1241,10 @@ def k7_case(ins, r: dict, card: str) -> torch.Tensor:
 
 
 def k8_row(nm: str, b: int) -> str:
-    """The kernels line's row of a launch: K8's at B = 2,048 apart."""
-    return f"{nm}[B=2048]" if nm == "K8_first_fit" and b == SKEW_BATCH \
-        else nm
+    """The kernels line's row of a launch: K8's and K13b's at B = 2,048
+    apart."""
+    return f"{nm}[B=2048]" if b == SKEW_BATCH and nm in (
+        "K8_first_fit", "K13b_conflict_density") else nm
 
 
 def k10_row(nm: str, cfg) -> str:
@@ -2232,6 +2259,8 @@ def _port_calls() -> dict:
             "K8": (conflict.first_fit, conflict.first_fit_plain),
             "K16": (dgcc.relax, dgcc.relax_plain),
             "K3": (k3_run, functools.partial(k3_run, plain=True)),
+            "K13b": (k13b_run, functools.partial(k13b_run, plain=True)),
+            "K4b": (k4b_run, functools.partial(k4b_run, plain=True)),
             "K10": (scatter.last_writer, scatter.last_writer_plain)}
 
 
@@ -4093,7 +4122,7 @@ def phase_profile(dev, cfg, mode: str, knobs_of=None,
             "version_push", "pack_rows", "pack_cols", "earlier_edges",
             "wavefront_kernel",
             "precedence_kernel", "reach_kernel", "peel_kernel",
-            "lookup_kernel", "sort_rows", "scatter_add_", "append_kernel",
+            "lookup_kernel", "scatter_add_", "append_kernel",
             "tpcc_generate", "merge_rank", "merge_place", "probe_kernel",
             "pps_generate", "wrote_kernel", "lanes_kernel", "lane_pack",
             "lane_unpack", "census_", "relax_kernel", "density_",
@@ -4243,55 +4272,17 @@ def phase_slice8_kernels(dev, rec: dict, card: str) -> None:
     K15c-compact on the inputs of one audited epoch of every slice-8
     configuration, and K15a in its wide mode on an audited DGCC epoch at
     ``epoch_batch=16384`` (the reference's bound).  Each exact against
-    its plain version; the OCC epoch's times (and the forwarding batch's
-    for K13b) go into the kernels line."""
+    its plain version; the OCC epoch's times go into the kernels line,
+    K13b's in two rows (the forwarding batch; B = 2,048)."""
     from deneva_tpu_torch.cc import base, depgraph
-    from deneva_tpu_torch.ops.hashing import bucket_hash, combine_key
     mods = {"base": base, "depgraph": depgraph}
-    # K13b
-    for label, cfg in (("OCC ycsb_skew", skew_config(False, "OCC",
-                                                     metrics=True)),
-                       ("forwarding 65,536", config(False, metrics=True))):
-        eng = make_engine(dev, cfg)
-        st = eng.run(eng.init_state(), 5)
-        calls: dict = {}
-        with grab_pieces(((base, "conflict_density"),), calls):
-            st = eng.step(st)
-        torch.cuda.synchronize()
-        (c, bt, owner, arm), _ = calls["conflict_density"][0]
-        got = base.conflict_density(c, bt, owner, arm)
-        want = base.conflict_density_plain(c, bt, owner, arm)
-        if not torch.equal(got, want):
-            fail(f"K13b {label}: differs from the plain version")
-        b, a = bt.keys.shape
-        k = c.conflict_buckets
-        bk = bucket_hash(combine_key(bt.table_ids, bt.keys), k).reshape(
-            -1).long()
-        v = bt.valid.reshape(-1) & bt.active[:, None].expand(b, a).reshape(-1)
-        w = v & bt.is_write.reshape(-1)
-
-        def lib():
-            wc = torch.bincount(bk, weights=w.float(), minlength=k)
-            uc = torch.bincount(bk, weights=v.float(), minlength=k)
-            return wc[bk], uc[bk]
-        r = {"max_abs_err": max_abs(got, want),
-             "ms": cuda_ms(lambda: base.conflict_density(c, bt, owner, arm)),
-             "plain_ms": cuda_ms(lambda: base.conflict_density_plain(
-                 c, bt, owner, arm), iters=3, warmup=1),
-             "library_ms": cuda_ms(lib)}
-        # lanes: table id, key and owner (4 B), valid, read and write
-        # flags (1 B); the txn flags; P counts out; the own-row walk's
-        # compares
-        bound(r, b * a * 15 + b + 4 * got.numel(), 2 * b * a * a)
-        print(f"[K13b] {label}: B={b} A={a} K={k} contending lanes "
-              f"{int(got.sum())} of {int(v.sum())}; {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f}, bincount + gathers {r['library_ms']:.4f}"
-              f", bound {r['bound_ms']:.6f}) (card {card})", flush=True)
-        if label.startswith("forwarding"):
-            rec["K13b_conflict_density"].update(r)
-        del eng, st, calls
-        torch.cuda.empty_cache()
-    print_kernel("K13b_conflict_density", rec["K13b_conflict_density"], card)
+    # K13b, on the forwarding batch and at the sweep backends' B = 2,048
+    for (label, args), nm in zip(k13b_inputs(dev, K13B_CELLS[:2]).items(),
+                                 ("K13b_conflict_density",
+                                  "K13b_conflict_density[B=2048]")):
+        rec[nm].update(k13b_case(label, args, card))
+        print_kernel(nm, rec[nm], card)
+    torch.cuda.empty_cache()
     # K17, K15a, K15c on real audited epochs
     specs = [(mods[m], n) for m, n in AUDIT_PIECES]
     for label, (_path, cfg) in slice8_cells().items():
@@ -5234,7 +5225,8 @@ def kernel_vs_plain(dev, cfg, run, n: int, path: str | None, label: str,
     if path is not None:
         check_launches(counts, path, n, label)
     for nm, c in counts.items():
-        total[nm] = total.get(nm, 0) + c
+        row = k8_row(nm, cfg.epoch_batch)
+        total[row] = total.get(row, 0) + c
     with plain_path(ep.workload):
         sp = run(ep, sp, n)
     torch.cuda.synchronize()
@@ -5616,7 +5608,7 @@ def phase_ctrl_simulate(dev, card: str) -> dict:
           f"assignments={sorted({r['assign'] for r in rows})} "
           f"launches={used}", flush=True)
     print(f"[ctrl-simulate] {st.summary_line()}", flush=True)
-    return counts
+    return {k8_row(nm, cfg.epoch_batch): c for nm, c in counts.items()}
 
 
 def flat_state(state):
@@ -5829,6 +5821,24 @@ def fwd_plan(dev, cfg, batch: int, seed: int) -> tuple:
     return plan, wl.index.lookup(plan.keys)
 
 
+def probe_lib(name: str):
+    """(loaded library, path) of ``probes/<name>.cu``, built by ``nvcc``
+    into its own shared library under ``_build/`` (not the kernel
+    library), with the kernels' headers on the include path."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    src = kernels.CSRC.parent / "probes" / f"{name}.cu"
+    so = kernels.BUILD_DIR / f"{name}.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([kernels._nvcc(), kernels.ARCH, "-O3", "-std=c++17",
+                        "-Xcompiler", "-fPIC", "-shared",
+                        f"-I{kernels.CSRC}", str(src), "-o", str(so)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"{name}.cu: {r.stdout[-1000:]}{r.stderr[-1000:]}")
+    return ctypes.CDLL(str(so)), so
+
+
 def k3_probe(dev, plan, slots, card: str) -> None:
     """``--slice15``'s first step: the slice-1 K3 taken apart on the main
     path's plan.  ``probes/k3_costs.cu`` (not in the kernel library) is
@@ -5840,16 +5850,7 @@ def k3_probe(dev, plan, slots, card: str) -> None:
     import ctypes
     from deneva_tpu_torch import kernels
     from deneva_tpu_torch.workloads import ycsb
-    src = kernels.CSRC.parent / "probes" / "k3_costs.cu"
-    so = kernels.BUILD_DIR / "k3_costs.so"
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([kernels._nvcc(), kernels.ARCH, "-O3", "-std=c++17",
-                        "-Xcompiler", "-fPIC", "-shared",
-                        f"-I{kernels.CSRC}", str(src), "-o", str(so)],
-                       capture_output=True, text=True, timeout=300)
-    if r.returncode != 0:
-        fail(f"k3_costs.cu: {r.stdout[-1000:]}{r.stderr[-1000:]}")
-    lib = ctypes.CDLL(str(so))
+    lib, _ = probe_lib("k3_costs")
     p_, i_ = ctypes.c_void_p, ctypes.c_int
     for nm, a in (("k3p_gather_blocks", [i_, i_]),
                   ("k3p_gather", [p_, i_, p_, p_, p_, p_, p_, i_, p_, i_,
@@ -6443,6 +6444,495 @@ def phase_slice16(dev, card: str) -> None:
             torch.cuda.empty_cache()
 
 
+# K13b's inputs for --slice17 (label -> (config, mixed router knobs)):
+# the forwarding main path's metered batch, the metered OCC ycsb_skew
+# epoch and the router's mixed epoch over 2^18 buckets
+K13B_CELLS = (("forwarding 65,536 x 10", lambda: config(False, metrics=True),
+               False),
+              ("OCC ycsb_skew 2,048 x 10",
+               lambda: skew_config(False, "OCC", metrics=True), False),
+              ("router mixed 2,048 x 10, 2^18 buckets", router_cfg, True))
+
+
+def k13b_inputs(dev, cells=K13B_CELLS) -> dict:
+    """label -> K13b's arguments (`k13b_run`'s) as the sixth epoch of each
+    cell hands them to ``conflict_density``."""
+    from deneva_tpu_torch.cc import base
+    from deneva_tpu_torch.cc.router import knobs_from_decision
+    out = {}
+    for label, cfg_fn, mixed in cells:
+        cfg = cfg_fn()
+        eng, run, st = mesh_engine(dev, cfg)
+        if mixed:
+            knobs = knobs_from_decision(cfg, [0, 1, 2, 2], [0, 2, 0, 0], 1,
+                                        2, dev)
+
+            def run(s, n, eng=eng, knobs=knobs):
+                return eng.run_ctrl(s, knobs, n)
+        st = run(st, 5)
+        calls: dict = {}
+        with grab_pieces(((base, "conflict_density"),), calls):
+            st = run(st, 1)
+        torch.cuda.synchronize()
+        (c, bt, owner, arm), _ = calls["conflict_density"][0]
+        out[label] = (bt.table_ids, bt.keys, bt.valid, bt.is_read,
+                      bt.is_write, bt.active, owner, c.conflict_buckets,
+                      max(c.part_cnt, 1), int(arm))
+        del eng, st, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def k13b_run(table_ids, keys, valid, is_read, is_write, active, owner,
+             k: int, p: int, arm: int, plain: bool = False):
+    """K13b (or its plain version) on one batch's lanes, as
+    ``conflict_density`` takes them from the engine."""
+    from types import SimpleNamespace
+    from deneva_tpu_torch.cc import base
+    bt = base.AccessBatch(table_ids=table_ids, keys=keys, is_read=is_read,
+                          is_write=is_write, valid=valid, ts=None, rank=None,
+                          active=active)
+    cfg = SimpleNamespace(conflict_buckets=k, part_cnt=p)
+    if plain:
+        return base.conflict_density_plain(cfg, bt, owner, bool(arm))
+    return base.conflict_density(cfg, bt, owner, bool(arm))
+
+
+def k13b_phases(inputs: dict, card: str) -> None:
+    """``[K13b-phases]``: this tree's K13b on variants of its inputs — as
+    run, with no valid lane (the launch, its two barriers, the flags'
+    loads and the block tables) and with every lane on a key of its own
+    (no hot bucket) — each exact against the plain version, with the
+    regime the library picks; then cooperative launches of 512-thread
+    blocks with 0, 1 and 2 grid barriers and a plain empty launch
+    (``probes/k3_costs.cu``)."""
+    import ctypes
+    from deneva_tpu_torch.cc import base
+    for label, args in inputs.items():
+        tid, keys, valid, isr, isw, active, owner, k, p, arm = args
+        distinct = torch.arange(keys.numel(), dtype=torch.int32,
+                                device=keys.device).reshape(keys.shape)
+        variants = {"as run": args,
+                    "no valid lane": (tid, keys, torch.zeros_like(valid),
+                                      *args[3:]),
+                    "distinct keys": (tid, distinct, *args[2:])}
+        t = {}
+        for nm, a in variants.items():
+            if not torch.equal(k13b_run(*a), k13b_run(*a, plain=True)):
+                fail(f"[K13b-phases] {label} {nm}: differs from plain")
+            t[nm] = cuda_ms(lambda a=a: k13b_run(*a))
+        words, dense, grid = base.conflict_density_layout(*keys.shape, k)
+        print(f"[K13b-phases] {label}: "
+              f"{'dense' if dense else 'direct'} regime, {grid} x 512, "
+              f"{words} histogram words; " + ", ".join(
+                  f"{nm} {v:.4f} ms" for nm, v in t.items())
+              + f" (card {card})", flush=True)
+    lib, _ = probe_lib("k3_costs")
+    lib.k3p_grid_sync.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.k3p_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for blocks in (43, 132, 528):
+        t = {f"{n} barriers": cuda_ms(lambda n=n: lib.k3p_grid_sync(
+            blocks, 512, n, st)) for n in (0, 1, 2)}
+        t["plain empty launch"] = cuda_ms(lambda: lib.k3p_empty(blocks, st))
+        print(f"[K13b-phases] cooperative launch of {blocks} x 512: "
+              + ", ".join(f"{nm} {v:.4f} ms" for nm, v in t.items())
+              + f" (card {card})", flush=True)
+
+
+def k13b_case(label: str, args: tuple, card: str) -> dict:
+    """K13b on ``args`` exactly against its plain version on both arms,
+    timed beside it and beside two ``bincount`` + gathers; the record of
+    a kernels-line row."""
+    from deneva_tpu_torch.ops.hashing import bucket_hash, combine_key
+    tid, keys, valid, _, isw, active, owner, k, p, arm = args
+    for a in (arm, 1 - arm):
+        other = args[:-1] + (a,)
+        got, want = k13b_run(*other), k13b_run(*other, plain=True)
+        if not torch.equal(got, want):
+            fail(f"K13b {label} (arm {a}): differs from the plain version")
+        if a == arm:
+            err, dens = max_abs(got, want), int(got.sum())
+    b, na = keys.shape
+    bk = bucket_hash(combine_key(tid, keys), k).reshape(-1).long()
+    v = (valid & active[:, None]).reshape(-1)
+    w = v & isw.reshape(-1)
+
+    def lib():
+        wc = torch.bincount(bk, weights=w.float(), minlength=k)
+        uc = torch.bincount(bk, weights=v.float(), minlength=k)
+        return wc[bk], uc[bk]
+    r = {"max_abs_err": err, "ms": cuda_ms(lambda: k13b_run(*args)),
+         "plain_ms": cuda_ms(lambda: k13b_run(*args, plain=True), iters=3,
+                             warmup=1),
+         "library_ms": cuda_ms(lib)}
+    # lanes: table id, key and owner (4 B), valid, read and write flags
+    # (1 B); the txn flags; P counts out; a hash and a few compares a lane
+    bound(r, b * na * 15 + b + 4 * p, 16 * b * na)
+    print(f"[K13b] {label}: B={b} A={na} K={k} P={p} arm={arm} contending "
+          f"lanes {dens} of {int(v.sum())}; {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}, bincount + gathers {r['library_ms']:.4f}, "
+          f"bound {r['bound_ms']:.6f}) (card {card})", flush=True)
+    return r
+
+
+def k13b_split(lib, inputs: dict, card: str) -> None:
+    """``[K13b-split]``: the slice-8 K13b's four stream operations (its
+    copy in the probe), each alone and all four, on each input; all four
+    are first held to the plain version."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    fn = lib.k17p_density
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    for label, args in inputs.items():
+        tid, keys, valid, isr, isw, active, owner, k, p, arm = args
+        b, a = keys.shape
+        scratch = torch.empty(2 * k + b * a, dtype=torch.int32,
+                              device=keys.device)
+        out = torch.empty(p, dtype=torch.int32, device=keys.device)
+        ptrs = [kernels.ptr(t) for t in (tid, keys, valid, isr, isw, active,
+                                         owner)]
+
+        def call(ops):
+            e = fn(ops, *ptrs, b, a, k, p, arm, kernels.ptr(scratch),
+                   kernels.ptr(out), kernels.stream(keys))
+            if e != 0:
+                fail(f"k17p_density: CUDA error {e}")
+        call(15)
+        torch.cuda.synchronize()
+        if not torch.equal(out, k13b_run(*args, plain=True)):
+            fail(f"[K13b-split] the probe's copy differs from plain on "
+                 f"{label}")
+        t = {nm: cuda_ms(lambda ops=ops: call(ops))
+             for nm, ops in (("histograms' memset", 1), ("counts' memset", 2),
+                             ("histogram pass", 4), ("verdict pass", 8),
+                             ("all four", 15))}
+        print(f"[K13b-split] {label}: B={b} A={a} K={k} P={p}; " + ", ".join(
+            f"{nm} {v:.4f} ms" for nm, v in t.items())
+            + f"; the four alone sum to {sum(t.values()) - t['all four']:.4f}"
+            f" (card {card})", flush=True)
+        del scratch, out
+
+
+# K4b's inputs for --slice17: label -> (configuration, txns).  The HOT
+# row is the kernels line's K4b[hot] input.
+K4B_CASES = {
+    "zipf 0.9, 65,536 x 10": (lambda: config(False), BATCH),
+    "theta 0, 65,536 x 10": (lambda: config(False, zipf_theta=0.0), BATCH),
+    "ycsb_hot, 2,048 x 10": (lambda: hot_config(False), SKEW_BATCH),
+    "HOT, key_order, txn_write_perc 0.25, 65,536 x 10": (
+        lambda: config(False, skew_method="HOT", data_perc=100,
+                       access_perc=0.9, key_order=True,
+                       txn_write_perc=0.25), BATCH),
+    "zipf 0.9, key_order, txn_write_perc 0.25, 65,536 x 10": (
+        lambda: config(False, key_order=True, txn_write_perc=0.25), BATCH),
+    # the sweep backends' zipf epoch (1 draw a thread), then sizes on
+    # either side of the 4-draws-a-thread switch (~33,800 txns of 10 at
+    # 660 blocks)
+    "ycsb_skew zipf 0.9, 2,048 x 10": (
+        lambda: skew_config(False, "OCC"), SKEW_BATCH),
+    "zipf 0.9, 16,384 x 10": (lambda: config(False), 16384),
+    "zipf 0.9, 32,768 x 10": (lambda: config(False), 32768),
+    "zipf 0.9, 49,152 x 10": (lambda: config(False), 49152),
+}
+_K4B_WL: dict = {}
+
+
+def k4b_run(rng, n: int, label: str, plain: bool = False):
+    """K4b (or its plain version) under ``K4B_CASES[label]``'s
+    configuration: (keys, write flags) of ``n`` txns."""
+    from deneva_tpu_torch.workloads.ycsb import YCSBWorkload
+    if label not in _K4B_WL:
+        _K4B_WL[label] = YCSBWorkload(K4B_CASES[label][0](),
+                                      device=rng.device)
+    wl = _K4B_WL[label]
+    q = wl.generate_plain(rng, n) if plain else wl.generate(rng, n)
+    return q.keys, q.is_write
+
+
+def k4b_case(label: str, rng, card: str) -> dict:
+    """K4b on ``label``'s input exactly against its plain version, timed
+    beside it; the bound counts its hashes (the zipf power at 40 ops)."""
+    n = K4B_CASES[label][1]
+    got, want = k4b_run(rng, n, label), k4b_run(rng, n, label, plain=True)
+    for x, y, f in zip(got, want, ("keys", "write flags")):
+        if not torch.equal(x, y):
+            fail(f"K4b {label}: {f} differ from plain")
+    cfg = _K4B_WL[label].cfg
+    if cfg.key_order and not bool((got[0][:, 1:] >= got[0][:, :-1]).all()):
+        fail(f"K4b {label}: a txn's keys are not ascending")
+    r = {"max_abs_err": max(max_abs(got[0], want[0]),
+                            max_abs(got[1], want[1])),
+         "ms": cuda_ms(lambda: k4b_run(rng, n, label)),
+         "plain_ms": cuda_ms(lambda: k4b_run(rng, n, label, plain=True),
+                             iters=3, warmup=1),
+         "library_ms": None}
+    draws = n * cfg.req_per_query
+    hot = cfg.skew_method == "HOT"
+    per = (4 * THREEFRY_OPS + 20) if hot else (2 * THREEFRY_OPS + 40)
+    rows = (n * THREEFRY_OPS if cfg.txn_write_perc < 1.0 else 0) + (
+        n * cfg.req_per_query ** 2 if cfg.key_order else 0)
+    bound(r, 16 + 5 * draws, draws * per + rows)
+    print(f"[K4b] {label}: {draws} draws; {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.6f}, "
+          f"{r['bound_by']}) (card {card})", flush=True)
+    return r
+
+
+SASS_FP64 = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+SASS_INT = ("IADD3", "IADD", "IMAD", "IMUL", "LOP3", "LOP", "SHF", "SHL",
+            "SHR", "ISETP", "IMNMX", "LEA", "POPC", "FLO", "BREV", "PRMT",
+            "SEL", "IABS", "SGXT", "BMSK", "VIADD", "VIMNMX", "ISCADD",
+            "BFE", "BFI", "IDP", "IDP4A")
+SASS_FP32 = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FSET",
+             "MUFU", "FCHK", "FRND", "FSWZADD", "F2I", "I2F", "F2F", "I2I",
+             "F2FP")
+
+
+def sass_mix(so, wanted: tuple) -> dict:
+    """Static SASS instruction counts by pipe (integer, fp32, fp64, other)
+    and by opcode (``ops``), by mangled name, of each function of the
+    library ``so`` whose name holds one of ``wanted``, from ``cuobjdump
+    -sass``; {} where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        r = subprocess.run([exe, "-sass", str(so)], capture_output=True,
+                           text=True, timeout=300)
+    except OSError:
+        return {}
+    if r.returncode != 0:
+        return {}
+    out, cur = {}, None
+    ins = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    for ln in r.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            cur = name if any(w in name for w in wanted) else None
+            if cur is not None:
+                out[cur] = {"int": 0, "fp32": 0, "fp64": 0, "other": 0,
+                            "ops": {}}
+            continue
+        m = ins.search(ln) if cur is not None else None
+        if not m:
+            continue
+        op = m.group(1)
+        base = op.split(".")[0]
+        if base in SASS_FP64 or ("64" in op and base in ("F2F", "F2I", "I2F",
+                                                         "MUFU")):
+            pipe = "fp64"
+        elif base in SASS_INT:
+            pipe = "int"
+        elif base in SASS_FP32:
+            pipe = "fp32"
+        else:
+            pipe = "other"
+        out[cur][pipe] += 1
+        out[cur]["ops"][base] = out[cur]["ops"].get(base, 0) + 1
+    return out
+
+
+def sass_line(v: dict) -> str:
+    """A function's pipe counts and its 12 most frequent opcodes."""
+    top = sorted(v["ops"].items(), key=lambda kv: -kv[1])[:12]
+    return (", ".join(f"{p} {v[p]}" for p in ("int", "fp32", "fp64",
+                                                "other"))
+            + "; " + " ".join(f"{o}:{c}" for o, c in top))
+
+
+def sm_clock_ghz() -> float:
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``), GHz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    return float(r.stdout.split()[0]) / 1e3
+
+
+# the H100's pipe rates per SM and clock: 64 INT32, 128 FP32, 64 FP64
+PIPE_PER_SM = {"int": 64, "fp32": 128, "fp64": 64}
+K4B_PIECES = (("empty launch", 1), ("prologue alone", 2),
+              ("hashes, no power", 3), ("power alone", 4), ("whole", 0))
+
+
+def old_gen_params(wl) -> tuple:
+    """The slice-4 K4b's sampler arguments: theta_zero, n, zetan, eta,
+    alpha, thresh1, hot_max, access_perc."""
+    s, f = wl.sampler, np.float32
+    if hasattr(s, "hot_max"):
+        return (0, f(0), f(0), f(0), f(0), f(0), s.hot_max,
+                f(s.access_perc))
+    p = s.f32_params
+    return (int(p["theta_zero"]), p["n"], p.get("zetan", f(0)),
+            p.get("eta", f(0)), p.get("alpha", f(0)), p.get("thresh1", f(0)),
+            0, f(0))
+
+
+def k4b_split(lib, so, rngs: dict, card: str) -> None:
+    """``[K4b-split]``: the slice-4 K4b (its copy in the probe) whole and
+    in pieces on the main path's zipf draws, ``ycsb_hot``'s and the HOT
+    row's, the row sort alone where key_order is on; then each piece's
+    static SASS counts by pipe and the instruction floor they imply."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    fn = lib.k17p_generate
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [I, P, I, I, I, I, F, F, F, F, F, I, F, F, I, F, I, P, P,
+                   P]
+    fn.restype = I
+    per_draw: dict = {}
+    for label in ("zipf 0.9, 65,536 x 10", "ycsb_hot, 2,048 x 10",
+                  "HOT, key_order, txn_write_perc 0.25, 65,536 x 10"):
+        rng, n = rngs[label], K4B_CASES[label][1]
+        k4b_run(rng, 1, label)             # the workload, cached
+        wl = _K4B_WL[label]
+        cfg = wl.cfg
+        req = cfg.req_per_query
+        keys = torch.empty((n, req), dtype=torch.int32, device=rng.device)
+        isw = torch.empty((n, req), dtype=torch.bool, device=rng.device)
+
+        def call(piece, order=int(cfg.key_order)):
+            e = fn(piece, kernels.ptr(rng), n, req, wl.n_rows,
+                   *old_gen_params(wl), np.float32(cfg.write_perc),
+                   int(cfg.txn_write_perc < 1.0),
+                   np.float32(cfg.txn_write_perc), order, kernels.ptr(keys),
+                   kernels.ptr(isw), kernels.stream(rng))
+            if e != 0:
+                fail(f"k17p_generate: CUDA error {e}")
+        call(0)
+        torch.cuda.synchronize()
+        want = k4b_run(rng, n, label, plain=True)
+        if not (torch.equal(keys, want[0]) and torch.equal(isw, want[1])):
+            fail(f"[K4b-split] the probe's copy differs from plain on "
+                 f"{label}")
+        pieces = K4B_PIECES if cfg.skew_method != "HOT" else \
+            tuple(x for x in K4B_PIECES if x[1] not in (3, 4))
+        t = {nm: cuda_ms(lambda pc=pc: call(pc)) for nm, pc in pieces}
+        if cfg.key_order:
+            call(0, order=0)
+            raw = keys.clone()
+            copy_ms = cuda_ms(lambda: keys.copy_(raw))
+            t["row sort alone"] = cuda_ms(
+                lambda: (keys.copy_(raw), call(5))) - copy_ms
+        print(f"[K4b-split] {label}: {n * req} draws, grid "
+              f"{(n * req + 255) // 256} x 256; " + ", ".join(
+                  f"{nm} {v:.4f} ms" for nm, v in t.items())
+              + f" (card {card})", flush=True)
+        del keys, isw
+    mix = sass_mix(so, ("generate_kernel", "sort_rows_kernel",
+                        "density_hist_kernel", "density_conf_kernel"))
+    if not mix:
+        print("[K4b-split] SASS counts: not measured (no cuobjdump)",
+              flush=True)
+        return
+    ghz = sm_clock_ghz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, v in mix.items():
+        print(f"[K4b-split] SASS {key}: {sass_line(v)} (static, whole "
+              f"function)", flush=True)
+    def pick(sub):
+        return next((v for k, v in mix.items() if sub in k), None)
+    whole, pro, nopow = (pick(f"generate_kernelILi{pc}ELb1")
+                         for pc in (0, 2, 3))
+    if whole and pro and nopow:
+        # a zipf draw runs the zipf-only loop body once: the whole kernel
+        # less its prologue (static counts; the power's rare branches
+        # included); the power is the whole less the hashes without it
+        draws = BATCH * REQ
+        for what, a, b in (("a zipf draw", whole, pro),
+                           ("its power", whole, nopow)):
+            per = {p: max(a[p] - b[p], 0) for p in PIPE_PER_SM}
+            floors = {p: draws * per[p] / (PIPE_PER_SM[p] * sms * ghz *
+                                           1e9) * 1e3 for p in per}
+            print(f"[K4b-split] {what} (static SASS, the slice-4 kernel's "
+                  f"zipf branch): {per}; at {sms} SMs x {ghz:.3f} GHz and "
+                  f"{PIPE_PER_SM} a clock and SM, {draws} draws' dispatch "
+                  f"floor " + ", ".join(f"{p} {v:.4f} ms"
+                                        for p, v in floors.items())
+                  + f" (card {card})", flush=True)
+
+
+def phase_slice17(dev, card: str) -> None:
+    """``[K13b-split]`` and ``[K4b-split]`` (the slice-8 K13b and the
+    slice-4 K4b taken apart in ``probes/k13b_k4b_costs.cu``), then
+    ``[K13b]`` on its three inputs (`k13b_inputs`) and ``[K4b]`` on its
+    nine (`K4B_CASES`), each exact against its plain version and timed
+    (``--slice17`` runs only these); with ``--slice17-parent DIR`` each
+    beside the kernels of the checkout at DIR on the same inputs, and
+    with ``--profile`` the audited and metered OCC ``ycsb_skew``,
+    ``part_cnt = 4``, forwarding fingerprint and ``ycsb_hot`` profiles."""
+    from deneva_tpu_torch.ops import prng
+    lib, so = probe_lib("k13b_k4b_costs")
+    dens = k13b_inputs(dev)
+    k13b_split(lib, dens, card)
+    rngs = {label: prng.split(prng.key_from_seed(23 + i, dev))[1]
+            for i, label in enumerate(K4B_CASES)}
+    k4b_split(lib, so, rngs, card)
+    inputs = {}
+    for label, args in dens.items():
+        k13b_case(label, args, card)
+        inputs[f"K13b {label}"] = ("K13b", args)
+    k13b_phases(dens, card)
+    for label, rng in rngs.items():
+        k4b_case(label, rng, card)
+        inputs[f"K4b {label}"] = ("K4b", (rng, K4B_CASES[label][1], label))
+    from deneva_tpu_torch import kernels
+    mix = sass_mix(next(kernels.BUILD_DIR.glob("libdeneva_kernels_*.so")),
+                   ("15generate_kernel", "density_kernel"))
+    for key, v in mix.items():
+        print(f"[K4b] SASS of this tree's {key}: {sass_line(v)} (static)",
+              flush=True)
+    if "--slice17-parent" in sys.argv:
+        vs_parent(inputs, sys.argv[sys.argv.index("--slice17-parent") + 1],
+                  card, "slice17")
+    del inputs, dens
+    _K4B_WL.clear()
+    torch.cuda.empty_cache()
+    if "--profile" in sys.argv:
+        for label, path, cfg_fn in SLICE17_PROFILES:
+            phase_profile(dev, cfg_fn(), label, path=path)
+            torch.cuda.empty_cache()
+        if "--slice17-parent" in sys.argv:
+            # the same cells' profiles on the parent's package, in a child
+            root = sys.argv[sys.argv.index("--slice17-parent") + 1]
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--parent-profile", root],
+                               capture_output=True, text=True, timeout=1200)
+            if r.returncode != 0:
+                fail(f"the parent's profiles at {root}: {r.stderr[-2000:]}")
+            for ln in r.stdout.splitlines():
+                if ln.startswith("[profile]") and "  " not in ln[:12]:
+                    print(ln.replace("[profile]", "[slice17-parent-profile]",
+                                     1), flush=True)
+
+
+def parent_profile(root: str) -> int:
+    """``--parent-profile``: ``SLICE17_PROFILES`` on the package at
+    ``root`` (the parent commit)."""
+    sys.path.insert(0, os.path.abspath(root))
+    from deneva_tpu_torch import kernels
+    if not kernels.__file__.startswith(os.path.abspath(root)):
+        fail(f"--parent-profile imported {kernels.__file__}, not the tree "
+             f"at {root}")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for label, path, cfg_fn in SLICE17_PROFILES:
+        phase_profile(dev, cfg_fn(), label, path=path)
+        torch.cuda.empty_cache()
+    return 0
+
+
+SLICE17_PROFILES = (
+    ("OCC ycsb_skew audited cadence 1", "OCC+A",
+     lambda: audited(skew_config, False, "OCC")),
+    ("part_cnt 4 forwarding fingerprint", None,
+     lambda: part_cfg(config, False, metrics=True)),
+    ("fingerprint", "TPU_BATCH", lambda: config(False)),
+    ("MAAT ycsb_hot", "MAAT", lambda: hot_config(False)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6451,6 +6941,9 @@ def main() -> int:
     if "--parent-child" in sys.argv:
         i = sys.argv.index("--parent-child")
         return parent_child(sys.argv[i + 1], sys.argv[i + 2])
+    if "--parent-profile" in sys.argv:
+        return parent_profile(
+            sys.argv[sys.argv.index("--parent-profile") + 1])
     import deneva_tpu_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -6470,6 +6963,10 @@ def main() -> int:
         if "--slice14" not in sys.argv:
             print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
             return 0
+    if "--slice17" in sys.argv:
+        phase_slice17(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     if "--slice16" in sys.argv:
         phase_slice16(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
@@ -6515,7 +7012,9 @@ def main() -> int:
                              "K14e_sorted_probe", "K20_pps_generate",
                              "K13a_repair_frontier", "K15a_lane_sort",
                              "K15b_seg_scans", "K16_dgcc_relax",
-                             "K13b_conflict_density", "K15c_audit_scans",
+                             "K13b_conflict_density",
+                             "K13b_conflict_density[B=2048]",
+                             "K15c_audit_scans",
                              "K15c_compact_edges",
                              "K17_audit_observe[lanes]",
                              "K17_audit_observe[stamps]",
@@ -6559,13 +7058,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches: dict[str, int] = {}
     # slice 11: the partitioned cells, the routed epochs and the armed
-    # controller's run; their kernel runs count on the main path (their
-    # sweeps at the ycsb_skew batch of 2,048)
+    # controller's run; their kernel runs count on the main path, by the
+    # rows of their cells' batches (`k8_row`)
     for counts in (phase_part(dev, info["card"]),
                    phase_router(dev, info["card"]),
                    phase_ctrl_simulate(dev, info["card"])):
-        for nm, c in counts.items():
-            key = k8_row(nm, SKEW_BATCH)
+        for key, c in counts.items():
             if key in rec:
                 launches[key] = launches.get(key, 0) + c
     torch.cuda.empty_cache()

@@ -55,7 +55,7 @@ P, I32 = kernels.P, kernels.I32
 K13A_FRONTIER = kernels.Kernel("dt_repair_frontier", [
     P, P, P, P, P, P, P, P, P, P, I32, I32, I32, P, P, P])
 K13B_DENSITY = kernels.Kernel("dt_conflict_density", [
-    P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P, P, P])
+    P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P, kernels.I64, P, P])
 K17_LANES = kernels.Kernel("dt_audit_lanes", [
     P, P, P, P, P, P, P, P, P, I32, I32, I32, P, P, P, P, P, P])
 # the rank alone (K17_LANES runs it first): for timing and the tests
@@ -300,12 +300,29 @@ def conflict_density_plain(cfg, batch: AccessBatch, owner: torch.Tensor,
     return onehot.sum(dim=(0, 1)).to(torch.int32)
 
 
+def conflict_density_layout(b: int, a: int, k: int) -> tuple[int, bool, int]:
+    """K13b's launch at ``b`` x ``a`` lanes and ``k`` buckets as the kernel
+    library chooses it (CUDA only): (uint64 words of scratch, the dense
+    regime rather than the direct one, blocks of its grid)."""
+    words, dense, grid = kernels.layout("dt_conflict_density_layout", b, a,
+                                        k)
+    return words, bool(dense), grid
+
+
 def conflict_density(cfg, batch: AccessBatch, owner: torch.Tensor,
                      from_incidence: bool = False) -> torch.Tensor:
-    """K13b: one launch of three passes — the per-bucket write and touch
-    counts of the valid, active lanes (shared-memory atomics), then per
-    lane its own row's same-bucket lanes subtracted, the contention rule
-    and a block-wide fold by owner into int32[P]."""
+    """K13b: one cooperative launch of three phases over warps that hold
+    whole txn rows (``conflict_density_layout`` picks the regime).  Count:
+    int32[P] and the histogram's words are zeroed (by the grid in the
+    dense regime, by each bucket's warp-groups in the direct one); a
+    lane's own row's same-bucket writes and lanes come from a shuffle walk
+    of the row and stay in registers; dense, each lane also adds into its
+    block's shared table.  Add, after a grid barrier: each block's table
+    entry (dense) or each warp-group (direct) adds (writes << 32 |
+    touches) to its bucket's uint64 word with one atomic.  Verdict, after
+    another: each lane applies the contention rule less its own row's
+    counts and folds by owner into int32[P].  No memset, no N-sized
+    scratch."""
     if kernels.on_cpu(batch.keys, owner):
         return conflict_density_plain(cfg, batch, owner, from_incidence)
     b, a = batch.keys.shape
@@ -320,17 +337,22 @@ def conflict_density(cfg, batch: AccessBatch, owner: torch.Tensor,
     kernels.check("active", batch.active, torch.bool, (b,), dev)
     k = cfg.conflict_buckets
     p = max(cfg.part_cnt, 1)
-    if k & (k - 1) or p > 1024:
+    if k & (k - 1) or k > 2**30 or p > 1024:
         raise ValueError("K13b: conflict_buckets must be a power of two "
-                         "and part_cnt at most 1024")
-    cols = torch.empty(2 * k + b * a, dtype=torch.int32, device=dev)
+                         "up to 2^30 and part_cnt at most 1024")
+    if b * a >= 2**31:
+        # a bucket's touches stay below 2^31 in the low word of its count
+        raise ValueError(f"K13b: {b} x {a} lanes, at most 2^31 - 1")
+    words = conflict_density_layout(b, a, k)[0]
+    hist = torch.empty(words, dtype=torch.int64, device=dev)
     out = torch.empty(p, dtype=torch.int32, device=dev)
     K13B_DENSITY.launch(
         kernels.ptr(batch.table_ids), kernels.ptr(batch.keys),
         kernels.ptr(batch.valid), kernels.ptr(batch.is_read),
         kernels.ptr(batch.is_write), kernels.ptr(batch.active),
         kernels.ptr(owner), b, a, k, p, int(from_incidence),
-        kernels.ptr(cols), kernels.ptr(out), kernels.stream(batch.keys))
+        kernels.ptr(hist), words, kernels.ptr(out),
+        kernels.stream(batch.keys))
     return out
 
 

@@ -1,19 +1,46 @@
 // K13b + K15c + K17: the metrics plane's conflict density and the
 // isolation audit plane's single-node half.
 //
-// K13b replaces deneva_tpu/cc/base.py:228 conflict_density.  Pass 1 hashes
-// every valid, active lane into its family-0 conflict bucket and counts
-// per bucket the writes and the touches (all valid lanes, or under the
-// reference's incidence arm only the lanes that read or write), with one
-// atomic per warp-group of equal buckets (__match_any_sync).  Pass 2 is one
-// thread per lane: the txn's own same-bucket lanes (a walk of its row's A
-// buckets) are subtracted, the contention rule  w_oth > 0 | (w & u_oth >
-// 0)  applied, and the lane counted into its owner's slot of int32[P]
-// (shared-memory counts, one global atomic per block and owner).  The
-// incidence's column sums and the scatter arm give these same integers.
+// K13b replaces deneva_tpu/cc/base.py:228 conflict_density: per valid,
+// active lane its family-0 conflict bucket; per bucket the writes and the
+// touches (all valid lanes, or under the reference's incidence arm only
+// the lanes that read or write); a lane contends when  w_oth > 0 | (w &
+// u_oth > 0)  with its own row's lanes on the bucket taken out, and counts
+// into its owner's slot of int32[P].  The incidence's column sums and the
+// scatter arm give these same integers.
+//   One cooperative launch of at most the occupancy grid (512-thread
+// blocks, asked once per device), no memset and no N-sized scratch.  A
+// warp task holds whole rows: 32 / A rows of A <= 32 lanes on a warp's
+// lanes (a longer row, a warp walking it 32 lanes at a time).  A
+// lane's fields load together; its own row's same-bucket writes and lanes
+// come from a walk of the row's A buckets by shuffles.  Three phases, two
+// grid barriers (the clears before every add, the adds before every
+// read, in any block; nothing else needs ordering):
+//   count: the grid zeroes out[] and each block its P counts.  Dense
+//     regime (k <= 8,192 and a block's lanes at least k / 8 and below
+//     2^16): the grid zeroes the k words of the caller's uint64
+//     histogram and each lane adds (write << 16 | touch) into its block's
+//     shared table.  Direct regime (the rest: the router's 2^18 buckets,
+//     ycsb_skew's 2,048 txns): a __match_any_sync on the bucket makes the
+//     warp-groups, and each group's lowest lane zeroes its bucket's word;
+//   add: dense, the block adds each nonzero entry (writes << 32 |
+//     touches) with one 64-bit atomic; direct, one a warp-group;
+//   verdict: each valid lane reads its bucket's word once, applies the
+//     rule less its own row's counts and folds its owner into the block's
+//     counts (a ballot at P = 1, a match on the owner above); the block
+//     adds each nonzero count to out[].
+// A thread keeps its first 4 tasks' lanes in registers from the first
+// phase to the last (every task of the main path's); a later task is
+// read again.  Bucket j's word sits at j << 3 where k <= 8,192 (the
+// scratch dt_conflict_density_layout asks for is 8 k words there), so a
+// 64 KB histogram's adds spread over the L2.  The slice-8 kernel took four stream operations (two
+// memsets, two launches) and ~600,000 warp-group atomics on its two
+// histograms at the forwarding batch: [K13b-split] put 0.0395 of its
+// 0.0520 ms in that pass, the row walk through its N-sized scratch at
+// 0.0088 (PERF.md).
 //   Bound: bytes.  Each lane's table id, key and owner (4 B each) and its
 //   valid / read / write flags (1 B each) read once, the txn flags, P
-//   counts out: 26 MB at the forwarding batch of 65,536 x 16.
+//   counts out: 9.9 MB at the forwarding batch of 65,536 x 10.
 //
 // K15c-scan replaces the audit's use of deneva_tpu/cc/depgraph.py:63
 // segment_bounds, :70 prev_writer, :81 next_writer and :97 pack_edge
@@ -72,6 +99,10 @@
 // gate): when it is 0 the passes return at once; the compaction writes
 // the reference's skip outputs (edges -1, zeros) and the stamp pass
 // leaves the stamps and zeroes the digests.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 #include "hashing.cuh"
 
@@ -105,64 +136,275 @@ __device__ __forceinline__ bool gated_off(const uint8_t* due) {
 
 // -- K13b -------------------------------------------------------------------
 
-__global__ void density_hist_kernel(
-    const int32_t* __restrict__ table_ids, const int32_t* __restrict__ keys,
-    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ is_read,
-    const uint8_t* __restrict__ is_write, const uint8_t* __restrict__ active,
-    int n, int a, uint32_t kmask, int inc_arm, int32_t* __restrict__ wcol,
-    int32_t* __restrict__ ucol, int32_t* __restrict__ bkt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < n;
-  const bool v = in && valid[i] && active[i / a];
-  const uint32_t bk = v ? bucket_of(table_ids[i], keys[i], 0, kmask)
-                        : 0xFFFFFFFFu;
-  const bool w = v && is_write[i];
-  const bool u = v && (!inc_arm || is_read[i] || w);
-  if (in) bkt[i] = v ? static_cast<int32_t>(bk) : -1;
-  // one atomic per group of lanes of a warp on one bucket
-  const uint32_t peers = __match_any_sync(0xffffffffu, bk);
-  const uint32_t su = __reduce_add_sync(peers, u ? 1u : 0u);
-  const uint32_t sw = __reduce_add_sync(peers, w ? 1u : 0u);
-  if (v && (threadIdx.x & 31) == __ffs(peers) - 1) {
-    if (su) atomicAdd(&ucol[bk], static_cast<int32_t>(su));
-    if (sw) atomicAdd(&wcol[bk], static_cast<int32_t>(sw));
+constexpr int kDensThreads = 512;
+constexpr int kDensSlots = 4;            // warp tasks a thread keeps
+constexpr uint32_t kFull = 0xffffffffu;
+constexpr uint32_t kNoBucket = 0x80000000u;   // no bucket (k <= 2^30)
+
+// One lane as the count phase leaves it: its bucket, its owner, and
+// v | w << 1 | lead << 2 | own_w << 3 | own_u << 9 | sw << 15 | su << 21
+// | u << 27 (own_*: the row's valid lanes on its bucket, writes and all;
+// sw, su: the warp-group's writes and touches, kept by its lowest lane,
+// lead; u: the lane touches).
+struct DensLane {
+  uint32_t bk;
+  int32_t owner;
+  uint32_t bits;
+};
+
+struct DensArgs {
+  const int32_t* table_ids;
+  const int32_t* keys;
+  const uint8_t* valid;
+  const uint8_t* is_read;
+  const uint8_t* is_write;
+  const uint8_t* active;
+  const int32_t* owner;
+  int b, a, p, inc_arm, rpw;     // rpw: rows a warp holds (a <= 32)
+  int k, shift;                  // bucket j's word: hist[j << shift]
+  uint32_t kmask;
+  unsigned long long* hist;      // writes << 32 | touches
+  int32_t* out;
+};
+
+struct DensRead {
+  bool v, w, u;
+  uint32_t bk;
+  int32_t owner;
+};
+
+// A lane's fields, loaded together (one round trip, not a chain of
+// dependent loads behind the row's and the lane's flags).
+__device__ __forceinline__ DensRead dens_read(const DensArgs& g, bool in,
+                                              int row, int i) {
+  DensRead d = {false, false, false, 0u, -1};
+  if (in) {
+    const uint8_t act = g.active[row], val = g.valid[i];
+    const uint8_t wr = g.is_write[i], rd = g.is_read[i];
+    const int32_t tid = g.table_ids[i], key = g.keys[i], own = g.owner[i];
+    if (act && val) {
+      d.v = true;
+      d.bk = bucket_of(tid, key, 0, g.kmask);
+      d.w = wr != 0;
+      d.u = !g.inc_arm || d.w || rd != 0;
+      d.owner = own;
+    }
+  }
+  return d;
+}
+
+// Rows of at most 32 lanes: warp task q holds rows [q rpw, q rpw + rpw),
+// row r of the task on lanes [r a, r a + a).  Every lane of the warp
+// calls it: a lane's own counts walk its row's a buckets by shuffles;
+// in the direct regime a match on the bucket makes the warp-groups (the
+// invalid lanes one group of a bucket no valid lane has).
+template <bool kDense>
+__device__ __forceinline__ DensLane dens_narrow(const DensArgs& g, int q,
+                                                int r, int pos) {
+  const int lane = threadIdx.x & 31;
+  const int row = q * g.rpw + r;
+  const DensRead d = dens_read(g, r < g.rpw && row < g.b, row,
+                               row * g.a + pos);
+  const uint32_t key = d.v ? d.bk : kNoBucket;
+  const uint32_t wb = __ballot_sync(kFull, d.w);
+  uint32_t own_w = 0u, own_u = 0u;
+  const int first = r * g.a;
+  for (int s = 0; s < g.a; ++s) {
+    const bool eq = __shfl_sync(kFull, key, first + s) == key && d.v;
+    own_u += eq;
+    own_w += eq && ((wb >> ((first + s) & 31)) & 1u);
+  }
+  const uint32_t peers = kDense ? 0u : __match_any_sync(kFull, key);
+  const uint32_t ub = kDense ? 0u : __ballot_sync(kFull, d.u);
+  const bool lead = !kDense && d.v && lane == __ffs(peers) - 1;
+  DensLane o;
+  o.bk = d.bk;
+  o.owner = d.owner;
+  o.bits = static_cast<uint32_t>(d.v) | static_cast<uint32_t>(d.w) << 1 |
+           static_cast<uint32_t>(lead) << 2 | own_w << 3 | own_u << 9 |
+           __popc(peers & wb) << 15 | __popc(peers & ub) << 21 |
+           static_cast<uint32_t>(d.u) << 27;
+  return o;
+}
+
+// A lane's first phase.  Dense: its write and touch into the block's
+// shared table (k words of writes << 16 | touches), a shared atomic a
+// lane that writes or touches; direct: its warp-group's lowest lane
+// zeroes the bucket's word.
+template <bool kDense>
+__device__ __forceinline__ void dens_first(const DensArgs& g,
+                                           const DensLane& l,
+                                           uint32_t* tab) {
+  if (kDense) {
+    const uint32_t w = (l.bits >> 1) & 1u, u = (l.bits >> 27) & 1u;
+    if (w | u) atomicAdd(&tab[l.bk], w << 16 | u);
+  } else if (l.bits & 4u) {
+    g.hist[l.bk << g.shift] = 0ull;
   }
 }
 
-__global__ void density_conf_kernel(const int32_t* __restrict__ bkt,
-                                    const uint8_t* __restrict__ is_write,
-                                    const int32_t* __restrict__ owner, int n,
-                                    int a, int p,
-                                    const int32_t* __restrict__ wcol,
-                                    const int32_t* __restrict__ ucol,
-                                    int32_t* __restrict__ out) {
-  extern __shared__ int32_t cnt[];
-  for (int j = threadIdx.x; j < p; j += blockDim.x) cnt[j] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int32_t o = -1;
-  if (i < n && bkt[i] >= 0) {
-    const int32_t bk = bkt[i];
-    const int row0 = (i / a) * a;
-    int32_t own_w = 0, own_u = 0;
-    for (int s = 0; s < a; ++s) {
-      // an invalid lane holds -1, so equal buckets are valid lanes
-      if (bkt[row0 + s] == bk) {
-        ++own_u;
-        own_w += is_write[row0 + s] ? 1 : 0;
-      }
-    }
-    const bool w = is_write[i];
-    const bool conf =
-        wcol[bk] - own_w > 0 || (w && ucol[bk] - own_u > 0);
-    if (conf && owner[i] >= 0 && owner[i] < p) o = owner[i];
+__device__ __forceinline__ void dens_add(const DensArgs& g,
+                                         const DensLane& l) {
+  const unsigned long long sw = (l.bits >> 15) & 63u, su = (l.bits >> 21) & 63u;
+  if ((l.bits & 4u) && (sw | su))
+    atomicAdd(&g.hist[l.bk << g.shift], sw << 32 | su);
+}
+
+// The contention rule on a lane's bucket totals less its own row's, then
+// the lane's owner (-1: it does not count).
+__device__ __forceinline__ int32_t dens_verdict(const DensArgs& g, bool v,
+                                                bool w, uint32_t bk,
+                                                int own_w, int own_u,
+                                                int32_t owner) {
+  if (!v) return -1;
+  const unsigned long long h = __ldcg(&g.hist[bk << g.shift]);
+  const int w_oth = static_cast<int>(h >> 32) - own_w;
+  const int u_oth = static_cast<int>(h & 0xFFFFFFFFull) - own_u;
+  const bool conf = w_oth > 0 || (w && u_oth > 0);
+  return conf && owner >= 0 && owner < g.p ? owner : -1;
+}
+
+// One lane's owner into the block's counts: a shared atomic a warp-group
+// (at P = 1 the warp's lane 0 adds its ballot's count).
+__device__ __forceinline__ void dens_fold(const DensArgs& g, int32_t o,
+                                          int32_t* cnt) {
+  if (g.p == 1) {
+    const uint32_t n = __popc(__ballot_sync(kFull, o == 0));
+    if ((threadIdx.x & 31) == 0 && n) atomicAdd(&cnt[0], n);
+    return;
   }
-  const uint32_t peers = __match_any_sync(0xffffffffu, o);
+  const uint32_t peers = __match_any_sync(kFull, o);
   if (o >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
     atomicAdd(&cnt[o], __popc(peers));
+}
+
+__device__ __forceinline__ int32_t dens_narrow_verdict(const DensArgs& g,
+                                                       const DensLane& l) {
+  return dens_verdict(g, l.bits & 1u, (l.bits >> 1) & 1u, l.bk,
+                      (l.bits >> 3) & 63u, (l.bits >> 9) & 63u, l.owner);
+}
+
+// Rows of more than 32 lanes: a warp holds one row and walks it 32 lanes
+// at a time; the histogram phases see a chunk's lanes, the verdict walks
+// the whole row again for a lane's own counts (by shuffles, no scratch).
+template <bool kDense>
+__device__ __forceinline__ DensLane dens_wide(const DensArgs& g, int row,
+                                              int c) {
+  const int lane = threadIdx.x & 31;
+  const int s = c * 32 + lane;
+  const DensRead d = dens_read(g, s < g.a, row, row * g.a + s);
+  const uint32_t peers =
+      kDense ? 0u : __match_any_sync(kFull, d.v ? d.bk : kNoBucket);
+  const uint32_t wb = kDense ? 0u : __ballot_sync(kFull, d.w);
+  const uint32_t ub = kDense ? 0u : __ballot_sync(kFull, d.u);
+  DensLane o;
+  o.bk = d.bk;
+  o.owner = d.owner;
+  o.bits = static_cast<uint32_t>(d.v) | static_cast<uint32_t>(d.w) << 1 |
+           static_cast<uint32_t>(d.v && lane == __ffs(peers) - 1) << 2 |
+           __popc(peers & wb) << 15 | __popc(peers & ub) << 21 |
+           static_cast<uint32_t>(d.u) << 27;
+  return o;
+}
+
+__device__ __forceinline__ int32_t dens_wide_verdict(const DensArgs& g,
+                                                     int row, int c) {
+  const int lane = threadIdx.x & 31;
+  const int s = c * 32 + lane;
+  const DensRead d = dens_read(g, s < g.a, row, row * g.a + s);
+  int own_w = 0, own_u = 0;
+  for (int c2 = 0; c2 * 32 < g.a; ++c2) {
+    const int s2 = c2 * 32 + lane;
+    const DensRead e = dens_read(g, s2 < g.a, row, row * g.a + s2);
+    const uint32_t key = e.v ? e.bk : kNoBucket;
+    const uint32_t wb = __ballot_sync(kFull, e.w);
+    for (int j = 0; j < 32; ++j) {
+      const bool eq = __shfl_sync(kFull, key, j) == d.bk;
+      own_u += eq;
+      own_w += eq && ((wb >> j) & 1u);
+    }
+  }
+  return dens_verdict(g, d.v, d.w, d.bk, own_w, own_u, d.owner);
+}
+
+// K13b's launch (the file's header gives its phases and regimes): warp
+// gw takes the tasks gw, gw + nw, ...; a thread keeps its first
+// kDensSlots tasks' lanes in registers across the barriers and reads a
+// later task again in each phase.
+template <bool kWide, bool kDense>
+__global__ void __launch_bounds__(kDensThreads)
+density_kernel(DensArgs g) {
+  __shared__ int32_t cnt[1024];
+  extern __shared__ uint32_t tab[];   // dense: k words
+  auto grid = cooperative_groups::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int gid = blockIdx.x * kDensThreads + threadIdx.x;
+  const int gw = gid >> 5;
+  const int nw = gridDim.x * (kDensThreads / 32);
+  for (int j = threadIdx.x; j < g.p; j += kDensThreads) cnt[j] = 0;
+  for (int j = gid; j < g.p; j += gridDim.x * kDensThreads) g.out[j] = 0;
+  if (kDense) {
+    // the grid zeroes every bucket's word (k <= 8,192), each block its
+    // table
+    for (int j = gid; j < g.k; j += gridDim.x * kDensThreads)
+      g.hist[j << g.shift] = 0ull;
+    for (int j = threadIdx.x; j < g.k; j += kDensThreads) tab[j] = 0u;
+    __syncthreads();
+  }
+  const int r = !kWide && g.a > 0 ? lane / g.a : 0;   // once a thread
+  const int pos = lane - r * g.a;
+  const int tasks = kWide ? g.b : (g.b + g.rpw - 1) / g.rpw;
+  DensLane keep[kDensSlots];
+  if (kWide) {
+    for (int row = gw; row < g.b; row += nw)
+      for (int c = 0; c * 32 < g.a; ++c)
+        dens_first<kDense>(g, dens_wide<kDense>(g, row, c), tab);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kDensSlots; ++j) {
+      const int q = gw + j * nw;
+      keep[j] = q < tasks ? dens_narrow<kDense>(g, q, r, pos)
+                          : DensLane{0u, -1, 0u};
+      dens_first<kDense>(g, keep[j], tab);
+    }
+    for (int q = gw + kDensSlots * nw; q < tasks; q += nw)
+      dens_first<kDense>(g, dens_narrow<kDense>(g, q, r, pos), tab);
+  }
+  grid.sync();
+  if (kDense) {
+    for (int j = threadIdx.x; j < g.k; j += kDensThreads) {
+      const uint32_t t = tab[j];
+      if (t != 0u)
+        atomicAdd(&g.hist[j << g.shift],
+                  static_cast<unsigned long long>(t >> 16) << 32 |
+                      (t & 0xFFFFu));
+    }
+  } else if (kWide) {
+    for (int row = gw; row < g.b; row += nw)
+      for (int c = 0; c * 32 < g.a; ++c)
+        dens_add(g, dens_wide<kDense>(g, row, c));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kDensSlots; ++j) dens_add(g, keep[j]);
+    for (int q = gw + kDensSlots * nw; q < tasks; q += nw)
+      dens_add(g, dens_narrow<kDense>(g, q, r, pos));
+  }
+  grid.sync();
+  if (kWide) {
+    for (int row = gw; row < g.b; row += nw)
+      for (int c = 0; c * 32 < g.a; ++c)
+        dens_fold(g, dens_wide_verdict(g, row, c), cnt);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kDensSlots; ++j)
+      dens_fold(g, dens_narrow_verdict(g, keep[j]), cnt);
+    for (int q = gw + kDensSlots * nw; q < tasks; q += nw)
+      dens_fold(g, dens_narrow_verdict(g, dens_narrow<kDense>(g, q, r, pos)),
+                cnt);
+  }
   __syncthreads();
-  for (int j = threadIdx.x; j < p; j += blockDim.x)
-    if (cnt[j]) atomicAdd(&out[j], cnt[j]);
+  for (int j = threadIdx.x; j < g.p; j += kDensThreads)
+    if (cnt[j]) atomicAdd(&g.out[j], cnt[j]);
 }
 
 // -- K17, lanes -----------------------------------------------------------------
@@ -557,34 +799,129 @@ __global__ void observe_buckets_kernel(
   if (threadIdx.x == 0 && sum) atomicAdd(&dig[0], sum);
 }
 
+// The dense regime's largest k: its shared table stays at 32 KB a block.
+constexpr int kDenseMaxK = 8192;
+// Bucket j's histogram word is hist[j << kDenseShift] where k <=
+// kDenseMaxK, so a 64 KB histogram's adds spread over the L2's slices
+// (packed, they would take few of them); the words are packed above.
+constexpr int kDenseShift = 3;
+
+template <bool kWide, bool kDense>
+size_t density_smem(int k) {
+  return kDense ? static_cast<size_t>(k) * sizeof(uint32_t) : 0;
+}
+
+// The occupancy grid of a K13b variant on the current device (blocks per
+// SM x SMs, dense ones at their largest table), asked once per device; 0
+// where a query fails.
+template <bool kWide, bool kDense>
+int density_grid() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, density_kernel<kWide, kDense>, kDensThreads,
+          density_smem<kWide, kDense>(kDenseMaxK)) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = per_sm * sms;
+  return per_sm * sms;
+}
+
+struct DensLayout {
+  bool dense;
+  int rpw, grid, shift;
+  long long tasks, words;   // warp tasks; uint64 words of scratch
+};
+
+// K13b's launch at b x a lanes and k buckets: the dense regime where a
+// block's lanes are many against its table (at least k / 8: a block
+// scans its table once) and fewer than 2^16 (its counts are 16 bits), the
+// direct one otherwise.  False for sizes the kernel does not take, or
+// where a query fails.
+bool density_layout(int b, int a, int k, DensLayout& l) {
+  if (k < 1 || (k & (k - 1)) != 0 || k > (1 << 30) || b < 0 || a < 0 ||
+      static_cast<long long>(b) * a >= (1LL << 31))
+    return false;
+  const bool wide = a > 32;
+  l.rpw = a >= 1 && a <= 32 ? 32 / a : 1;
+  const long long rows = a == 0 ? 0 : b;
+  l.tasks = wide ? rows : (rows + l.rpw - 1) / l.rpw;
+  const long long per_block = kDensThreads / 32;
+  const int fit = wide ? density_grid<true, true>()
+                       : density_grid<false, true>();
+  if (fit < 1) return false;
+  const int grid = static_cast<int>(std::min<long long>(
+      fit, std::max(1LL, (l.tasks + per_block - 1) / per_block)));
+  const long long block_lanes = (l.tasks + grid * per_block - 1) /
+                                (grid * per_block) * per_block *
+                                (wide ? a : 32);
+  l.dense = k <= kDenseMaxK && block_lanes < 65536 && 8 * block_lanes >= k;
+  const int direct_fit = l.dense ? fit
+                         : wide  ? density_grid<true, false>()
+                                 : density_grid<false, false>();
+  if (direct_fit < 1) return false;
+  l.grid = std::min(grid, direct_fit);
+  l.shift = k <= kDenseMaxK ? kDenseShift : 0;
+  l.words = static_cast<long long>(k) << l.shift;
+  return true;
+}
+
+template <bool kWide>
+int launch_density(DensArgs g, const DensLayout& l, cudaStream_t s) {
+  void* args[] = {&g};
+  const void* kernel =
+      l.dense ? reinterpret_cast<const void*>(density_kernel<kWide, true>)
+              : reinterpret_cast<const void*>(density_kernel<kWide, false>);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      kernel, dim3(l.grid), dim3(kDensThreads), args,
+      l.dense ? density_smem<kWide, true>(g.k) : 0, s);
+  return e != cudaSuccess ? static_cast<int>(e) : dt_status();
+}
+
 }  // namespace
 
-// K13b: int32[p] contending lanes of b x a accesses.  `scratch` holds 2k +
-// b*a int32 (write counts, touch counts, lane buckets); k a power of two.
+// K13b's layout at b x a lanes and k buckets: out[0] the uint64 words of
+// scratch dt_conflict_density needs, out[1] 1 in the dense regime (0 in
+// the direct one), out[2] the blocks of its grid.  Launches nothing.
+DT_EXPORT int dt_conflict_density_layout(int b, int a, int k,
+                                         long long* out) {
+  DensLayout l;
+  if (!density_layout(b, a, k, l)) return 1;
+  out[0] = l.words;
+  out[1] = l.dense;
+  out[2] = l.grid;
+  return 0;
+}
+
+// K13b: int32[p] contending lanes of b x a accesses, one cooperative
+// launch in the layout dt_conflict_density_layout reports.  `hist` is the
+// caller's scratch of `hist_len` uint64 words (at least the layout's; a
+// shorter one is refused before any launch); k is a power of two, at most
+// 2^30; b * a < 2^31, so no count carries into the high word; p in [1,
+// 1024].
 DT_EXPORT int dt_conflict_density(const int32_t* table_ids,
                                   const int32_t* keys, const uint8_t* valid,
                                   const uint8_t* is_read,
                                   const uint8_t* is_write,
                                   const uint8_t* active, const int32_t* owner,
                                   int b, int a, int k, int p, int inc_arm,
-                                  int32_t* scratch, int32_t* out,
+                                  unsigned long long* hist,
+                                  long long hist_len, int32_t* out,
                                   void* stream) {
-  if ((k & (k - 1)) != 0 || p < 1 || p > 1024) return 1;
-  cudaStream_t s = dt_stream(stream);
-  const int n = b * a;
-  int32_t* wcol = scratch;
-  int32_t* ucol = scratch + k;
-  int32_t* bkt = scratch + 2 * k;
-  cudaMemsetAsync(scratch, 0, 2 * static_cast<size_t>(k) * sizeof(int32_t),
-                  s);
-  cudaMemsetAsync(out, 0, static_cast<size_t>(p) * sizeof(int32_t), s);
-  density_hist_kernel<<<dt_blocks(n, kThreads), kThreads, 0, s>>>(
-      table_ids, keys, valid, is_read, is_write, active, n, a,
-      static_cast<uint32_t>(k - 1), inc_arm, wcol, ucol, bkt);
-  density_conf_kernel<<<dt_blocks(n, kThreads), kThreads,
-                        p * sizeof(int32_t), s>>>(bkt, is_write, owner, n, a,
-                                                  p, wcol, ucol, out);
-  return dt_status();
+  DensLayout l;
+  if (p < 1 || p > 1024 || !density_layout(b, a, k, l) ||
+      hist_len < l.words)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DensArgs g = {table_ids, keys, valid, is_read, is_write,
+                active,    owner, a == 0 ? 0 : b, a, p, inc_arm, l.rpw, k,
+                l.shift,   static_cast<uint32_t>(k - 1), hist, out};
+  const cudaStream_t s = dt_stream(stream);
+  return a > 32 ? launch_density<true>(g, l, s)
+                : launch_density<false>(g, l, s);
 }
 
 namespace {

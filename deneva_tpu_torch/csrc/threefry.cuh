@@ -78,3 +78,27 @@ __device__ __forceinline__ int32_t dt_randint_at(const uint32_t* ka,
   const uint32_t off = ((higher % span) * mult + lower % span) % span;
   return lo + static_cast<int32_t>(off);
 }
+
+// x % d for every uint32 x and d >= 1 by a multiply-high, with magic =
+// floor((2^64 - 1) / d) + 1 mod 2^64 from the host (0 for d = 1): the
+// remainder is the top word of (magic * x mod 2^64) * d (Lemire, Kaser
+// and Kurz, "Faster remainder by direct computation", 2019: exact for
+// 32-bit x and d with a 64-bit magic).
+__device__ __forceinline__ uint32_t dt_fastmod(uint32_t x,
+                                               unsigned long long magic,
+                                               uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(magic * x, d));
+}
+
+// dt_randint_at's fold of the two words into [0, span) with the
+// multiplier (2^16 % span)^2 % span and the span's magic as launch
+// constants.
+__device__ __forceinline__ uint32_t dt_randint_fold(uint32_t higher,
+                                                    uint32_t lower,
+                                                    uint32_t span,
+                                                    uint32_t mult,
+                                                    unsigned long long magic) {
+  const uint32_t t =
+      dt_fastmod(higher, magic, span) * mult + dt_fastmod(lower, magic, span);
+  return dt_fastmod(t, magic, span);
+}

@@ -49,23 +49,48 @@
 // split(gen_key, 3) -> k1, k2, k3; keys from k1; is_write = uniform(k2) <
 // write_perc; under txn_write_perc < 1 a per-txn draw from k3 gates the
 // row's writes; under key_order each txn's keys are sorted ascending (the
-// write flags stay put).  One thread per element; the split keys are
-// hashed once per block.
+// write flags stay put).
+//   One launch for every option, over chunks of whole rows (a multiple
+//   of 4 rows).  Where the draws at 4 a thread fill at least half the
+//   resident threads (the main path), a thread draws 4 consecutive
+//   elements (8 or 16 independent hash chains) and stores one 16-byte
+//   key vector and one 4-byte flag word, the chunk's ragged tail element
+//   by element; the grid is at most the occupancy grid (asked once per
+//   device and variant: zipf, theta 0 or HOT, with or without key_order)
+//   and strides over chunks of at most a block's 1,024 draws, fewer (but
+//   at least a warp's) where full chunks would leave its blocks idle.
+//   Below (a 2,048-txn sweep epoch) a thread draws one, so the draws
+//   spread over 4 times the warps, and each chunk of a block's 256 draws
+//   gets a block.  A block's warp 0 hashes the split keys by parallel
+//   lanes, one level at a time (k1..k3; under HOT split(k1, 3) and the
+//   two randint key pairs: three dependent hashes, where the slice-4
+//   kernel's thread 0 hashed ten in series in every one of 2,560
+//   blocks), for the block's warps through shared memory.
+//   The per-txn gate is hashed once a row into shared memory (it was
+//   hashed once an element, behind a division).
 //   Zipf: the quantile is evaluated in float32 op by op as the reference
 //   does (round-to-nearest intrinsics, so nvcc contracts nothing into an
 //   FMA), except that the power is taken in float64 and rounded to
 //   float32 — the plain version does the same
-//   (deneva_tpu_torch/ops/sampling.py).
+//   (deneva_tpu_torch/ops/sampling.py).  The power stays: [K4b-split]
+//   timed it below the hashes (PERF.md).
 //   HOT: split(k1, 3) -> h1, h2, h3; a Bernoulli from h1 picks the hot or
 //   the cold range, and jax.random.randint draws from h2 or h3, each split
 //   again in two for its high and low words, folded by remainders in
-//   wrapping uint32 (jax/_src/random.py:581 _randint).  Only the chosen
-//   range is drawn: the other is a pure function never read.  No pow, so
-//   the keys equal the reference's bit for bit.
-//   key_order: a second launch, one thread per txn, insertion-sorts its
-//   req_per_query (<= 64) keys in registers.
-//   Bound: operations — up to six 20-round threefry hashes (or two and a
-//   pow) per element against 5 output bytes.
+//   wrapping uint32 (jax/_src/random.py:581 _randint).  The range's keys,
+//   span, multiplier and remainder magic are selected first and one
+//   randint is drawn (the slice-4 kernel's warps took both branches);
+//   each % span is a multiply-high by the host's magic number
+//   (threefry.cuh dt_fastmod, exact for every uint32 and span).  No pow,
+//   so the keys equal the reference's bit for bit.
+//   key_order: in the same launch the chunk's keys (<= 1,024, req <= 64)
+//   go to shared memory and each is stored at its rank in its row (keys
+//   below it, or equal and earlier), so rows leave sorted; the slice-4
+//   kernel's second launch insertion-sorted in local memory.
+//   Bound: operations — two 20-round threefry hashes and a float64 pow
+//   (or four hashes under HOT) per element against 5 output bytes; on
+//   the H100 the hashes' integer instructions and the pow's float64 ones
+//   run on separate pipes (PERF.md [K4b-split]).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -291,81 +316,288 @@ int exec_grid() {
   return per_sm * sms;
 }
 
-__global__ void generate_kernel(const int64_t* __restrict__ gen_key,
-                                int total, int req, int theta_zero,
-                                int n_rows, float n_f, float zetan, float eta,
-                                float alpha, float thresh1, int hot_max,
-                                float access_perc, float p_write,
-                                int write_gate, float p_txn_write,
-                                int32_t* __restrict__ keys,
-                                uint8_t* __restrict__ is_write) {
-  // k1, k2, k3, then HOT's h1, h2a, h2b, h3a, h3b
-  __shared__ uint32_t sk[16];
-  if (threadIdx.x == 0) {
-    const uint32_t g0 = static_cast<uint32_t>(gen_key[0]);
-    const uint32_t g1 = static_cast<uint32_t>(gen_key[1]);
-    for (uint32_t c = 0; c < 3; ++c) dt_split_key(g0, g1, c, sk + 2 * c);
-    if (hot_max > 0) {
-      uint32_t h[6];
-      for (uint32_t c = 0; c < 3; ++c) dt_split_key(sk[0], sk[1], c, h + 2 * c);
-      sk[6] = h[0];
-      sk[7] = h[1];
-      dt_split_key(h[2], h[3], 0u, sk + 8);
-      dt_split_key(h[2], h[3], 1u, sk + 10);
-      dt_split_key(h[4], h[5], 0u, sk + 12);
-      dt_split_key(h[4], h[5], 1u, sk + 14);
-    }
+// -- K4b ----------------------------------------------------------------------
+
+constexpr int kGenThreads = 256;
+constexpr int kMaxSortedReq = 64;
+
+enum GenMode : int { kGenZipf = 0, kGenTheta0 = 1, kGenHot = 2 };
+
+struct GenArgs {
+  const int64_t* gen_key;
+  int n, req, n_rows;
+  int rows_per_chunk, chunks;   // a chunk: whole rows, a multiple of 4
+  float n_f, zetan, eta, alpha, thresh1;
+  // HOT: the hot range [0, hot_span), the cold one [hot_max, hot_max +
+  // cold_span) (hot_span = hot_max); each range's span, randint
+  // multiplier and remainder magic from the host
+  uint32_t hot_max, hot_span, hot_mult, cold_span, cold_mult;
+  unsigned long long hot_magic, cold_magic;
+  float access_perc, p_write, p_txn_write;
+  int write_gate;
+  int32_t* keys;
+  uint8_t* is_write;
+};
+
+// The launch's split keys: split(gen_key, 3) -> k1, k2, k3 and, under HOT,
+// split(k1, 3) -> h1, h2, h3, then split(h2, 2) and split(h3, 2).  A
+// block's warp 0 hashes them, one level at a time by parallel lanes (the
+// lane's index the counter), gathering each level by shuffles: three
+// dependent hashes under HOT, one otherwise, once a resident block.
+struct GenKeys {
+  uint32_t k1[2], k2[2], k3[2], h1[2], h2a[2], h2b[2], h3a[2], h3b[2];
+};
+
+template <int kMode>
+__device__ __forceinline__ GenKeys gen_keys(const int64_t* gen_key) {
+  const uint32_t lane = threadIdx.x & 31;
+  GenKeys s = {};
+  uint32_t x0 = 0u, x1 = lane;
+  dt_threefry2x32(static_cast<uint32_t>(gen_key[0]),
+                  static_cast<uint32_t>(gen_key[1]), x0, x1);
+#define DT_GEN_TAKE(dst, src, from)                 \
+  dst[0] = __shfl_sync(kWarpAll, src##0, from);     \
+  dst[1] = __shfl_sync(kWarpAll, src##1, from);
+  DT_GEN_TAKE(s.k1, x, 0)
+  DT_GEN_TAKE(s.k2, x, 1)
+  DT_GEN_TAKE(s.k3, x, 2)
+  if (kMode == kGenHot) {
+    uint32_t y0 = 0u, y1 = lane;
+    dt_threefry2x32(s.k1[0], s.k1[1], y0, y1);
+    DT_GEN_TAKE(s.h1, y, 0)
+    // lanes 0, 1 split h2 (lane 1's), lanes 2, 3 split h3 (lane 2's)
+    const int src = lane < 2 ? 1 : 2;
+    const uint32_t c0 = __shfl_sync(kWarpAll, y0, src);
+    const uint32_t c1 = __shfl_sync(kWarpAll, y1, src);
+    uint32_t z0 = 0u, z1 = lane & 1u;
+    dt_threefry2x32(c0, c1, z0, z1);
+    DT_GEN_TAKE(s.h2a, z, 0)
+    DT_GEN_TAKE(s.h2b, z, 1)
+    DT_GEN_TAKE(s.h3a, z, 2)
+    DT_GEN_TAKE(s.h3b, z, 3)
   }
-  __syncthreads();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    int32_t v;
-    if (hot_max > 0) {
-      const bool hot =
-          dt_bits_to_uniform(dt_random_bits(sk[6], sk[7], (uint64_t)i)) <
-          access_perc;
-      v = hot ? dt_randint_at(sk + 8, sk + 10, i, 0, hot_max)
-              : dt_randint_at(sk + 12, sk + 14, i, hot_max, n_rows);
-    } else if (theta_zero) {
-      const float u =
-          dt_bits_to_uniform(dt_random_bits(sk[0], sk[1], (uint64_t)i));
-      v = min(__float2int_rz(__fmul_rn(u, n_f)), n_rows - 1);
-    } else {
-      const float u =
-          dt_bits_to_uniform(dt_random_bits(sk[0], sk[1], (uint64_t)i));
-      const float uz = __fmul_rn(u, zetan);
-      const float base = __fadd_rn(__fsub_rn(__fmul_rn(eta, u), eta), 1.0f);
-      const float pw = __double2float_rn(
-          pow(static_cast<double>(base), static_cast<double>(alpha)));
-      const int32_t spread = __float2int_rz(__fmul_rn(n_f, pw));
-      v = uz < 1.0f ? 0 : (uz < thresh1 ? 1 : spread);
-      v = max(0, min(v, n_rows - 1));
-    }
-    keys[i] = v;
-    bool w = dt_bits_to_uniform(dt_random_bits(sk[2], sk[3], (uint64_t)i)) <
-             p_write;
-    if (write_gate)
-      w = w && dt_bits_to_uniform(dt_random_bits(
-                   sk[4], sk[5], static_cast<uint64_t>(i / req))) <
-                   p_txn_write;
-    is_write[i] = w;
+#undef DT_GEN_TAKE
+  return s;
+}
+
+// The key of flat draw i.
+template <int kMode>
+__device__ __forceinline__ int32_t gen_key_at(const GenArgs& g,
+                                              const GenKeys& s, uint32_t i) {
+  if (kMode == kGenHot) {
+    // the Bernoulli picks the range; one randint from its keys, its
+    // remainders by the range's magic
+    const bool hot =
+        dt_bits_to_uniform(dt_random_bits(s.h1[0], s.h1[1], i)) <
+        g.access_perc;
+    const uint32_t a0 = hot ? s.h2a[0] : s.h3a[0];
+    const uint32_t a1 = hot ? s.h2a[1] : s.h3a[1];
+    const uint32_t b0 = hot ? s.h2b[0] : s.h3b[0];
+    const uint32_t b1 = hot ? s.h2b[1] : s.h3b[1];
+    const uint32_t off = dt_randint_fold(
+        dt_random_bits(a0, a1, i), dt_random_bits(b0, b1, i),
+        hot ? g.hot_span : g.cold_span, hot ? g.hot_mult : g.cold_mult,
+        hot ? g.hot_magic : g.cold_magic);
+    return static_cast<int32_t>((hot ? 0u : g.hot_max) + off);
+  } else if (kMode == kGenTheta0) {
+    const float u = dt_bits_to_uniform(dt_random_bits(s.k1[0], s.k1[1], i));
+    return min(__float2int_rz(__fmul_rn(u, g.n_f)), g.n_rows - 1);
+  } else {
+    const float u = dt_bits_to_uniform(dt_random_bits(s.k1[0], s.k1[1], i));
+    const float uz = __fmul_rn(u, g.zetan);
+    const float base =
+        __fadd_rn(__fsub_rn(__fmul_rn(g.eta, u), g.eta), 1.0f);
+    const float pw = __double2float_rn(
+        pow(static_cast<double>(base), static_cast<double>(g.alpha)));
+    const int32_t spread = __float2int_rz(__fmul_rn(g.n_f, pw));
+    const int32_t v = uz < 1.0f ? 0 : (uz < g.thresh1 ? 1 : spread);
+    return max(0, min(v, g.n_rows - 1));
   }
 }
 
-constexpr int kMaxSortedReq = 64;
-
-__global__ void sort_rows_kernel(int32_t* __restrict__ keys, int n, int req) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  int32_t* row = keys + static_cast<size_t>(r) * req;
-  int32_t k[kMaxSortedReq];
-  for (int c = 0; c < req; ++c) {
-    const int32_t x = row[c];
-    int d = c;
-    for (; d > 0 && k[d - 1] > x; --d) k[d] = k[d - 1];
-    k[d] = x;
+// K4b as one launch of the occupancy grid striding over chunks of whole
+// rows.  A thread draws kPer consecutive elements; at 4 (8 or 16
+// independent hash chains) it stores them as one 16-byte key vector and
+// one 4-byte flag word, the chunk's ragged tail element by element.  The
+// per-txn write gate is hashed once a row into shared memory; under
+// key_order the chunk's keys (<= a block's 256 kPer draws) go to shared
+// memory and each is placed at its rank within its row (ties by
+// position), so the row leaves sorted.
+template <int kMode, bool kSort, int kPer>
+__global__ void __launch_bounds__(kGenThreads) generate_kernel(GenArgs g) {
+  constexpr int kSpan = kGenThreads * kPer;   // draws a block takes at once
+  __shared__ int32_t skeys[kSort ? kSpan : 1];
+  __shared__ uint8_t sgate[kSpan];
+  __shared__ GenKeys skey;
+  const int t = threadIdx.x;
+  // warp 0 hashes the keys for the block (a small chunk leaves most of a
+  // block's warps idle, which then hash nothing)
+  if (t < 32) {
+    const GenKeys k = gen_keys<kMode>(g.gen_key);
+    if (t == 0) skey = k;
   }
-  for (int c = 0; c < req; ++c) row[c] = k[c];
+  __syncthreads();
+  const GenKeys s = skey;
+  for (int c = blockIdx.x; c < g.chunks; c += gridDim.x) {
+    const int r0 = c * g.rows_per_chunk;
+    const int rows = min(g.rows_per_chunk, g.n - r0);
+    const int ne = rows * g.req;
+    const int base = r0 * g.req;
+    if (g.write_gate) {
+      for (int r = t; r < rows; r += kGenThreads)
+        sgate[r] = dt_bits_to_uniform(dt_random_bits(
+                       s.k3[0], s.k3[1], static_cast<uint64_t>(r0 + r))) <
+                   g.p_txn_write;
+      __syncthreads();
+    }
+    for (int e0 = kPer * t; e0 < ne; e0 += kSpan) {
+      int32_t v[kPer];
+      bool w[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const uint32_t i = static_cast<uint32_t>(base + e0 + u);
+        v[u] = gen_key_at<kMode>(g, s, i);
+        w[u] = dt_bits_to_uniform(dt_random_bits(s.k2[0], s.k2[1], i)) <
+               g.p_write;
+      }
+      if (g.write_gate) {
+        int row = e0 / g.req, pos = e0 - row * g.req;   // once a thread
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          if (e0 + u < ne) w[u] = w[u] && sgate[row];
+          if (++pos == g.req) {
+            pos = 0;
+            ++row;
+          }
+        }
+      }
+      // 4 draws: whole vectors (a chunk starts on a multiple of 4)
+      const bool full = kPer == 4 && e0 + kPer <= ne;
+      if constexpr (kPer == 4) {
+        if (full)
+          *reinterpret_cast<uint32_t*>(g.is_write + base + e0) =
+              static_cast<uint32_t>(w[0]) |
+              static_cast<uint32_t>(w[1]) << 8 |
+              static_cast<uint32_t>(w[2]) << 16 |
+              static_cast<uint32_t>(w[3]) << 24;
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        if (e0 + u >= ne) continue;
+        if (!full) g.is_write[base + e0 + u] = w[u];
+        if (kSort) skeys[e0 + u] = v[u];
+        else if (!full) g.keys[base + e0 + u] = v[u];
+      }
+      if constexpr (kPer == 4 && !kSort) {
+        if (full)
+          *reinterpret_cast<int4*>(g.keys + base + e0) =
+              make_int4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if (kSort) {
+      // req <= 64, so ne <= kSpan and e0 = kPer t is a thread's one group
+      __syncthreads();
+      const int e0 = kPer * t;
+      int32_t v[kPer];
+      int at[kPer];
+      if (e0 < ne) {
+        int row = e0 / g.req, pos = e0 - row * g.req;
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          if (e0 + u < ne) {
+            const int rs = row * g.req;
+            const int32_t x = skeys[e0 + u];
+            int below = 0;
+            for (int j = 0; j < g.req; ++j) {
+              const int32_t y = skeys[rs + j];
+              below += y < x || (y == x && j < pos);
+            }
+            v[u] = x;
+            at[u] = rs + below;
+          }
+          if (++pos == g.req) {
+            pos = 0;
+            ++row;
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        if (e0 + u < ne) skeys[at[u]] = v[u];
+      __syncthreads();
+      if constexpr (kPer == 4) {
+        if (e0 + kPer <= ne) {
+          *reinterpret_cast<int4*>(g.keys + base + e0) = make_int4(
+              skeys[e0], skeys[e0 + 1], skeys[e0 + 2], skeys[e0 + 3]);
+        } else {
+          for (int e = e0; e < ne; ++e) g.keys[base + e] = skeys[e];
+        }
+      } else {
+        for (int e = e0; e < min(ne, e0 + kPer); ++e)
+          g.keys[base + e] = skeys[e];
+      }
+    }
+    // the chunk's shared gates and keys are read before the next's land
+    if (g.write_gate || kSort) __syncthreads();
+  }
+}
+
+// The occupancy grid of a K4b variant at 4 draws a thread on the current
+// device, asked once per device; 0 where a query fails.
+template <int kMode, bool kSort>
+int gen_grid() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, generate_kernel<kMode, kSort, 4>, kGenThreads, 0) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// At 4 draws a thread a chunk is at most a block's 1,024 draws, and fewer
+// rows where that would leave blocks of the occupancy grid without a
+// chunk, but never fewer draws than a warp takes (128: the main path's
+// 65,536 txns of 10 keys fill 656 blocks of 100 rows); the grid strides
+// over the chunks.  At 1 draw a thread (a small epoch) a chunk is a
+// block's 256 draws and gets a block of its own, so the hardware spreads
+// the last chunks over the SMs (a grid-stride over the occupancy grid
+// left its last round to a part of the blocks).  A chunk is a multiple
+// of 4 rows, so it starts on a 16-byte key vector.
+template <int kMode, bool kSort, int kPer>
+int launch_chunks(GenArgs g, int fit, cudaStream_t s) {
+  const int full = max(1, kGenThreads * kPer / (4 * g.req));   // quads
+  g.rows_per_chunk =
+      4 * (kPer == 1 ? full
+                     : min(full, max((g.n + 4 * fit - 1) / (4 * fit),
+                                     (8 * kPer + g.req - 1) / g.req)));
+  g.chunks = (g.n + g.rows_per_chunk - 1) / g.rows_per_chunk;
+  const int grid = kPer == 1 ? max(1, g.chunks) : max(1, min(fit, g.chunks));
+  generate_kernel<kMode, kSort, kPer><<<grid, kGenThreads, 0, s>>>(g);
+  return dt_status();
+}
+
+// 4 draws a thread where the draws at 4 a thread fill at least half the
+// resident threads of that variant's occupancy grid (the main path's
+// 655,360); 1 below, where 4 a thread would leave most of the card's warp
+// schedulers idle while each warp issues its draws' hashes in series
+// (ycsb_skew's and ycsb_hot's 20,480 draws are 160 warps at 4 a thread,
+// 640 at 1, on the H100's 528 schedulers).
+template <int kMode, bool kSort>
+int launch_generate(GenArgs g, cudaStream_t s) {
+  const int fit = gen_grid<kMode, kSort>();
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<long long>(g.n) * g.req >=
+                 2LL * fit * kGenThreads
+             ? launch_chunks<kMode, kSort, 4>(g, fit, s)
+             : launch_chunks<kMode, kSort, 1>(g, fit, s);
 }
 
 }  // namespace
@@ -397,26 +629,55 @@ DT_EXPORT int dt_forward_execute(void* f0, int tup, const int32_t* keys,
   return e != cudaSuccess ? static_cast<int>(e) : dt_status();
 }
 
-// K4b: n txns of req draws into keys int32 / is_write bool [n, req].
-// hot_max > 0 selects HOT keys, else zipf; write_gate applies the per-txn
-// draw; key_order sorts each row (req <= 64).
-DT_EXPORT int dt_ycsb_generate(const int64_t* gen_key, int n, int req,
-                               int n_rows, int theta_zero, float n_f,
-                               float zetan, float eta, float alpha,
-                               float thresh1, int hot_max, float access_perc,
-                               float p_write, int write_gate,
-                               float p_txn_write, int key_order,
-                               int32_t* keys, uint8_t* is_write,
-                               void* stream) {
-  if (key_order && req > kMaxSortedReq)
+// K4b: n txns of req draws into keys int32 / is_write bool [n, req], one
+// launch.  hot_max > 0 selects HOT keys (its two ranges' spans, randint
+// multipliers and remainder magics from the host), else zipf; write_gate
+// applies the per-txn draw; key_order sorts each row (req <= 64).
+DT_EXPORT int dt_ycsb_generate(
+    const int64_t* gen_key, int n, int req, int n_rows, int theta_zero,
+    float n_f, float zetan, float eta, float alpha, float thresh1,
+    int hot_max, float access_perc, unsigned int hot_span,
+    unsigned int hot_mult, unsigned long long hot_magic,
+    unsigned int cold_span, unsigned int cold_mult,
+    unsigned long long cold_magic, float p_write, int write_gate,
+    float p_txn_write, int key_order, int32_t* keys, uint8_t* is_write,
+    void* stream) {
+  if (n < 0 || req < 1 || hot_max < 0 ||
+      (hot_max > 0 && (hot_span < 1 || cold_span < 1)) ||
+      static_cast<long long>(n) * req >= (1LL << 31) ||
+      (key_order && req > kMaxSortedReq))
     return static_cast<int>(cudaErrorInvalidValue);
+  GenArgs g = {};
+  g.gen_key = gen_key;
+  g.n = n;
+  g.req = req;
+  g.n_rows = n_rows;
+  g.n_f = n_f;
+  g.zetan = zetan;
+  g.eta = eta;
+  g.alpha = alpha;
+  g.thresh1 = thresh1;
+  g.hot_max = static_cast<uint32_t>(hot_max);
+  g.hot_span = hot_span;
+  g.hot_mult = hot_mult;
+  g.cold_span = cold_span;
+  g.cold_mult = cold_mult;
+  g.hot_magic = hot_magic;
+  g.cold_magic = cold_magic;
+  g.access_perc = access_perc;
+  g.p_write = p_write;
+  g.p_txn_write = p_txn_write;
+  g.write_gate = write_gate;
+  g.keys = keys;
+  g.is_write = is_write;
   const cudaStream_t s = dt_stream(stream);
-  const int total = n * req;
-  generate_kernel<<<dt_blocks(total, 256), 256, 0, s>>>(
-      gen_key, total, req, theta_zero, n_rows, n_f, zetan, eta, alpha,
-      thresh1, hot_max, access_perc, p_write, write_gate, p_txn_write, keys,
-      is_write);
-  if (key_order)
-    sort_rows_kernel<<<dt_blocks(n, 128), 128, 0, s>>>(keys, n, req);
-  return dt_status();
+  const bool sort = key_order != 0;
+  if (hot_max > 0)
+    return sort ? launch_generate<kGenHot, true>(g, s)
+                : launch_generate<kGenHot, false>(g, s);
+  if (theta_zero)
+    return sort ? launch_generate<kGenTheta0, true>(g, s)
+                : launch_generate<kGenTheta0, false>(g, s);
+  return sort ? launch_generate<kGenZipf, true>(g, s)
+              : launch_generate<kGenZipf, false>(g, s);
 }

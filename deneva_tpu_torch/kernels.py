@@ -149,6 +149,8 @@ class Kernel:
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+U32 = ctypes.c_uint
+U64 = ctypes.c_ulonglong
 F32 = ctypes.c_float
 F64 = ctypes.c_double
 

@@ -92,12 +92,13 @@ class Zipfian:
 
     def kernel_params(self) -> tuple:
         """K4b's sampler arguments: theta_zero, n, zetan, eta, alpha,
-        thresh1, then hot_max 0 (not HOT) and access_perc."""
+        thresh1, then HOT's eight (`HotSet.kernel_params`) at hot_max 0:
+        not HOT."""
         p = self.f32_params
         f = np.float32
         return (int(p["theta_zero"]), p["n"], p.get("zetan", f(0)),
                 p.get("eta", f(0)), p.get("alpha", f(0)),
-                p.get("thresh1", f(0)), 0, f(0))
+                p.get("thresh1", f(0)), 0, f(0), 0, 0, 0, 0, 0, 0)
 
 
 @dataclass(frozen=True)
@@ -120,7 +121,31 @@ class HotSet:
 
     def kernel_params(self) -> tuple:
         """K4b's sampler arguments, in `Zipfian.kernel_params`' order:
-        the zipf constants unused, hot_max > 0 selecting HOT."""
+        the zipf constants unused, hot_max > 0 selecting HOT (and starting
+        the cold range), access_perc, then the hot and the cold range's
+        `randint_consts` (launch constants, so the kernel divides by
+        nothing)."""
         f = np.float32
         return (0, f(0), f(0), f(0), f(0), f(0), self.hot_max,
-                f(self.access_perc))
+                f(self.access_perc), *randint_consts(0, self.hot_max),
+                *randint_consts(self.hot_max, self.n))
+
+
+MASK64 = (1 << 64) - 1
+
+
+def magic_mod(d: int) -> int:
+    """The remainder magic of a divisor ``d`` in [1, 2^32): floor((2^64 -
+    1) / d) + 1 mod 2^64 (0 for d = 1).  ``x % d`` is then the top 32 bits
+    of ``((magic * x) mod 2^64) * d`` for every uint32 x (Lemire, Kaser
+    and Kurz 2019), which is how K4b takes HOT's remainders
+    (``csrc/threefry.cuh`` ``dt_fastmod``)."""
+    return (MASK64 // d + 1) & MASK64
+
+
+def randint_consts(lo: int, hi: int) -> tuple[int, int, int]:
+    """K4b's launch constants of one ``randint`` range [lo, hi): its span
+    hi - lo (1 for an empty range), the multiplier (2^16 % span)^2 % span
+    of `prng.randint` and the span's `magic_mod`."""
+    span = hi - lo if hi > lo else 1
+    return span, ((65536 % span) ** 2 & 0xFFFFFFFF) % span, magic_mod(span)

@@ -92,8 +92,9 @@ K12C_READ = kernels.Kernel("dt_version_read", [
 K4_GEN = kernels.Kernel("dt_ycsb_generate", [
     kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.I32,
     kernels.F32, kernels.F32, kernels.F32, kernels.F32, kernels.F32,
-    kernels.I32, kernels.F32, kernels.F32, kernels.I32, kernels.F32,
-    kernels.I32, kernels.P, kernels.P, kernels.P])
+    kernels.I32, kernels.F32, kernels.U32, kernels.U32, kernels.U64,
+    kernels.U32, kernels.U32, kernels.U64, kernels.F32, kernels.I32,
+    kernels.F32, kernels.I32, kernels.P, kernels.P, kernels.P])
 
 
 @dataclass
@@ -381,7 +382,9 @@ class YCSBWorkload:
         return YCSBQuery(keys=keys, is_write=is_write)
 
     def generate(self, rng: torch.Tensor, n: int) -> YCSBQuery:
-        """K4b: ``n`` fresh queries from the raw key ``rng``."""
+        """K4b: ``n`` fresh queries from the raw key ``rng``, in one
+        launch for every option (HOT, ``txn_write_perc``, ``key_order``
+        sorting each row inside it)."""
         if kernels.on_cpu(rng):
             return self.generate_plain(rng, n)
         cfg = self.cfg
@@ -389,8 +392,8 @@ class YCSBWorkload:
         kernels.check("rng", rng, torch.int64, (2,))
         keys = torch.empty(shape, dtype=torch.int32, device=rng.device)
         is_write = torch.empty(shape, dtype=torch.bool, device=rng.device)
-        # key_order sorts a row in registers: the kernel refuses rows of
-        # more than 64 keys
+        # key_order sorts a row in shared memory: the kernel refuses rows
+        # of more than 64 keys
         K4_GEN.launch(kernels.ptr(rng), n, self.n_req, self.n_rows,
                       *self.sampler.kernel_params(),
                       np.float32(cfg.write_perc),

@@ -22,6 +22,11 @@ the one-block kernel took and at K11a's largest, its counts against
 ``chip_smoke.peel_trace``, and ``validate_maat`` against the plain
 route; K2's one launch with a hot
 key across blocks and at N around a block's run and a staged tile.
+K13b's one launch at the edges of its layout (rows within and across a
+warp, k up to 2^18, P up to 1,024, in both regimes as the library picks
+them, and its layout query and short-scratch refusal) and K4b's for
+every option (HOT, key_order, the per-txn gate) at one and four draws a
+thread, and zipf theta.
 Marked ``cuda``; without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -1172,6 +1177,61 @@ def test_generate_options_match_plain(dev, flags, n):
     assert torch.equal(q.keys, qp.keys)
 
 
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("order", [False, True])
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("n,req", [(1, 1), (1, 10), (7, 10), (333, 1),
+                                   (101, 10), (13, 64), (2048, 10),
+                                   (32768, 10), (65536, 10)])
+def test_generate_every_option_matches_plain(dev, hot, order, gate, n, req):
+    """K4b's one launch for every option (HOT x key_order x the per-txn
+    gate), at one txn, ragged n x req, rows of 1, 10 and 64 keys, a sweep
+    epoch's 2,048 x 10 and 32,768 x 10 (one draw a thread) and the main
+    path's 65,536 x 10 (four): keys and write flags bit for bit."""
+    from deneva_tpu_torch.config import Config
+    flags = ["--epoch_batch=65536", "--max_txn_in_flight=65536",
+             "--synth_table_size=16777216", f"--req_per_query={req}",
+             f"--max_accesses={req}", f"--key_order={order}"]
+    if hot:
+        flags += ["--skew_method=HOT", "--data_perc=100", "--access_perc=0.9"]
+    if gate:
+        flags += ["--txn_write_perc=0.25"]
+    wl = ycsb.YCSBWorkload(Config.from_args(flags), device=dev)
+    key = prng.key_from_seed(n + req, dev)
+    q, qp = wl.generate(key, n), wl.generate_plain(key, n)
+    assert torch.equal(q.is_write, qp.is_write)
+    assert torch.equal(q.keys, qp.keys)
+
+
+@pytest.mark.parametrize("theta", [0.0, 0.3, 0.6, 0.7, 0.8, 0.9, 0.99])
+def test_generate_zipf_thetas_match_plain(dev, theta):
+    from deneva_tpu_torch.config import Config
+    wl = ycsb.YCSBWorkload(Config.from_args(
+        ["--epoch_batch=65536", "--max_txn_in_flight=65536",
+         "--synth_table_size=16777216", f"--zipf_theta={theta}"]),
+        device=dev)
+    key = prng.key_from_seed(int(theta * 100), dev)
+    q, qp = wl.generate(key, 65536), wl.generate_plain(key, 65536)
+    assert torch.equal(q.is_write, qp.is_write)
+    assert torch.equal(q.keys, qp.keys)
+
+
+def test_generate_refuses_sorted_rows_of_65(dev):
+    from deneva_tpu_torch.config import Config
+    wl = ycsb.YCSBWorkload(Config.from_args(
+        ["--synth_table_size=4096", "--req_per_query=65",
+         "--max_accesses=65", "--key_order=true"]), device=dev)
+    with pytest.raises(RuntimeError):
+        wl.generate(prng.key_from_seed(3, dev), 4)
+    # unsorted rows of 65 keys are drawn
+    wl = ycsb.YCSBWorkload(Config.from_args(
+        ["--synth_table_size=4096", "--req_per_query=65",
+         "--max_accesses=65"]), device=dev)
+    key = prng.key_from_seed(3, dev)
+    assert torch.equal(wl.generate(key, 4).keys,
+                       wl.generate_plain(key, 4).keys)
+
+
 @pytest.mark.parametrize("path,flags", [
     ("MAAT", ["--cc_alg=MAAT"]),
     ("MAAT", ["--cc_alg=MAAT", "--skew_method=HOT", "--data_perc=100",
@@ -2004,6 +2064,90 @@ def test_conflict_density_matches_plain(dev, b, a, k, p, n_keys,
     got = base.conflict_density(cfg, batch, owner, from_incidence)
     want = base.conflict_density_plain(cfg, batch, owner, from_incidence)
     assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("b,a,k,p,n_keys", [
+    (511, 1, 8, 1, 50), (513, 1, 1 << 18, 4, 1 << 24), (31, 16, 8192, 1024,
+                                                        300),
+    (33, 16, 8, 3, 40), (700, 33, 512, 4, 2000), (65, 33, 1 << 18, 1024,
+                                                  1 << 20),
+    (4096, 10, 1024, 2, 5000), (2048, 10, 1 << 18, 4, 1 << 26),
+    (2048, 10, 8192, 4, 1 << 24), (65536, 10, 8192, 1, 1 << 24),
+    (65536, 10, 1 << 18, 4, 1 << 24), (3000, 40, 8192, 2, 1 << 20)])
+def test_conflict_density_edges_match_plain(dev, b, a, k, p, n_keys):
+    """K13b's one launch at the edges of its layout: B x A one less and one
+    more than a block's 512 lanes (A = 1), rows that fill a warp (16) or
+    cross it (33, 40), k from 8 to the router's 2^18, P up to 1,024, with
+    a hot key in every row, in the regime the library picks (dense at k =
+    8, 512 and 1,024 and on the main path's batch; direct at 2^18 and on a
+    2,048-txn epoch; `test_conflict_density_layout_regimes`), both
+    arms."""
+    from types import SimpleNamespace
+
+    from deneva_tpu_torch.cc import base
+    batch = _rand_batch(b, a, n_keys, dev, b + a + k)
+    batch.keys[:, 0] = 7                # a bucket every block touches
+    g = torch.Generator().manual_seed(p + a)
+    owner = torch.randint(-1, p + 1, (b, a), generator=g,
+                          dtype=torch.int32).to(dev)
+    cfg = SimpleNamespace(part_cnt=p, conflict_buckets=k)
+    for arm in (False, True):
+        got = base.conflict_density(cfg, batch, owner, arm)
+        want = base.conflict_density_plain(cfg, batch, owner, arm)
+        assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+def test_conflict_density_layout_regimes(dev):
+    """The library's regime by shape: dense where a block's lanes are many
+    against k <= 8,192 (the main path's batch, small k), direct on a
+    2,048-txn epoch at 8,192 buckets and at the router's 2^18; the
+    scratch is 8 k words at k <= 8,192 and k above, and a shorter one is
+    refused before any launch."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from deneva_tpu_torch import kernels
+    from deneva_tpu_torch.cc import base
+    for (b, a, k), dense in (((65536, 10, 8192), True), ((511, 1, 8), True),
+                             ((4096, 10, 1024), True),
+                             ((2048, 10, 8192), False),
+                             ((2048, 10, 1 << 18), False),
+                             ((65536, 10, 1 << 18), False)):
+        words, got, grid = base.conflict_density_layout(b, a, k)
+        assert got == dense, (b, a, k)
+        assert words == (8 * k if k <= 8192 else k) and grid >= 1
+    with pytest.raises(ValueError):
+        base.conflict_density_layout(1 << 16, 1 << 15, 8192)
+    batch = _rand_batch(64, 4, 50, dev, 3)
+    owner = torch.zeros(64, 4, dtype=torch.int32, device=dev)
+    words = base.conflict_density_layout(64, 4, 64)[0]
+    hist = torch.empty(words, dtype=torch.int64, device=dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = kernels.library().dt_conflict_density
+    fn.argtypes = base.K13B_DENSITY.argtypes
+    fn.restype = ctypes.c_int
+    args = [kernels.ptr(t) for t in (batch.table_ids, batch.keys,
+                                     batch.valid, batch.is_read,
+                                     batch.is_write, batch.active, owner)]
+    assert fn(*args, 64, 4, 64, 1, 0, kernels.ptr(hist), words - 1,
+              kernels.ptr(out), kernels.stream(owner)) != 0
+    cfg = SimpleNamespace(part_cnt=1, conflict_buckets=64)
+    assert torch.equal(base.conflict_density(cfg, batch, owner),
+                       base.conflict_density_plain(cfg, batch, owner))
+
+
+def test_conflict_density_no_valid_lane_and_no_row(dev):
+    from types import SimpleNamespace
+
+    from deneva_tpu_torch.cc import base
+    cfg = SimpleNamespace(part_cnt=4, conflict_buckets=64)
+    batch = _rand_batch(100, 10, 30, dev, 5)
+    batch.valid[:] = False
+    owner = torch.zeros(100, 10, dtype=torch.int32, device=dev)
+    assert base.conflict_density(cfg, batch, owner, True).tolist() == [0] * 4
+    empty = _rand_batch(0, 10, 30, dev, 6)
+    owner = torch.zeros(0, 10, dtype=torch.int32, device=dev)
+    assert base.conflict_density(cfg, empty, owner).tolist() == [0] * 4
 
 
 def _audit_lanes(b, a, n_keys, levels, dev, seed, order_vis=False):
