@@ -119,7 +119,9 @@ Phases (any error or mismatch exits non-zero and prints no result):
                ring with chords, a deep DAG, 2- and 3-cycles, a chain of
                B txns, sparse and empty live sets, the gate off; with
                the strongly connected set found and the levels each
-               residual group took); K14b over 655,360 probes of the
+               residual group took); K9b also on the first
+               ``operating_points`` MAAT epoch at B = 8,192 whose gate is
+               set (the L2 regime); K14b over 655,360 probes of the
                2^24-entry index with misses mixed in; K4b with HOT keys,
                ``key_order`` and ``txn_write_perc=0.25`` at 65,536 x 10.
                TPC-C: K19 and K14a on one 64-warehouse epoch's 2,048
@@ -152,9 +154,10 @@ Phases (any error or mismatch exits non-zero and prints no result):
                16384`` (``torch.sort`` the yardstick) with K17's rank on
                its committed set.
                K18a and K18b on each shard's call of a real
-               epoch of the main path at 2^27 rows over 8 shards (a
-               stable ``torch.sort`` of the slice's packed (owner, ts)
-               words the yardstick).
+               epoch of the main path at 2^27 rows over 8 shards, K18a
+               also on a shard's call at 4 shards (a stable
+               ``torch.sort`` of the slice's packed (owner, ts) words
+               the yardstick).
 4. epochs    — per mode and path: 3 epochs through the kernels equal 3
                through the plain versions leaf by leaf; one more kernel
                epoch equals a numpy oracle (forwarding: serial execution
@@ -222,10 +225,11 @@ Phases (any error or mismatch exits non-zero and prints no result):
                PPS (TPU_BATCH, MAAT) at 8 equal 1 shard's.
 5. simulate  — ``run_simulation`` (warmup 1 s, measure 3 s for TPU_BATCH
                in both modes, OCC and NOCC and the mesh's main path;
-               0.5 s + 1.5 s for the rest): TPU_BATCH in
+               0.5 s + 1 s for the rest): TPU_BATCH in
                both modes, OCC and NOCC in fingerprint mode, NO_WAIT,
                WAIT_DIE, TIMESTAMP, MVCC, CALVIN and MAAT at the
-               ``ycsb_skew`` point, MAAT at ``ycsb_hot``, TPU_BATCH under
+               ``ycsb_skew`` point, MAAT at ``ycsb_hot`` and at
+               ``operating_points``' B = 8,192, TPU_BATCH under
                SIMPLE and QRY_ONLY and on IDX_BTREE, TPC-C under
                TPU_BATCH at 64 and 4 warehouses and every other
                algorithm at 4 (NO_WAIT, OCC and MVCC with escrow off
@@ -240,7 +244,8 @@ Phases (any error or mismatch exits non-zero and prints no result):
                at theta 0.6 / 0.9 / 0.99 and the armed txn/s beside the
                off runs' written down); the mesh: the main path at
                2^27 rows as 1 shard and as 8 shards sharing the card
-               (``[mesh-simulate]``), ``mesh_scaling``'s eight cells at
+               (``[mesh-simulate]``) and as 4, ``mesh_scaling``'s eight
+               cells at
                their own windows, TPC-C at 64 warehouses (TPU_BATCH,
                NO_WAIT) and PPS (TPU_BATCH, MAAT) over 8 shards;
                the ``[summary]``
@@ -367,6 +372,30 @@ Phases (any error or mismatch exits non-zero and prints no result):
                parent, and with ``--profile`` profiles the same cells on
                that commit's package (``--parent-profile``, a child
                process; ``[slice17-parent-profile]``).
+   Slice 18: ``--slice18`` runs only ``[K9b-split]``,
+               ``[K9b-rounds]`` and ``[K18a-split]``
+               (``deneva_tpu_torch/probes/k9b_k18a_costs.cu``, its own
+               shared library: the slice-4 K9b's ``pack_cols`` and sweep
+               each alone, the rounds the sweep ran and |F_r| at each,
+               P's strips through one CTA (16-byte loads, bulk copies,
+               a column strip) and through k CTAs at once, this K9b's
+               pack cut at four depths; the slice-9 K18a's six stream
+               operations each alone; empty cooperative launches with
+               0-4 grid barriers), ``[K9b]`` (`k9b_inputs`:
+               ``ycsb_skew``'s epoch 4, a ``ycsb_hot`` epoch and an
+               ``operating_points`` MAAT epoch at B = 8,192, in the
+               library's layout and at each cluster size in each
+               regime; ``[K9b-phases]``, CTA 0's phase stamps) and
+               ``[K18a]`` (`k18a_inputs`: a D = 8 and a D = 4 shard call
+               at 2^27 rows and a 32,768-txn slice at D = 2;
+               ``[K18a-phases]``), each exact against its plain version;
+               with ``--profile`` also the MAAT ``ycsb_skew``, MAAT
+               ``ycsb_hot`` and mesh D = 8 profiles; with
+               ``--slice18-parent DIR`` ``[slice18-parent]`` times that
+               commit's K9b and K18a beside this one's on the same
+               inputs, parent, this, this, parent, and with
+               ``--profile`` profiles the same cells on that commit's
+               package (``[slice18-parent-profile]``).
 6. report    — one ``{"kernels": [...]}`` line (K14e's probes, which
                no reference path runs, with ``"path": false`` and the
                launches of the index oracle), then as the last line
@@ -1253,6 +1282,16 @@ def k10_row(nm: str, cfg) -> str:
     return f"{nm}[N=20480]" if nm == "K10_last_writer" \
         and cfg.workload.name == "YCSB" \
         and cfg.epoch_batch * cfg.req_per_query == 20480 else nm
+
+
+def slice18_row(nm: str, cfg) -> str:
+    """The kernels line's row of a run's launches: K9b's at B = 8,192 and
+    K18a's at D = 4 apart."""
+    if nm == "K9b_precedence_levels" and cfg.epoch_batch == 8192:
+        return f"{nm}[B=8192]"
+    if nm == "K18a_mc_defer" and cfg.device_parts == 4:
+        return f"{nm}[D=4]"
+    return nm
 
 
 def sweep_conflicts(dev, cfg, b: int, seed: int) -> tuple:
@@ -2253,7 +2292,10 @@ def _port_calls() -> dict:
     import functools
     from deneva_tpu_torch.cc import dgcc, maat
     from deneva_tpu_torch.ops import conflict, forward, scatter
-    return {"K11a": (maat.reach_stats, maat.reach_stats_plain),
+    return {"K9b": (conflict.precedence_levels,
+                    conflict.precedence_levels_plain),
+            "K18a": (forward.mc_slice_defer, forward.mc_slice_defer_plain),
+            "K11a": (maat.reach_stats, maat.reach_stats_plain),
             "K11b": (_peel_on_bits(maat), maat.peel_plain),
             "K2": (forward.plan_scans, forward.plan_scans_plain),
             "K8": (conflict.first_fit, conflict.first_fit_plain),
@@ -2427,7 +2469,19 @@ def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
         ms=cuda_ms(lambda: conflict.precedence_levels(p, live0, rounds)),
         plain_ms=cuda_ms(lambda: conflict.precedence_levels_plain(
             p, live0, rounds), iters=5), library_ms=None)
-    bound(rec["K9b_precedence_levels"], b * b + 6 * b, 2 * sub)
+    bound(rec["K9b_precedence_levels"], k9b_bytes(b), 2 * sub)
+    # K9b at operating_points' B = 8,192 (the L2 regime)
+    (lb8, args8), = k9b_inputs(dev, K11B_SHAPES[2:]).items()
+    p8, live8, _ = args8
+    ms8 = k9b_case(lb8, args8, card)
+    rec["K9b_precedence_levels[B=8192]"].update(
+        max_abs_err=0, ms=ms8,
+        plain_ms=cuda_ms(lambda: conflict.precedence_levels_plain(*args8),
+                         iters=3), library_ms=None)
+    bound(rec["K9b_precedence_levels[B=8192]"], k9b_bytes(8192),
+          2 * int((p8 & live8[:, None] & live8[None, :]).sum()))
+    del args8, p8, live8
+    torch.cuda.empty_cache()
     sr, anc, err = k11_call(p, live0, un, b, "first call, over live0", card)
     err = max(err, k11_call(p, live0, un, b, "first call, over live0, no "
                             "counts", card, counts=False)[2])
@@ -2527,6 +2581,7 @@ def phase_slice4_kernels(dev, rec: dict, card: str) -> None:
           f" read_only_txns={int((~qh.is_write.any(dim=1)).sum())} of "
           f"{BATCH}", flush=True)
     for nm in ("K9a_wavefront_levels", "K9b_precedence_levels",
+               "K9b_precedence_levels[B=8192]",
                "K11a_maat_reach", "K11b_maat_peel", "K14b_sorted_lookup",
                "K4b_ycsb_generate[hot]"):
         print_kernel(nm, rec[nm], card)
@@ -5040,6 +5095,20 @@ def phase_slice9_kernels(dev, rec: dict, card: str) -> None:
     # and an owner per lane, a compare and an add per txn and owner
     bound(rec["K18a_mc_defer"], 5 * lanes + 4 * bd + bd + 4 * bd,
           2 * lanes + 2 * bd * d)
+    # K18a at D = 4 (slices of 16,384 txns)
+    a4 = k18a_inputs(dev, (4,))["D=4"]
+    bd4 = a4[0].shape[0]
+    owner4 = torch.where(a4[1], a4[0].to(torch.int64) % 4, 4).reshape(-1)
+    word4 = (owner4 << 32) | a4[2][:, None].expand(bd4, a).reshape(-1).to(
+        torch.int64)
+    rec["K18a_mc_defer[D=4]"].update(
+        max_abs_err=0, ms=k18a_case("D=4", a4, card),
+        plain_ms=cuda_ms(lambda: forward.mc_slice_defer_plain(*a4),
+                         iters=5),
+        library_ms=cuda_ms(lambda: torch.sort(word4, stable=True)))
+    bound(rec["K18a_mc_defer[D=4]"], 5 * bd4 * a + 4 * bd4 + bd4 + 4 * bd4,
+          2 * bd4 * a + 2 * bd4 * 4)
+    del a4, owner4, word4
     rec["K18b_mc_pack"].update(
         max_abs_err=0, ms=cuda_ms(lambda: forward.mc_pack_blocks(*b)),
         plain_ms=cuda_ms(lambda: forward.mc_pack_blocks_plain(
@@ -5051,7 +5120,7 @@ def phase_slice9_kernels(dev, rec: dict, card: str) -> None:
           + 9 * d * cap, 3 * lanes + 2 * bd * d)
     print(f"[K18] D=8 at 2^27 rows: slices of {bd} txns x {a} lanes, "
           f"pair_cap {cap}, defers per shard {n_dfr}", flush=True)
-    for nm in ("K18a_mc_defer", "K18b_mc_pack"):
+    for nm in ("K18a_mc_defer", "K18a_mc_defer[D=4]", "K18b_mc_pack"):
         print_kernel(nm, rec[nm], card)
     del eng, st, ca, cb
     torch.cuda.empty_cache()
@@ -6909,8 +6978,9 @@ def phase_slice17(dev, card: str) -> None:
 
 
 def parent_profile(root: str) -> int:
-    """``--parent-profile``: ``SLICE17_PROFILES`` on the package at
-    ``root`` (the parent commit)."""
+    """``--parent-profile``: ``SLICE17_PROFILES`` (``SLICE18_PROFILES``
+    with ``--slice18``) on the package at ``root`` (the parent
+    commit)."""
     sys.path.insert(0, os.path.abspath(root))
     from deneva_tpu_torch import kernels
     if not kernels.__file__.startswith(os.path.abspath(root)):
@@ -6918,7 +6988,8 @@ def parent_profile(root: str) -> int:
              f"at {root}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    for label, path, cfg_fn in SLICE17_PROFILES:
+    cells = SLICE18_PROFILES if "--slice18" in sys.argv else SLICE17_PROFILES
+    for label, path, cfg_fn in cells:
         phase_profile(dev, cfg_fn(), label, path=path)
         torch.cuda.empty_cache()
     return 0
@@ -6931,6 +7002,389 @@ SLICE17_PROFILES = (
      lambda: part_cfg(config, False, metrics=True)),
     ("fingerprint", "TPU_BATCH", lambda: config(False)),
     ("MAAT ycsb_hot", "MAAT", lambda: hot_config(False)))
+
+
+# -- slice 18: K9b and K18a ---------------------------------------------------
+
+def k9b_inputs(dev, shapes=K11B_SHAPES) -> dict:
+    """K9b's arguments as ``validate_maat`` hands them over, (P, live0,
+    sweep_rounds), on `K11B_SHAPES`' epochs (or ``shapes``): ``ycsb_skew``'s
+    epoch 4, the first ``ycsb_hot`` epoch from 4 on whose level gate is
+    set, and the first such ``operating_points`` MAAT epoch at B = 8,192,
+    each engine from a fresh state."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.ops import conflict
+    out = {}
+    for label, cfg_fn, first in shapes:
+        eng = make_engine(dev, cfg_fn())
+        st, calls, peels = eng.init_state(), [], []
+        with grab_calls(conflict, "precedence_levels", calls), \
+                grab_calls(maat, "peel", peels):
+            for e in range(1, 16):
+                st = eng.step(st)
+                if e >= first and bool(peels[-1][6].any()):
+                    break
+            else:
+                fail(f"K9b {label}: no epoch up to 15 set the level gate")
+        torch.cuda.synchronize()
+        out[label + ("" if e == first else f" (epoch {e})")] = \
+            tuple(calls[-1])
+        del eng, st, calls, peels
+        torch.cuda.empty_cache()
+    return out
+
+
+def k9b_bytes(b: int) -> int:
+    """The bytes K9b must move at B = ``b``: P read once, the active flags
+    in, the levels (4 B) and the flags (1 B) out."""
+    return b * b + b + 5 * b
+
+
+def k9b_split(lib, inputs: dict, card: str) -> None:
+    """``[K9b-split]`` and ``[K9b-rounds]``: the slice-4 K9b (its copy in
+    the probe) on each input, held to the plain version: ``pack_cols``
+    alone, the sweep alone, both; the rounds its sweep ran and |F_r| at
+    the top of each.  Then P's strips (``ycsb_skew``'s at B = 2,048, the
+    B = 8,192 epoch's): B^2 / k bytes through one CTA with 16-byte loads
+    and by bulk copies, the column strip of B / k columns through one
+    CTA and k strips through k CTAs at once, k = 4, 8, 16."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    from deneva_tpu_torch.ops import conflict
+    fn = lib.k18p_levels
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    strip = lib.k18p_strip
+    strip.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    strip.restype = ctypes.c_int
+    for label, (p, live0, rounds) in inputs.items():
+        b = p.shape[0]
+        dev = p.device
+        bits = torch.empty((b, -(-b // 32)), dtype=torch.int32, device=dev)
+        lv = torch.empty(b, dtype=torch.int32, device=dev)
+        un = torch.empty(b, dtype=torch.bool, device=dev)
+        stats = torch.zeros(1 + rounds, dtype=torch.int32, device=dev)
+        s = kernels.stream(p)
+
+        def call(piece, st=None):
+            e = fn(piece, kernels.ptr(p), kernels.ptr(live0), b, rounds,
+                   kernels.ptr(bits), kernels.ptr(lv), kernels.ptr(un),
+                   None if st is None else kernels.ptr(st), s)
+            if e != 0:
+                fail(f"k18p_levels: CUDA error {e}")
+        call(3, stats)
+        torch.cuda.synchronize()
+        want = conflict.precedence_levels_plain(p, live0, rounds)
+        if not (torch.equal(lv, want[0]) and torch.equal(un, want[1])):
+            fail(f"[K9b-split] the probe's slice-4 K9b differs from plain "
+                 f"on {label}")
+        t = {nm: cuda_ms(lambda piece=piece: call(piece))
+             for nm, piece in (("pack_cols", 1), ("sweep", 2),
+                               ("both", 3))}
+        ran = int(stats[0])
+        sizes = stats[1:1 + min(rounds, ran + 1)].tolist()
+        print(f"[K9b-split] {label}: B={b} rounds={rounds} active="
+              f"{int(live0.sum())}; " + ", ".join(
+                  f"{nm} {v:.4f} ms" for nm, v in t.items())
+              + f" (card {card})", flush=True)
+        print(f"[K9b-rounds] {label}: the slice-4 sweep ran {ran} rounds "
+              f"of {rounds}; |F_r| at the top of each: {sizes}; unstable "
+              f"{int(want[1].sum())}; the sweep's ms a round "
+              f"{t['sweep'] / max(ran, 1):.4f} (card {card})", flush=True)
+        if b % 256 == 0 and b in (SKEW_BATCH, 8192):
+            out = torch.zeros(1, dtype=torch.int32, device=dev)
+            parts = []
+            for k in (4, 8, 16):
+                for mode, nm in ((0, "flat 16 B"), (1, "bulk"),
+                                 (2, "cols, one CTA"), (3, f"cols, {k} CTAs")):
+                    if b >= 8192 and mode < 3 and k < 16:
+                        continue
+                    def one(mode=mode, k=k):
+                        e = strip(mode, kernels.ptr(p), b, k,
+                                  kernels.ptr(out), s)
+                        if e != 0:
+                            fail(f"k18p_strip: CUDA error {e}")
+                    parts.append(f"1/{k} {nm} {cuda_ms(one):.4f}")
+            pk = lib.k18p_pack
+            pk.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + \
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+            pk.restype = ctypes.c_int
+            depth = []
+            for dp, nm in enumerate(("loads", "+ bits staged",
+                                     "+ transpose, rows stored",
+                                     "+ witnesses, F_1")):
+                def one(dp=dp):
+                    e = pk(dp, kernels.ptr(p), kernels.ptr(live0), b, 16,
+                           kernels.ptr(out), s)
+                    if e != 0:
+                        fail(f"k18p_pack: CUDA error {e}")
+                if b == SKEW_BATCH:
+                    depth.append(f"{nm} {cuda_ms(one):.4f}")
+            if depth:
+                print(f"[K9b-split] {label}: K9b's pack over 16 blocks, "
+                      f"cut at each depth: " + ", ".join(depth)
+                      + f" ms (card {card})", flush=True)
+            print(f"[K9b-split] {label} strips of P ({b * b} bytes): "
+                  + ", ".join(parts) + f"; pack_cols {t['pack_cols']:.4f} "
+                  f"ms (card {card})", flush=True)
+        del bits, lv, un, stats
+
+
+K9B_REGIMES = ((0, "staged"), (1, "L2"))
+
+
+def k9b_case(label: str, args: tuple, card: str, sizes: bool = False
+             ) -> float:
+    """K9b on one input exactly against ``precedence_levels_plain``, in
+    the layout the library picks, timed; with ``sizes`` also at each
+    cluster size in each regime that takes it.  Returns the ms."""
+    from deneva_tpu_torch.ops import conflict
+    p, live0, rounds = args
+    b = p.shape[0]
+    want = conflict.precedence_levels_plain(p, live0, rounds)
+
+    def check(*kw):
+        got = conflict.precedence_levels(p, live0, rounds, *kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"K9b ({label}, layout {kw or 'auto'}) differs from plain")
+    check()
+    ctas, staged, _ = conflict.precedence_levels_layout(b)
+    ms = cuda_ms(lambda: conflict.precedence_levels(p, live0, rounds))
+    line = (f"[K9b] {label}: B={b} rounds={rounds} active="
+            f"{int(live0.sum())} unstable={int(want[1].sum())}; "
+            f"{ctas} CTAs, {'staged' if staged else 'L2'}: {ms:.4f} ms")
+    if sizes:
+        parts = []
+        for regime, nm in K9B_REGIMES:
+            for c in (1, 2, 4, 8, 16):
+                try:
+                    conflict.precedence_levels_layout(b, c, regime)
+                except ValueError:
+                    continue
+                check(c, regime)
+                ms_c = cuda_ms(lambda c=c, r=regime: conflict.precedence_levels(
+                    p, live0, rounds, c, r))
+                parts.append(f"{nm} C={c} {ms_c:.4f}")
+        line += "; " + ", ".join(parts)
+    print(line + f" (card {card})", flush=True)
+    return ms
+
+
+def stamp_phases(st: list, names: tuple) -> str:
+    """A kernel's phase stamps (``csrc/common.cuh``: globaltimer ns at
+    entry and exit, then clocks at each boundary) as µs a phase: each
+    phase's share of the clocks times the timed ns."""
+    ns = st[1] - st[0]
+    clocks = st[2 + len(names)] - st[2]
+    us = [(st[3 + i] - st[2 + i]) / max(clocks, 1) * ns / 1e3
+          for i in range(len(names))]
+    return ", ".join(f"{nm} {u:.2f}" for nm, u in zip(names, us)) + \
+        f" (entry to exit {ns / 1e3:.2f} µs)"
+
+
+def k9b_phases(label: str, args: tuple, card: str) -> None:
+    """``[K9b-phases]``: CTA 0's phase stamps of one call in the library's
+    layout, and the call at rounds = 0 (the launch alone: no pack, no
+    round) and rounds = 1 (the pack and F_1's exchange)."""
+    from deneva_tpu_torch.ops import conflict
+    p, live0, rounds = args
+    st = torch.zeros(8, dtype=torch.int64, device=p.device)
+    conflict.precedence_levels(p, live0, rounds, stamps=st)
+    st = st.tolist()
+    t0 = cuda_ms(lambda: conflict.precedence_levels(p, live0, 0))
+    t1 = cuda_ms(lambda: conflict.precedence_levels(p, live0, 1))
+    print(f"[K9b-phases] {label}: " + stamp_phases(
+        st, ("setup", "pack", "F_1 exchange", "rounds"))
+        + f"; {st[7]} rounds exchanged; call at rounds 0 {t0:.4f} ms, at "
+        f"rounds 1 {t1:.4f} (card {card})", flush=True)
+
+
+def k18a_phases(label: str, args: tuple, card: str) -> None:
+    """``[K18a-phases]``: block 0's phase stamps of one call."""
+    from deneva_tpu_torch.ops import forward
+    st = torch.zeros(13, dtype=torch.int64, device=args[0].device)
+    forward.mc_slice_defer(*args, stamps=st)
+    st = st.tolist()
+    if st[12] != 2:
+        print(f"[K18a-phases] {label}: {st[12]} passes (stamps cover two)",
+              flush=True)
+        return
+    print(f"[K18a-phases] {label}: " + stamp_phases(
+        st, ("ts histograms", "lanes", "barrier", "digit bases", "pass 1",
+             "barrier", "pass 2", "barrier", "scans and test"))
+        + f" (card {card})", flush=True)
+
+
+def k18a_inputs(dev, ds=(8, 4)) -> dict:
+    """K18a's arguments on real main-path epochs at 2^27 rows (after two
+    epochs, so the pool holds txns of several ages): the first shard
+    call at each D of ``ds`` (8 and 4), and with D = 4 a slice of 32,768
+    txns at D = 2 (two D = 4 slices side by side at the pair_cap of an
+    even share, since ``mc_plan_capacity``'s default plans D = 2
+    replicated)."""
+    from deneva_tpu_torch.ops import forward, mc_pair_cap
+    out = {}
+    for d in ds:
+        eng, run, st = mesh_engine(dev, mesh_config(d))
+        st = run(st, 2)
+        ca = []
+        with grab_calls(forward, "mc_slice_defer", ca):
+            st = run(st, 1)
+        torch.cuda.synchronize()
+        if len(ca) != d:
+            fail(f"K18a: {len(ca)} calls in one D = {d} epoch")
+        out[f"D={d}"] = ca[0]
+        if d == 4 and len(ds) > 1:
+            k, v, ts = (torch.cat([ca[0][i], ca[1][i]]) for i in range(3))
+            out["D=2"] = (k, v, ts, 2,
+                          mc_pair_cap(2 * k.shape[0], k.shape[1], 2, 1.0))
+        del eng, run, st, ca
+        torch.cuda.empty_cache()
+    return out
+
+
+def ts_bytes_varying(ts: torch.Tensor) -> int:
+    """The bytes of (ts xor 2^31) that differ across the slice: the radix
+    passes K18a makes."""
+    u = (ts.to(torch.int64) + 2**31) & 0xFFFFFFFF
+    return sum(int(((u >> (8 * p)) & 255).unique().numel() > 1)
+               for p in range(4))
+
+
+def k18a_case(label: str, args: tuple, card: str) -> float:
+    """K18a on one input exactly against ``mc_slice_defer_plain``, timed,
+    with its grid and passes.  Returns the ms."""
+    from deneva_tpu_torch.ops import forward
+    k, v, ts, d, cap = args
+    bd, a = k.shape
+    want = forward.mc_slice_defer_plain(*args)
+    got = forward.mc_slice_defer(*args)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        fail(f"K18a ({label}) differs from plain")
+    grid, tiles, _ = forward.mc_defer_layout(bd, a, d)
+    ms = cuda_ms(lambda: forward.mc_slice_defer(*args))
+    print(f"[K18a] {label}: bD={bd} A={a} D={d} pair_cap={cap}, defers "
+          f"{int(want[0].sum())}, ts span {int(ts.max()) - int(ts.min())} "
+          f"({ts_bytes_varying(ts)} radix passes); one cooperative launch "
+          f"of {grid} blocks over {tiles} tiles: {ms:.4f} ms (card {card})",
+          flush=True)
+    return ms
+
+
+def k18a_split(lib, inputs: dict, card: str) -> None:
+    """``[K18a-split]``: the slice-9 K18a (its copy in the probe) on each
+    input, held to the plain version: its six stream operations each
+    alone and all six; then an empty cooperative launch of 8, 16 and 32
+    blocks of 1,024 threads (the new kernel's grids at D = 8, 4, 2) with
+    0 to 4 grid barriers."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    from deneva_tpu_torch.ops import forward
+    fn = lib.k18p_defer
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    for label, (k, v, ts, d, cap) in inputs.items():
+        bd, a = k.shape
+        dev = k.device
+        dfr = torch.empty(bd, dtype=torch.bool, device=dev)
+        order = torch.empty(bd, dtype=torch.int32, device=dev)
+        cnt = torch.empty(d * (bd + 1), dtype=torch.int32, device=dev)
+        rank = torch.empty(bd, dtype=torch.int32, device=dev)
+        ptrs = [kernels.ptr(x) for x in (k, v, ts)]
+
+        def call(ops):
+            e = fn(ops, *ptrs, bd, a, d, cap, kernels.ptr(dfr),
+                   kernels.ptr(order), kernels.ptr(cnt), kernels.ptr(rank),
+                   kernels.stream(k))
+            if e != 0:
+                fail(f"k18p_defer: CUDA error {e}")
+        call(63)
+        torch.cuda.synchronize()
+        want = forward.mc_slice_defer_plain(k, v, ts, d, cap)
+        if not (torch.equal(dfr, want[0]) and torch.equal(order, want[1])):
+            fail(f"[K18a-split] the probe's slice-9 K18a differs from plain "
+                 f"on {label}")
+        t = {"memset": cuda_ms(lambda: call(1)),
+             "rank": cuda_ms(lambda: call(2))}
+        call(3)                 # a fresh rank for the order's writes
+        t.update({nm: cuda_ms(lambda ops=ops: call(ops))
+                  for nm, ops in (("order", 4), ("count rows", 8),
+                                  ("row scans", 16), ("test", 32),
+                                  ("all six", 63))})
+        print(f"[K18a-split] {label}: bD={bd} A={a} D={d}; " + ", ".join(
+            f"{nm} {x:.4f} ms" for nm, x in t.items())
+            + f"; the six alone sum to {sum(t.values()) - t['all six']:.4f} "
+            f"(card {card})", flush=True)
+        del dfr, order, cnt, rank
+    fb = lib.k18p_barriers
+    fb.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fb.restype = ctypes.c_int
+    s = kernels.stream(torch.empty(1, device="cuda"))
+    for grid in (8, 16, 32):
+        t = []
+        for n in range(5):
+            def one(n=n):
+                e = fb(grid, 1024, n, None, s)
+                if e != 0:
+                    fail(f"k18p_barriers: CUDA error {e}")
+            t.append(f"{n} barriers {cuda_ms(one):.4f}")
+        print(f"[K18a-split] an empty cooperative launch of {grid} blocks of "
+              f"1,024 threads: " + ", ".join(t) + f" ms (card {card})",
+              flush=True)
+
+
+SLICE18_PROFILES = (
+    ("MAAT fingerprint", "MAAT", lambda: skew_config(False, "MAAT")),
+    ("MAAT ycsb_hot", "MAAT", lambda: hot_config(False)),
+    ("mesh 2^27 D=8", "MESH8", lambda: mesh_config(8)))
+
+
+def phase_slice18(dev, card: str) -> None:
+    """``[K9b-split]``, ``[K9b-rounds]`` and ``[K18a-split]`` (the slice-4
+    K9b and the slice-9 K18a taken apart in ``probes/k9b_k18a_costs.cu``),
+    then ``[K9b]`` on `k9b_inputs` at each cluster size and regime and
+    ``[K18a]`` on `k18a_inputs`, each exact against its plain version and
+    timed (``--slice18`` runs only these); with ``--slice18-parent DIR``
+    each beside the kernels of the checkout at DIR on the same inputs,
+    and with ``--profile`` the MAAT ``ycsb_skew``, MAAT ``ycsb_hot`` and
+    mesh D = 8 profiles (and the parent's, with ``--slice18-parent``)."""
+    lib, _ = probe_lib("k9b_k18a_costs")
+    levels = k9b_inputs(dev)
+    k9b_split(lib, levels, card)
+    mc = k18a_inputs(dev)
+    k18a_split(lib, mc, card)
+    inputs = {}
+    for label, args in levels.items():
+        k9b_case(label, args, card, sizes=True)
+        k9b_phases(label, args, card)
+        inputs[f"K9b {label}"] = ("K9b", args)
+    for label, args in mc.items():
+        k18a_case(label, args, card)
+        k18a_phases(label, args, card)
+        inputs[f"K18a {label}"] = ("K18a", args)
+    if "--slice18-parent" in sys.argv:
+        vs_parent(inputs, sys.argv[sys.argv.index("--slice18-parent") + 1],
+                  card, "slice18")
+    del inputs, levels, mc
+    torch.cuda.empty_cache()
+    if "--profile" in sys.argv:
+        for label, path, cfg_fn in SLICE18_PROFILES:
+            phase_profile(dev, cfg_fn(), label, path=path)
+            torch.cuda.empty_cache()
+        if "--slice18-parent" in sys.argv:
+            root = sys.argv[sys.argv.index("--slice18-parent") + 1]
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--parent-profile", root, "--slice18"],
+                               capture_output=True, text=True, timeout=1200)
+            if r.returncode != 0:
+                fail(f"the parent's profiles at {root}: {r.stderr[-2000:]}")
+            for ln in r.stdout.splitlines():
+                if ln.startswith("[profile]") and "  " not in ln[:12]:
+                    print(ln.replace("[profile]", "[slice18-parent-profile]",
+                                     1), flush=True)
 
 
 def main() -> int:
@@ -6963,6 +7417,10 @@ def main() -> int:
         if "--slice14" not in sys.argv:
             print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
             return 0
+    if "--slice18" in sys.argv:
+        phase_slice18(dev, info["card"])
+        print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     if "--slice17" in sys.argv:
         phase_slice17(dev, info["card"])
         print(f"[done] {time.monotonic() - t0:.1f} s", flush=True)
@@ -7005,6 +7463,7 @@ def main() -> int:
                              "K12c_version_read", "K12d_version_push",
                              "K4b_ycsb_generate[hot]",
                              "K9a_wavefront_levels", "K9b_precedence_levels",
+                             "K9b_precedence_levels[B=8192]",
                              "K11a_maat_reach", "K11b_maat_peel",
                              "K14b_sorted_lookup", "K14a_hash_lookup",
                              "K14c_scatter_add", "K14d_append",
@@ -7018,8 +7477,8 @@ def main() -> int:
                              "K15c_compact_edges",
                              "K17_audit_observe[lanes]",
                              "K17_audit_observe[stamps]",
-                             "K18a_mc_defer", "K18b_mc_pack",
-                             "K21_cross_group_defer")}
+                             "K18a_mc_defer", "K18a_mc_defer[D=4]",
+                             "K18b_mc_pack", "K21_cross_group_defer")}
     phase_kernels(dev, rec, info["card"])
     phase_sweep_kernels(dev, rec, info["card"])
     phase_to_kernels(dev, rec, info["card"])
@@ -7078,6 +7537,8 @@ def main() -> int:
              for alg in ("NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
                          "CALVIN", "MAAT")]
     runs += [("MAAT", "ycsb_hot", hot_config(False, **win)),
+             ("MAAT", "operating_points B=8192",
+              operating_config("MAAT", 8192, **win)),
              ("MODES", "SIMPLE", modes_config("SIMPLE", **win)),
              ("MODES", "QRY_ONLY", modes_config("QRY_ONLY", **win)),
              ("BTREE", "fingerprint", btree_config(**win))]
@@ -7165,7 +7626,8 @@ def main() -> int:
     # at 64 warehouses and PPS over 8 shards
     from deneva_tpu_torch.ops import mc_pair_cap
     runs += [("TPU_BATCH", "mesh 2^27 D=1", mesh_config(1, **win)),
-             ("MESH8", "mesh 2^27 D=8", mesh_config(8, **win))]
+             ("MESH8", "mesh 2^27 D=8", mesh_config(8, **win)),
+             ("MESH4", "mesh 2^27 D=4", mesh_config(4, **win))]
     for d in (1, 2, 4, 8):
         for alg in ("TPU_BATCH", "CALVIN"):
             cfg = mesh_scaling_config(d, alg)
@@ -7181,14 +7643,14 @@ def main() -> int:
              ("PPS_CHAINED@8", "pps D=8", pps_config(device_parts=8, **win)),
              ("PPS_MAAT@8", "MAAT pps D=8",
               pps_config("MAAT", device_parts=8, **win))]
-    # the earlier slices' cells run half-length windows (0.5 s + 1.5 s),
-    # which keeps the whole run near half its time limit; the main path,
-    # its OCC comparator and the mesh's timed runs keep 1 s + 3 s
+    # the earlier slices' cells run short windows (0.5 s + 1 s), which
+    # keeps the whole run near half its time limit; the main path, its
+    # OCC comparator and the mesh's timed runs keep 1 s + 3 s
     keep = {("TPU_BATCH", "fingerprint"), ("TPU_BATCH", "full_row"),
             ("OCC", "fingerprint"), ("NOCC", "fingerprint"),
             ("TPU_BATCH", "mesh 2^27 D=1"), ("MESH8", "mesh 2^27 D=8")}
     runs = [(p, lb, c if (p, lb) in keep or c.done_secs != 3.0
-             else c.replace(warmup_secs=0.5, done_secs=1.5))
+             else c.replace(warmup_secs=0.5, done_secs=1.0))
             for p, lb, c in runs]
     for path, label, cfg in runs:
         mode = "full_row" if cfg.sim_full_row else "fingerprint"
@@ -7206,7 +7668,8 @@ def main() -> int:
                 key = f"{nm}[{mode}]"
             elif nm == "K4b_ycsb_generate" and cfg.skew_method == "HOT":
                 key = f"{nm}[hot]"
-            key = k10_row(k8_row(key, cfg.epoch_batch), cfg)
+            key = slice18_row(k10_row(k8_row(key, cfg.epoch_batch), cfg),
+                              cfg)
             launches[key] = launches.get(key, 0) + c
         torch.cuda.empty_cache()
     print(f"[vs_baseline] TPU_BATCH / OCC committed txn/s (fingerprint) = "

@@ -37,6 +37,50 @@ __device__ __forceinline__ bool bit(const uint32_t* s, int i) {
   return (s[i >> 5] >> (i & 31)) & 1u;
 }
 
+// 32 x 32 bits across a warp: lane r holds word r in, lane c gets bit r
+// of word r's bit c out.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x) {
+  const int lane = threadIdx.x & 31;
+  constexpr uint32_t kMask[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
+                                 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int j = 16 >> s;
+    const uint32_t m = kMask[s];
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? (x & ~m) | ((y >> j) & m) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+// Bit c of the result: byte c of the 32 at `p` (16-byte aligned) is set.
+__device__ __forceinline__ uint32_t byte_bits32(const uint8_t* p) {
+  const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+  const uint4 b = reinterpret_cast<const uint4*>(p)[1];
+  const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t out = 0u;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t m = __vcmpne4(v[q], 0u);          // 0xFF a set byte
+    out |= (((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) |
+            ((m >> 28) & 8u)) << (4 * q);
+  }
+  return out;
+}
+
+// Bit c of the result: byte c of the 16 in v is set.  A word's four
+// byte flags (0 or 1) times 0x01020408 land in bits 24-27 and nowhere
+// that carries into them.
+__device__ __forceinline__ uint32_t chunk_bits(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out = 0u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    out |= (((__vcmpne4(w[q], 0u) & 0x01010101u) * 0x01020408u) >> 24)
+           << (4 * q);
+  return out;
+}
+
 // bits[j * W + w] bit l = m[32 w + l][j]; 256 threads per tile.
 __global__ void pack_cols_kernel(const uint8_t* __restrict__ m, int B, int W,
                                  uint32_t* __restrict__ bits) {
@@ -97,6 +141,18 @@ __device__ int compact(const uint32_t* F, int W, int* list) {
   }
   __syncthreads();
   return carry;
+}
+
+// Append the lanes' entries where `need` to list (warp-aggregated on the
+// counter n).  Called by whole warps.
+__device__ __forceinline__ void push(bool need, int entry, int* list,
+                                     int* n) {
+  const unsigned b = __ballot_sync(0xffffffffu, need);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0 && b) base = atomicAdd(n, __popc(b));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (need) list[base + __popc(b & ((1u << lane) - 1u))] = entry;
 }
 
 // One block runs `rounds` level rounds over the predecessor rows `rows`

@@ -32,6 +32,16 @@ static inline size_t dt_smem_room(F* kernel) {
   return a.sharedSizeBytes < lim ? lim - a.sharedSizeBytes : 0;
 }
 
+// Phase stamps of a kernel that takes a `stamps` pointer (null: none):
+// slots 0 and 1 the %globaltimer (ns) at its entry and exit, slots from
+// 2 clock64() at each phase boundary, so a phase's share of the
+// measured time is its share of the clocks.  Thread 0 of one block only.
+__device__ __forceinline__ long long dt_globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // Blocks for one thread per element (at least one block).
 static inline int dt_blocks(long long n, int threads) {
   const long long b = (n + threads - 1) / threads;

@@ -83,37 +83,6 @@ struct MinI {
   __device__ int operator()(int a, int b) const { return a < b ? a : b; }
 };
 
-// 32 x 32 bits across a warp: lane r holds word r in, lane c gets bit r
-// of word r's bit c out.
-__device__ __forceinline__ uint32_t transpose32(uint32_t x) {
-  const int lane = threadIdx.x & 31;
-  constexpr uint32_t kMask[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
-                                 0x33333333u, 0x55555555u};
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int j = 16 >> s;
-    const uint32_t m = kMask[s];
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
-    x = (lane & j) ? (x & ~m) | ((y >> j) & m) : (x & m) | ((y & m) << j);
-  }
-  return x;
-}
-
-// Bit c of the result: byte c of the 32 at `p` (16-byte aligned) is set.
-__device__ __forceinline__ uint32_t byte_bits32(const uint8_t* p) {
-  const uint4 a = reinterpret_cast<const uint4*>(p)[0];
-  const uint4 b = reinterpret_cast<const uint4*>(p)[1];
-  const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  uint32_t out = 0u;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const uint32_t m = __vcmpne4(v[q], 0u);          // 0xFF a set byte
-    out |= (((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) |
-            ((m >> 28) & 8u)) << (4 * q);
-  }
-  return out;
-}
-
 // rows[v * W + w] bit l = P[v][32 w + l] over live v and 32 w + l, and
 // cols[u * W + w] bit l = P[32 w + l][u] likewise; anc (or null) zeroed.
 // A block a tile of 8 x 8 blocks of 32 x 32 (256 x 256 bytes of P): warp k
@@ -554,19 +523,6 @@ __device__ __forceinline__ int warp_younger(const uint32_t* row,
     }
   return warp_min(f);
 }
-
-// Append the lanes' entries where `need` to list (warp-aggregated on the
-// counter n).  Called by whole warps.
-__device__ __forceinline__ void push(bool need, int entry, int* list,
-                                     int* n) {
-  const unsigned b = __ballot_sync(0xffffffffu, need);
-  const int lane = threadIdx.x & 31;
-  int base = 0;
-  if (lane == 0 && b) base = atomicAdd(n, __popc(b));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (need) list[base + __popc(b & ((1u << lane) - 1u))] = entry;
-}
-
 
 // Send this CTA's owned words [w0, w0 + nown) of the ns sets a, b (ns 1
 // or 2) to every other CTA, and with `flag` its flag fl[cr] (warp 0 wrote

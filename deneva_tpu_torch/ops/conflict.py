@@ -35,7 +35,11 @@ relaxation in two orientations:
   with the overflow flags (`validate_calvin`'s levels).
 * **K9b** `precedence_levels` — replaces ``ops/conflict.py:141``: the
   same along the columns of a possibly cyclic digraph restricted to the
-  active txns, with the instability flags (MAAT's gate).
+  active txns, with the instability flags (MAAT's gate).  One launch of a
+  thread-block cluster whose CTAs each pack their txns' predecessor rows
+  from P's column strip (into shared memory, or into L2 where they do
+  not fit: `precedence_levels_layout`) and exchange each round's
+  frontier words in distributed shared memory.
 """
 
 from __future__ import annotations
@@ -67,8 +71,8 @@ K9A_WAVEFRONT = kernels.Kernel("dt_wavefront_levels", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P,
     kernels.P, kernels.P, kernels.P])
 K9B_PRECEDENCE = kernels.Kernel("dt_precedence_levels", [
-    kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.P, kernels.P,
-    kernels.P, kernels.P])
+    kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32, kernels.I32,
+    kernels.P, kernels.I64, kernels.P, kernels.P, kernels.P, kernels.P])
 
 
 # -- K6: incidence ------------------------------------------------------
@@ -311,14 +315,6 @@ def precedence_levels_plain(prec: torch.Tensor, active: torch.Tensor,
     return lv, ((lv2 != lv) | (lv >= rounds)) & active
 
 
-def _levels_out(shape: tuple, b: int, dev) -> tuple[torch.Tensor,
-                                                    torch.Tensor,
-                                                    torch.Tensor]:
-    return (torch.empty(shape, dtype=torch.int32, device=dev),
-            torch.empty(b, dtype=torch.int32, device=dev),
-            torch.empty(b, dtype=torch.bool, device=dev))
-
-
 def wavefront(uw: torch.Tensor, rank: torch.Tensor, active: torch.Tensor,
               max_level: int):
     """K9a: the earlier edges of ``uw | uw.T`` built as they are packed to
@@ -333,7 +329,10 @@ def wavefront(uw: torch.Tensor, rank: torch.Tensor, active: torch.Tensor,
     kernels.check("active", active, torch.bool, (b,), dev)
     if max_level < 0:
         raise ValueError("K9a takes max_level >= 0")
-    bits, lv, over = _levels_out((2 * b + 1, -(-b // 32)), b, dev)
+    bits = torch.empty((2 * b + 1, -(-b // 32)), dtype=torch.int32,
+                       device=dev)
+    lv = torch.empty(b, dtype=torch.int32, device=dev)
+    over = torch.empty(b, dtype=torch.bool, device=dev)
     K9A_WAVEFRONT.launch(kernels.ptr(uw), kernels.ptr(rank),
                          kernels.ptr(active), b, max_level, kernels.ptr(bits),
                          kernels.ptr(lv), kernels.ptr(over),
@@ -341,10 +340,27 @@ def wavefront(uw: torch.Tensor, rank: torch.Tensor, active: torch.Tensor,
     return lv, over
 
 
+def precedence_levels_layout(b: int, ctas: int = 0,
+                             regime: int = -1) -> tuple[int, bool, int]:
+    """K9b's launch at ``b`` txns as the kernel library chooses it (CUDA
+    only), in exactly ``ctas`` CTAs (0: its choice) and in
+    ``regime`` (-1: its choice, 0: staged, 1: L2): (CTAs of its cluster,
+    whether the cluster packs P itself into shared memory, int32 words of
+    scratch).  Raises where no layout fits."""
+    c, staged, words = kernels.layout("dt_precedence_levels_layout", b,
+                                      ctas, regime)
+    return c, bool(staged), words
+
+
 def precedence_levels(prec: torch.Tensor, active: torch.Tensor,
-                      rounds: int):
-    """K9b: ``prec`` packed to bits, then the rounds and the probe in one
-    block."""
+                      rounds: int, ctas: int = 0, regime: int = -1,
+                      stamps: torch.Tensor | None = None):
+    """K9b: one cluster launch whose CTAs pack their txns' predecessor
+    rows from P's column strips, into shared memory or, where they do not
+    fit, into an L2 scratch, and run the rounds from F_1
+    (`precedence_levels_layout`; ``ctas`` and ``regime`` pin it).
+    ``stamps`` (CUDA, int64[8], or None) receives CTA 0's phase clocks
+    (``csrc/levels.cu``)."""
     if kernels.on_cpu(prec, active):
         return precedence_levels_plain(prec, active, rounds)
     b = active.shape[0]
@@ -353,8 +369,15 @@ def precedence_levels(prec: torch.Tensor, active: torch.Tensor,
     kernels.check("active", active, torch.bool, (b,), dev)
     if rounds < 0:
         raise ValueError("K9b takes rounds >= 0")
-    bits, lv, unstable = _levels_out((b, -(-b // 32)), b, dev)
+    lv = torch.empty(b, dtype=torch.int32, device=dev)
+    unstable = torch.empty(b, dtype=torch.bool, device=dev)
+    if b == 0:
+        return lv, unstable
+    words = precedence_levels_layout(b, ctas, regime)[2]
+    bits = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
     K9B_PRECEDENCE.launch(kernels.ptr(prec), kernels.ptr(active), b, rounds,
-                          kernels.ptr(bits), kernels.ptr(lv),
-                          kernels.ptr(unstable), kernels.stream(active))
+                          ctas, regime, kernels.ptr(bits), words,
+                          kernels.ptr(lv), kernels.ptr(unstable),
+                          None if stamps is None else kernels.ptr(stamps),
+                          kernels.stream(active))
     return lv, unstable

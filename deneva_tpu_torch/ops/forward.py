@@ -35,13 +35,16 @@ per shard on its slice of ``bD = B / D`` whole txns:
   lanes are contiguous and share its ts, so the reference's stable
   (owner, ts) lane sort orders lanes by (owner, ts, txn, lane), and a
   lane's position is ``prefix_o(t)`` (owner-o lanes of the txns before
-  t in (ts, txn) order) plus its rank among t's own owner-o lanes.  The
-  kernel ranks the ``bD`` txns by (ts, txn) by counting and scans the D
-  owner-count rows in that order (one block a row): t defers iff
-  ``prefix_o(t) + c[t][o] > pair_cap`` for some owner.  It also returns
-  that order.
+  t in (ts, txn) order) plus its rank among t's own owner-o lanes.  One
+  cooperative launch (`mc_defer_layout`): each txn's D owner counts from
+  its lanes, read once; a stable radix sort of (ts, txn) over the bytes
+  of ts that vary, tiles ranked per warp and placed by a decoupled
+  look-back, grid barriers between passes; then block scans of the D
+  owner-count rows in that order: t defers iff ``prefix_o(t) + c[t][o] >
+  pair_cap`` for some owner.  It also returns that order.
 * **K18b** `mc_pack_blocks` — replaces ``deneva_tpu/workloads/ycsb.py:
-  413-441``: the same scan with deferred txns' counts zeroed gives each
+  413-441``: count rows in K18a's order and their scans, with deferred
+  txns' counts zeroed, give each
   surviving lane its slot in its owner's block, where it lands as (key,
   rank, write), every block in (ts, lane) order; the slots past an
   owner's lanes hold ``(INT32_MAX, 0, False)``.  (The reference's
@@ -75,7 +78,8 @@ K2_SCAN = kernels.Kernel("dt_plan_scans", [
 
 K18A_DEFER = kernels.Kernel("dt_mc_defer", [
     kernels.P, kernels.P, kernels.P, kernels.I32, kernels.I32, kernels.I32,
-    kernels.I32, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P])
+    kernels.I32, kernels.P, kernels.P, kernels.P, kernels.I64, kernels.P,
+    kernels.P])
 K18B_PACK = kernels.Kernel("dt_mc_pack", [
     kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
     kernels.I32, kernels.I32, kernels.I32, kernels.I32, kernels.P,
@@ -217,11 +221,14 @@ def _mc_check(d_parts: int, pair_cap: int, a: int) -> None:
 
 
 def mc_slice_defer(keys: torch.Tensor, valid: torch.Tensor,
-                   ts: torch.Tensor, d_parts: int, pair_cap: int
+                   ts: torch.Tensor, d_parts: int, pair_cap: int,
+                   stamps: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """K18a: keys int32[bD, A], valid bool[bD, A], ts int32[bD] ->
     (bool[bD] the txns that defer, int32[bD] the txns in (ts, txn)
-    order, which K18b takes)."""
+    order, which K18b takes), in one cooperative launch.  ``stamps``
+    (CUDA, int64[13], or None) receives block 0's phase clocks
+    (``csrc/mc.cu``)."""
     if kernels.on_cpu(keys, valid, ts):
         return mc_slice_defer_plain(keys, valid, ts, d_parts, pair_cap)
     bd, a = keys.shape
@@ -232,13 +239,25 @@ def mc_slice_defer(keys: torch.Tensor, valid: torch.Tensor,
     kernels.check("ts", ts, torch.int32, (bd,), dev)
     dfr = torch.empty(bd, dtype=torch.bool, device=dev)
     order = torch.empty(bd, dtype=torch.int32, device=dev)
-    cnt = torch.empty(d_parts * (bd + 1), dtype=torch.int32, device=dev)
-    rank = torch.empty(bd, dtype=torch.int32, device=dev)
+    if bd == 0:
+        return dfr, order
+    words = mc_defer_layout(bd, a, d_parts)[2]
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     K18A_DEFER.launch(kernels.ptr(keys), kernels.ptr(valid), kernels.ptr(ts),
                       bd, a, d_parts, pair_cap, kernels.ptr(dfr),
-                      kernels.ptr(order), kernels.ptr(cnt), kernels.ptr(rank),
+                      kernels.ptr(order), kernels.ptr(scratch), words,
+                      None if stamps is None else kernels.ptr(stamps),
                       kernels.stream(keys))
     return dfr, order
+
+
+def mc_defer_layout(bd: int, a: int, d_parts: int) -> tuple[int, int, int]:
+    """K18a's launch at ``bd`` txns of ``a`` lanes over ``d_parts``
+    shards as the kernel library lays it out (CUDA only): (blocks of its
+    cooperative grid, tiles of 1,024 txns, int32 words of scratch).
+    Raises for a size it does not take (``a`` above 255, ``bd * a`` at or
+    above 2^30)."""
+    return kernels.layout("dt_mc_defer_layout", bd, a, d_parts)
 
 
 def mc_pack_blocks_plain(keys, valid, ts, rank, w, dfr, d_parts: int,

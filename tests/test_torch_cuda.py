@@ -26,7 +26,10 @@ K13b's one launch at the edges of its layout (rows within and across a
 warp, k up to 2^18, P up to 1,024, in both regimes as the library picks
 them, and its layout query and short-scratch refusal) and K4b's for
 every option (HOT, key_order, the per-txn gate) at one and four draws a
-thread, and zipf theta.
+thread, and zipf theta.  K9b's cluster pinned to each size in both row
+regimes (the staged one refused where its rows do not fit), at the
+largest B the one-block K9b took and with a short scratch refused; K18a
+at one txn, at 32,768 txns over 2 shards and on a scratch of garbage.
 Marked ``cuda``; without a CUDA device every test skips.
 
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run these
@@ -827,6 +830,81 @@ def test_precedence_levels_matches_plain(dev, b, rounds, cycles):
     want = conflict.precedence_levels_plain(p, active, rounds)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+def _sparse_digraph(b, dev, seed, per=3):
+    """``per`` random edges a txn (cycles and self-loops included), made
+    on the card; 85% of the txns active."""
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randint(0, b, (b * per,), generator=g).to(dev)
+    dst = torch.randint(0, b, (b * per,), generator=g).to(dev)
+    p = torch.zeros(b, b, dtype=torch.bool, device=dev)
+    p[src, dst] = True
+    active = (torch.rand(b, generator=g) < 0.85).to(dev)
+    return p, active
+
+
+# K9b's staged regime takes these (B, CTAs) and refuses the rest: the
+# rows of a CTA's txns must fit shared memory
+K9B_STAGED = {(100, c) for c in (1, 2, 4, 8, 16)} | \
+    {(2048, c) for c in (4, 8, 16)}
+
+
+@pytest.mark.parametrize("b", [100, 2048, 8192])
+@pytest.mark.parametrize("regime", [0, 1])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+def test_precedence_levels_every_layout(dev, b, regime, ctas):
+    """K9b pinned to each cluster size in each regime: exact where the
+    layout fits, refused where the staged rows do not."""
+    p, active = _sparse_digraph(b, dev, b + 17 * ctas + regime)
+    if regime == 0 and (b, ctas) not in K9B_STAGED:
+        with pytest.raises(ValueError):
+            conflict.precedence_levels(p, active, 24, ctas, regime)
+        return
+    assert conflict.precedence_levels_layout(b, ctas, regime) == (
+        ctas, regime == 0, 0 if regime == 0 else b * -(-b // 32))
+    for rounds in (0, 1, 3, 24):
+        got = conflict.precedence_levels(p, active, rounds, ctas, regime)
+        want = conflict.precedence_levels_plain(p, active, rounds)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("regime", [-1, 1])
+def test_precedence_levels_at_the_parents_largest_b(dev, regime):
+    """B = 24,824, the largest B the one-block K9b took ((2 W + 2 B) 4
+    bytes of sets in 200 KB), in the layout the library picks (L2, 16
+    CTAs) and pinned to L2."""
+    b = 24824
+    p, active = _sparse_digraph(b, dev, 5, per=2)
+    assert conflict.precedence_levels_layout(b, 0, regime)[:2] == (16, False)
+    got = conflict.precedence_levels(p, active, 24, 0, regime)
+    want = conflict.precedence_levels_plain(p, active, 24)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_precedence_levels_refuses_short_scratch(dev):
+    """The L2 regime's rows need B W words of scratch: a shorter one is
+    refused before any launch."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    b = 8192
+    p, active = _sparse_digraph(b, dev, 3)
+    words = conflict.precedence_levels_layout(b)[2]
+    assert words == b * (b // 32)
+    bits = torch.empty(words, dtype=torch.int32, device=dev)
+    lv = torch.empty(b, dtype=torch.int32, device=dev)
+    un = torch.empty(b, dtype=torch.bool, device=dev)
+    before = conflict.K9B_PRECEDENCE.launches
+    with pytest.raises(RuntimeError, match="dt_precedence_levels"):
+        conflict.K9B_PRECEDENCE.launch(
+            kernels.ptr(p), kernels.ptr(active), b, 24, 0, -1,
+            kernels.ptr(bits), ctypes.c_longlong(words - 1), kernels.ptr(lv),
+            kernels.ptr(un), None, kernels.stream(p))
+    assert conflict.K9B_PRECEDENCE.launches == before
+    with pytest.raises(ValueError):
+        conflict.precedence_levels(p, active, 24, 3)
 
 
 @pytest.mark.parametrize("b", [16, 100, 1024, 2048])
@@ -2349,6 +2427,8 @@ def _mc_slice(bd, a, d, n_keys, dev, seed, kind):
 
 MC_CASES = [
     (8192, 10, 8, 20480, "zipf"),      # the main path: B = 65,536, D = 8
+    (1, 10, 8, 128, "zipf"),           # one txn
+    (32768, 10, 2, 163840, "zipf"),    # the main path's batch at D = 2
     (16384, 10, 4, 81920, "zipf"),     # the main path at D = 4
     (512, 4, 8, 128, "zipf"),          # test_parallel's tight capacity
     (1000, 10, 8, 10, "one_owner"),    # pair_cap = one txn's lanes
@@ -2385,6 +2465,36 @@ def test_mc_kernels_refuse_what_they_do_not_take(dev):
         forward.mc_slice_defer(k, v, ts, 8, 3)
     with pytest.raises(TypeError):
         forward.mc_slice_defer(k.to(torch.int64), v, ts, 8, 64)
+
+
+def test_mc_defer_refuses_short_scratch_and_wide_txns(dev):
+    """K18a's scratch comes from its layout (nothing in it zeroed); a
+    shorter one is refused before the launch, and so is a txn of more
+    than 255 lanes (its owner counts are bytes)."""
+    import ctypes
+    from deneva_tpu_torch import kernels
+    k, v, ts, r, w = _mc_slice(4096, 10, 8, 1000, dev, 1, "zipf")
+    grid, tiles, words = forward.mc_defer_layout(4096, 10, 8)
+    assert tiles == 4 and grid == 4
+    dfr = torch.empty(4096, dtype=torch.bool, device=dev)
+    order = torch.empty(4096, dtype=torch.int32, device=dev)
+    scratch = torch.full((words,), -1, dtype=torch.int32, device=dev)
+    before = forward.K18A_DEFER.launches
+    with pytest.raises(RuntimeError, match="dt_mc_defer"):
+        forward.K18A_DEFER.launch(
+            kernels.ptr(k), kernels.ptr(v), kernels.ptr(ts), 4096, 10, 8, 64,
+            kernels.ptr(dfr), kernels.ptr(order), kernels.ptr(scratch),
+            ctypes.c_longlong(words - 1), None, kernels.stream(k))
+    assert forward.K18A_DEFER.launches == before
+    # scratch full of garbage gives the same answer as a fresh one
+    forward.K18A_DEFER.launch(
+        kernels.ptr(k), kernels.ptr(v), kernels.ptr(ts), 4096, 10, 8, 64,
+        kernels.ptr(dfr), kernels.ptr(order), kernels.ptr(scratch), words,
+        None, kernels.stream(k))
+    want = forward.mc_slice_defer_plain(k, v, ts, 8, 64)
+    assert torch.equal(dfr, want[0]) and torch.equal(order, want[1])
+    with pytest.raises(ValueError):
+        forward.mc_defer_layout(16, 256, 8)
 
 
 MESH_YCSB = ["--epoch_batch=4096", "--max_txn_in_flight=4096",
